@@ -1,0 +1,19 @@
+"""paddle_tpu_torch — the PyTorch/CUDA port of paddle_tpu for NVIDIA Hopper.
+
+A package of its own beside ``paddle_tpu`` (the JAX reference, which it
+never imports). It works on ``torch.Tensor`` directly. Every TPU kernel
+on a ported path is a kernel written by hand for Hopper under
+``csrc/``, built at first use; entry points run on the card unless the
+caller passes ``device="cpu"``.
+
+Ported so far: GPT-2 inference through the flash-attention forward
+kernel, and greedy serving over paged KV caches (``PagedEngine``).
+"""
+from . import core, inference, models, nn, ops
+from .core import resolve_device
+from .inference import GPTPagedEngine, PagedEngine
+from .models import GPTConfig, GPTForCausalLM, gpt2_medium, gpt2_small
+
+__all__ = ["core", "inference", "models", "nn", "ops", "resolve_device",
+           "GPTConfig", "GPTForCausalLM", "gpt2_small", "gpt2_medium",
+           "PagedEngine", "GPTPagedEngine"]

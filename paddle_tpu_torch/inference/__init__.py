@@ -1,0 +1,6 @@
+"""Serving of the PyTorch port, under the JAX package's names."""
+from .resilience import RequestStatus
+from .serving import BlockManager, GPTPagedEngine, PagedEngine, Request
+
+__all__ = ["BlockManager", "Request", "PagedEngine", "GPTPagedEngine",
+           "RequestStatus"]

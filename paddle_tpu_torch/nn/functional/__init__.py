@@ -1,0 +1,6 @@
+"""Functionals ported so far: attention (flash and paged)."""
+from .flash_attention import flash_attention, scaled_dot_product_attention
+from .paged_attention import block_multihead_attention
+
+__all__ = ["flash_attention", "scaled_dot_product_attention",
+           "block_multihead_attention"]

@@ -1,0 +1,79 @@
+"""Attention functionals (counterpart of ``paddle_tpu/nn/functional/flash_attention.py``).
+
+Layout follows the JAX package: q/k/v are (batch, seq, num_heads,
+head_dim). ``flash_attention`` with no dropout goes to the flash kernel's
+wrapper (``ops/cuda/flash_attention.py``), which launches the Hopper
+kernel on CUDA tensors and runs its plain version on CPU tensors. The
+JAX package's sequence-length crossover and its measured choice between
+implementations are TPU measurements and have no counterpart here.
+"""
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+
+from ...ops.cuda.flash_attention import flash_attention_fwd
+
+NEG_INF = -1e30
+
+
+def _sdpa_plain(q, k, v, bias=None, causal=False, dropout_p=0.0,
+                generator: Optional[torch.Generator] = None, scale=None):
+    """Plain attention in BSHD layout with an fp32 softmax (mirrors the
+    JAX package's ``_sdpa_xla``): logits in fp32, -1e30 mask, bottom-right
+    causal ``tril(k=t-s)``."""
+    sc = scale if scale is not None else 1.0 / math.sqrt(q.shape[-1])
+    logits = (torch.einsum("bshd,bthd->bhst", q, k) * sc).float()
+    if bias is not None:
+        logits = logits + bias.float()
+    if causal:
+        s, t = logits.shape[-2], logits.shape[-1]
+        keep = torch.ones((s, t), dtype=torch.bool,
+                          device=q.device).tril(diagonal=t - s)
+        logits = logits.masked_fill(~keep, NEG_INF)
+    probs = torch.softmax(logits, dim=-1).to(q.dtype)
+    if dropout_p > 0.0:
+        keep = torch.rand(probs.shape, generator=generator,
+                          device=probs.device) < 1.0 - dropout_p
+        probs = torch.where(keep, probs / (1.0 - dropout_p),
+                            torch.zeros_like(probs))
+    return torch.einsum("bhst,bthd->bshd", probs, v)
+
+
+def flash_attention(query, key, value, dropout=0.0, causal=False,
+                    return_softmax=False, fixed_seed_offset=None, rng_name="",
+                    training=True, name=None,
+                    generator: Optional[torch.Generator] = None):
+    """Returns ``(out, None)``. With dropout active (``dropout > 0`` while
+    training) the plain path runs, as in the JAX package; otherwise the
+    flash kernel's wrapper."""
+    if dropout > 0.0 and training:
+        out = _sdpa_plain(query, key, value, causal=causal,
+                          dropout_p=dropout, generator=generator)
+    else:
+        out, _ = flash_attention_fwd(query, key, value, causal=causal)
+    return out, None
+
+
+def scaled_dot_product_attention(query, key, value, attn_mask=None,
+                                 dropout_p=0.0, is_causal=False,
+                                 training=True, name=None,
+                                 generator: Optional[torch.Generator] = None):
+    """softmax(q·kᵀ/√d)·v over BSHD q/k/v. With no mask and no active
+    dropout this is the flash kernel's wrapper; a mask (additive, or
+    boolean where True keeps) or dropout takes the plain path."""
+    drop = dropout_p if training else 0.0
+    if attn_mask is None and drop == 0.0:
+        out, _ = flash_attention_fwd(query, key, value, causal=is_causal)
+        return out
+    bias = attn_mask
+    if bias is not None and bias.dtype == torch.bool:
+        bias = torch.zeros(bias.shape, dtype=torch.float32,
+                           device=bias.device).masked_fill(~bias, NEG_INF)
+    return _sdpa_plain(query, key, value, bias=bias, causal=is_causal,
+                       dropout_p=drop, generator=generator)
+
+
+__all__ = ["flash_attention", "scaled_dot_product_attention"]

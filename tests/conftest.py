@@ -36,3 +36,6 @@ def _seed():
 def pytest_configure(config):
     config.addinivalue_line(
         "markers", "slow: excluded from the tier-1 run (-m 'not slow')")
+    config.addinivalue_line(
+        "markers", "cuda: needs an NVIDIA card (a CUDA kernel has no CPU "
+        "mode); skips without one")

@@ -1,0 +1,84 @@
+"""The port stands alone: no JAX, no paddle_tpu, no silent CPU.
+
+Every module of ``paddle_tpu_torch`` and ``chip_smoke.py`` is imported in
+a fresh interpreter where ``jax`` and ``paddle_tpu`` cannot be imported.
+Entry points that were not asked for the CPU must raise where CUDA is
+absent, and a CPU call to the flash wrapper launches nothing.
+"""
+import os
+import subprocess
+import sys
+import textwrap
+
+import pytest
+import torch
+
+import paddle_tpu_torch
+from paddle_tpu_torch.inference import PagedEngine
+from paddle_tpu_torch.models import GPTConfig, GPTForCausalLM
+from paddle_tpu_torch.ops.cuda import flash_attention as fa
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+TINY = GPTConfig(vocab_size=83, hidden_size=64, num_layers=2, num_heads=4,
+                 max_seq_len=64)
+
+_IMPORT_ALL = textwrap.dedent("""
+    import importlib, pkgutil, sys
+    for name in [m for m in sys.modules
+                 if m.split(".")[0] in ("jax", "jaxlib", "paddle_tpu")]:
+        del sys.modules[name]
+    sys.modules["jax"] = None          # any import of it now raises
+    sys.modules["paddle_tpu"] = None
+    import paddle_tpu_torch
+    names = [m.name for m in pkgutil.walk_packages(
+        paddle_tpu_torch.__path__, "paddle_tpu_torch.")]
+    for name in names:
+        importlib.import_module(name)
+    import chip_smoke
+    leaked = sorted(m for m, mod in sys.modules.items() if mod is not None
+                    and m.split(".")[0] in ("jax", "jaxlib", "paddle_tpu"))
+    assert not leaked, leaked
+    print(len(names))
+""")
+
+
+def test_imports_without_jax_or_paddle_tpu():
+    env = dict(os.environ, PYTHONPATH=REPO)
+    proc = subprocess.run([sys.executable, "-c", _IMPORT_ALL], cwd=REPO,
+                          env=env, capture_output=True, text=True,
+                          timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert int(proc.stdout.split()[-1]) >= 15     # every module was walked
+
+
+def test_no_silent_cpu_without_cuda():
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device is real")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        GPTForCausalLM(TINY)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        paddle_tpu_torch.resolve_device("cuda")
+    model = GPTForCausalLM(TINY, device="cpu")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        PagedEngine(model)
+
+
+def test_cpu_flash_call_launches_nothing():
+    gen = torch.Generator().manual_seed(0)
+    q, k, v = (torch.randn((1, 8, 2, 64), generator=gen) for _ in range(3))
+    before = fa.flash_attention_fwd.launches
+    fa.flash_attention_fwd(q, k, v, causal=True)
+    model = GPTForCausalLM(TINY, device="cpu")
+    with torch.inference_mode():
+        model(torch.zeros((1, 5), dtype=torch.int64))
+    assert fa.flash_attention_fwd.launches == before == 0
+
+
+def test_chip_smoke_refuses_to_run_without_cuda():
+    if torch.cuda.is_available():
+        pytest.skip("a card is present")
+    proc = subprocess.run([sys.executable, "chip_smoke.py", "--phases",
+                           "build"], cwd=REPO, capture_output=True,
+                          text=True, timeout=300)
+    assert proc.returncode != 0
+    assert '"ok"' not in proc.stdout
