@@ -6,12 +6,14 @@
 
 Phases, in order; any failure exits non-zero and nothing is caught:
 
-* build   -- compile every CUDA source of the port with nvcc (sm_90a).
-* kernel  -- hold the flash-attention forward kernel against its plain
-             PyTorch version on the card, fp32, bf16 and fp16, at the GPT-2 small
-             path shape and at the edge shapes; time it at the path shape
-             beside its bound, its plain version and PyTorch's own
-             scaled_dot_product_attention (a yardstick the port never calls).
+* build   -- compile every CUDA source of the port with nvcc (sm_90a), one
+             nvcc each, all started together; print the ptxas report.
+* kernel  -- hold the flash-attention forward kernel (K1) and the backward
+             kernels (K2 dQ, K3 dK/dV) against their plain PyTorch versions
+             on the card, fp32, bf16 and fp16, at the path shapes and at the
+             edge shapes; time each at its path shape beside its bound, its
+             plain version and PyTorch's own flash attention (a yardstick the
+             port never calls).
 * forward -- GPT-2 small (full width, seeded random weights): fp32 logits on
              the card (through the kernel) against a CPU twin (plain
              attention); then a timed bf16 forward at B=4, S=1024.
@@ -19,16 +21,28 @@ Phases, in order; any failure exits non-zero and nothing is caught:
              its 8 slots); its greedy tokens must equal a full-recompute
              greedy loop through model(ids); then the same requests on a
              bf16 engine, timed.
+* train   -- GPT-2 small fp32 on the card against a CPU twin: 3 AdamW steps
+             (warm-up/cosine schedule, global-norm clipping) with per-step
+             losses equal to 1e-4; then GPT-2 345M with bf16 weights and
+             fp32 masters, AdamW with bench.py's hyperparameters, B=8,
+             S=1024, 10 steps on two seeded batches in turn, timed
+             (tokens/s and MFU), with a finite loss that falls on the
+             repeated batch. Every step must launch K1 once
+             a layer in the forward and K2 and K3 once a layer in the
+             backward.
 
-The forward and serve phases are the main path: every kernel's launch
-count is set to 0 before them and read after them. The last lines are
-the kernels' JSON summary, the card's name and power limit from
-nvidia-smi, and {"ok": true, "device": {...}}.
+The forward, serve and train phases are the main path: every kernel's
+launch count is set to 0 before them and read after them. The last lines
+are the kernels' JSON summary, the card's name and power limit from
+nvidia-smi, and {"ok": true, "device": {...}}. ``--profile`` adds a
+torch.profiler breakdown of a bf16 forward, an engine run and one
+training step.
 """
 from __future__ import annotations
 
 import argparse
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -37,13 +51,25 @@ import time
 import numpy as np
 import torch
 
-PHASES = ("build", "kernel", "forward", "serve")
-PATH_SHAPE = dict(b=4, s=1024, h=12, d=64)
+PHASES = ("build", "kernel", "forward", "serve", "train")
+PATH_SHAPE = dict(b=4, s=1024, h=12, d=64)      # GPT-2 small serving
+TRAIN_SHAPE = dict(b=8, s=1024, h=16, d=64)     # GPT-2 345M training
 FP32_TOL = 1e-4
 BF16_TOL = 2e-2
 FP16_TOL = 5e-3     # one fp16 rounding step at |x| in [4, 8) is 3.9e-3
 LOGITS_TOL = 1e-3
 TOP2_GAP = 1e-4
+# backward kernels against their fp32 plain version: fp32 max abs error;
+# bf16/fp16 norm-wise relative error (P and dS are rounded to the input
+# type before their products, as the TPU kernels round them)
+BWD_LIMITS = {torch.float32: 2e-4, torch.bfloat16: 1e-2, torch.float16: 2e-3}
+LOSS_TOL = 1e-4         # fp32 card vs CPU per-step training loss
+# bench.py's AdamW (the JAX package's GPT-2 345M training rung)
+ADAMW = dict(beta1=0.9, beta2=0.95, epsilon=1e-8, weight_decay=0.1)
+LR = 2.5e-4
+KERNEL_REPS = 10        # launches back to back in one kernel timing
+KERNELS = ("flash_attention_fwd", "flash_attention_bwd_dq",
+           "flash_attention_bwd_dkv")
 # published dense peaks of one H100 SXM (NVIDIA data sheet)
 HBM_BYTES_PER_S = 3.35e12
 BF16_FLOP_PER_S = 989e12
@@ -53,9 +79,12 @@ def log(msg: str) -> None:
     print(msg, flush=True)
 
 
-def time_ms(fn, iters: int = 20, warmup: int = 3):
+def time_ms(fn, iters: int = 20, warmup: int = 3, reps: int = 1):
     """(median, first quartile, third quartile) of ``iters`` CUDA-event
-    timings of ``fn``, in ms, after warm-up."""
+    timings of ``fn``, in ms, after warm-up. Each timing spans ``reps``
+    calls back to back and is divided by ``reps``: a kernel is timed with
+    the card kept busy, as the training step keeps it, not after an idle
+    gap of a synchronize."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
@@ -64,10 +93,11 @@ def time_ms(fn, iters: int = 20, warmup: int = 3):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        fn()
+        for _ in range(reps):
+            fn()
         end.record()
         end.synchronize()
-        times.append(start.elapsed_time(end))
+        times.append(start.elapsed_time(end) / reps)
     q1, median, q3 = statistics.quantiles(times, n=4)
     return median, q1, q3
 
@@ -77,6 +107,30 @@ def randn(shape, dtype, gen):
 
 
 # ------------------------------------------------------------------ build
+def _ptxas_summary(report):
+    """(kernel, "N registers, spills") for each entry function of a
+    ``nvcc -Xptxas -v`` report, named like ``dq_mma<bf16, 64>``."""
+    out, kernel = [], None
+    for line in report.splitlines():
+        found = re.search(r"Compiling entry function '(\w+)'", line)
+        if found:
+            mangled = found.group(1)
+            base = re.search(r"(flash_fwd|dkv|dq)_(mma|f32)", mangled)
+            dtype = ("fp16" if "__half" in mangled else
+                     "bf16" if "bfloat16" in mangled else "fp32")
+            dim = re.search(r"Li(\d+)E", mangled)
+            kernel = (f"{base.group(0) if base else mangled}<{dtype}, "
+                      f"{dim.group(1) if dim else '?'}>")
+        elif "spill" in line and kernel:
+            spills = line.strip()
+        elif "registers" in line and kernel:
+            regs = re.search(r"Used (\d+) registers", line)
+            out.append((kernel, f"{regs.group(1) if regs else '?'} "
+                        f"registers; {spills}"))
+            kernel = None
+    return out
+
+
 def phase_build(state):
     from paddle_tpu_torch.ops.cuda import _build
     t0 = time.perf_counter()
@@ -85,17 +139,26 @@ def phase_build(state):
     for name, path in libs.items():
         log_path = path.with_suffix(".log")
         report = log_path.read_text() if log_path.exists() else ""
-        for line in report.splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"  ptxas {name}: {line.strip()}")
+        for kernel, usage in _ptxas_summary(report):
+            log(f"  ptxas {name} {kernel}: {usage}")
     log(f"build: {len(libs)} source(s) in {secs:.2f} s")
 
 
 # ----------------------------------------------------------------- kernel
-def _kernel_case(fa, b, s_q, s_k, h, d, causal, dtype, gen):
-    q = randn((b, s_q, h, d), dtype, gen)
-    k = randn((b, s_k, h, d), dtype, gen)
-    v = randn((b, s_k, h, d), dtype, gen)
+def _qkv(b, s_q, s_k, h, d, dtype, gen, strided=False):
+    """Unit-normal q (B, Sq, H, d), k and v (B, Sk, H, d); ``strided``
+    makes them views of one qkv projection, as the model hands them over
+    (then Sq == Sk)."""
+    if strided:
+        qkv = randn((b, s_q, 3 * h * d), dtype, gen)
+        return tuple(x.view(b, s_q, h, d) for x in qkv.split(h * d, dim=-1))
+    return (randn((b, s_q, h, d), dtype, gen),
+            randn((b, s_k, h, d), dtype, gen),
+            randn((b, s_k, h, d), dtype, gen))
+
+
+def _kernel_case(fa, b, s_q, s_k, h, d, causal, strided, dtype, gen):
+    q, k, v = _qkv(b, s_q, s_k, h, d, dtype, gen, strided)
     out, lse = fa.flash_attention_fwd(q, k, v, causal=causal)
     torch.cuda.synchronize()
     ref, ref_lse = fa.flash_attention_fwd_plain(q, k, v, causal=causal)
@@ -114,22 +177,30 @@ def phase_kernel(state):
     import paddle_tpu_torch.ops.cuda.flash_attention as fa
     gen = torch.Generator(device="cuda")
     gen.manual_seed(1234)
-    p = PATH_SHAPE
+    p, t = PATH_SHAPE, TRAIN_SHAPE
+    serve = (p["b"], p["s"], p["s"], p["h"], p["d"])
+    train = (t["b"], t["s"], t["s"], t["h"], t["d"])
+    # (name, b, s_q, s_k, h, d, causal, strided): the two path shapes as
+    # the model hands them over (views of the qkv projection) and as
+    # separate tensors, then the edges
     cases = [
-        ("path", p["b"], p["s"], p["s"], p["h"], p["d"], True),
-        ("path non-causal", p["b"], p["s"], p["s"], p["h"], p["d"], False),
-        ("s_q=1 vs 1024", 4, 1, 1024, 12, 64, True),
-        ("s_q=17 vs 1024", 4, 17, 1024, 12, 64, True),
-        ("s_q=100 vs 64 (blind rows)", 2, 100, 64, 12, 64, True),
-        ("ragged S=1000", 2, 1000, 1000, 12, 64, True),
-        ("d=128", 1, 2048, 2048, 8, 128, True),
+        ("path", *serve, True, False),
+        ("path non-causal", *serve, False, False),
+        ("path strided qkv views", *serve, True, True),
+        ("train path", *train, True, False),
+        ("train strided qkv views", *train, True, True),
+        ("s_q=1 vs 1024", 4, 1, 1024, 12, 64, True, False),
+        ("s_q=17 vs 1024", 4, 17, 1024, 12, 64, True, False),
+        ("s_q=100 vs 64 (blind rows)", 2, 100, 64, 12, 64, True, False),
+        ("ragged S=1000", 2, 1000, 1000, 12, 64, True, False),
+        ("d=128", 1, 2048, 2048, 8, 128, True, False),
     ]
     worst = {}
     for dtype, tol in ((torch.float32, FP32_TOL), (torch.bfloat16, BF16_TOL),
                        (torch.float16, FP16_TOL)):
-        for name, b, s_q, s_k, h, d, causal in cases:
+        for name, b, s_q, s_k, h, d, causal, strided in cases:
             err, lse_err, blind = _kernel_case(fa, b, s_q, s_k, h, d, causal,
-                                               dtype, gen)
+                                               strided, dtype, gen)
             tag = str(dtype).replace("torch.", "")
             log(f"  kernel {tag:8s} {name:28s} max_abs_err={err:.3e} "
                 f"lse_err={lse_err:.3e} blind_rows_max={blind:.1e}")
@@ -141,34 +212,184 @@ def phase_kernel(state):
             if name == "path" and dtype == torch.bfloat16:
                 worst["max_abs_err"] = err
 
-    # timing at the path shape, bf16, causal (the forward's configuration)
-    b, s, h, d = p["b"], p["s"], p["h"], p["d"]
-    q, k, v = (randn((b, s, h, d), torch.bfloat16, gen) for _ in range(3))
-    kernel_ms, kernel_q1, kernel_q3 = time_ms(
-        lambda: fa.flash_attention_fwd(q, k, v, causal=True))
+    # the kernels line carries the serving shape, where slice 1 timed K1
+    state["kernels"] = {"flash_attention_fwd": dict(
+        worst, **_time_fwd(fa, gen, PATH_SHAPE))}
+    _time_fwd(fa, gen, TRAIN_SHAPE)
+    _kernel_bwd(fa, gen, state)
+
+
+def _bound(moved, flops):
+    """(bound ms, what bounds it) from bytes moved and FLOPs done."""
+    bytes_ms = moved / HBM_BYTES_PER_S * 1e3
+    flops_ms = flops / BF16_FLOP_PER_S * 1e3
+    return (max(bytes_ms, flops_ms),
+            "bytes" if bytes_ms >= flops_ms else "operations")
+
+
+def _visible_pairs(s_q, s_k, causal):
+    """(query, key) pairs a head computes: all, or the bottom-right causal
+    triangle (query i sees keys <= i + s_k - s_q)."""
+    if not causal:
+        return s_q * s_k
+    return sum(max(0, min(s_k, i + s_k - s_q + 1)) for i in range(s_q))
+
+
+def _library_attention(q, k, v, causal):
+    """PyTorch's own flash attention on BHSD copies of q/k/v (a yardstick
+    the port never calls)."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    qt, kt, vt = (x.transpose(1, 2).contiguous().requires_grad_()
+                  for x in (q, k, v))
+    with sdpa_kernel(SDPBackend.FLASH_ATTENTION):
+        out = torch.nn.functional.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=causal)
+    return (qt, kt, vt), out
+
+
+def _time_fwd(fa, gen, shape):
+    """K1 at one path shape (bf16, causal): its time beside its bound, its
+    plain version and PyTorch's SDPA; logs the row and returns the
+    kernels-line fields."""
+    b, s, h, d = shape["b"], shape["s"], shape["h"], shape["d"]
+    q, k, v = _qkv(b, s, s, h, d, torch.bfloat16, gen)
+    ms, q1, q3 = time_ms(lambda: fa.flash_attention_fwd(q, k, v, causal=True),
+                         reps=KERNEL_REPS)
     plain_ms, _, _ = time_ms(
-        lambda: fa.flash_attention_fwd_plain(q, k, v, causal=True))
+        lambda: fa.flash_attention_fwd_plain(q, k, v, causal=True), iters=5)
     qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
     library_ms, _, _ = time_ms(
         lambda: torch.nn.functional.scaled_dot_product_attention(
-            qt, kt, vt, is_causal=True))
-    elem = q.element_size()
-    moved = 4 * b * s * h * d * elem + b * h * s * 4      # q, k, v, out, lse
-    pairs = s * (s + 1) // 2                              # causal (q, k) pairs
-    flops = 4.0 * b * h * d * pairs
-    bytes_ms = moved / HBM_BYTES_PER_S * 1e3
-    flops_ms = flops / BF16_FLOP_PER_S * 1e3
-    bound_ms = max(bytes_ms, flops_ms)
-    row = {"kernel": "flash_attention_fwd", "shape": "B4 S1024 H12 d64 bf16 "
-           "causal", "kernel_ms": kernel_ms, "kernel_ms_q1": kernel_q1,
-           "kernel_ms_q3": kernel_q3, "bound_ms": bound_ms,
-           "bound_by": "bytes" if bytes_ms >= flops_ms else "operations",
-           "library_ms": library_ms, "plain_ms": plain_ms,
-           "bytes": moved, "flops": flops}
-    log(json.dumps(row))
-    state["kernels"] = {"flash_attention_fwd": dict(
-        worst, ms=kernel_ms, plain_ms=plain_ms, bound_ms=bound_ms,
-        bound_by=row["bound_by"], library_ms=library_ms)}
+            qt, kt, vt, is_causal=True), reps=KERNEL_REPS)
+    moved = 4 * b * s * h * d * q.element_size() + b * h * s * 4  # +lse
+    flops = 4.0 * b * h * d * _visible_pairs(s, s, True)
+    bound_ms, bound_by = _bound(moved, flops)
+    label = f"B{b} S{s} H{h} d{d} bf16 causal"
+    log(json.dumps({"kernel": "flash_attention_fwd", "shape": label,
+                    "kernel_ms": ms, "kernel_ms_q1": q1, "kernel_ms_q3": q3,
+                    "bound_ms": bound_ms, "bound_by": bound_by,
+                    "library_ms": library_ms, "plain_ms": plain_ms,
+                    "bytes": moved, "flops": flops}))
+    return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by=bound_by, library_ms=library_ms, shape=label)
+
+
+def _bwd_errors(got, ref):
+    """(max abs error, norm-wise relative error) in fp32."""
+    diff = got.float() - ref.float()
+    rel = diff.norm() / ref.float().norm().clamp_min(1e-30)
+    return diff.abs().max().item(), rel.item()
+
+
+def _bwd_case(fa, q, k, v, do, causal):
+    """K2 and K3 against the plain backward on one input; returns the
+    errors of dq, dk, dv and the largest |dq| on rows that see no key."""
+    out, lse = fa.flash_attention_fwd(q, k, v, causal=causal)
+    delta = fa.flash_attention_bwd_delta(out, do)
+    dq = fa.flash_attention_bwd_dq(q, k, v, do, lse, delta, causal=causal)
+    dk, dv = fa.flash_attention_bwd_dkv(q, k, v, do, lse, delta,
+                                        causal=causal)
+    torch.cuda.synchronize()
+    ref = fa.flash_attention_bwd_plain(q, k, v, out, lse, do, causal=causal)
+    errs = [_bwd_errors(g, r) for g, r in zip((dq, dk, dv), ref)]
+    s_q, s_k = q.shape[1], k.shape[1]
+    rows = torch.arange(s_q, device="cuda")
+    blind = rows + (s_k - s_q) < 0 if causal else rows < 0
+    blind_max = dq[:, blind].float().abs().max().item() \
+        if bool(blind.any()) else 0.0
+    return errs, blind_max
+
+
+def _bwd_inputs(b, s_q, s_k, h, d, dtype, gen, strided=False):
+    q, k, v = _qkv(b, s_q, s_k, h, d, dtype, gen, strided)
+    # with strided views, dO is a strided view too
+    do = (randn((b, s_q, h, 2 * d), dtype, gen)[..., :d] if strided
+          else randn((b, s_q, h, d), dtype, gen))
+    return q, k, v, do
+
+
+def _kernel_bwd(fa, gen, state):
+    t = TRAIN_SHAPE
+    cases = [
+        ("path", t["b"], t["s"], t["s"], t["h"], t["d"], True, False),
+        ("path non-causal", t["b"], t["s"], t["s"], t["h"], t["d"], False,
+         False),
+        ("s_q=17 vs 1024", 4, 17, 1024, 16, 64, True, False),
+        ("s_q=100 vs 64 (blind rows)", 2, 100, 64, 16, 64, True, False),
+        ("ragged S=1000", 2, 1000, 1000, 16, 64, True, False),
+        ("d=128", 1, 2048, 2048, 8, 128, True, False),
+        ("strided qkv views", t["b"], t["s"], t["s"], t["h"], t["d"], True,
+         True),
+    ]
+    worst = {}
+    for dtype, limit in BWD_LIMITS.items():
+        tag = str(dtype).replace("torch.", "")
+        for name, b, s_q, s_k, h, d, causal, strided in cases:
+            q, k, v, do = _bwd_inputs(b, s_q, s_k, h, d, dtype, gen, strided)
+            errs, blind = _bwd_case(fa, q, k, v, do, causal)
+            # fp32 is held to its max abs error, bf16/fp16 to the
+            # norm-wise relative error
+            held = [e[0] if dtype == torch.float32 else e[1] for e in errs]
+            log(f"  bwd {tag:8s} {name:28s} " + " ".join(
+                f"{g}: abs={a:.2e} rel={r:.2e}"
+                for g, (a, r) in zip(("dq", "dk", "dv"), errs))
+                + f" blind_dq_max={blind:.1e}")
+            if not (max(held) <= limit and blind == 0.0):
+                raise AssertionError(
+                    f"backward kernels disagree with their plain version: "
+                    f"{tag} {name}: {held} (limit {limit}), blind-row dq "
+                    f"{blind}")
+            if name == "path" and dtype == torch.bfloat16:
+                worst["flash_attention_bwd_dq"] = errs[0][0]
+                worst["flash_attention_bwd_dkv"] = max(errs[1][0],
+                                                       errs[2][0])
+            del q, k, v, do
+
+    # timing at the path shape, bf16, causal (the training step's)
+    b, s, h, d = t["b"], t["s"], t["h"], t["d"]
+    q, k, v, do = _bwd_inputs(b, s, s, h, d, torch.bfloat16, gen)
+    out, lse = fa.flash_attention_fwd(q, k, v, causal=True)
+    delta = fa.flash_attention_bwd_delta(out, do)
+    dq_t = time_ms(lambda: fa.flash_attention_bwd_dq(q, k, v, do, lse, delta,
+                                                     causal=True),
+                   reps=KERNEL_REPS)
+    dkv_t = time_ms(lambda: fa.flash_attention_bwd_dkv(q, k, v, do, lse,
+                                                       delta, causal=True),
+                    reps=KERNEL_REPS)
+    # the plain version computes dq, dk and dv together: one time for both
+    plain_ms, _, _ = time_ms(lambda: fa.flash_attention_bwd_plain(
+        q, k, v, out, lse, do, causal=True), iters=5)
+    leaves, lib_out = _library_attention(q, k, v, True)
+    lib_do = do.transpose(1, 2).contiguous()
+    # PyTorch's flash backward computes dQ, dK and dV in one call: one
+    # time for the pair
+    library_ms, _, _ = time_ms(lambda: torch.autograd.grad(
+        lib_out, leaves, lib_do, retain_graph=True), reps=KERNEL_REPS)
+    tensor_bytes = b * s * h * d * q.element_size()
+    row_bytes = b * h * s * 4                       # lse or Delta
+    pairs = _visible_pairs(s, s, True)
+    plans = {
+        # reads q, k, v, dO, lse, Delta; writes dQ. S, dP, dS K: 6d a pair
+        "flash_attention_bwd_dq": (dq_t, 5 * tensor_bytes + 2 * row_bytes,
+                                   6.0 * d * pairs * b * h),
+        # reads the same; writes dK, dV. S, dP, P^T dO, dS^T Q: 8d a pair
+        "flash_attention_bwd_dkv": (dkv_t, 6 * tensor_bytes + 2 * row_bytes,
+                                    8.0 * d * pairs * b * h),
+    }
+    label = f"B{b} S{s} H{h} d{d} bf16 causal"
+    for name, ((ms, q1, q3), moved, flops) in plans.items():
+        bound_ms, bound_by = _bound(moved, flops)
+        log(json.dumps({"kernel": name, "shape": label,
+                        "kernel_ms": ms, "kernel_ms_q1": q1,
+                        "kernel_ms_q3": q3, "bound_ms": bound_ms,
+                        "bound_by": bound_by,
+                        "library_ms_dq_dk_dv": library_ms,
+                        "plain_ms_dq_dk_dv": plain_ms, "bytes": moved,
+                        "flops": flops}))
+        state["kernels"][name] = dict(
+            max_abs_err=worst[name], ms=ms, plain_ms=plain_ms,
+            bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms,
+            shape=label)
 
 
 # ---------------------------------------------------------------- forward
@@ -254,9 +475,11 @@ def _serve(model, prompts, n_new):
     return [out[r] for r in rids], wall, eng
 
 
-def _profile(label, fn):
+def _profile(label, fn, groups=None):
     """Run ``fn`` under torch.profiler; print the operators by device time
-    and one JSON line with the device-busy share of the wall time."""
+    and one JSON line with the device-busy share of the wall time and,
+    for each of ``groups`` (name -> substrings of kernel names), its
+    share of the device time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -273,9 +496,16 @@ def _profile(label, fn):
     launches = sum(e.count for e in prof.key_averages()
                    if e.key in ("cudaLaunchKernel", "cuLaunchKernelEx",
                                 "cuLaunchKernel"))
-    log(json.dumps({"profile": label, "wall_s": wall, "device_busy_s": busy,
-                    "device_busy_share": busy / wall, "device_ops":
-                    len(on_device), "host_kernel_launches": launches}))
+    shares = {}
+    for group, keys in (groups or {}).items():
+        secs = sum(e.self_device_time_total for e in on_device
+                   if any(k in e.name.lower() for k in keys)) * 1e-6
+        shares[group] = {"device_s": secs, "share": secs / busy}
+    row = {"profile": label, "wall_s": wall, "device_busy_s": busy,
+           "device_busy_share": busy / wall, "device_ops": len(on_device),
+           "host_kernel_launches": launches, "groups": shares}
+    log(json.dumps(row))
+    return row
 
 
 def phase_serve(state):
@@ -319,13 +549,163 @@ def phase_serve(state):
         "tokens_equal_to_fp32": same}))
 
 
+# ------------------------------------------------------------------ train
+def _counts():
+    import paddle_tpu_torch.ops.cuda.flash_attention as fa
+    return tuple(getattr(fa, n).launches for n in KERNELS)
+
+
+def _no_decay(name):
+    return not name.endswith(("bias", "ln1.weight", "ln2.weight",
+                              "ln_f.weight"))
+
+
+def _train_step(model, opt, ids, layers, events=None):
+    """One eager step, model(ids, labels=ids) -> backward -> AdamW; holds
+    the launch counts: K1 once a layer in the forward, K2 and K3 once a
+    layer in the backward (none on the CPU). ``events``, four CUDA
+    events, split the step into forward, backward and optimizer."""
+    on_card = next(model.parameters()).is_cuda
+    c0 = _counts()
+    if events:
+        events[0].record()
+    _, loss = model(ids, labels=ids)
+    c1 = _counts()
+    if events:
+        events[1].record()
+    loss.backward()
+    c2 = _counts()
+    if events:
+        events[2].record()
+    opt.step()
+    opt.clear_grad()
+    if events:
+        events[3].record()
+    want_fwd, want_bwd = ((layers, 0, 0), (0, layers, layers)) if on_card \
+        else ((0, 0, 0), (0, 0, 0))
+    got_fwd = tuple(b - a for a, b in zip(c0, c1))
+    got_bwd = tuple(b - a for a, b in zip(c1, c2))
+    if got_fwd != want_fwd or got_bwd != want_bwd:
+        raise AssertionError(
+            f"launches (K1, K2, K3) in the forward {got_fwd}, in the "
+            f"backward {got_bwd}; expected {want_fwd} and {want_bwd}")
+    return loss
+
+
+def _fp32_parity():
+    """GPT-2 small fp32, card against a CPU twin with the same weights:
+    3 AdamW steps on one seeded batch with a warm-up/cosine schedule and
+    global-norm clipping; the per-step losses must agree."""
+    from paddle_tpu_torch.models import GPTForCausalLM, gpt2_small
+    from paddle_tpu_torch.nn import ClipGradByGlobalNorm
+    from paddle_tpu_torch.optimizer import (AdamW, CosineAnnealingDecay,
+                                            LinearWarmup)
+    cfg = gpt2_small()
+    card = GPTForCausalLM(cfg, device="cuda", seed=3).train()
+    twin = GPTForCausalLM(cfg, device="cpu", seed=4).train()
+    twin.load_state_dict({k: v.cpu() for k, v in card.state_dict().items()})
+    ids = torch.from_numpy(np.random.RandomState(11).randint(
+        0, cfg.vocab_size, (2, 256)))
+    losses = {}
+    for name, model in (("card", card), ("cpu", twin)):
+        sched = LinearWarmup(CosineAnnealingDecay(LR, T_max=10),
+                             warmup_steps=2, start_lr=LR / 10, end_lr=LR)
+        opt = AdamW(learning_rate=sched, parameters=model.named_parameters(),
+                    apply_decay_param_fun=_no_decay,
+                    grad_clip=ClipGradByGlobalNorm(1.0), **ADAMW)
+        batch = ids.to(next(model.parameters()).device)
+        losses[name] = []
+        for _ in range(3):
+            loss = _train_step(model, opt, batch, cfg.num_layers)
+            sched.step()
+            losses[name].append(float(loss.detach()))
+    diff = max(abs(a - b) for a, b in zip(losses["card"], losses["cpu"]))
+    log(f"train: fp32 GPT-2 small B=2 S=256, 3 AdamW steps: card losses "
+        f"{losses['card']}, CPU twin {losses['cpu']}, max diff {diff:.3e} "
+        f"(tolerance {LOSS_TOL})")
+    if not diff <= LOSS_TOL:
+        raise AssertionError(f"fp32 training losses disagree: {diff}")
+
+
+def phase_train(state):
+    from paddle_tpu_torch.models import GPTForCausalLM, gpt2_medium
+    from paddle_tpu_torch.optimizer import AdamW
+
+    _fp32_parity()
+
+    # GPT-2 345M at full width and depth, bf16 weights with fp32 masters
+    cfg = gpt2_medium()
+    b, s, steps = TRAIN_SHAPE["b"], TRAIN_SHAPE["s"], 10
+    model = GPTForCausalLM(cfg, device="cuda", dtype="bfloat16",
+                           seed=5).train()
+    opt = AdamW(learning_rate=LR, parameters=model.named_parameters(),
+                multi_precision=True, **ADAMW)
+    # two seeded batches in turn: each is seen five times, so the loss on
+    # a repeated batch shows learning (on fresh uniform-random tokens
+    # every step, 10 steps at 8,192 tokens a batch teach a batch nothing)
+    pair = [torch.from_numpy(np.random.RandomState(100 + i).randint(
+        0, cfg.vocab_size, (b, s))).cuda() for i in range(2)]
+    batches = [pair[i % 2] for i in range(steps)]
+    torch.cuda.reset_peak_memory_stats()
+    losses, walls, split = [], [], []
+    for i in range(steps):
+        events = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss = _train_step(model, opt, batches[i], cfg.num_layers, events)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        split.append([events[j].elapsed_time(events[j + 1])
+                      for j in range(3)])
+        losses.append(float(loss.detach()))
+    with torch.no_grad():
+        _, again = model(batches[0], labels=batches[0])
+    again = float(again)
+    log(f"train: GPT-2 345M bf16 losses {losses}; batch 0 again after "
+        f"{steps} steps: {again}")
+    if not all(np.isfinite(losses + [again])) or not again < losses[0]:
+        raise AssertionError(f"345M training: loss {losses[0]} -> {again} "
+                             f"on the repeated batch")
+    timed = walls[2:]
+    q1, median, q3 = statistics.quantiles(timed, n=4)
+    tokens_per_s = b * s / median
+    flops_per_token = model.flops_per_token()
+    fwd, bwd, upd = (statistics.median(x[j] for x in split[2:])
+                     for j in range(3))
+    log(json.dumps({
+        "train": "gpt2_medium bf16 AdamW(multi_precision) B8 S1024",
+        "params": model.num_params(), "step_ms": median * 1e3,
+        "step_ms_q1": q1 * 1e3, "step_ms_q3": q3 * 1e3,
+        "forward_ms": fwd, "backward_ms": bwd, "optimizer_ms": upd,
+        "tokens_per_s": tokens_per_s, "flops_per_token": flops_per_token,
+        "mfu": flops_per_token * tokens_per_s / BF16_FLOP_PER_S,
+        "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+        "loss_first": losses[0], "loss_last": losses[-1],
+        "loss_batch0_again": again}))
+    if state.get("profile"):
+        prof = _profile(
+            "train step gpt2_medium bf16 B8 S1024",
+            lambda: _train_step(model, opt, batches[1], cfg.num_layers),
+            groups={"K1 flash_fwd": ("flash_fwd",),
+                    "K2 dq": ("dq_mma", "dq_f32"),
+                    "K3 dkv": ("dkv_mma", "dkv_f32"),
+                    "GEMM": ("gemm", "nvjet", "cutlass", "xmma")})
+        # the profiler's host cost stretches the profiled step's wall, so
+        # the unprofiled busy share is estimated: the profiled step's
+        # device time over this run's unprofiled median step
+        log(json.dumps({"train_device_busy_share_est":
+                        prof["device_busy_s"] / median,
+                        "profiled_device_s": prof["device_busy_s"],
+                        "unprofiled_step_s": median}))
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--phases", default=",".join(PHASES),
                         help="comma-separated subset of " + ",".join(PHASES))
     parser.add_argument("--profile", action="store_true",
-                        help="also print a torch.profiler breakdown of a "
-                        "bf16 engine run")
+                        help="also print torch.profiler breakdowns of a "
+                        "bf16 forward, engine run and training step")
     args = parser.parse_args(argv)
     phases = [p for p in args.phases.split(",") if p]
     unknown = set(phases) - set(PHASES)
@@ -345,24 +725,33 @@ def main(argv=None) -> int:
         if phase not in phases:
             continue
         if phase == "forward":
-            fa.flash_attention_fwd.launches = 0     # the main path starts
+            for name in KERNELS:                    # the main path starts
+                getattr(fa, name).launches = 0
         log(f"== {phase}")
         globals()[f"phase_{phase}"](state)
     if phases != list(PHASES):
         return 0
-    launches = fa.flash_attention_fwd.launches       # the main path ended
-    if launches == 0:
-        raise AssertionError("the main path never launched "
-                             "flash_attention_fwd")
-    k1 = state["kernels"]["flash_attention_fwd"]
-    log(json.dumps({"kernels": [{
-        "name": "flash_attention_fwd", "route": "cuda",
-        "source": "paddle_tpu_torch/csrc/flash_attention_fwd.cu",
-        "replaces": "paddle_tpu/ops/pallas/flash_attention.py:175",
-        "launches": launches, "max_abs_err": k1["max_abs_err"],
-        "ms": k1["ms"], "plain_ms": k1["plain_ms"],
-        "bound_ms": k1["bound_ms"], "bound_by": k1["bound_by"],
-        "library_ms": k1["library_ms"]}]}))
+    launches = dict(zip(KERNELS, _counts()))        # the main path ended
+    never = [name for name, n in launches.items() if n == 0]
+    if never:
+        raise AssertionError(f"the main path never launched {never}")
+    rows = []
+    for name, source, line in (
+            ("flash_attention_fwd", "flash_attention_fwd.cu", 175),
+            ("flash_attention_bwd_dq", "flash_attention_bwd.cu", 228),
+            ("flash_attention_bwd_dkv", "flash_attention_bwd.cu", 273)):
+        k = state["kernels"][name]
+        rows.append({
+            "name": name, "route": "cuda",
+            "source": f"paddle_tpu_torch/csrc/{source}",
+            "replaces": f"paddle_tpu/ops/pallas/flash_attention.py:{line}",
+            "launches": launches[name], "max_abs_err": k["max_abs_err"],
+            "ms": k["ms"], "plain_ms": k["plain_ms"],
+            "bound_ms": k["bound_ms"], "bound_by": k["bound_by"],
+            "library_ms": k["library_ms"], "shape": k["shape"],
+            "timing": f"median of CUDA-event pairs, each around "
+                      f"{KERNEL_REPS} back-to-back launches"})
+    log(json.dumps({"kernels": rows}))
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,

@@ -7,13 +7,16 @@ on a ported path is a kernel written by hand for Hopper under
 caller passes ``device="cpu"``.
 
 Ported so far: GPT-2 inference through the flash-attention forward
-kernel, and greedy serving over paged KV caches (``PagedEngine``).
+kernel, greedy serving over paged KV caches (``PagedEngine``), and GPT-2
+training (cross entropy, AdamW with gradient clipping and LR schedules)
+through the forward and backward flash-attention kernels.
 """
-from . import core, inference, models, nn, ops
+from . import core, inference, models, nn, ops, optimizer
 from .core import resolve_device
 from .inference import GPTPagedEngine, PagedEngine
 from .models import GPTConfig, GPTForCausalLM, gpt2_medium, gpt2_small
 
-__all__ = ["core", "inference", "models", "nn", "ops", "resolve_device",
+__all__ = ["core", "inference", "models", "nn", "ops", "optimizer",
+           "resolve_device",
            "GPTConfig", "GPTForCausalLM", "gpt2_small", "gpt2_medium",
            "PagedEngine", "GPTPagedEngine"]

@@ -3,14 +3,18 @@
 Same configuration fields and the same attribute names as the JAX model,
 so state-dict keys line up (``models/convert.py`` copies weights across).
 Attention is the flash-attention functional, which launches the Hopper
-flash kernel on the card. Inference only in this slice: tensor and
-sequence parallelism, recompute, the fused loss and context parallelism
-are later slices and raise.
+flash kernels on the card: K1 forward, and K2/K3 on backward when the
+model trains. ``GPTForCausalLM(ids, labels=ids)`` returns the logits and
+the shifted next-token loss. Dropout draws from a ``torch.Generator``
+that ``GPTModel`` owns on its device, seeded from the constructor's
+``seed``. Tensor and sequence parallelism, recompute, the fused loss and
+context parallelism are later slices and raise.
 """
 from __future__ import annotations
 
 import math
 from dataclasses import dataclass
+from typing import Optional
 
 import torch
 from torch import nn
@@ -69,8 +73,10 @@ def gpt2_medium(**kw) -> GPTConfig:
 
 
 class GPTAttention(nn.Module):
-    def __init__(self, cfg: GPTConfig, device=None, dtype=None):
+    def __init__(self, cfg: GPTConfig, device=None, dtype=None,
+                 generator: Optional[torch.Generator] = None):
         super().__init__()
+        self.generator = generator
         self.num_heads = cfg.num_heads
         self.head_dim = cfg.hidden_size // cfg.num_heads
         self.use_flash = cfg.use_flash_attention
@@ -89,11 +95,12 @@ class GPTAttention(nn.Module):
         v = v.view(b, s, self.num_heads, self.head_dim)
         if self.use_flash:
             out, _ = F.flash_attention(q, k, v, dropout=self.dropout,
-                                       causal=True, training=self.training)
+                                       causal=True, training=self.training,
+                                       generator=self.generator)
         else:
             out = F.scaled_dot_product_attention(
                 q, k, v, is_causal=True, dropout_p=self.dropout,
-                training=self.training)
+                training=self.training, generator=self.generator)
         return self.out_proj(out.reshape(b, s, h))
 
 
@@ -109,11 +116,13 @@ class GPTMLP(nn.Module):
 
 
 class GPTBlock(nn.Module):
-    def __init__(self, cfg: GPTConfig, device=None, dtype=None):
+    def __init__(self, cfg: GPTConfig, device=None, dtype=None,
+                 generator: Optional[torch.Generator] = None):
         super().__init__()
         h = cfg.hidden_size
+        self.generator = generator
         self.ln1 = nn.LayerNorm(h, eps=LN_EPS, device=device, dtype=dtype)
-        self.attn = GPTAttention(cfg, device, dtype)
+        self.attn = GPTAttention(cfg, device, dtype, generator)
         self.ln2 = nn.LayerNorm(h, eps=LN_EPS, device=device, dtype=dtype)
         self.mlp = GPTMLP(cfg, device, dtype)
         self.dropout = cfg.dropout
@@ -121,23 +130,31 @@ class GPTBlock(nn.Module):
     def forward(self, x):
         y = self.attn(self.ln1(x))
         if self.dropout > 0:
-            y = TF.dropout(y, p=self.dropout, training=self.training)
+            y = F.dropout(y, p=self.dropout, training=self.training,
+                          generator=self.generator)
         x = x + y
         y = self.mlp(self.ln2(x))
         if self.dropout > 0:
-            y = TF.dropout(y, p=self.dropout, training=self.training)
+            y = F.dropout(y, p=self.dropout, training=self.training,
+                          generator=self.generator)
         return x + y
 
 
 class GPTModel(nn.Module):
-    def __init__(self, cfg: GPTConfig, device=None, dtype=None):
+    """Embeddings, blocks and the final norm. Owns the dropout generator
+    (``self.generator``) on ``device``, seeded with ``seed``."""
+
+    def __init__(self, cfg: GPTConfig, device=None, dtype=None,
+                 seed: int = 0):
         super().__init__()
         self.cfg = cfg
+        self.generator = make_generator(seed, device or "cpu")
         h = cfg.hidden_size
         self.wte = nn.Embedding(cfg.vocab_size, h, device=device, dtype=dtype)
         self.wpe = nn.Embedding(cfg.max_seq_len, h, device=device,
                                 dtype=dtype)
-        self.blocks = nn.ModuleList([GPTBlock(cfg, device, dtype)
+        self.blocks = nn.ModuleList([GPTBlock(cfg, device, dtype,
+                                              self.generator)
                                      for _ in range(cfg.num_layers)])
         self.ln_f = nn.LayerNorm(h, eps=LN_EPS, device=device, dtype=dtype)
 
@@ -151,10 +168,12 @@ class GPTModel(nn.Module):
 
 
 class GPTForCausalLM(nn.Module):
-    """LM head tied to ``gpt.wte``. Built on ``device`` (default the card;
-    ``device="cpu"`` asks for the CPU) with GPT-2's init drawn from a CPU
-    generator seeded with ``seed``: N(0, 0.02) weights, the residual
-    projections scaled by 1/sqrt(2*num_layers), zero biases, unit norms."""
+    """LM head tied to ``gpt.wte``; loss = next-token cross entropy. Built
+    on ``device`` (default the card; ``device="cpu"`` asks for the CPU)
+    with GPT-2's init drawn from a CPU generator seeded with ``seed``:
+    N(0, 0.02) weights, the residual projections scaled by
+    1/sqrt(2*num_layers), zero biases, unit norms. The dropout generator
+    is seeded with ``seed`` too."""
 
     def __init__(self, cfg: GPTConfig, device: DeviceLike = None,
                  dtype="float32", seed: int = 0):
@@ -162,7 +181,7 @@ class GPTForCausalLM(nn.Module):
         self.cfg = cfg
         device = resolve_device(device)
         dtype = convert_dtype(dtype)
-        self.gpt = GPTModel(cfg, device, dtype)
+        self.gpt = GPTModel(cfg, device, dtype, seed)
         self._init_weights(make_generator(seed))
 
     def _init_weights(self, gen: torch.Generator):
@@ -180,6 +199,25 @@ class GPTForCausalLM(nn.Module):
                     mod.weight.fill_(1.0)
                     mod.bias.zero_()
 
-    def forward(self, input_ids):
+    def forward(self, input_ids, labels=None):
+        """Logits (B, S, vocab); with ``labels``, ``(logits, loss)`` where
+        the loss predicts ``labels[:, 1:]`` from positions ``:-1``."""
         h = self.gpt(input_ids)
-        return torch.matmul(h, self.gpt.wte.weight.t())
+        logits = torch.matmul(h, self.gpt.wte.weight.t())
+        if labels is None:
+            return logits
+        v = logits.shape[-1]
+        loss = F.cross_entropy(logits[:, :-1, :].reshape(-1, v),
+                               labels[:, 1:].reshape(-1))
+        return logits, loss
+
+    def num_params(self) -> int:
+        return sum(p.numel() for p in self.parameters())
+
+    def flops_per_token(self) -> float:
+        """Dense training FLOPs a token ~= 6*N + 12*L*h*s (forward 2N,
+        backward 4N, attention at the full context, forward and
+        backward)."""
+        c = self.cfg
+        attn = 12 * c.num_layers * c.hidden_size * c.max_seq_len
+        return 6 * self.num_params() + attn

@@ -1,4 +1,6 @@
-"""Neural-network functionals of the PyTorch port."""
+"""Neural-network functionals and gradient clipping of the PyTorch port."""
 from . import functional
+from .clip import ClipGradByGlobalNorm, ClipGradByNorm, ClipGradByValue
 
-__all__ = ["functional"]
+__all__ = ["functional", "ClipGradByGlobalNorm", "ClipGradByNorm",
+           "ClipGradByValue"]

@@ -1,10 +1,13 @@
 """Attention functionals (counterpart of ``paddle_tpu/nn/functional/flash_attention.py``).
 
 Layout follows the JAX package: q/k/v are (batch, seq, num_heads,
-head_dim). ``flash_attention`` with no dropout goes to the flash kernel's
-wrapper (``ops/cuda/flash_attention.py``), which launches the Hopper
-kernel on CUDA tensors and runs its plain version on CPU tensors. The
-JAX package's sequence-length crossover and its measured choice between
+head_dim). ``flash_attention`` with no dropout goes to
+``ops/cuda/flash_attention.py::flash_attention_fwd``: with grad enabled
+and an input that requires it, through the autograd Function (the K1
+forward kernel, then the K2/K3 backward kernels); otherwise K1 alone.
+CUDA tensors launch the Hopper kernels, CPU tensors run their plain
+versions. Dropout draws from the caller's ``torch.Generator``. The JAX
+package's sequence-length crossover and its measured choice between
 implementations are TPU measurements and have no counterpart here.
 """
 from __future__ import annotations
@@ -15,6 +18,7 @@ from typing import Optional
 import torch
 
 from ...ops.cuda.flash_attention import flash_attention_fwd
+from .common import dropout as _dropout
 
 NEG_INF = -1e30
 
@@ -35,10 +39,7 @@ def _sdpa_plain(q, k, v, bias=None, causal=False, dropout_p=0.0,
         logits = logits.masked_fill(~keep, NEG_INF)
     probs = torch.softmax(logits, dim=-1).to(q.dtype)
     if dropout_p > 0.0:
-        keep = torch.rand(probs.shape, generator=generator,
-                          device=probs.device) < 1.0 - dropout_p
-        probs = torch.where(keep, probs / (1.0 - dropout_p),
-                            torch.zeros_like(probs))
+        probs = _dropout(probs, dropout_p, generator=generator)
     return torch.einsum("bhst,bthd->bshd", probs, v)
 
 
@@ -47,8 +48,8 @@ def flash_attention(query, key, value, dropout=0.0, causal=False,
                     training=True, name=None,
                     generator: Optional[torch.Generator] = None):
     """Returns ``(out, None)``. With dropout active (``dropout > 0`` while
-    training) the plain path runs, as in the JAX package; otherwise the
-    flash kernel's wrapper."""
+    training) the plain path runs, as in the JAX package, drawing from
+    ``generator``; otherwise the flash kernels."""
     if dropout > 0.0 and training:
         out = _sdpa_plain(query, key, value, causal=causal,
                           dropout_p=dropout, generator=generator)
@@ -62,8 +63,8 @@ def scaled_dot_product_attention(query, key, value, attn_mask=None,
                                  training=True, name=None,
                                  generator: Optional[torch.Generator] = None):
     """softmax(q·kᵀ/√d)·v over BSHD q/k/v. With no mask and no active
-    dropout this is the flash kernel's wrapper; a mask (additive, or
-    boolean where True keeps) or dropout takes the plain path."""
+    dropout this is the flash kernels; a mask (additive, or boolean where
+    True keeps) or dropout (from ``generator``) takes the plain path."""
     drop = dropout_p if training else 0.0
     if attn_mask is None and drop == 0.0:
         out, _ = flash_attention_fwd(query, key, value, causal=is_causal)

@@ -1,16 +1,22 @@
-"""Flash-attention forward: the hand-written Hopper kernel, its wrapper and
-its plain PyTorch version.
+"""Flash attention: the hand-written Hopper kernels, their wrappers, their
+plain PyTorch versions and the autograd Function around them.
 
-Counterpart of the forward half of ``paddle_tpu/ops/pallas/flash_attention.py``
-(``flash_attention_fwd`` -> ``_flash_fwd_bhsd`` -> ``_fwd_kernel``). The
-kernel is ``paddle_tpu_torch/csrc/flash_attention_fwd.cu``; its header
-comment gives its bound and design.
+Counterpart of ``paddle_tpu/ops/pallas/flash_attention.py``:
 
-``flash_attention_fwd`` takes BSHD tensors. On CPU tensors it runs
-``flash_attention_fwd_plain``; on CUDA tensors it launches the kernel or
-raises, and adds one to ``flash_attention_fwd.launches`` per launch.
-The backward kernels (the TPU's ``_dq_kernel`` / ``_dkv_kernel``) belong
-to the training slice; until then a CUDA input that requires grad raises.
+* K1 ``flash_attention_fwd`` -> ``csrc/flash_attention_fwd.cu``
+  (the TPU's ``_fwd_kernel``);
+* K2 ``flash_attention_bwd_dq`` and K3 ``flash_attention_bwd_dkv`` ->
+  ``csrc/flash_attention_bwd.cu`` (the TPU's ``_dq_kernel`` and
+  ``_dkv_kernel``);
+* ``FlashAttentionFunction``, the counterpart of the ``_flash_attention``
+  custom_vjp: its forward is K1, its backward computes
+  Delta = rowsum(dO * O) with one torch reduction (the JAX package does
+  it outside any kernel too) and then launches K2 and K3.
+
+Each wrapper takes BSHD tensors through their strides. On CPU tensors it
+runs the plain version; on CUDA tensors it launches its kernel or raises,
+and adds one to its ``.launches`` per launch. The sources' header
+comments give each kernel's bound and design.
 """
 from __future__ import annotations
 
@@ -56,82 +62,254 @@ def flash_attention_fwd_plain(q: torch.Tensor, k: torch.Tensor,
     return out.to(q.dtype), lse
 
 
-def _check(q, k, v):
-    if not (q.is_cuda and k.is_cuda and v.is_cuda):
-        raise ValueError("flash_attention_fwd: q, k and v must all be on "
-                         "the CPU or all on a CUDA device")
-    if not (q.device == k.device == v.device):
-        raise ValueError("flash_attention_fwd: q, k, v on different devices")
-    if q.dtype not in _DTYPE_CODE or not (q.dtype == k.dtype == v.dtype):
-        raise TypeError(f"flash_attention_fwd: q/k/v must share one of "
-                        f"float32/bfloat16/float16, got {q.dtype}, "
-                        f"{k.dtype}, {v.dtype}")
-    if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
-        raise ValueError("flash_attention_fwd: q/k/v must be (B, S, H, d)")
+def _bwd_plain_from_delta(q, k, v, do, lse, delta, causal, scale):
+    """dq, dk, dv (fp32) from the saved LSE and Delta = rowsum(dO * O),
+    with the explicit FA2 formulas of the TPU kernels."""
+    qf, kf, vf, dof = q.float(), k.float(), v.float(), do.float()
+    s = torch.einsum("bshd,bthd->bhst", qf, kf) * scale
+    s_q, s_k = s.shape[-2], s.shape[-1]
+    if causal:
+        keep = torch.ones((s_q, s_k), dtype=torch.bool,
+                          device=q.device).tril(diagonal=s_k - s_q)
+    else:
+        keep = torch.ones((s_q, s_k), dtype=torch.bool, device=q.device)
+    # the mask guard, not exp underflow, keeps P at 0: a row that sees no
+    # key has an LSE of about -1e30 and exp(-1e30 - lse) would be 1
+    p = torch.where(keep, torch.exp(s.masked_fill(~keep, NEG_INF)
+                                    - lse.unsqueeze(-1)), 0.0)
+    dp = torch.einsum("bshd,bthd->bhst", dof, vf)
+    ds = p * (dp - delta.unsqueeze(-1)) * scale
+    dq = torch.einsum("bhst,bthd->bshd", ds, kf)
+    dk = torch.einsum("bhst,bshd->bthd", ds, qf)
+    dv = torch.einsum("bhst,bshd->bthd", p, dof)
+    return dq, dk, dv
+
+
+def flash_attention_bwd_delta(out: torch.Tensor,
+                              do: torch.Tensor) -> torch.Tensor:
+    """Delta = rowsum(dO * O) in fp32, (B, Sq, H, d) -> (B, H, Sq)."""
+    return (do.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
+
+
+def flash_attention_bwd_plain(q: torch.Tensor, k: torch.Tensor,
+                              v: torch.Tensor, out: torch.Tensor,
+                              lse: torch.Tensor, do: torch.Tensor,
+                              causal: bool = False,
+                              scale: Optional[float] = None
+                              ) -> Tuple[torch.Tensor, torch.Tensor,
+                                         torch.Tensor]:
+    """The backward kernels' function in plain PyTorch, in fp32.
+
+    q/out/do (B, Sq, H, d), k/v (B, Sk, H, d), lse (B, H, Sq) fp32 ->
+    (dq, dk, dv) in the inputs' dtypes. Delta = rowsum(dO * O);
+    P = exp(S * scale - lse) under the mask; dS = P * (dP - Delta) *
+    scale; dQ = dS K, dK = dS^T Q, dV = P^T dO.
+    """
+    if scale is None:
+        scale = 1.0 / math.sqrt(q.shape[-1])
+    delta = flash_attention_bwd_delta(out, do)
+    dq, dk, dv = _bwd_plain_from_delta(q, k, v, do, lse, delta, causal,
+                                       scale)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+def _check(name, q, k, v, do=None):
+    tensors = [("q", q), ("k", k), ("v", v)] + ([("do", do)] if do is not None
+                                                else [])
+    if not all(x.is_cuda for _, x in tensors):
+        raise ValueError(f"{name}: q, k, v (and do) must all be on the CPU "
+                         f"or all on a CUDA device")
+    if len({x.device for _, x in tensors}) != 1:
+        raise ValueError(f"{name}: inputs on different devices")
+    if q.dtype not in _DTYPE_CODE or any(x.dtype != q.dtype
+                                         for _, x in tensors):
+        raise TypeError(f"{name}: inputs must share one of "
+                        f"float32/bfloat16/float16, got "
+                        f"{[str(x.dtype) for _, x in tensors]}")
+    if any(x.dim() != 4 for _, x in tensors):
+        raise ValueError(f"{name}: inputs must be (B, S, H, d)")
     b, s_q, h, d = q.shape
-    if k.shape != v.shape or k.shape[0] != b or k.shape[2:] != (h, d):
-        raise ValueError(f"flash_attention_fwd: shapes q {tuple(q.shape)}, "
-                         f"k {tuple(k.shape)}, v {tuple(v.shape)} disagree")
+    if k.shape != v.shape or k.shape[0] != b or k.shape[2:] != (h, d) or (
+            do is not None and do.shape != q.shape):
+        raise ValueError(f"{name}: shapes "
+                         f"{[tuple(x.shape) for _, x in tensors]} disagree")
     if d not in HEAD_DIMS:
-        raise ValueError(f"flash_attention_fwd: head_dim {d} not in "
-                         f"{HEAD_DIMS}")
+        raise ValueError(f"{name}: head_dim {d} not in {HEAD_DIMS}")
     if s_q == 0 or k.shape[1] == 0 or b * h > 65535:
-        raise ValueError(f"flash_attention_fwd: unsupported sizes "
-                         f"B*H={b * h}, Sq={s_q}, Sk={k.shape[1]}")
-    for name, x in (("q", q), ("k", k), ("v", v)):
-        # the kernel reads rows of d values with 16-byte loads
-        if x.stride(-1) != 1:
-            raise ValueError(f"flash_attention_fwd: {name}'s head dim must "
-                             f"be contiguous (stride {x.stride()})")
-        if (x.data_ptr() % 16
-                or any(st * x.element_size() % 16 for st in x.stride()[:3])):
-            raise ValueError(f"flash_attention_fwd: {name} rows must be "
-                             f"16-byte aligned (strides {x.stride()})")
-    if q.requires_grad or k.requires_grad or v.requires_grad:
-        raise RuntimeError(
-            "flash_attention_fwd: the backward kernels come with the "
-            "training slice; call under torch.no_grad() or "
-            "torch.inference_mode()")
+        raise ValueError(f"{name}: unsupported sizes B*H={b * h}, "
+                         f"Sq={s_q}, Sk={k.shape[1]}")
+    for tag, x in tensors:
+        if not _rows_aligned(x):
+            raise ValueError(f"{name}: {tag} needs a contiguous head dim and "
+                             f"16-byte aligned rows (strides {x.stride()})")
 
 
-def _library():
-    lib = _build.load_library("flash_attention_fwd")
-    fn = lib.flash_attention_fwd
+def _rows_aligned(x: torch.Tensor) -> bool:
+    """The kernels read rows of d values with 16-byte loads."""
+    return (x.stride(-1) == 1 and x.data_ptr() % 16 == 0
+            and not any(st * x.element_size() % 16 for st in x.stride()[:3]))
+
+
+def _check_rows(name, q, *rows):
+    """lse / Delta: contiguous (B, H, Sq) fp32 on q's device."""
+    b, s_q, h, _ = q.shape
+    for x in rows:
+        if (x.dtype != torch.float32 or x.device != q.device
+                or tuple(x.shape) != (b, h, s_q) or not x.is_contiguous()):
+            raise ValueError(f"{name}: lse and delta must be contiguous "
+                             f"(B, H, Sq) = {(b, h, s_q)} float32 on "
+                             f"{q.device}, got {tuple(x.shape)} {x.dtype} "
+                             f"on {x.device}")
+
+
+def _function(source: str, name: str, n_ptr: int, n_ll: int):
+    """C function ``name`` of ``csrc/<source>.cu``: ``n_ptr`` pointers,
+    ``n_ll`` strides, six ints, the scale, the causal flag, the stream."""
+    fn = getattr(_build.load_library(source), name)
     if fn.argtypes is None:
         fn.restype = ctypes.c_int
-        fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_longlong] * 9
+        fn.argtypes = ([ctypes.c_void_p] * n_ptr + [ctypes.c_longlong] * n_ll
                        + [ctypes.c_int] * 6
                        + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
     return fn
+
+
+def _launch(name, fn, q, *args):
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = fn(*args, stream)
+    if err != 0:
+        raise RuntimeError(f"{name}: kernel launch failed (cudaError {err})")
+
+
+def _sizes(q, k):
+    b, s_q, h, d = q.shape
+    return b, h, s_q, k.shape[1], d, _DTYPE_CODE[q.dtype]
+
+
+def _fwd(q, k, v, causal, scale):
+    """K1 outside autograd; its launches count on ``flash_attention_fwd``."""
+    if not (q.is_cuda or k.is_cuda or v.is_cuda):
+        return flash_attention_fwd_plain(q, k, v, causal=causal, scale=scale)
+    name = "flash_attention_fwd"
+    _check(name, q, k, v)
+    b, s_q, h, d = q.shape
+    out = torch.empty((b, s_q, h, d), dtype=q.dtype, device=q.device)
+    lse = torch.empty((b, h, s_q), dtype=torch.float32, device=q.device)
+    _launch(name, _function("flash_attention_fwd", name, 5, 9), q,
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            lse.data_ptr(), *q.stride()[:3], *k.stride()[:3],
+            *v.stride()[:3], *_sizes(q, k), float(scale), int(bool(causal)))
+    flash_attention_fwd.launches += 1
+    return out, lse
+
+
+def flash_attention_bwd_dq(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                           do: torch.Tensor, lse: torch.Tensor,
+                           delta: torch.Tensor, causal: bool = False,
+                           scale: Optional[float] = None) -> torch.Tensor:
+    """K2: dQ (B, Sq, H, d), contiguous, in q's dtype. q/do (B, Sq, H, d)
+    and k/v (B, Sk, H, d) are read through their strides; lse and delta
+    are (B, H, Sq) fp32. CPU tensors run the plain version; CUDA tensors
+    launch the kernel or raise."""
+    if scale is None:
+        scale = 1.0 / math.sqrt(q.shape[-1])
+    if not (q.is_cuda or k.is_cuda or v.is_cuda or do.is_cuda):
+        dq, _, _ = _bwd_plain_from_delta(q, k, v, do, lse, delta, causal,
+                                         scale)
+        return dq.to(q.dtype)
+    name = "flash_attention_bwd_dq"
+    _check(name, q, k, v, do)
+    _check_rows(name, q, lse, delta)
+    dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    _launch(name, _function("flash_attention_bwd", name, 7, 12), q,
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+            *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+            *do.stride()[:3], *_sizes(q, k), float(scale), int(bool(causal)))
+    flash_attention_bwd_dq.launches += 1
+    return dq
+
+
+def flash_attention_bwd_dkv(q: torch.Tensor, k: torch.Tensor,
+                            v: torch.Tensor, do: torch.Tensor,
+                            lse: torch.Tensor, delta: torch.Tensor,
+                            causal: bool = False,
+                            scale: Optional[float] = None
+                            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K3: (dK, dV), each (B, Sk, H, d), contiguous, in k's dtype; the
+    inputs as for ``flash_attention_bwd_dq``. CPU tensors run the plain
+    version; CUDA tensors launch the kernel or raise."""
+    if scale is None:
+        scale = 1.0 / math.sqrt(q.shape[-1])
+    if not (q.is_cuda or k.is_cuda or v.is_cuda or do.is_cuda):
+        _, dk, dv = _bwd_plain_from_delta(q, k, v, do, lse, delta, causal,
+                                          scale)
+        return dk.to(k.dtype), dv.to(v.dtype)
+    name = "flash_attention_bwd_dkv"
+    _check(name, q, k, v, do)
+    _check_rows(name, q, lse, delta)
+    dk = torch.empty(k.shape, dtype=k.dtype, device=k.device)
+    dv = torch.empty(v.shape, dtype=v.dtype, device=v.device)
+    _launch(name, _function("flash_attention_bwd", name, 8, 12), q,
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+            *do.stride()[:3], *_sizes(q, k), float(scale), int(bool(causal)))
+    flash_attention_bwd_dkv.launches += 1
+    return dk, dv
+
+
+class FlashAttentionFunction(torch.autograd.Function):
+    """Counterpart of the ``_flash_attention`` custom_vjp: K1 forward,
+    saving (q, k, v, out, lse); the backward computes Delta and launches
+    K2 and K3 (on CPU tensors: the plain versions)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, scale):
+        out, lse = _fwd(q, k, v, causal, scale)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.causal, ctx.scale = causal, scale
+        ctx.mark_non_differentiable(lse)
+        return out, lse
+
+    @staticmethod
+    def backward(ctx, dout, _dlse):
+        q, k, v, out, lse = ctx.saved_tensors
+        if not _rows_aligned(dout):       # e.g. the stride-0 grad of sum()
+            dout = dout.contiguous()
+        delta = flash_attention_bwd_delta(out, dout)
+        if not q.is_cuda:             # one plain backward gives all three
+            dq, dk, dv = _bwd_plain_from_delta(q, k, v, dout, lse, delta,
+                                               ctx.causal, ctx.scale)
+            return (dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype), None,
+                    None)
+        dq = flash_attention_bwd_dq(q, k, v, dout, lse, delta,
+                                    causal=ctx.causal, scale=ctx.scale)
+        dk, dv = flash_attention_bwd_dkv(q, k, v, dout, lse, delta,
+                                         causal=ctx.causal, scale=ctx.scale)
+        return dq, dk, dv, None, None
 
 
 def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         causal: bool = False, scale: Optional[float] = None
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
     """q (B, Sq, H, d), k/v (B, Sk, H, d) -> (out (B, Sq, H, d), lse
-    (B, H, Sq) fp32). CPU tensors run the plain version; CUDA tensors
-    launch the kernel (d in {64, 128}, fp32/bf16/fp16) or raise."""
+    (B, H, Sq) fp32), the counterpart of the JAX ``flash_attention_fwd``.
+
+    When grad is enabled and an input requires it, the call goes through
+    ``FlashAttentionFunction`` (K1 now, K2 and K3 on backward); otherwise
+    it is K1 alone. CPU tensors run the plain versions; CUDA tensors
+    launch the kernels (d in {64, 128}, fp32/bf16/fp16) or raise."""
     if scale is None:
         scale = 1.0 / math.sqrt(q.shape[-1])
-    if not (q.is_cuda or k.is_cuda or v.is_cuda):
-        return flash_attention_fwd_plain(q, k, v, causal=causal, scale=scale)
-    _check(q, k, v)
-    b, s_q, h, d = q.shape
-    s_k = k.shape[1]
-    out = torch.empty((b, s_q, h, d), dtype=q.dtype, device=q.device)
-    lse = torch.empty((b, h, s_q), dtype=torch.float32, device=q.device)
-    fn = _library()
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                 lse.data_ptr(), *q.stride()[:3], *k.stride()[:3],
-                 *v.stride()[:3], b, h, s_q, s_k, d, _DTYPE_CODE[q.dtype],
-                 float(scale), int(bool(causal)), stream)
-    if err != 0:
-        raise RuntimeError(f"flash_attention_fwd: kernel launch failed "
-                           f"(cudaError {err})")
-    flash_attention_fwd.launches += 1
-    return out, lse
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        return FlashAttentionFunction.apply(q, k, v, bool(causal),
+                                            float(scale))
+    return _fwd(q, k, v, causal, scale)
 
 
 flash_attention_fwd.launches = 0
+flash_attention_bwd_dq.launches = 0
+flash_attention_bwd_dkv.launches = 0

@@ -3,7 +3,8 @@
 Every module of ``paddle_tpu_torch`` and ``chip_smoke.py`` is imported in
 a fresh interpreter where ``jax`` and ``paddle_tpu`` cannot be imported.
 Entry points that were not asked for the CPU must raise where CUDA is
-absent, and a CPU call to the flash wrapper launches nothing.
+absent, and a CPU call to the flash wrappers, forward or backward,
+launches nothing.
 """
 import os
 import subprocess
@@ -17,6 +18,7 @@ import paddle_tpu_torch
 from paddle_tpu_torch.inference import PagedEngine
 from paddle_tpu_torch.models import GPTConfig, GPTForCausalLM
 from paddle_tpu_torch.ops.cuda import flash_attention as fa
+from paddle_tpu_torch.optimizer import AdamW
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TINY = GPTConfig(vocab_size=83, hidden_size=64, num_layers=2, num_heads=4,
@@ -48,7 +50,9 @@ def test_imports_without_jax_or_paddle_tpu():
                           env=env, capture_output=True, text=True,
                           timeout=300)
     assert proc.returncode == 0, proc.stderr
-    assert int(proc.stdout.split()[-1]) >= 15     # every module was walked
+    # every module was walked: serving, and the training slice's
+    # functionals, clipping, schedulers and optimizers
+    assert int(proc.stdout.split()[-1]) >= 24
 
 
 def test_no_silent_cpu_without_cuda():
@@ -72,6 +76,20 @@ def test_cpu_flash_call_launches_nothing():
     with torch.inference_mode():
         model(torch.zeros((1, 5), dtype=torch.int64))
     assert fa.flash_attention_fwd.launches == before == 0
+
+
+def test_cpu_training_step_launches_nothing():
+    model = GPTForCausalLM(TINY, device="cpu")
+    opt = AdamW(parameters=model.named_parameters())
+    ids = torch.zeros((2, 7), dtype=torch.int64)
+    _, loss = model(ids, labels=ids)
+    loss.backward()
+    opt.step()
+    assert all(p.device.type == "cpu" for p in opt.state_dict().values()
+               if isinstance(p, torch.Tensor))
+    assert (fa.flash_attention_fwd.launches,
+            fa.flash_attention_bwd_dq.launches,
+            fa.flash_attention_bwd_dkv.launches) == (0, 0, 0)
 
 
 def test_chip_smoke_refuses_to_run_without_cuda():
