@@ -14,6 +14,13 @@ Phases, in order; any failure exits non-zero and nothing is caught:
              edge shapes; time each at its path shape beside its bound, its
              plain version and PyTorch's own flash attention (a yardstick the
              port never calls).
+* fused_kernel -- the same for the fusion pass's kernels: K4 residual + norm,
+             K5 bias + activation, K6 norm + matmul + activation, K7 matmul +
+             rope, at the path shapes of the fusion phase and at edge shapes
+             (ragged rows and columns, widths not multiples of 128, head dims
+             64 and 128, rope offsets, every activation, both norms, with and
+             without bias); each timed beside its bound, its plain version
+             and a PyTorch yardstick.
 * forward -- GPT-2 small (full width, seeded random weights): fp32 logits on
              the card (through the kernel) against a CPU twin (plain
              attention); then a timed bf16 forward at B=4, S=1024.
@@ -30,13 +37,24 @@ Phases, in order; any failure exits non-zero and nothing is caught:
              repeated batch. Every step must launch K1 once
              a layer in the forward and K2 and K3 once a layer in the
              backward.
+* fusion  -- ``to_static`` with FLAGS_enable_fusion: a small GPT-2 and a
+             small LLaMA (GQA) in fp32, fused on the card against a fused CPU
+             twin (the kernels' plain versions); then LLaMA-770M (bf16, B=4,
+             S=2048) and GPT-2 345M (bf16, B=8, S=1024) train with AdamW, the
+             fused and the unfused step in turns on one model: step-1 losses
+             agree, the loss falls on a repeated batch, and every step
+             launches what the pass predicts (LLaMA: K1 24, K4 48, K7 48 in
+             the forward; GPT-2: K1 24, K4 48, K6 25; K2 and K3 24 each in the
+             backward); then the bias_act program gelu(x W + b), which
+             launches K5 once a call.
 
-The forward, serve and train phases are the main path: every kernel's
-launch count is set to 0 before them and read after them. The last lines
-are the kernels' JSON summary, the card's name and power limit from
+The forward, serve, train and fusion phases are the main path: every
+kernel's launch count is set to 0 just before each of them and read just
+after it. The last lines are the kernels' JSON summary (all seven, with
+their launches over the main path), the card's name and power limit from
 nvidia-smi, and {"ok": true, "device": {...}}. ``--profile`` adds a
-torch.profiler breakdown of a bf16 forward, an engine run and one
-training step.
+torch.profiler breakdown of a bf16 forward, an engine run, one training
+step, and a fused and an unfused step of each fusion path.
 """
 from __future__ import annotations
 
@@ -51,7 +69,9 @@ import time
 import numpy as np
 import torch
 
-PHASES = ("build", "kernel", "forward", "serve", "train")
+PHASES = ("build", "kernel", "fused_kernel", "forward", "serve", "train",
+          "fusion")
+MAIN_PATH = ("forward", "serve", "train", "fusion")
 PATH_SHAPE = dict(b=4, s=1024, h=12, d=64)      # GPT-2 small serving
 TRAIN_SHAPE = dict(b=8, s=1024, h=16, d=64)     # GPT-2 345M training
 FP32_TOL = 1e-4
@@ -68,11 +88,35 @@ LOSS_TOL = 1e-4         # fp32 card vs CPU per-step training loss
 ADAMW = dict(beta1=0.9, beta2=0.95, epsilon=1e-8, weight_decay=0.1)
 LR = 2.5e-4
 KERNEL_REPS = 10        # launches back to back in one kernel timing
-KERNELS = ("flash_attention_fwd", "flash_attention_bwd_dq",
-           "flash_attention_bwd_dkv")
+# kernel -> (source, the TPU kernel it replaces)
+KERNELS = {
+    "flash_attention_fwd": ("flash_attention_fwd.cu", "flash_attention.py:175"),
+    "flash_attention_bwd_dq": ("flash_attention_bwd.cu", "flash_attention.py:228"),
+    "flash_attention_bwd_dkv": ("flash_attention_bwd.cu", "flash_attention.py:273"),
+    "fused_residual_norm": ("fused_residual_norm.cu", "fused_ops.py:92"),
+    "fused_bias_act": ("fused_bias_act.cu", "fused_ops.py:152"),
+    "fused_matmul": ("fused_matmul.cu", "fused_ops.py:180"),
+    "fused_matmul_rope": ("fused_matmul.cu", "fused_ops.py:244"),
+}
+# K4-K7 against their plain versions: fp32 max abs error (unit-normal
+# inputs, weights scaled by 1/sqrt(K)); bf16/fp16 one rounding of the output,
+# |got - ref| <= REL * |ref| + FUSED_ABS, as both sides round one fp32 value
+# that differs only in the order of its sums
+FUSED_FP32_TOL = 1e-4
+FUSED_REL = {torch.bfloat16: 2 ** -7, torch.float16: 2 ** -10}
+FUSED_ABS = 1e-3
+# fused against unfused bf16 step-1 loss (about 0.2% of ln(vocab)): K4
+# normalizes the fp32 sum where the unfused chain normalizes the rounded
+# sum, and K6/K7 round once where the unfused chain rounds after the
+# product and again after the bias, activation or rotation
+FUSED_LOSS_TOL = 2e-2
+LLAMA_770M = dict(vocab_size=32000, hidden_size=1536, intermediate_size=4096,
+                  num_layers=24, num_heads=12, max_seq_len=2048)   # bench.py:356
+LLAMA_SHAPE = dict(b=4, s=2048)
 # published dense peaks of one H100 SXM (NVIDIA data sheet)
 HBM_BYTES_PER_S = 3.35e12
 BF16_FLOP_PER_S = 989e12
+FP32_FLOP_PER_S = 67e12     # CUDA cores, for the elementwise kernels
 
 
 def log(msg: str) -> None:
@@ -115,7 +159,8 @@ def _ptxas_summary(report):
         found = re.search(r"Compiling entry function '(\w+)'", line)
         if found:
             mangled = found.group(1)
-            base = re.search(r"(flash_fwd|dkv|dq)_(mma|f32)", mangled)
+            base = re.search(r"(flash_fwd|dkv|dq|gemm)_(mma|f32)|residual_norm"
+                             r"|bias_act", mangled)
             dtype = ("fp16" if "__half" in mangled else
                      "bf16" if "bfloat16" in mangled else "fp32")
             dim = re.search(r"Li(\d+)E", mangled)
@@ -213,16 +258,17 @@ def phase_kernel(state):
                 worst["max_abs_err"] = err
 
     # the kernels line carries the serving shape, where slice 1 timed K1
-    state["kernels"] = {"flash_attention_fwd": dict(
-        worst, **_time_fwd(fa, gen, PATH_SHAPE))}
+    state.setdefault("kernels", {})["flash_attention_fwd"] = dict(
+        worst, **_time_fwd(fa, gen, PATH_SHAPE))
     _time_fwd(fa, gen, TRAIN_SHAPE)
     _kernel_bwd(fa, gen, state)
 
 
-def _bound(moved, flops):
-    """(bound ms, what bounds it) from bytes moved and FLOPs done."""
+def _bound(moved, flops, peak=BF16_FLOP_PER_S):
+    """(bound ms, what bounds it) from bytes moved and FLOPs done at the
+    ``peak`` rate of their type."""
     bytes_ms = moved / HBM_BYTES_PER_S * 1e3
-    flops_ms = flops / BF16_FLOP_PER_S * 1e3
+    flops_ms = flops / peak * 1e3
     return (max(bytes_ms, flops_ms),
             "bytes" if bytes_ms >= flops_ms else "operations")
 
@@ -392,6 +438,199 @@ def _kernel_bwd(fa, gen, state):
             shape=label)
 
 
+# ----------------------------------------------------------- fused_kernel
+def _fused_check(name, case, dtype, got, ref):
+    """Hold one K4-K7 call's outputs against its plain version's; returns
+    the max abs error."""
+    err, ratio = 0.0, 0.0
+    for g, r in zip(got if isinstance(got, tuple) else (got,),
+                    ref if isinstance(ref, tuple) else (ref,)):
+        if g.shape != r.shape or g.dtype != r.dtype:
+            raise AssertionError(f"{name} {case}: {g.shape} {g.dtype} against "
+                                 f"the plain version's {r.shape} {r.dtype}")
+        diff = (g.float() - r.float()).abs()
+        err = max(err, diff.max().item())
+        if dtype == torch.float32:
+            ratio = max(ratio, diff.max().item() / FUSED_FP32_TOL)
+        else:
+            ratio = max(ratio, (diff / (FUSED_REL[dtype] * r.float().abs()
+                                        + FUSED_ABS)).max().item())
+    tag = str(dtype).replace("torch.", "")
+    log(f"  {name:20s} {tag:8s} {case:34s} max_abs_err={err:.3e} "
+        f"limit_ratio={ratio:.3f}")
+    if not ratio <= 1.0:
+        raise AssertionError(f"{name} disagrees with its plain version: {tag} "
+                             f"{case}: max abs error {err}, {ratio:.3f} of "
+                             f"its limit")
+    return err
+
+
+def _fused_cases(fk, gen, dtype):
+    """(kernel, case, kernel call, plain call) at the path shapes of the
+    fusion phase (the first case of each kernel) and at edge shapes."""
+    def r(*shape, scale=1.0):
+        return randn(shape, torch.float32, gen).mul_(scale).to(dtype)
+    cases = []
+    for label, rows, d, kind, affine in (
+            ("llama path rms 8192x1536", 8192, 1536, "rms_norm", "w"),
+            ("gpt2 path ln 8192x1024", 8192, 1024, "layer_norm", "wb"),
+            ("ragged ln 37x200", 37, 200, "layer_norm", "wb"),
+            ("rms no affine 9x100", 9, 100, "rms_norm", "")):
+        x, res = r(rows, d), r(rows, d)
+        w = 1 + r(d, scale=0.1) if "w" in affine else None
+        b = r(d, scale=0.1) if "b" in affine else None
+        cases.append(("fused_residual_norm", label,
+                      lambda x=x, res=res, w=w, b=b, kind=kind:
+                      fk.fused_residual_norm(x, res, w, b, kind=kind),
+                      lambda x=x, res=res, w=w, b=b, kind=kind:
+                      fk.fused_residual_norm_plain(x, res, w, b, kind)))
+    for label, rows, d, acts in (("path 8192x4096", 8192, 4096, ("gelu",)),
+                                 ("ragged 33x100", 33, 100, fk.ACT_CODE),
+                                 ("64x4096", 64, 4096, fk.ACT_CODE)):
+        x, b = r(rows, d), r(d, scale=0.5)
+        for act in dict.fromkeys(a for a in acts if a):
+            cases.append(("fused_bias_act", f"{label} {act}",
+                          lambda x=x, b=b, act=act: fk.fused_bias_act(x, b, act),
+                          lambda x=x, b=b, act=act:
+                          fk.fused_bias_act_plain(x, b, act)))
+    for label, m, k, n, norm, act, bias in (
+            ("gpt2 fc1 8192x1024->4096 gelu_tanh", 8192, 1024, 4096, "",
+             "gelu_tanh", True),
+            ("gpt2 qkv ln 8192x1024->3072", 8192, 1024, 3072, "layer_norm",
+             "", True),
+            ("ragged ln 130x72->200", 130, 72, 200, "layer_norm", "gelu",
+             True),
+            ("rms silu 77x136->129 no bias", 77, 136, 129, "rms_norm",
+             "silu", False),
+            ("relu 1x64->8", 1, 64, 8, "", "relu", False)):
+        x, w = r(m, k), r(n, k, scale=k ** -0.5)
+        b = r(n, scale=0.1) if bias else None
+        nw = 1 + r(k, scale=0.1) if norm else None
+        nb = r(k, scale=0.1) if norm else None
+        args = (x, w, b, nw, nb, norm, act)
+        cases.append(("fused_matmul", label,
+                      lambda a=args: fk.fused_matmul(*a),
+                      lambda a=args: fk.fused_matmul_plain(*a)))
+    for label, bt, s, k, heads, hd, off, bias in (
+            ("llama q 8192x1536->1536 hd128", 4, 2048, 1536, 12, 128, 0,
+             False),
+            ("hd64 off5 bias 2x33 136->192", 2, 33, 136, 3, 64, 5, True),
+            ("hd128 off7 2x64 256->256", 2, 64, 256, 2, 128, 7, False)):
+        x, w = r(bt * s, k), r(heads * hd, k, scale=k ** -0.5)
+        b = r(heads * hd, scale=0.1) if bias else None
+        kw = dict(seq=s, head_dim=hd, pos_offset=off)
+        cases.append(("fused_matmul_rope", label,
+                      lambda x=x, w=w, b=b, kw=kw:
+                      fk.fused_matmul_rope(x, w, b, **kw),
+                      lambda x=x, w=w, b=b, kw=kw:
+                      fk.fused_matmul_rope_plain(x, w, b, **kw)))
+    return cases
+
+
+def _time_fused(name, label, run, plain, library, library_call, moved, flops,
+                peak=BF16_FLOP_PER_S):
+    """One K4-K7 timing at its path shape: the kernel (ten launches back to
+    back a CUDA-event pair), its plain version and a PyTorch yardstick."""
+    ms, q1, q3 = time_ms(run, reps=KERNEL_REPS)
+    plain_ms, _, _ = time_ms(plain, iters=5)
+    library_ms, _, _ = time_ms(library, reps=KERNEL_REPS)
+    bound_ms, bound_by = _bound(moved, flops, peak)
+    log(json.dumps({"kernel": name, "shape": label, "kernel_ms": ms,
+                    "kernel_ms_q1": q1, "kernel_ms_q3": q3,
+                    "bound_ms": bound_ms, "bound_by": bound_by,
+                    "library_ms": library_ms, "library_call": library_call,
+                    "plain_ms": plain_ms, "bytes": moved, "flops": flops}))
+    return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by=bound_by, library_ms=library_ms, shape=label)
+
+
+def phase_fused_kernel(state):
+    import paddle_tpu_torch.ops.cuda.fused_ops as fk
+    from paddle_tpu_torch.models.llama import rope_rotate
+    TF = torch.nn.functional
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(4321)
+    worst = {}
+    for dtype in (torch.float32, torch.bfloat16, torch.float16):
+        seen = set()
+        for name, case, run, plain in _fused_cases(fk, gen, dtype):
+            err = _fused_check(name, case, dtype, run(), plain())
+            if dtype == torch.bfloat16 and name not in seen:   # path shape
+                worst[name] = err
+            seen.add(name)
+        torch.cuda.empty_cache()
+
+    bf16 = torch.bfloat16
+    rows = LLAMA_SHAPE["b"] * LLAMA_SHAPE["s"]        # = 8 x 1024 for GPT-2
+    h, d_gpt, ffn = LLAMA_770M["hidden_size"], 1024, 4096
+
+    def r(*shape, scale=1.0):
+        return randn(shape, torch.float32, gen).mul_(scale).to(bf16)
+    # K4: LLaMA's residual + RMSNorm, 8192 x 1536 (x, res read; y, s written)
+    x, res, w = r(rows, h), r(rows, h), 1 + r(h, scale=0.1)
+    timed = {"fused_residual_norm": _time_fused(
+        "fused_residual_norm", f"{rows}x{h} bf16 rms_norm",
+        lambda: fk.fused_residual_norm(x, res, w, kind="rms_norm", eps=1e-6),
+        lambda: fk.fused_residual_norm_plain(x, res, w, None, "rms_norm",
+                                             1e-6),
+        lambda: TF.rms_norm(x + res, (h,), w, 1e-6),
+        "x + res, then F.rms_norm (two calls)",
+        4 * rows * h * 2 + h * 2, 8.0 * rows * h, FP32_FLOP_PER_S)}
+    xg, resg, wg, bg = r(rows, d_gpt), r(rows, d_gpt), 1 + r(d_gpt), r(d_gpt)
+    _time_fused("fused_residual_norm", f"{rows}x{d_gpt} bf16 layer_norm",
+                lambda: fk.fused_residual_norm(xg, resg, wg, bg),
+                lambda: fk.fused_residual_norm_plain(xg, resg, wg, bg),
+                lambda: TF.layer_norm(xg + resg, (d_gpt,), wg, bg, 1e-5),
+                "x + res, then F.layer_norm (two calls)",
+                4 * rows * d_gpt * 2 + 2 * d_gpt * 2, 9.0 * rows * d_gpt,
+                FP32_FLOP_PER_S)
+    # K5: the bias_act program's gelu(x W + b) epilogue, 8192 x 4096
+    xb, bb = r(rows, ffn), r(ffn, scale=0.5)
+    timed["fused_bias_act"] = _time_fused(
+        "fused_bias_act", f"{rows}x{ffn} bf16 gelu",
+        lambda: fk.fused_bias_act(xb, bb, "gelu"),
+        lambda: fk.fused_bias_act_plain(xb, bb, "gelu"),
+        lambda: TF.gelu(xb + bb), "F.gelu(x + b) (two calls)",
+        2 * rows * ffn * 2 + ffn * 2, 20.0 * rows * ffn, FP32_FLOP_PER_S)
+    # K6: GPT-2 345M fc1 with its gelu_tanh epilogue, and block 0's
+    # LayerNorm -> qkv projection
+    xm, wm, bm = r(rows, d_gpt), r(ffn, d_gpt, scale=d_gpt ** -0.5), r(ffn)
+    timed["fused_matmul"] = _time_fused(
+        "fused_matmul", f"{rows}x{d_gpt}->{ffn} bf16 bias gelu_tanh",
+        lambda: fk.fused_matmul(xm, wm, bm, act="gelu_tanh"),
+        lambda: fk.fused_matmul_plain(xm, wm, bm, act="gelu_tanh"),
+        lambda: TF.gelu(torch.addmm(bm, xm, wm.t()), approximate="tanh"),
+        "torch.addmm, then F.gelu (two calls)",
+        (rows * d_gpt + ffn * d_gpt + rows * ffn + ffn) * 2,
+        2.0 * rows * ffn * d_gpt)
+    wq, bq = r(3 * d_gpt, d_gpt, scale=d_gpt ** -0.5), r(3 * d_gpt)
+    _time_fused("fused_matmul", f"{rows}x{d_gpt}->{3 * d_gpt} bf16 "
+                "layer_norm prologue, bias",
+                lambda: fk.fused_matmul(xm, wq, bq, wg, bg, "layer_norm"),
+                lambda: fk.fused_matmul_plain(xm, wq, bq, wg, bg,
+                                              "layer_norm"),
+                lambda: torch.addmm(bq, TF.layer_norm(xm, (d_gpt,), wg, bg),
+                                    wq.t()),
+                "F.layer_norm, then torch.addmm (two calls)",
+                (rows * d_gpt + 3 * d_gpt * d_gpt + rows * 3 * d_gpt
+                 + 3 * d_gpt + 2 * d_gpt) * 2,
+                2.0 * rows * 3 * d_gpt * d_gpt)
+    # K7: LLaMA-770M's q (and k) projection with its rope, 8192 x 1536
+    xr, wr = r(rows, h), r(h, h, scale=h ** -0.5)
+    seq, hd = LLAMA_SHAPE["s"], h // LLAMA_770M["num_heads"]
+    timed["fused_matmul_rope"] = _time_fused(
+        "fused_matmul_rope", f"{rows}x{h}->{h} bf16 seq {seq} head_dim {hd}",
+        lambda: fk.fused_matmul_rope(xr, wr, seq=seq, head_dim=hd),
+        lambda: fk.fused_matmul_rope_plain(xr, wr, seq=seq, head_dim=hd),
+        lambda: rope_rotate(torch.matmul(xr, wr.t()).view(
+            LLAMA_SHAPE["b"], seq, h // hd, hd), 10000.0, 0),
+        "torch.matmul, then the plain rope",
+        (rows * h + h * h + rows * h) * 2, 2.0 * rows * h * h)
+    for name, row in timed.items():
+        state.setdefault("kernels", {})[name] = dict(row,
+                                                     max_abs_err=worst[name])
+
+
 # ---------------------------------------------------------------- forward
 def phase_forward(state):
     import paddle_tpu_torch.ops.cuda.flash_attention as fa
@@ -550,9 +789,27 @@ def phase_serve(state):
 
 
 # ------------------------------------------------------------------ train
-def _counts():
+def _wrapper(name):
+    """The wrapper of kernel ``name``, which carries its launch count."""
     import paddle_tpu_torch.ops.cuda.flash_attention as fa
-    return tuple(getattr(fa, n).launches for n in KERNELS)
+    import paddle_tpu_torch.ops.cuda.fused_ops as fk
+    return getattr(fa if name.startswith("flash") else fk, name)
+
+
+def _counts():
+    return {name: _wrapper(name).launches for name in KERNELS}
+
+
+def _launched(before, after):
+    """Launches between two ``_counts()``, kernels that launched only."""
+    return {n: after[n] - before[n] for n in KERNELS if after[n] != before[n]}
+
+
+def _flash_launches(layers):
+    """A step's launches without fusion: (forward, backward)."""
+    return ({"flash_attention_fwd": layers},
+            {"flash_attention_bwd_dq": layers,
+             "flash_attention_bwd_dkv": layers})
 
 
 def _no_decay(name):
@@ -560,16 +817,16 @@ def _no_decay(name):
                               "ln_f.weight"))
 
 
-def _train_step(model, opt, ids, layers, events=None):
-    """One eager step, model(ids, labels=ids) -> backward -> AdamW; holds
-    the launch counts: K1 once a layer in the forward, K2 and K3 once a
-    layer in the backward (none on the CPU). ``events``, four CUDA
-    events, split the step into forward, backward and optimizer."""
-    on_card = next(model.parameters()).is_cuda
+def _train_step(forward, opt, ids, want_fwd, want_bwd, events=None):
+    """One eager step, forward(ids, labels=ids) -> backward -> AdamW; holds
+    the launches of the forward and of the backward to ``want_fwd`` and
+    ``want_bwd`` (kernel -> launches; every other kernel none). ``events``,
+    four CUDA events, split the step into forward, backward and
+    optimizer."""
     c0 = _counts()
     if events:
         events[0].record()
-    _, loss = model(ids, labels=ids)
+    _, loss = forward(ids, labels=ids)
     c1 = _counts()
     if events:
         events[1].record()
@@ -581,14 +838,11 @@ def _train_step(model, opt, ids, layers, events=None):
     opt.clear_grad()
     if events:
         events[3].record()
-    want_fwd, want_bwd = ((layers, 0, 0), (0, layers, layers)) if on_card \
-        else ((0, 0, 0), (0, 0, 0))
-    got_fwd = tuple(b - a for a, b in zip(c0, c1))
-    got_bwd = tuple(b - a for a, b in zip(c1, c2))
+    got_fwd, got_bwd = _launched(c0, c1), _launched(c1, c2)
     if got_fwd != want_fwd or got_bwd != want_bwd:
         raise AssertionError(
-            f"launches (K1, K2, K3) in the forward {got_fwd}, in the "
-            f"backward {got_bwd}; expected {want_fwd} and {want_bwd}")
+            f"launches in the forward {got_fwd}, in the backward {got_bwd}; "
+            f"expected {want_fwd} and {want_bwd}")
     return loss
 
 
@@ -614,9 +868,10 @@ def _fp32_parity():
                     apply_decay_param_fun=_no_decay,
                     grad_clip=ClipGradByGlobalNorm(1.0), **ADAMW)
         batch = ids.to(next(model.parameters()).device)
+        want = _flash_launches(cfg.num_layers) if name == "card" else ({}, {})
         losses[name] = []
         for _ in range(3):
-            loss = _train_step(model, opt, batch, cfg.num_layers)
+            loss = _train_step(model, opt, batch, *want)
             sched.step()
             losses[name].append(float(loss.detach()))
     diff = max(abs(a - b) for a, b in zip(losses["card"], losses["cpu"]))
@@ -652,7 +907,8 @@ def phase_train(state):
         events = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        loss = _train_step(model, opt, batches[i], cfg.num_layers, events)
+        loss = _train_step(model, opt, batches[i],
+                           *_flash_launches(cfg.num_layers), events)
         torch.cuda.synchronize()
         walls.append(time.perf_counter() - t0)
         split.append([events[j].elapsed_time(events[j + 1])
@@ -685,7 +941,8 @@ def phase_train(state):
     if state.get("profile"):
         prof = _profile(
             "train step gpt2_medium bf16 B8 S1024",
-            lambda: _train_step(model, opt, batches[1], cfg.num_layers),
+            lambda: _train_step(model, opt, batches[1],
+                                *_flash_launches(cfg.num_layers)),
             groups={"K1 flash_fwd": ("flash_fwd",),
                     "K2 dq": ("dq_mma", "dq_f32"),
                     "K3 dkv": ("dkv_mma", "dkv_f32"),
@@ -699,13 +956,223 @@ def phase_train(state):
                         "unprofiled_step_s": median}))
 
 
+# ----------------------------------------------------------------- fusion
+def _fused_forward_parity(label, build, ids, want):
+    """A small fp32 model through to_static with fusion on, on the card (the
+    kernels) and on a CPU twin with the same weights (the kernels' plain
+    versions): logits within LOGITS_TOL, the same pass stats, and the card's
+    forward launches ``want``."""
+    from paddle_tpu_torch import to_static
+    card = build("cuda").eval()
+    twin = build("cpu").eval()
+    twin.load_state_dict({k: v.cpu() for k, v in card.state_dict().items()})
+    on_card, on_cpu = to_static(card), to_static(twin)
+    with torch.no_grad():
+        on_card(ids.cuda())                     # the first call traces
+        before = _counts()
+        logits = on_card(ids.cuda()).float().cpu()
+        got = _launched(before, _counts())
+        ref = on_cpu(ids)
+    diff = (logits - ref).abs().max().item()
+    log(f"fusion: {label} fp32 logits, fused on the card vs fused CPU twin: "
+        f"max_abs_diff={diff:.3e} (tolerance {LOGITS_TOL}); launches a "
+        f"forward {got}; fusion_stats {on_card.fusion_stats}")
+    if not torch.isfinite(logits).all() or diff > LOGITS_TOL:
+        raise AssertionError(f"{label}: fused logits disagree: {diff}")
+    if got != want or on_card.fusion_stats != on_cpu.fusion_stats:
+        raise AssertionError(f"{label}: launches {got} (expected {want}), "
+                             f"stats {on_card.fusion_stats} on the card, "
+                             f"{on_cpu.fusion_stats} on the CPU")
+
+
+def _fused_training(label, model, batches, fused_fwd, profile=False,
+                    blocks=2, per_block=4):
+    """Train ``model`` (bf16 weights, fp32 masters, AdamW) with the fused
+    step (to_static, fusion on) and the unfused eager step in turns, on
+    seeded batches taken in turn. Holds the step-1 losses to each other
+    within FUSED_LOSS_TOL, every step's launches (the fused forward adds
+    ``fused_fwd``), and a finite loss that falls on the repeated batch;
+    logs step times (the first step of each block warms its path up) and,
+    with ``profile``, a profile of one step of each."""
+    from paddle_tpu_torch import to_static
+    from paddle_tpu_torch.optimizer import AdamW
+    plain_fwd, bwd = _flash_launches(model.cfg.num_layers)
+    opt = AdamW(learning_rate=LR, parameters=model.named_parameters(),
+                multi_precision=True, **ADAMW)
+    fused = to_static(model)
+    b0 = batches[0]
+    with torch.no_grad():
+        loss_u = float(model(b0, labels=b0)[1])
+        loss_f = float(fused(b0, labels=b0)[1])       # traces
+    log(f"fusion: {label} step-1 loss fused {loss_f} unfused {loss_u} "
+        f"(tolerance {FUSED_LOSS_TOL}); fusion_stats {fused.fusion_stats}")
+    if not abs(loss_f - loss_u) <= FUSED_LOSS_TOL:
+        raise AssertionError(f"{label}: fused step-1 loss {loss_f} against "
+                             f"unfused {loss_u}")
+    runs = {"fused": (fused, dict(plain_fwd, **fused_fwd)),
+            "unfused": (model, plain_fwd)}
+    walls = {name: [] for name in runs}
+    split = {name: [] for name in runs}
+    losses = []
+    torch.cuda.reset_peak_memory_stats()
+    for _ in range(blocks):
+        for name, (forward, want_fwd) in runs.items():
+            for k in range(per_block):
+                events = [torch.cuda.Event(enable_timing=True)
+                          for _ in range(4)]
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                loss = _train_step(forward, opt, batches[len(losses) % 2],
+                                   want_fwd, bwd, events)
+                torch.cuda.synchronize()
+                if k:
+                    walls[name].append(time.perf_counter() - t0)
+                    split[name].append([events[j].elapsed_time(events[j + 1])
+                                        for j in range(3)])
+                losses.append(float(loss.detach()))
+    with torch.no_grad():
+        again = float(fused(b0, labels=b0)[1])
+    log(f"fusion: {label} losses {losses} (fused and unfused steps in blocks "
+        f"of {per_block}); batch 0 again {again}")
+    if not all(np.isfinite(losses + [again])) or not again < loss_f:
+        raise AssertionError(f"{label}: loss {loss_f} -> {again} on the "
+                             f"repeated batch")
+    tokens = b0.numel()
+    row = {"fusion_train": label, "params": model.num_params(),
+           "loss_step1_fused": loss_f, "loss_step1_unfused": loss_u,
+           "loss_batch0_again": again,
+           "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "rewritten": fused.fusion_stats["rewritten"]}
+    for name in runs:
+        median = statistics.median(walls[name])
+        fwd, bwd_ms, upd = (statistics.median(x[j] for x in split[name])
+                            for j in range(3))
+        row[name] = {"step_ms": median * 1e3,
+                     "step_ms_each": [w * 1e3 for w in walls[name]],
+                     "forward_ms": fwd, "backward_ms": bwd_ms,
+                     "optimizer_ms": upd, "tokens_per_s": tokens / median,
+                     "mfu": model.flops_per_token() * tokens / median
+                     / BF16_FLOP_PER_S}
+    log(json.dumps(row))
+    if profile:
+        for name, (forward, want_fwd) in runs.items():
+            _profile(f"{label} {name} step",
+                     lambda: _train_step(forward, opt, b0, want_fwd, bwd),
+                     groups={"K1-K3 attention": ("flash_fwd", "dq_", "dkv_"),
+                             "K4": ("residual_norm",), "K6/K7": ("gemm_mma",),
+                             "cuBLAS GEMM": ("nvjet", "xmma", "cutlass",
+                                             "cublas"),
+                             "elementwise and reductions": (
+                                 "elementwise", "reduce", "vectorized")})
+
+
+def _bias_act_program(gen):
+    """to_static over gelu(x W + b) at x (8192, 1024), W (1024, 4096),
+    bf16: the pass rewrites the add and the gelu onto fused_bias_act, which
+    launches K5 once a call. Against the unfused program: two roundings
+    (the unfused chain rounds the sum before the gelu)."""
+    from paddle_tpu_torch import to_static
+    from paddle_tpu_torch.nn import functional as F
+    rows, k, n = 8192, 1024, 4096
+    x = randn((rows, k), torch.bfloat16, gen)
+    w = (torch.randn((k, n), generator=gen, device="cuda")
+         * k ** -0.5).to(torch.bfloat16)
+    b = (torch.randn((n,), generator=gen, device="cuda") * 0.5).to(
+        torch.bfloat16)
+
+    def program(xa):
+        return F.gelu(torch.matmul(xa, w) + b)
+
+    fused = to_static(program)
+    fused(x)                                    # the first call traces
+    before = _counts()
+    out = fused(x)
+    got = _launched(before, _counts())
+    ref = program(x)
+    diff = (out.float() - ref.float()).abs()
+    ratio = (diff / (2 * FUSED_REL[torch.bfloat16] * ref.float().abs()
+                     + FUSED_ABS)).max().item()
+    fused_ms, _, _ = time_ms(lambda: fused(x), reps=KERNEL_REPS)
+    unfused_ms, _, _ = time_ms(lambda: program(x), reps=KERNEL_REPS)
+    log(json.dumps({"fusion_program": "gelu(x W + b) bf16 8192x1024->4096",
+                    "rewritten": fused.fusion_stats["rewritten"],
+                    "launches_a_call": got, "max_abs_diff": diff.max().item(),
+                    "limit_ratio": ratio, "fused_ms": fused_ms,
+                    "unfused_ms": unfused_ms}))
+    if got != {"fused_bias_act": 1} or ratio > 1.0:
+        raise AssertionError(f"bias_act program: launches {got}, "
+                             f"{ratio:.3f} of the limit")
+
+
+def phase_fusion(state):
+    from paddle_tpu_torch import set_flags
+    from paddle_tpu_torch.models import (GPTForCausalLM, LlamaConfig,
+                                         LlamaForCausalLM, gpt2_medium,
+                                         gpt2_small)
+    set_flags({"FLAGS_enable_fusion": True})
+    try:
+        rng = np.random.RandomState(21)
+        ids = torch.from_numpy(rng.randint(0, 32000, (1, 256)))
+        _fused_forward_parity(
+            "gpt2_small", lambda dev: GPTForCausalLM(gpt2_small(), device=dev,
+                                                     seed=8), ids,
+            {"flash_attention_fwd": 12, "fused_residual_norm": 24,
+             "fused_matmul": 13})
+        small = LlamaConfig(vocab_size=32000, hidden_size=1024,
+                            intermediate_size=2816, num_layers=4,
+                            num_heads=8, num_kv_heads=4, max_seq_len=512)
+        _fused_forward_parity(
+            "llama 4 layers, hidden 1024, 8 heads of 128, 4 kv heads",
+            lambda dev: LlamaForCausalLM(small, device=dev, seed=9), ids,
+            {"flash_attention_fwd": 4, "fused_residual_norm": 8,
+             "fused_matmul_rope": 8})
+
+        # path 1: LLaMA-770M, the JAX package's LLaMA training rung
+        cfg = LlamaConfig(**LLAMA_770M)
+        b, s = LLAMA_SHAPE["b"], LLAMA_SHAPE["s"]
+        model = LlamaForCausalLM(cfg, device="cuda", dtype="bfloat16",
+                                 seed=10).train()
+        batches = [torch.from_numpy(np.random.RandomState(200 + i).randint(
+            0, cfg.vocab_size, (b, s))).cuda() for i in range(2)]
+        _fused_training(f"llama_770m bf16 AdamW(multi_precision) B{b} S{s}",
+                        model, batches,
+                        {"fused_residual_norm": 2 * cfg.num_layers,
+                         "fused_matmul_rope": 2 * cfg.num_layers},
+                        state.get("profile"))
+        del model, batches
+        torch.cuda.empty_cache()
+
+        # path 2: GPT-2 345M at the train phase's batch
+        cfg = gpt2_medium()
+        b, s = TRAIN_SHAPE["b"], TRAIN_SHAPE["s"]
+        model = GPTForCausalLM(cfg, device="cuda", dtype="bfloat16",
+                               seed=11).train()
+        batches = [torch.from_numpy(np.random.RandomState(300 + i).randint(
+            0, cfg.vocab_size, (b, s))).cuda() for i in range(2)]
+        _fused_training(f"gpt2_medium bf16 AdamW(multi_precision) B{b} S{s}",
+                        model, batches,
+                        {"fused_residual_norm": 2 * cfg.num_layers,
+                         "fused_matmul": cfg.num_layers + 1},
+                        state.get("profile"))
+        del model, batches
+        torch.cuda.empty_cache()
+
+        # path 3: the bias_act program
+        gen = torch.Generator(device="cuda")
+        gen.manual_seed(99)
+        _bias_act_program(gen)
+    finally:
+        set_flags({"FLAGS_enable_fusion": False})
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--phases", default=",".join(PHASES),
                         help="comma-separated subset of " + ",".join(PHASES))
     parser.add_argument("--profile", action="store_true",
                         help="also print torch.profiler breakdowns of a "
-                        "bf16 forward, engine run and training step")
+                        "bf16 forward, engine run and training step, and of a "
+                        "fused and an unfused step of each fusion path")
     args = parser.parse_args(argv)
     phases = [p for p in args.phases.split(",") if p]
     unknown = set(phases) - set(PHASES)
@@ -714,37 +1181,36 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 2
-    import paddle_tpu_torch.ops.cuda.flash_attention as fa
-
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     log(f"torch {torch.__version__} cuda {torch.version.cuda} on "
         f"{torch.cuda.get_device_name(0)}")
     state = {"profile": args.profile}
+    launches = dict.fromkeys(KERNELS, 0)     # over the main path
     for phase in PHASES:
         if phase not in phases:
             continue
-        if phase == "forward":
-            for name in KERNELS:                    # the main path starts
-                getattr(fa, name).launches = 0
+        main_path = phase in MAIN_PATH
+        if main_path:                          # each main-path phase starts
+            for name in KERNELS:
+                _wrapper(name).launches = 0
         log(f"== {phase}")
         globals()[f"phase_{phase}"](state)
+        if main_path:                          # ... and is read as it ends
+            for name, n in _counts().items():
+                launches[name] += n
     if phases != list(PHASES):
         return 0
-    launches = dict(zip(KERNELS, _counts()))        # the main path ended
     never = [name for name, n in launches.items() if n == 0]
     if never:
         raise AssertionError(f"the main path never launched {never}")
     rows = []
-    for name, source, line in (
-            ("flash_attention_fwd", "flash_attention_fwd.cu", 175),
-            ("flash_attention_bwd_dq", "flash_attention_bwd.cu", 228),
-            ("flash_attention_bwd_dkv", "flash_attention_bwd.cu", 273)):
+    for name, (source, replaces) in KERNELS.items():
         k = state["kernels"][name]
         rows.append({
             "name": name, "route": "cuda",
             "source": f"paddle_tpu_torch/csrc/{source}",
-            "replaces": f"paddle_tpu/ops/pallas/flash_attention.py:{line}",
+            "replaces": f"paddle_tpu/ops/pallas/{replaces}",
             "launches": launches[name], "max_abs_err": k["max_abs_err"],
             "ms": k["ms"], "plain_ms": k["plain_ms"],
             "bound_ms": k["bound_ms"], "bound_by": k["bound_by"],

@@ -9,14 +9,20 @@ caller passes ``device="cpu"``.
 Ported so far: GPT-2 inference through the flash-attention forward
 kernel, greedy serving over paged KV caches (``PagedEngine``), and GPT-2
 training (cross entropy, AdamW with gradient clipping and LR schedules)
-through the forward and backward flash-attention kernels.
+through the forward and backward flash-attention kernels; LLaMA, and
+``jit.to_static`` whose graph-fusion pass (``FLAGS_enable_fusion``)
+rewrites training onto the fused kernels (residual + norm, bias +
+activation, norm + matmul + activation, matmul + rope).
 """
-from . import core, inference, models, nn, ops, optimizer
-from .core import resolve_device
+from . import compile, core, inference, jit, models, nn, ops, optimizer
+from .core import get_flag, resolve_device, set_flags
 from .inference import GPTPagedEngine, PagedEngine
-from .models import GPTConfig, GPTForCausalLM, gpt2_medium, gpt2_small
+from .jit import to_static
+from .models import (GPTConfig, GPTForCausalLM, LlamaConfig, LlamaForCausalLM,
+                     gpt2_medium, gpt2_small)
 
-__all__ = ["core", "inference", "models", "nn", "ops", "optimizer",
-           "resolve_device",
-           "GPTConfig", "GPTForCausalLM", "gpt2_small", "gpt2_medium",
-           "PagedEngine", "GPTPagedEngine"]
+__all__ = ["compile", "core", "inference", "jit", "models", "nn", "ops",
+           "optimizer", "resolve_device", "get_flag", "set_flags",
+           "to_static", "GPTConfig", "GPTForCausalLM", "gpt2_small",
+           "gpt2_medium", "LlamaConfig", "LlamaForCausalLM", "PagedEngine",
+           "GPTPagedEngine"]

@@ -1,0 +1,295 @@
+"""The fusion pass over a ``torch.fx`` graph: ``jit.to_static``'s adapter
+(counterpart of ``trace_rewrite``/``rewrite_traced`` in
+``paddle_tpu/compile/fusion/__init__.py``).
+
+``trace_program`` traces a callable with ``torch.fx`` and, with fusion on,
+runs the pass:
+
+1. The tracer traces *into* every module (``nn.Linear`` and
+   ``nn.LayerNorm`` become ``F.linear`` and ``F.layer_norm`` calls with
+   their parameters as inputs) and keeps whole the port's functionals that
+   launch kernels, draw random numbers or are one op to the pass
+   (``_leaves``: attention, cross entropy, dropout, the norms, swiglu,
+   rotary embedding, the fused ops).
+2. ``ShapeProp`` on the example inputs gives every node its shape.
+3. Each node that computes a tensor becomes a record with the JAX
+   package's op name and attributes (``linear``, ``layer_norm``,
+   ``rms_norm``, ``gelu``, ``silu``, ``relu``, ``add``, ``reshape``,
+   ``rotary_embedding``); shape queries are not records, as shapes are
+   static in a JAX trace.
+4. ``fuse_steps`` plans the rewrite; each fused step becomes one call to
+   the port's ``F.fused_*`` inserted before the chain's first node, its
+   outputs take over the chain's, and dead code is removed.
+
+The trace is specialized on the arguments that are not tensors (they are
+part of ``to_static``'s cache key). While tracing, the leaves are swapped
+into the namespaces that call them and restored afterwards.
+"""
+from __future__ import annotations
+
+import functools
+import operator
+import sys
+from typing import Dict, List, Optional, Sequence, Tuple
+
+import torch
+from torch import fx, nn
+from torch.fx.passes.shape_prop import ShapeProp, TensorMetadata
+from torch.nn import functional as TF
+
+from . import fuse_steps
+
+
+def _leaves() -> tuple:
+    """The port functionals the tracer keeps as single calls."""
+    from ...models.llama import rotary_embedding
+    from ...nn import functional as F
+    return (F.flash_attention, F.scaled_dot_product_attention,
+            F.block_multihead_attention, F.cross_entropy, F.dropout,
+            F.layer_norm, F.rms_norm, F.swiglu, rotary_embedding,
+            F.fused_bias_act, F.fused_residual_norm, F.fused_norm_linear,
+            F.fused_rope_proj)
+
+
+def _tracer_of(args, kwargs):
+    found = []
+    fx.node.map_aggregate((args, kwargs), lambda a: found.append(a)
+                          if isinstance(a, fx.Proxy) else None)
+    return found[0].tracer if found else None
+
+
+def _as_leaf(fn):
+    """``fn`` that records one ``call_function`` node when it meets a proxy
+    (a ``torch.Generator`` argument is bound into the node's target, as a
+    graph cannot hold one) and runs as itself otherwise."""
+    @functools.wraps(fn)
+    def call(*args, **kwargs):
+        tracer = _tracer_of(args, kwargs)
+        if tracer is None:
+            return fn(*args, **kwargs)
+        fixed = {k: v for k, v in kwargs.items()
+                 if isinstance(v, torch.Generator)}
+        target = fn
+        if fixed:
+            def target(*a, **kw):
+                return fn(*a, **kw, **fixed)
+            functools.update_wrapper(target, fn)
+            kwargs = {k: v for k, v in kwargs.items() if k not in fixed}
+        return tracer.create_proxy("call_function", target, args, kwargs)
+    return call
+
+
+class _Tracer(fx.Tracer):
+    def __init__(self, leaf_fns: Sequence):
+        super().__init__()
+        self._leaf_ids = {id(f) for f in leaf_fns}
+        self._saved: List[Tuple[dict, str, object]] = []
+        self._patched: set = set()
+
+    def is_leaf_module(self, m: nn.Module, qualname: str) -> bool:
+        return False
+
+    def _patch(self, namespace: dict) -> None:
+        if id(namespace) in self._patched:
+            return
+        self._patched.add(id(namespace))
+        for key, value in list(namespace.items()):
+            if id(value) in self._leaf_ids:
+                self._saved.append((namespace, key, value))
+                namespace[key] = _as_leaf(value)
+
+    def call_module(self, m, forward, args, kwargs):
+        # every module is traced through, also one a plain function closes
+        # over (not a submodule of the root)
+        self._patch(getattr(type(m).forward, "__globals__", {}))
+        return forward(*args, **kwargs)
+
+    def create_arg(self, a):
+        # a parameter the root does not own (a plain function closing over
+        # a layer) becomes an attribute of the traced module
+        if isinstance(a, nn.Parameter) and not any(
+                a is p for p in self.root.parameters()):
+            i = 0
+            while hasattr(self.root, f"_param_constant{i}"):
+                i += 1
+            setattr(self.root, f"_param_constant{i}", a)
+            return self.create_node("get_attr", f"_param_constant{i}", (),
+                                    {})
+        return super().create_arg(a)
+
+    def trace(self, root, concrete_args=None):
+        try:
+            for name, mod in list(sys.modules.items()):
+                if mod is not None and name.split(".")[0] == "paddle_tpu_torch":
+                    self._patch(vars(mod))
+            fn = root.forward if isinstance(root, nn.Module) else root
+            self._patch(getattr(fn, "__globals__", {}))
+            return super().trace(root, concrete_args)
+        finally:
+            for namespace, key, value in reversed(self._saved):
+                namespace[key] = value
+            self._saved.clear()
+            self._patched.clear()
+
+
+# ------------------------------------------------------------- records
+class _Record:
+    """One traced node as the pass sees it; value ids are fx nodes."""
+
+    __slots__ = ("name", "in_ids", "out_ids", "attrs", "in_shapes",
+                 "out_shapes", "loc")
+
+    def __init__(self, name, in_ids, out_ids, attrs, in_shapes, out_shapes,
+                 loc):
+        self.name = name
+        self.in_ids, self.out_ids = tuple(in_ids), tuple(out_ids)
+        self.attrs = attrs
+        self.in_shapes, self.out_shapes = tuple(in_shapes), tuple(out_shapes)
+        self.loc = loc
+
+
+def _meta(node) -> Optional[object]:
+    return node.meta.get("tensor_meta") if isinstance(node, fx.Node) else None
+
+
+def _shape(node) -> tuple:
+    meta = _meta(node)
+    return tuple(meta.shape) if isinstance(meta, TensorMetadata) else ()
+
+
+def _is_node(a) -> bool:
+    return isinstance(a, fx.Node)
+
+
+def _classify(node, port) -> Tuple[str, dict, list]:
+    """(record name, attrs, tensor inputs in order) of a call node."""
+    t, args, kwargs = node.target, node.args, node.kwargs
+
+    def arg(i, name, default=None):
+        return args[i] if len(args) > i else kwargs.get(name, default)
+
+    if node.op == "call_function":
+        if t is TF.linear:
+            bias = arg(2, "bias")
+            return "linear", {}, [arg(0, "input"), arg(1, "weight")] + (
+                [bias] if _is_node(bias) else [])
+        if t is TF.layer_norm or t is port["layer_norm"]:
+            shape = arg(1, "normalized_shape")
+            w, b = arg(2, "weight"), arg(3, "bias")
+            eps = arg(4, "eps" if t is TF.layer_norm else "epsilon", 1e-5)
+            return "layer_norm", {
+                "epsilon": float(eps),
+                "norm_ndim": 1 if isinstance(shape, int) else len(shape),
+                "has_w": _is_node(w), "has_b": _is_node(b)}, [
+                arg(0, "input" if t is TF.layer_norm else "x"),
+                *[a for a in (w, b) if _is_node(a)]]
+        if t is port["rms_norm"]:
+            x, w, b = arg(0, "x"), arg(1, "weight"), arg(2, "bias")
+            ndim = len(_shape(x))
+            axis = arg(4, "begin_norm_axis", -1) % max(ndim, 1)
+            return "rms_norm", {
+                "epsilon": float(arg(3, "epsilon", 1e-6)),
+                "norm_ndim": ndim - axis, "has_w": _is_node(w),
+                "has_b": _is_node(b)}, [x, *[a for a in (w, b)
+                                             if _is_node(a)]]
+        if t is TF.gelu:
+            return "gelu", {"approximate":
+                            arg(1, "approximate", "none") == "tanh"}, [args[0]]
+        if t is TF.silu:
+            return "silu", {}, [args[0]]
+        if t in (TF.relu, torch.relu):
+            return "relu", {}, [args[0]]
+        if t in (operator.add, torch.add) and "alpha" not in kwargs:
+            return "add", {}, [a for a in args[:2] if _is_node(a)]
+        if t is torch.reshape:
+            return "reshape", {}, [args[0]]
+        if t is port["rotary_embedding"]:
+            off = arg(2, "pos_offset", 0)
+            attrs = ({"theta": float(arg(1, "theta", 10000.0)),
+                      "pos_offset": off}
+                     if isinstance(off, int) and not isinstance(off, bool)
+                     else {})
+            return "rotary_embedding", attrs, [args[0]]
+    elif node.op == "call_method":
+        if t == "add" and len(args) == 2 and "alpha" not in kwargs:
+            return "add", {}, [a for a in args if _is_node(a)]
+        if t in ("reshape", "view"):
+            return "reshape", {}, [args[0]]
+        if t == "relu":
+            return "relu", {}, [args[0]]
+    name = t if isinstance(t, str) else getattr(t, "__name__", str(t))
+    return name, {}, [a for a in node.all_input_nodes
+                      if _meta(a) is not None]
+
+
+def _records(graph: fx.Graph) -> Tuple[list, set]:
+    """The pass's records of a shape-propagated graph, and the returned
+    values (the external set)."""
+    from ...models.llama import rotary_embedding
+    from ...nn.functional import layer_norm, rms_norm
+    port = {"layer_norm": layer_norm, "rms_norm": rms_norm,
+            "rotary_embedding": rotary_embedding}
+    steps, external = [], set()
+    for node in graph.nodes:
+        if node.op == "output":
+            fx.node.map_arg(node.args, lambda n: external.add(n))
+            continue
+        if node.op not in ("call_function", "call_method") \
+                or _meta(node) is None:
+            continue            # inputs, parameters, shape arithmetic
+        name, attrs, ins = _classify(node, port)
+        steps.append(_Record(name, ins, (node,), attrs,
+                             [_shape(a) for a in ins], [_shape(node)],
+                             node.name))
+    return steps, external
+
+
+def _rewrite(gm: fx.GraphModule, plan: list) -> None:
+    graph = gm.graph
+    # parameters are read where first used; a fused call before that point
+    # (the norm weight of a residual_norm, read after the add) needs them
+    # earlier, so every get_attr moves up to the inputs
+    params = [n for n in graph.nodes if n.op == "get_attr"]
+    first = next(n for n in graph.nodes
+                 if n.op not in ("placeholder", "get_attr"))
+    for n in params:
+        first.prepend(n)
+    by_name = {n.name: n for n in graph.nodes}
+    current: Dict[fx.Node, fx.Node] = {}
+    for st in plan:
+        if not getattr(st, "pattern", ""):
+            continue
+        args, kwargs = st.fn.bind([current.get(v, v) for v in st.in_ids])
+        with graph.inserting_before(by_name[st.loc]):
+            new = graph.call_function(st.fn.fn, args, kwargs)
+            outs = [new] if len(st.out_ids) == 1 else [
+                graph.call_function(operator.getitem, (new, k))
+                for k in range(len(st.out_ids))]
+        for old, rep in zip(st.out_ids, outs):
+            old.replace_all_uses_with(rep)
+            current[old] = rep
+    graph.eliminate_dead_code()
+    graph.lint()
+    gm.recompile()
+
+
+def trace_program(fn, args: Sequence, concrete: Dict, fuse: bool
+                  ) -> Tuple[fx.GraphModule, Optional[dict]]:
+    """Trace ``fn`` (a module or a function) specialized on ``concrete``
+    (its non-tensor arguments, by name); with ``fuse``, run the fusion
+    pass over the trace on ``args`` (every argument, in signature order).
+    Returns the graph module, called with ``args``, and the pass's stats
+    (None without ``fuse``)."""
+    tracer = _Tracer(_leaves())
+    graph = tracer.trace(fn, concrete_args=dict(concrete) or None)
+    gm = fx.GraphModule(fn if isinstance(fn, nn.Module) else tracer.root,
+                        graph)
+    if not fuse:
+        return gm, None
+    with torch.no_grad():
+        ShapeProp(gm).propagate(*args)
+    steps, external = _records(gm.graph)
+    plan, stats = fuse_steps(steps, external)
+    if stats["rewritten"]:
+        _rewrite(gm, plan)
+    return gm, stats

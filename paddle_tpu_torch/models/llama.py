@@ -1,0 +1,264 @@
+"""LLaMA-family decoder (counterpart of ``paddle_tpu/models/llama.py``).
+
+Same configuration fields and attribute names as the JAX model, so
+state-dict keys line up (``models/convert.py`` copies weights across).
+RMSNorm, rotary embedding (rotate-half), GQA by repeating the KV heads,
+the SwiGLU MLP, and the flash-attention functional (K1 forward, K2/K3
+backward on the card). ``LlamaForCausalLM(ids, labels=ids)`` returns the
+logits and the shifted next-token loss. Through ``jit.to_static`` with
+``FLAGS_enable_fusion`` the fusion pass rewrites each q/k projection and
+its rope onto ``fused_rope_proj`` (K7) and each residual add and the norm
+after it onto ``fused_residual_norm`` (K4). Cached decoding (``generate``,
+the paged engine), tensor/sequence/context parallelism, recompute and the
+fused loss are later slices and raise.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Union
+
+import torch
+from torch import nn
+
+from ..core.dtype import convert_dtype
+from ..core.generator import make_generator, normal_
+from ..core.place import DeviceLike, resolve_device
+from ..nn import functional as F
+from ..nn.layer import RMSNorm
+
+
+@dataclass
+class LlamaConfig:
+    vocab_size: int = 32000
+    hidden_size: int = 4096
+    intermediate_size: int = 11008
+    num_layers: int = 32
+    num_heads: int = 32
+    num_kv_heads: int = 0            # 0 -> = num_heads (MHA); < heads = GQA
+    max_seq_len: int = 4096
+    rope_theta: float = 10000.0
+    rms_eps: float = 1e-6
+    use_flash_attention: bool = True
+    tie_embeddings: bool = False
+    mp_degree: int = 1
+    sequence_parallel: bool = False
+    context_parallel: str = ""
+    recompute: bool = False
+    fused_loss: bool = False
+
+    def __post_init__(self):
+        if self.num_kv_heads == 0:
+            self.num_kv_heads = self.num_heads
+        if self.num_heads % self.num_kv_heads:
+            raise ValueError("num_heads must be divisible by num_kv_heads")
+        if self.context_parallel not in ("", "ring", "ulysses"):
+            raise ValueError(f"bad context_parallel "
+                             f"{self.context_parallel!r}")
+        later = [name for name, on in (
+            ("mp_degree > 1", self.mp_degree > 1),
+            ("sequence_parallel", self.sequence_parallel),
+            ("context_parallel", bool(self.context_parallel)),
+            ("recompute", self.recompute),
+            ("fused_loss", self.fused_loss)) if on]
+        if later:
+            raise NotImplementedError(f"later slice: {', '.join(later)}")
+
+
+def llama_7b(**kw) -> LlamaConfig:
+    return LlamaConfig(**kw)
+
+
+def llama_tiny(**kw) -> LlamaConfig:
+    kw.setdefault("vocab_size", 512)
+    kw.setdefault("hidden_size", 128)
+    kw.setdefault("intermediate_size", 256)
+    kw.setdefault("num_layers", 2)
+    kw.setdefault("num_heads", 4)
+    kw.setdefault("max_seq_len", 128)
+    return LlamaConfig(**kw)
+
+
+def llama2_13b(**kw) -> LlamaConfig:
+    kw.setdefault("hidden_size", 5120)
+    kw.setdefault("intermediate_size", 13824)
+    kw.setdefault("num_layers", 40)
+    kw.setdefault("num_heads", 40)
+    return LlamaConfig(**kw)
+
+
+def llama2_70b(**kw) -> LlamaConfig:
+    kw.setdefault("hidden_size", 8192)
+    kw.setdefault("intermediate_size", 28672)
+    kw.setdefault("num_layers", 80)
+    kw.setdefault("num_heads", 64)
+    kw.setdefault("num_kv_heads", 8)   # GQA
+    return LlamaConfig(**kw)
+
+
+def rope_rotate(a: torch.Tensor, theta: float,
+                pos_offset: Union[int, torch.Tensor]) -> torch.Tensor:
+    """The rope rotation of a (B, S, H, D) tensor, rotate-half: channel i
+    pairs with channel i + D/2 (the JAX code's convention; its docstring's
+    "(even, odd) pairs" is not what it computes). Positions are
+    ``pos_offset + s``; ``pos_offset`` is an int or a (B,) tensor. Angles
+    and products in fp32, the result in a's dtype. The one copy of the
+    rotation: ``rotary_embedding`` and the fused ``rope_proj`` composite
+    both call it."""
+    b, s, h, d = a.shape
+    half = d // 2
+    freqs = 1.0 / (theta ** (torch.arange(half, dtype=torch.float32,
+                                          device=a.device) / half))
+    if isinstance(pos_offset, torch.Tensor):
+        off = pos_offset.to(device=a.device, dtype=torch.float32).reshape(-1)
+    else:
+        off = torch.full((1,), float(pos_offset), device=a.device)
+    positions = off[:, None] + torch.arange(s, dtype=torch.float32,
+                                            device=a.device)[None, :]
+    pos = positions[:, :, None] * freqs[None, None, :]
+    cos = torch.cos(pos)[:, :, None, :]          # (B|1, S, 1, half)
+    sin = torch.sin(pos)[:, :, None, :]
+    x1, x2 = a[..., :half], a[..., half:]
+    return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin],
+                     dim=-1).to(a.dtype)
+
+
+def rotary_embedding(x: torch.Tensor, theta: float = 10000.0,
+                     pos_offset: Union[int, torch.Tensor] = 0
+                     ) -> torch.Tensor:
+    """RoPE on (B, S, H, D). ``pos_offset`` is a Python int or a per-batch
+    (B,) tensor; only an int offset lets the fusion pass fold the rope into
+    the projection before it."""
+    return rope_rotate(x, theta, pos_offset)
+
+
+class LlamaAttention(nn.Module):
+    def __init__(self, cfg: LlamaConfig, device=None, dtype=None):
+        super().__init__()
+        self.cfg = cfg
+        self.num_heads = cfg.num_heads
+        self.num_kv_heads = cfg.num_kv_heads
+        self.head_dim = cfg.hidden_size // cfg.num_heads
+        h = cfg.hidden_size
+        kv = self.num_kv_heads * self.head_dim
+        self.q_proj = nn.Linear(h, h, bias=False, device=device, dtype=dtype)
+        self.k_proj = nn.Linear(h, kv, bias=False, device=device, dtype=dtype)
+        self.v_proj = nn.Linear(h, kv, bias=False, device=device, dtype=dtype)
+        self.o_proj = nn.Linear(h, h, bias=False, device=device, dtype=dtype)
+
+    def forward(self, x):
+        b, s, h = x.shape
+        hd, nh, nkv = self.head_dim, self.num_heads, self.num_kv_heads
+        q = self.q_proj(x).view(b, s, nh, hd)
+        k = self.k_proj(x).view(b, s, nkv, hd)
+        v = self.v_proj(x).view(b, s, nkv, hd)
+        q = rotary_embedding(q, self.cfg.rope_theta, pos_offset=0)
+        k = rotary_embedding(k, self.cfg.rope_theta, pos_offset=0)
+        if nkv != nh:   # GQA: kv head j serves query heads j*rep .. j*rep+rep-1
+            rep = nh // nkv
+            k = k.repeat_interleave(rep, dim=2)
+            v = v.repeat_interleave(rep, dim=2)
+        if self.cfg.use_flash_attention:
+            out, _ = F.flash_attention(q, k, v, causal=True)
+        else:
+            out = F.scaled_dot_product_attention(q, k, v, is_causal=True)
+        return self.o_proj(out.reshape(b, s, h))
+
+
+class LlamaMLP(nn.Module):
+    """SwiGLU MLP: down(silu(gate(x)) * up(x))."""
+
+    def __init__(self, cfg: LlamaConfig, device=None, dtype=None):
+        super().__init__()
+        h, ffn = cfg.hidden_size, cfg.intermediate_size
+        self.gate_proj = nn.Linear(h, ffn, bias=False, device=device,
+                                   dtype=dtype)
+        self.up_proj = nn.Linear(h, ffn, bias=False, device=device,
+                                 dtype=dtype)
+        self.down_proj = nn.Linear(ffn, h, bias=False, device=device,
+                                   dtype=dtype)
+
+    def forward(self, x):
+        return self.down_proj(F.swiglu(self.gate_proj(x), self.up_proj(x)))
+
+
+class LlamaBlock(nn.Module):
+    def __init__(self, cfg: LlamaConfig, device=None, dtype=None):
+        super().__init__()
+        h = cfg.hidden_size
+        self.input_layernorm = RMSNorm(h, epsilon=cfg.rms_eps, device=device,
+                                       dtype=dtype)
+        self.self_attn = LlamaAttention(cfg, device, dtype)
+        self.post_attention_layernorm = RMSNorm(h, epsilon=cfg.rms_eps,
+                                                device=device, dtype=dtype)
+        self.mlp = LlamaMLP(cfg, device, dtype)
+
+    def forward(self, x):
+        x = x + self.self_attn(self.input_layernorm(x))
+        return x + self.mlp(self.post_attention_layernorm(x))
+
+
+class LlamaModel(nn.Module):
+    def __init__(self, cfg: LlamaConfig, device=None, dtype=None):
+        super().__init__()
+        self.cfg = cfg
+        self.embed_tokens = nn.Embedding(cfg.vocab_size, cfg.hidden_size,
+                                         device=device, dtype=dtype)
+        self.layers = nn.ModuleList([LlamaBlock(cfg, device, dtype)
+                                     for _ in range(cfg.num_layers)])
+        self.norm = RMSNorm(cfg.hidden_size, epsilon=cfg.rms_eps,
+                            device=device, dtype=dtype)
+
+    def forward(self, input_ids):
+        x = self.embed_tokens(input_ids)
+        for blk in self.layers:
+            x = blk(x)
+        return self.norm(x)
+
+
+class LlamaForCausalLM(nn.Module):
+    """Decoder plus LM head (``lm_head``, or the embedding with
+    ``tie_embeddings``); loss = next-token cross entropy. Built on
+    ``device`` (default the card; ``device="cpu"`` asks for the CPU) with
+    the JAX model's init drawn from a CPU generator seeded with ``seed``:
+    N(0, 0.02) linear and embedding weights, unit norm weights."""
+
+    def __init__(self, cfg: LlamaConfig, device: DeviceLike = None,
+                 dtype="float32", seed: int = 0):
+        super().__init__()
+        self.cfg = cfg
+        device = resolve_device(device)
+        dtype = convert_dtype(dtype)
+        self.model = LlamaModel(cfg, device, dtype)
+        self.lm_head = None if cfg.tie_embeddings else nn.Linear(
+            cfg.hidden_size, cfg.vocab_size, bias=False, device=device,
+            dtype=dtype)
+        gen = make_generator(seed)
+        with torch.no_grad():
+            for mod in self.modules():
+                if isinstance(mod, (nn.Linear, nn.Embedding)):
+                    normal_(mod.weight, 0.02, gen)
+
+    def forward(self, input_ids, labels=None):
+        """Logits (B, S, vocab); with ``labels``, ``(logits, loss)`` where
+        the loss predicts ``labels[:, 1:]`` from positions ``:-1``."""
+        h = self.model(input_ids)
+        if self.lm_head is None:
+            logits = torch.matmul(h, self.model.embed_tokens.weight.t())
+        else:
+            logits = self.lm_head(h)
+        if labels is None:
+            return logits
+        v = logits.shape[-1]
+        loss = F.cross_entropy(logits[:, :-1, :].reshape(-1, v),
+                               labels[:, 1:].reshape(-1))
+        return logits, loss
+
+    def num_params(self) -> int:
+        return sum(p.numel() for p in self.parameters())
+
+    def flops_per_token(self) -> float:
+        """Dense training FLOPs a token ~= 6*N + 12*L*h*s (forward 2N,
+        backward 4N, attention at the full context)."""
+        c = self.cfg
+        return 6 * self.num_params() + 12 * c.num_layers * c.hidden_size \
+            * c.max_seq_len

@@ -1,6 +1,8 @@
-"""Neural-network functionals and gradient clipping of the PyTorch port."""
+"""Neural-network functionals, layers and gradient clipping of the PyTorch
+port."""
 from . import functional
 from .clip import ClipGradByGlobalNorm, ClipGradByNorm, ClipGradByValue
+from .layer import RMSNorm
 
 __all__ = ["functional", "ClipGradByGlobalNorm", "ClipGradByNorm",
-           "ClipGradByValue"]
+           "ClipGradByValue", "RMSNorm"]

@@ -1,4 +1,5 @@
-"""The port's CUDA kernels against their plain PyTorch versions, on the card.
+"""The port's CUDA kernels (K1-K7) against their plain PyTorch versions, on
+the card.
 
 This file imports torch and the port only (no JAX), so it also runs on a
 machine that has a card and no JAX:
@@ -10,6 +11,9 @@ Without a card every test skips: a CUDA kernel has no CPU mode.
 import pytest
 import torch
 
+from paddle_tpu_torch.models import rope_rotate
+from paddle_tpu_torch.nn import functional as F
+from paddle_tpu_torch.ops.cuda import fused_ops as FK
 from paddle_tpu_torch.ops.cuda.flash_attention import (
     flash_attention_bwd_delta, flash_attention_bwd_dkv,
     flash_attention_bwd_dq, flash_attention_bwd_plain, flash_attention_fwd,
@@ -179,3 +183,151 @@ def test_flash_attention_autograd_matches_plain_autograd(causal):
                                leaves)
     for a, b in zip(got, want):
         assert (a - b).abs().max().item() <= BWD_TOLERANCES[torch.float32]
+
+
+# ------------------------------------------------------------ K4 - K7
+# Against the plain versions (fp32 inside, one rounding at the end): fp32
+# max abs error, inputs unit-normal and weights scaled by 1/sqrt(K); bf16 /
+# fp16 one rounding of the output, |got - ref| <= REL * |ref| + 1e-3 (both
+# sides round an fp32 value that differs only in the order of its sums).
+FUSED_FP32_TOL = 1e-4
+FUSED_REL = {torch.bfloat16: 2 ** -7, torch.float16: 2 ** -10}
+FUSED_DTYPES = [torch.float32, torch.bfloat16, torch.float16]
+
+
+def _fused_ok(got, ref, dtype):
+    assert got.dtype == ref.dtype == dtype and got.shape == ref.shape
+    diff = (got.float() - ref.float()).abs()
+    if dtype == torch.float32:
+        return diff.max().item() <= FUSED_FP32_TOL
+    bound = FUSED_REL[dtype] * ref.float().abs() + 1e-3
+    return bool((diff <= bound).all())
+
+
+def _rand(shape, dtype, gen, scale=1.0):
+    return (torch.randn(shape, generator=gen, device="cuda") * scale).to(dtype)
+
+
+def _gen(seed):
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+    return gen
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", FUSED_DTYPES, ids=str)
+@pytest.mark.parametrize("rows,d,kind,affine", [
+    (37, 200, "layer_norm", True), (64, 1536, "rms_norm", True),
+    (5, 1024, "layer_norm", False), (9, 100, "rms_norm", False)])
+def test_fused_residual_norm_matches_plain(rows, d, kind, affine, dtype):
+    _card()
+    gen = _gen(rows + d)
+    x, r = _rand((rows, d), dtype, gen), _rand((rows, d), dtype, gen)
+    w = (1 + _rand((d,), dtype, gen, 0.1)) if affine else None
+    b = _rand((d,), dtype, gen, 0.1) if affine else None
+    before = FK.fused_residual_norm.launches
+    y, s = FK.fused_residual_norm(x, r, w, b, kind=kind, eps=1e-5)
+    torch.cuda.synchronize()
+    assert FK.fused_residual_norm.launches == before + 1
+    ref_y, ref_s = FK.fused_residual_norm_plain(x, r, w, b, kind, 1e-5)
+    assert _fused_ok(y, ref_y, dtype) and _fused_ok(s, ref_s, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", FUSED_DTYPES, ids=str)
+@pytest.mark.parametrize("act", ["gelu", "gelu_tanh", "silu", "relu", "none"])
+@pytest.mark.parametrize("rows,d", [(33, 100), (64, 4096)])
+def test_fused_bias_act_matches_plain(rows, d, act, dtype):
+    _card()
+    gen = _gen(rows * 3 + d)
+    x, b = _rand((rows, d), dtype, gen), _rand((d,), dtype, gen, 0.5)
+    got = FK.fused_bias_act(x, b, act=act)
+    torch.cuda.synchronize()
+    assert _fused_ok(got, FK.fused_bias_act_plain(x, b, act), dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", FUSED_DTYPES, ids=str)
+@pytest.mark.parametrize("m,k,n,norm_kind,act,with_bias", [
+    (130, 72, 200, "layer_norm", "gelu_tanh", True),
+    (256, 1024, 384, "", "gelu", True),
+    (77, 136, 129, "rms_norm", "silu", False),
+    (1, 64, 8, "", "relu", False)])
+def test_fused_matmul_matches_plain(m, k, n, norm_kind, act, with_bias,
+                                    dtype):
+    _card()
+    gen = _gen(m + k + n)
+    x = _rand((m, k), dtype, gen)
+    w = _rand((n, k), dtype, gen, k ** -0.5)
+    b = _rand((n,), dtype, gen, 0.1) if with_bias else None
+    nw = (1 + _rand((k,), dtype, gen, 0.1)) if norm_kind else None
+    nb = _rand((k,), dtype, gen, 0.1) if norm_kind else None
+    before = FK.fused_matmul.launches
+    got = FK.fused_matmul(x, w, b, nw, nb, norm_kind=norm_kind, act=act)
+    torch.cuda.synchronize()
+    assert FK.fused_matmul.launches == before + 1
+    ref = FK.fused_matmul_plain(x, w, b, nw, nb, norm_kind, act)
+    assert _fused_ok(got, ref, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", FUSED_DTYPES, ids=str)
+@pytest.mark.parametrize("b_,s,k,heads,head_dim,pos_offset,with_bias", [
+    (2, 33, 136, 3, 64, 5, True), (2, 64, 256, 2, 128, 0, False),
+    (1, 2048, 128, 1, 128, 0, False)])
+def test_fused_matmul_rope_matches_plain(b_, s, k, heads, head_dim,
+                                         pos_offset, with_bias, dtype):
+    _card()
+    gen = _gen(s + k)
+    n = heads * head_dim
+    x = _rand((b_ * s, k), dtype, gen)
+    w = _rand((n, k), dtype, gen, k ** -0.5)
+    bias = _rand((n,), dtype, gen, 0.1) if with_bias else None
+    got = FK.fused_matmul_rope(x, w, bias, seq=s, head_dim=head_dim,
+                               pos_offset=pos_offset)
+    torch.cuda.synchronize()
+    ref = FK.fused_matmul_rope_plain(x, w, bias, seq=s, head_dim=head_dim,
+                                     pos_offset=pos_offset)
+    assert _fused_ok(got, ref, dtype)
+
+
+@pytest.mark.cuda
+def test_fused_kernels_raise_on_what_they_do_not_take():
+    """No fallback: a CUDA tensor launches the kernel or raises."""
+    _card()
+    x = torch.randn((4, 12), device="cuda")
+    with pytest.raises(ValueError, match="multiple of 8"):
+        FK.fused_matmul(x, torch.randn((8, 12), device="cuda"))
+    with pytest.raises(ValueError, match="head_dim"):
+        FK.fused_matmul_rope(torch.randn((4, 64), device="cuda"),
+                             torch.randn((192, 64), device="cuda"), seq=4,
+                             head_dim=96)
+    with pytest.raises(TypeError, match="share one of"):
+        FK.fused_bias_act(x, torch.zeros(12, device="cuda",
+                                         dtype=torch.float16))
+    with pytest.raises(ValueError, match="CPU or all on one CUDA"):
+        FK.fused_residual_norm(x, x.cpu())
+    with pytest.raises(ValueError, match="multiple of 8"):
+        F.fused_norm_linear(torch.randn((2, 3, 12), device="cuda"),
+                            torch.randn((8, 12), device="cuda"))
+
+
+@pytest.mark.cuda
+def test_fused_functionals_launch_forward_and_recompute_backward():
+    """Forward through the kernel (one launch), backward through the
+    composite (no launch), with the composite's gradients."""
+    _card()
+    gen = _gen(11)
+    x = _rand((2, 16, 128), torch.float32, gen).requires_grad_()
+    w = _rand((128, 128), torch.float32, gen, 128 ** -0.5).requires_grad_()
+    before = FK.fused_matmul_rope.launches
+    out = F.fused_rope_proj(x, w, num_heads=2, pos_offset=3)
+    (out * torch.cos(out)).sum().backward()
+    torch.cuda.synchronize()
+    assert FK.fused_matmul_rope.launches == before + 1
+    xr, wr = (t.detach().clone().requires_grad_() for t in (x, w))
+    ref = rope_rotate((xr @ wr.t()).view(2, 16, 2, 64), 10000.0, 3)
+    (ref * torch.cos(ref)).sum().backward()
+    assert (out - ref).abs().max().item() <= FUSED_FP32_TOL
+    assert (x.grad - xr.grad).abs().max().item() <= 1e-4
+    assert (w.grad - wr.grad).abs().max().item() <= 1e-4

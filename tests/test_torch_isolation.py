@@ -16,8 +16,10 @@ import torch
 
 import paddle_tpu_torch
 from paddle_tpu_torch.inference import PagedEngine
-from paddle_tpu_torch.models import GPTConfig, GPTForCausalLM
+from paddle_tpu_torch.models import (GPTConfig, GPTForCausalLM, LlamaConfig,
+                                     LlamaForCausalLM)
 from paddle_tpu_torch.ops.cuda import flash_attention as fa
+from paddle_tpu_torch.ops.cuda import fused_ops as FK
 from paddle_tpu_torch.optimizer import AdamW
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -50,9 +52,10 @@ def test_imports_without_jax_or_paddle_tpu():
                           env=env, capture_output=True, text=True,
                           timeout=300)
     assert proc.returncode == 0, proc.stderr
-    # every module was walked: serving, and the training slice's
-    # functionals, clipping, schedulers and optimizers
-    assert int(proc.stdout.split()[-1]) >= 24
+    # every module was walked: serving, the training slice's functionals,
+    # clipping, schedulers and optimizers, and the fusion slice's flags,
+    # norms, activations, fused ops, LLaMA, fusion pass and to_static
+    assert int(proc.stdout.split()[-1]) >= 37
 
 
 def test_no_silent_cpu_without_cuda():
@@ -65,6 +68,9 @@ def test_no_silent_cpu_without_cuda():
     model = GPTForCausalLM(TINY, device="cpu")
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         PagedEngine(model)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        LlamaForCausalLM(LlamaConfig(vocab_size=83, hidden_size=64,
+                                     num_layers=1, num_heads=2))
 
 
 def test_cpu_flash_call_launches_nothing():
@@ -100,3 +106,24 @@ def test_chip_smoke_refuses_to_run_without_cuda():
                           text=True, timeout=300)
     assert proc.returncode != 0
     assert '"ok"' not in proc.stdout
+
+
+def test_cpu_fused_training_step_launches_nothing():
+    """A fused to_static step on CPU tensors runs the fused ops' plain
+    versions: the pass rewrote the graph, and no kernel launched."""
+    model = LlamaForCausalLM(LlamaConfig(vocab_size=83, hidden_size=64,
+                                         intermediate_size=128, num_layers=2,
+                                         num_heads=2), device="cpu")
+    paddle_tpu_torch.set_flags({"FLAGS_enable_fusion": True})
+    try:
+        step = paddle_tpu_torch.to_static(model)
+        ids = torch.zeros((2, 7), dtype=torch.int64)
+        _, loss = step(ids, labels=ids)
+        loss.backward()
+    finally:
+        paddle_tpu_torch.set_flags({"FLAGS_enable_fusion": False})
+    assert step.fusion_stats["rewritten"] == {"rope_proj": 4,
+                                              "residual_norm": 4}
+    assert (FK.fused_residual_norm.launches, FK.fused_bias_act.launches,
+            FK.fused_matmul.launches, FK.fused_matmul_rope.launches,
+            fa.flash_attention_fwd.launches) == (0, 0, 0, 0, 0)
