@@ -13,14 +13,14 @@ Phases, in order; any failure exits non-zero and nothing is caught:
              on the card, fp32, bf16 and fp16, at the path shapes and at the
              edge shapes; time each at its path shape beside its bound, its
              plain version and PyTorch's own flash attention (a yardstick the
-             port never calls).
+             port never calls), and K1's host time a call.
 * fused_kernel -- the same for the fusion pass's kernels: K4 residual + norm,
              K5 bias + activation, K6 norm + matmul + activation, K7 matmul +
              rope, at the path shapes of the fusion phase and at edge shapes
              (ragged rows and columns, widths not multiples of 128, head dims
              64 and 128, rope offsets, every activation, both norms, with and
-             without bias); each timed beside its bound, its plain version
-             and a PyTorch yardstick.
+             without bias); each timed beside its bound, its plain version,
+             a PyTorch yardstick and its host time a call.
 * forward -- GPT-2 small (full width, seeded random weights): fp32 logits on
              the card (through the kernel) against a CPU twin (plain
              attention); then a timed bf16 forward at B=4, S=1024.
@@ -74,6 +74,7 @@ PHASES = ("build", "kernel", "fused_kernel", "forward", "serve", "train",
 MAIN_PATH = ("forward", "serve", "train", "fusion")
 PATH_SHAPE = dict(b=4, s=1024, h=12, d=64)      # GPT-2 small serving
 TRAIN_SHAPE = dict(b=8, s=1024, h=16, d=64)     # GPT-2 345M training
+LLAMA_ATTN_SHAPE = dict(b=4, s=2048, h=12, d=128)   # LLaMA-770M fusion path
 FP32_TOL = 1e-4
 BF16_TOL = 2e-2
 FP16_TOL = 5e-3     # one fp16 rounding step at |x| in [4, 8) is 3.9e-3
@@ -88,6 +89,7 @@ LOSS_TOL = 1e-4         # fp32 card vs CPU per-step training loss
 ADAMW = dict(beta1=0.9, beta2=0.95, epsilon=1e-8, weight_decay=0.1)
 LR = 2.5e-4
 KERNEL_REPS = 10        # launches back to back in one kernel timing
+QUEUE_CYCLES = 10_000_000   # a sleep kernel of about 5 ms at the H100's clock
 # kernel -> (source, the TPU kernel it replaces)
 KERNELS = {
     "flash_attention_fwd": ("flash_attention_fwd.cu", "flash_attention.py:175"),
@@ -123,12 +125,16 @@ def log(msg: str) -> None:
     print(msg, flush=True)
 
 
-def time_ms(fn, iters: int = 20, warmup: int = 3, reps: int = 1):
+def time_ms(fn, iters: int = 20, warmup: int = 3, reps: int = 1,
+            queued: bool = False):
     """(median, first quartile, third quartile) of ``iters`` CUDA-event
     timings of ``fn``, in ms, after warm-up. Each timing spans ``reps``
     calls back to back and is divided by ``reps``: a kernel is timed with
     the card kept busy, as the training step keeps it, not after an idle
-    gap of a synchronize."""
+    gap of a synchronize. With ``queued`` (the kernel timings) each timing
+    starts behind a sleep kernel long enough for the host to queue all
+    ``reps`` calls, so it reads the card's time and not the host's rate
+    of launches; without it, the time a caller waits."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
@@ -136,6 +142,8 @@ def time_ms(fn, iters: int = 20, warmup: int = 3, reps: int = 1):
     for _ in range(iters):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
+        if queued:
+            torch.cuda._sleep(QUEUE_CYCLES)
         start.record()
         for _ in range(reps):
             fn()
@@ -146,6 +154,20 @@ def time_ms(fn, iters: int = 20, warmup: int = 3, reps: int = 1):
     return median, q1, q3
 
 
+def host_ms(fn, calls: int = 50) -> float:
+    """Host time of one call of ``fn`` in ms (``calls`` calls enqueued with
+    no synchronize in between): where it is longer than the kernel, launches
+    back to back leave the card idle between them and ``time_ms`` reads the
+    host's rate."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    elapsed = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return elapsed / calls * 1e3
+
+
 def randn(shape, dtype, gen):
     return torch.randn(shape, generator=gen, device="cuda").to(dtype)
 
@@ -153,14 +175,20 @@ def randn(shape, dtype, gen):
 # ------------------------------------------------------------------ build
 def _ptxas_summary(report):
     """(kernel, "N registers, spills") for each entry function of a
-    ``nvcc -Xptxas -v`` report, named like ``dq_mma<bf16, 64>``."""
+    ``nvcc -Xptxas -v`` report, named like ``dq_mma<bf16, 64>``, and
+    ("warning", line) for each ptxas warning that ``setmaxnreg`` was
+    ignored (C7508) or that wgmma was serialized ("Potential Performance
+    Loss")."""
     out, kernel = [], None
     for line in report.splitlines():
         found = re.search(r"Compiling entry function '(\w+)'", line)
-        if found:
+        if ("C7508" in line or "setmaxnreg ignored" in line
+                or "Performance Loss" in line):
+            out.append(("warning", line.strip()))
+        elif found:
             mangled = found.group(1)
-            base = re.search(r"(flash_fwd|dkv|dq|gemm)_(mma|f32)|residual_norm"
-                             r"|bias_act", mangled)
+            base = re.search(r"(flash_fwd|dkv|dq|gemm)_(wgmma|mma|f32)"
+                             r"|norm_rows|residual_norm|bias_act", mangled)
             dtype = ("fp16" if "__half" in mangled else
                      "bf16" if "bfloat16" in mangled else "fp32")
             dim = re.search(r"Li(\d+)E", mangled)
@@ -182,6 +210,8 @@ def phase_build(state):
     libs = _build.build_all()
     secs = time.perf_counter() - t0
     for name, path in libs.items():
+        if name in _build.build_seconds:
+            log(f"  nvcc {name}: {_build.build_seconds[name]:.2f} s")
         log_path = path.with_suffix(".log")
         report = log_path.read_text() if log_path.exists() else ""
         for kernel, usage in _ptxas_summary(report):
@@ -222,10 +252,9 @@ def phase_kernel(state):
     import paddle_tpu_torch.ops.cuda.flash_attention as fa
     gen = torch.Generator(device="cuda")
     gen.manual_seed(1234)
-    p, t = PATH_SHAPE, TRAIN_SHAPE
-    serve = (p["b"], p["s"], p["s"], p["h"], p["d"])
-    train = (t["b"], t["s"], t["s"], t["h"], t["d"])
-    # (name, b, s_q, s_k, h, d, causal, strided): the two path shapes as
+    serve, train, llama = ((s["b"], s["s"], s["s"], s["h"], s["d"])
+                           for s in (PATH_SHAPE, TRAIN_SHAPE, LLAMA_ATTN_SHAPE))
+    # (name, b, s_q, s_k, h, d, causal, strided): the three path shapes as
     # the model hands them over (views of the qkv projection) and as
     # separate tensors, then the edges
     cases = [
@@ -234,11 +263,20 @@ def phase_kernel(state):
         ("path strided qkv views", *serve, True, True),
         ("train path", *train, True, False),
         ("train strided qkv views", *train, True, True),
+        ("llama path", *llama, True, False),
         ("s_q=1 vs 1024", 4, 1, 1024, 12, 64, True, False),
         ("s_q=17 vs 1024", 4, 17, 1024, 12, 64, True, False),
         ("s_q=100 vs 64 (blind rows)", 2, 100, 64, 12, 64, True, False),
+        ("s_q=300 vs 64 (blind tiles)", 2, 300, 64, 12, 64, True, False),
         ("ragged S=1000", 2, 1000, 1000, 12, 64, True, False),
+        ("ragged S=129", 2, 129, 129, 12, 64, True, False),
+        ("ragged S=65", 2, 65, 65, 12, 64, True, False),
+        ("ragged S=129 non-causal", 2, 129, 129, 12, 64, False, False),
         ("d=128", 1, 2048, 2048, 8, 128, True, False),
+        ("d=128 s_q=17 vs 1024", 2, 17, 1024, 4, 128, True, False),
+        ("d=128 ragged S=1000 non-causal", 2, 1000, 1000, 4, 128, False,
+         False),
+        ("d=128 strided qkv views", 2, 333, 333, 4, 128, True, True),
     ]
     worst = {}
     for dtype, tol in ((torch.float32, FP32_TOL), (torch.bfloat16, BF16_TOL),
@@ -261,6 +299,7 @@ def phase_kernel(state):
     state.setdefault("kernels", {})["flash_attention_fwd"] = dict(
         worst, **_time_fwd(fa, gen, PATH_SHAPE))
     _time_fwd(fa, gen, TRAIN_SHAPE)
+    _time_fwd(fa, gen, LLAMA_ATTN_SHAPE)
     _kernel_bwd(fa, gen, state)
 
 
@@ -299,21 +338,24 @@ def _time_fwd(fa, gen, shape):
     kernels-line fields."""
     b, s, h, d = shape["b"], shape["s"], shape["h"], shape["d"]
     q, k, v = _qkv(b, s, s, h, d, torch.bfloat16, gen)
-    ms, q1, q3 = time_ms(lambda: fa.flash_attention_fwd(q, k, v, causal=True),
-                         reps=KERNEL_REPS)
+    def run():
+        return fa.flash_attention_fwd(q, k, v, causal=True)
+    ms, q1, q3 = time_ms(run, reps=KERNEL_REPS, queued=True)
+    host = host_ms(run)
     plain_ms, _, _ = time_ms(
-        lambda: fa.flash_attention_fwd_plain(q, k, v, causal=True), iters=5)
+        lambda: fa.flash_attention_fwd_plain(q, k, v, causal=True), iters=5,
+        queued=True)
     qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
     library_ms, _, _ = time_ms(
         lambda: torch.nn.functional.scaled_dot_product_attention(
-            qt, kt, vt, is_causal=True), reps=KERNEL_REPS)
+            qt, kt, vt, is_causal=True), reps=KERNEL_REPS, queued=True)
     moved = 4 * b * s * h * d * q.element_size() + b * h * s * 4  # +lse
     flops = 4.0 * b * h * d * _visible_pairs(s, s, True)
     bound_ms, bound_by = _bound(moved, flops)
     label = f"B{b} S{s} H{h} d{d} bf16 causal"
     log(json.dumps({"kernel": "flash_attention_fwd", "shape": label,
                     "kernel_ms": ms, "kernel_ms_q1": q1, "kernel_ms_q3": q3,
-                    "bound_ms": bound_ms, "bound_by": bound_by,
+                    "host_ms_a_call": host, "bound_ms": bound_ms, "bound_by": bound_by,
                     "library_ms": library_ms, "plain_ms": plain_ms,
                     "bytes": moved, "flops": flops}))
     return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
@@ -398,19 +440,20 @@ def _kernel_bwd(fa, gen, state):
     delta = fa.flash_attention_bwd_delta(out, do)
     dq_t = time_ms(lambda: fa.flash_attention_bwd_dq(q, k, v, do, lse, delta,
                                                      causal=True),
-                   reps=KERNEL_REPS)
+                   reps=KERNEL_REPS, queued=True)
     dkv_t = time_ms(lambda: fa.flash_attention_bwd_dkv(q, k, v, do, lse,
                                                        delta, causal=True),
-                    reps=KERNEL_REPS)
+                    reps=KERNEL_REPS, queued=True)
     # the plain version computes dq, dk and dv together: one time for both
     plain_ms, _, _ = time_ms(lambda: fa.flash_attention_bwd_plain(
-        q, k, v, out, lse, do, causal=True), iters=5)
+        q, k, v, out, lse, do, causal=True), iters=5, queued=True)
     leaves, lib_out = _library_attention(q, k, v, True)
     lib_do = do.transpose(1, 2).contiguous()
     # PyTorch's flash backward computes dQ, dK and dV in one call: one
     # time for the pair
     library_ms, _, _ = time_ms(lambda: torch.autograd.grad(
-        lib_out, leaves, lib_do, retain_graph=True), reps=KERNEL_REPS)
+        lib_out, leaves, lib_do, retain_graph=True), reps=KERNEL_REPS,
+        queued=True)
     tensor_bytes = b * s * h * d * q.element_size()
     row_bytes = b * h * s * 4                       # lse or Delta
     pairs = _visible_pairs(s, s, True)
@@ -502,7 +545,15 @@ def _fused_cases(fk, gen, dtype):
              True),
             ("rms silu 77x136->129 no bias", 77, 136, 129, "rms_norm",
              "silu", False),
-            ("relu 1x64->8", 1, 64, 8, "", "relu", False)):
+            ("relu 1x64->8", 1, 64, 8, "", "relu", False),
+            ("ragged M ln 300x1024->384", 300, 1024, 384, "layer_norm",
+             "gelu_tanh", True),
+            ("unaligned rows 64x256->4100", 64, 256, 4100, "", "gelu",
+             True),
+            ("rms 37x128->8 no bias", 37, 128, 8, "rms_norm", "", False),
+            ("K=8 silu 50x8->136", 50, 8, 136, "", "silu", True),
+            ("M=1 rms relu 1x1024->256", 1, 1024, 256, "rms_norm", "relu",
+             True)):
         x, w = r(m, k), r(n, k, scale=k ** -0.5)
         b = r(n, scale=0.1) if bias else None
         nw = 1 + r(k, scale=0.1) if norm else None
@@ -530,13 +581,16 @@ def _fused_cases(fk, gen, dtype):
 def _time_fused(name, label, run, plain, library, library_call, moved, flops,
                 peak=BF16_FLOP_PER_S):
     """One K4-K7 timing at its path shape: the kernel (ten launches back to
-    back a CUDA-event pair), its plain version and a PyTorch yardstick."""
-    ms, q1, q3 = time_ms(run, reps=KERNEL_REPS)
-    plain_ms, _, _ = time_ms(plain, iters=5)
-    library_ms, _, _ = time_ms(library, reps=KERNEL_REPS)
+    back a CUDA-event pair, queued), its plain version and a PyTorch
+    yardstick."""
+    ms, q1, q3 = time_ms(run, reps=KERNEL_REPS, queued=True)
+    host = host_ms(run)
+    plain_ms, _, _ = time_ms(plain, iters=5, queued=True)
+    library_ms, _, _ = time_ms(library, reps=KERNEL_REPS, queued=True)
     bound_ms, bound_by = _bound(moved, flops, peak)
     log(json.dumps({"kernel": name, "shape": label, "kernel_ms": ms,
                     "kernel_ms_q1": q1, "kernel_ms_q3": q3,
+                    "host_ms_a_call": host,
                     "bound_ms": bound_ms, "bound_by": bound_by,
                     "library_ms": library_ms, "library_call": library_call,
                     "plain_ms": plain_ms, "bytes": moved, "flops": flops}))
@@ -615,6 +669,22 @@ def phase_fused_kernel(state):
                 (rows * d_gpt + 3 * d_gpt * d_gpt + rows * 3 * d_gpt
                  + 3 * d_gpt + 2 * d_gpt) * 2,
                 2.0 * rows * 3 * d_gpt * d_gpt)
+    # K6's plain version takes the norm's statistics in float64, as the
+    # kernel's row pass does; the TPU kernel takes them in fp32. How far
+    # the kernel sits from that function at the path shape (not a limit):
+    xn, xn_tpu = (fk.normalize_rows(xm.float(), wg.float(), bg.float(),
+                                    "layer_norm", 1e-5, stats=s).to(bf16)
+                  for s in (torch.float64, torch.float32))
+    tpu = fk.fused_matmul_plain(xn_tpu, wq, bq).float()
+    got = fk.fused_matmul(xm, wq, bq, wg, bg, "layer_norm").float()
+    log(json.dumps({
+        "kernel": "fused_matmul", "shape": f"{rows}x{d_gpt}->{3 * d_gpt} "
+        "bf16 layer_norm prologue, bias",
+        "normalized_values_off_fp32_statistics": int((xn != xn_tpu).sum()),
+        "normalized_values": xn.numel(),
+        "limit_ratio_against_fp32_statistics": (
+            (got - tpu).abs() / (FUSED_REL[bf16] * tpu.abs() + FUSED_ABS)
+        ).max().item()}))
     # K7: LLaMA-770M's q (and k) projection with its rope, 8192 x 1536
     xr, wr = r(rows, h), r(h, h, scale=h ** -0.5)
     seq, hd = LLAMA_SHAPE["s"], h // LLAMA_770M["num_heads"]
@@ -1059,7 +1129,9 @@ def _fused_training(label, model, batches, fused_fwd, profile=False,
             _profile(f"{label} {name} step",
                      lambda: _train_step(forward, opt, b0, want_fwd, bwd),
                      groups={"K1-K3 attention": ("flash_fwd", "dq_", "dkv_"),
-                             "K4": ("residual_norm",), "K6/K7": ("gemm_mma",),
+                             "K4": ("residual_norm",),
+                             "K6": ("gemm_wgmma", "norm_rows"),
+                             "K7": ("gemm_mma",),
                              "cuBLAS GEMM": ("nvjet", "xmma", "cutlass",
                                              "cublas"),
                              "elementwise and reductions": (
@@ -1216,7 +1288,8 @@ def main(argv=None) -> int:
             "bound_ms": k["bound_ms"], "bound_by": k["bound_by"],
             "library_ms": k["library_ms"], "shape": k["shape"],
             "timing": f"median of CUDA-event pairs, each around "
-                      f"{KERNEL_REPS} back-to-back launches"})
+                      f"{KERNEL_REPS} back-to-back launches queued behind "
+                      f"a sleep kernel"})
     log(json.dumps({"kernels": rows}))
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",

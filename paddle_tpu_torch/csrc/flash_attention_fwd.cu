@@ -6,23 +6,47 @@
 // online softmax over key/value tiles with fp32 running max `m`, sum `l`
 // and accumulator; the -1e30 mask value; the bottom-right causal offset
 // `seq_k - seq_q` with key tiles wholly above the diagonal skipped; 0 for
-// rows that see no key; LSE = m + log(max(l, 1e-30)) per query row.
+// rows that see no key; LSE = m + log(max(l, 1e-30)) per query row, in
+// natural-log units, as the backward kernels and the plain versions read it.
 //
 // Translation. On the TPU the key/value axis is the innermost, sequential
 // grid axis and m/l/acc live in VMEM scratch across grid steps. Here the
 // blocks of a grid run in parallel and share nothing, so one thread block
-// owns one (batch*head, 64-query tile) pair and walks the key/value tiles
-// in a loop, keeping m/l/acc in registers. Q/K/V are read in their BSHD
-// layout through the strides the wrapper passes, so the JAX wrapper's
-// BSHD<->BHSD transposes (two copies each way) and its pad of the head
-// dim to 128 lanes do not exist here.
+// owns one (batch*head, query tile) pair and walks the key/value tiles in a
+// loop, keeping m/l/acc in registers. Q/K/V are read in their BSHD layout
+// through the strides the wrapper passes, so the JAX wrapper's BSHD<->BHSD
+// transposes and its pad of the head dim to 128 lanes do not exist here.
 //
 // Two bodies, one function:
-//   * bf16 / fp16: four warps, 16 query rows each. S = Q K^T and O += P V
-//     run on the tensor cores through `mma.sync.m16n8k16` with fp32
-//     accumulation; P is rounded to the input type before P V, as the TPU
-//     kernel rounds `p.astype(v.dtype)`. The S accumulator fragment is
-//     reused in registers as the A operand of P V.
+//   * bf16 / fp16, `flash_fwd_wgmma`: warp-specialized. A block owns 128
+//     query rows: two consumer warpgroups of 64 rows each and a producer
+//     warpgroup, which keeps 24 registers a thread and hands the rest to
+//     the consumers (`setmaxnreg`: 240 each). The producer's one thread
+//     issues TMA loads: Q once, then K/V tiles of 128 keys into a ring of
+//     shared-memory stages (3 for d = 64, 2 for d = 128; 115.8 and 164.9
+//     KB a block), each stage guarded by a
+//     `full` mbarrier (TMA bytes landed) and an `empty` one (both consumer
+//     warpgroups done with it). Q, K and V each have one tensor map a call,
+//     encoded on the host from the BSHD pointer and strides (dims d, S, H,
+//     B; 128-byte swizzle, rows of 64 values; a d = 128 row is two boxes),
+//     so a view of the qkv projection (sequence stride 3*H*d) is read in
+//     place and TMA's zero fill covers the ragged tails of S.
+//     S = Q K^T is `wgmma` m64n128k16 with both operands K-major in shared
+//     memory. The softmax runs on the accumulator fragment in registers in
+//     log2 units (scale * log2(e) folded into one multiply, exp2f), with
+//     the causal/ragged mask only on the tiles that cross the diagonal or
+//     the end of S; the fully visible tiles run a loop without it. P is
+//     rounded to the input type in registers (as the TPU kernel rounds
+//     `p.astype(v.dtype)`) and is the register A operand of O += P V, whose
+//     B = V is read MN-major (d contiguous) with wgmma's transpose bit.
+//     The two consumer warpgroups take turns issuing S (a pair of named
+//     barriers), so that one's softmax overlaps the other's products.
+//     Query tiles are scheduled heaviest first (the last rows of a causal
+//     head, across all heads, form the first wave). O is normalized,
+//     staged through the warpgroup's own Q rows and stored in BSHD with
+//     16-byte writes. 128-key tiles for d = 128 too: S (64 fp32), O (64)
+//     and P (32) fit a consumer's 240 registers, and halving the tile
+//     would double the softmax's shuffles and barrier round trips a key.
 //   * fp32: plain FMA on the CUDA cores (tensor cores would round the
 //     inputs to TF32). 128 threads, each owning an 8x4 piece of S and an
 //     8x(d/16) piece of O; S/P go through shared memory for the row
@@ -31,26 +55,22 @@
 // Bound at the GPT-2 small path shape (B=4, S=1024, H=12, d=64, bf16,
 // causal), per call: q, k, v and out are 6.29 MB each, 25.2 MB together,
 // 7.5 us at 3.35 TB/s; the FLOPs are 4*B*H*S^2*d/2 = 6.4 GFLOP, 6.5 us at
-// 989 TFLOP/s. So the call is bound by bytes at about 7.5 us, and a
-// forward makes 12 such calls (one a layer). What the design does about
-// it: every input byte is read from device memory once per query tile
-// (K/V tiles are re-read by the 16 query tiles of a head, from L2), and
-// no (S, S) matrix ever leaves the chip. What it does not do yet: the
-// loads are synchronous (no cp.async/TMA ring overlapping the next tile
-// with this tile's math) and the products use mma.sync, not wgmma, so the
-// kernel sits well above the bound; that is later work.
+// 989 TFLOP/s. So the call is bound by bytes at about 7.6 us. What the
+// design does about it: every input byte is read from device memory once
+// per query tile (K/V tiles are re-read by the 8 query tiles of a head, from
+// L2), the loads run ahead of the math in the TMA ring, the products run on
+// wgmma, and no (S, S) matrix ever leaves the chip.
 
-#include <cuda_runtime.h>
-#include <cuda_bf16.h>
-#include <cuda_fp16.h>
-#include <stdint.h>
+#include "hopper.cuh"
 
 namespace {
 
-constexpr int kBlockQ = 64;
+constexpr int kBlockQ = 64;       // fp32 body
 constexpr int kBlockK = 64;
 constexpr int kThreads = 128;
 constexpr float kNegInf = -1e30f;
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
 
 struct Args {
   const void* q;
@@ -66,15 +86,31 @@ struct Args {
   int causal;
 };
 
-// Key/value tiles this query tile must visit: all of them, or, when
-// causal, those that start at or before the last key its last row sees.
-__device__ __forceinline__ int kv_tiles(const Args& a, int q0) {
-  int n = (a.seq_k + kBlockK - 1) / kBlockK;
+// Key/value tiles of `bn` keys that rows up to `last_row` must visit: all
+// of them, or, when causal, those that start at or before the last key
+// that row sees.
+__device__ __forceinline__ int kv_end(const Args& a, int last_row, int bn) {
+  int n = (a.seq_k + bn - 1) / bn;
   if (a.causal) {
-    const int last = q0 + kBlockQ - 1 + (a.seq_k - a.seq_q);
-    n = last < 0 ? 0 : min(n, last / kBlockK + 1);
+    const int last = last_row + (a.seq_k - a.seq_q);
+    n = last < 0 ? 0 : min(n, last / bn + 1);
   }
   return n;
+}
+
+// Leading tiles that every row from `first_row` on sees whole: no causal
+// cut and no end of S inside them.
+__device__ __forceinline__ int kv_full(const Args& a, int first_row, int bn) {
+  int n = a.seq_k / bn;
+  if (a.causal) {
+    const int f = first_row + (a.seq_k - a.seq_q) + 1;
+    n = f <= 0 ? 0 : min(n, f / bn);
+  }
+  return n;
+}
+
+__device__ __forceinline__ int kv_tiles(const Args& a, int q0) {
+  return kv_end(a, q0 + kBlockQ - 1, kBlockK);
 }
 
 __device__ __forceinline__ bool visible(const Args& a, int row, int col) {
@@ -221,213 +257,238 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_f32(const Args a) {
 
 // ----------------------------------------------------- bf16 / fp16 body
 
-template <typename T>
-struct Mma;
+constexpr int kConsumers = 256;                // two consumer warpgroups
+constexpr int kMmaThreads = kConsumers + 128;  // and a producer warpgroup
+constexpr int kMmaRows = 128;                  // query rows a block owns
+constexpr int kMmaKeys = 128;                  // keys a K/V tile holds
 
-template <>
-struct Mma<__nv_bfloat16> {
-  static __device__ __forceinline__ void run(float* c, const uint32_t* a,
-                                             const uint32_t* b) {
-    asm volatile(
-        "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-        "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-  }
-  static __device__ __forceinline__ uint32_t pack(float lo, float hi) {
-    __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-    return *reinterpret_cast<uint32_t*>(&v);
-  }
+template <int D>
+struct FwdLayout {
+  static constexpr int kStages = D == 64 ? 3 : 2;
+  static constexpr uint32_t kQBytes = kMmaRows * D * 2;
+  static constexpr uint32_t kTileBytes = kMmaKeys * D * 2;   // K or V
+  static constexpr uint32_t kStageBytes = 2 * kTileBytes;
+  static constexpr size_t kSmem =
+      1024 + kQBytes + kStages * kStageBytes + (1 + 2 * kStages) * sizeof(uint64_t);
 };
 
-template <>
-struct Mma<__half> {
-  static __device__ __forceinline__ void run(float* c, const uint32_t* a,
-                                             const uint32_t* b) {
-    asm volatile(
-        "mma.sync.aligned.m16n8k16.row.col.f32.f16.f16.f32 "
-        "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-  }
-  static __device__ __forceinline__ uint32_t pack(float lo, float hi) {
-    __half2 v = __floats2half2_rn(lo, hi);
-    return *reinterpret_cast<uint32_t*>(&v);
-  }
-};
+// One K/V tile for one consumer warpgroup: S = Q K^T, the online softmax,
+// O += P V. MASK applies the causal cut and the end of S per element.
+template <typename T, int D, bool MASK>
+__device__ __forceinline__ void attend_tile(
+    const Args& a, const unsigned char* q_wg, const unsigned char* ks,
+    const unsigned char* vs, int k0, int row0, int row1, float sl2,
+    float (&o)[D / 2], float& m0, float& m1, float& l0, float& l1) {
+  using hopper::desc_sw128;
+  constexpr int BN = kMmaKeys;
+  const int t = threadIdx.x & 3;
 
-__device__ __forceinline__ uint32_t pair(uint16_t lo, uint16_t hi) {
-  return static_cast<uint32_t>(lo) | (static_cast<uint32_t>(hi) << 16);
-}
-
-// ROWS rows of D 16-bit values from a strided source into a shared tile
-// with row pitch D + 8, 16 bytes a thread; rows at or past `limit` are 0.
-template <int D, int ROWS>
-__device__ __forceinline__ void load_rows(uint16_t* dst, const uint16_t* src,
-                                          long long stride, int row0,
-                                          int limit) {
-  constexpr int LD = D + 8, PER_ROW = D / 8;
-  for (int i = threadIdx.x; i < ROWS * PER_ROW; i += kThreads) {
-    const int r = i / PER_ROW, c = (i % PER_ROW) * 8;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (row0 + r < limit)
-      val = *reinterpret_cast<const uint4*>(src + (row0 + r) * stride + c);
-    *reinterpret_cast<uint4*>(dst + r * LD + c) = val;
+  float s[BN / 2];
+  hopper::wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    // k16 step kk: column block kk / 4 of the rows, 32 bytes in per step
+    const int blk = kk / 4, off = (kk % 4) * 32;
+    hopper::Wgmma<T, BN>::ss(s, desc_sw128(q_wg + blk * kMmaRows * 128 + off, 16, 1024),
+                             desc_sw128(ks + blk * BN * 128 + off, 16, 1024), kk);
   }
+  hopper::wgmma_commit();
+  hopper::bar_arrive(4 - threadIdx.x / 128, kConsumers);   // the other's turn
+  hopper::wgmma_wait<0>();
+  hopper::fence_regs(s);
+
+  float mx0 = kNegInf, mx1 = kNegInf;
+#pragma unroll
+  for (int n = 0; n < BN / 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      float v = s[4 * n + e] * sl2;
+      if (MASK && !visible(a, e < 2 ? row0 : row1, k0 + n * 8 + 2 * t + (e & 1)))
+        v = kNegInf;
+      s[4 * n + e] = v;
+      if (e < 2) mx0 = fmaxf(mx0, v);
+      else mx1 = fmaxf(mx1, v);
+    }
+  // the four threads of a quad hold one row between them
+  mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 1));
+  mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 2));
+  mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 1));
+  mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 2));
+  const float mn0 = fmaxf(m0, mx0), mn1 = fmaxf(m1, mx1);
+  // a row that has seen no key yet keeps p = 0 (exp2(-1e30 + 1e30) = 1)
+  const bool live0 = mn0 > 0.5f * kNegInf, live1 = mn1 > 0.5f * kNegInf;
+  float sum0 = 0.f, sum1 = 0.f;
+#pragma unroll
+  for (int n = 0; n < BN / 8; ++n) {
+    s[4 * n] = live0 ? exp2f(s[4 * n] - mn0) : 0.f;
+    s[4 * n + 1] = live0 ? exp2f(s[4 * n + 1] - mn0) : 0.f;
+    s[4 * n + 2] = live1 ? exp2f(s[4 * n + 2] - mn1) : 0.f;
+    s[4 * n + 3] = live1 ? exp2f(s[4 * n + 3] - mn1) : 0.f;
+    sum0 += s[4 * n] + s[4 * n + 1];
+    sum1 += s[4 * n + 2] + s[4 * n + 3];
+  }
+  sum0 += __shfl_xor_sync(0xffffffffu, sum0, 1);
+  sum0 += __shfl_xor_sync(0xffffffffu, sum0, 2);
+  sum1 += __shfl_xor_sync(0xffffffffu, sum1, 1);
+  sum1 += __shfl_xor_sync(0xffffffffu, sum1, 2);
+  const float al0 = exp2f(m0 - mn0), al1 = exp2f(m1 - mn1);
+  l0 = al0 * l0 + sum0;
+  l1 = al1 * l1 + sum1;
+  m0 = mn0;
+  m1 = mn1;
+
+  // the accumulator blocks 2kk, 2kk+1 of S, rounded, are P's k16 step kk
+  uint32_t p[BN / 16][4];
+#pragma unroll
+  for (int kk = 0; kk < BN / 16; ++kk) {
+    p[kk][0] = hopper::pack2<T>(s[8 * kk], s[8 * kk + 1]);
+    p[kk][1] = hopper::pack2<T>(s[8 * kk + 2], s[8 * kk + 3]);
+    p[kk][2] = hopper::pack2<T>(s[8 * kk + 4], s[8 * kk + 5]);
+    p[kk][3] = hopper::pack2<T>(s[8 * kk + 6], s[8 * kk + 7]);
+  }
+#pragma unroll
+  for (int n = 0; n < D / 8; ++n) {
+    o[4 * n] *= al0;
+    o[4 * n + 1] *= al0;
+    o[4 * n + 2] *= al1;
+    o[4 * n + 3] *= al1;
+  }
+  hopper::fence_regs(o);
+  hopper::fence_regs(p);
+  hopper::wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < BN / 16; ++kk)
+    // V (keys x d) is MN-major: 8-key groups 1024 bytes apart, the two
+    // 64-column blocks of d = 128 BN * 128 bytes apart
+    hopper::Wgmma<T, D>::rs_t(o, p[kk], desc_sw128(vs + kk * 2048, BN * 128, 1024));
+  hopper::wgmma_commit();
+  hopper::wgmma_wait<0>();
+  hopper::fence_regs(o);
+  hopper::fence_regs(p);
 }
 
 template <typename T, int D>
-__global__ void __launch_bounds__(kThreads) flash_fwd_mma(const Args a) {
-  constexpr int LD = D + 8;          // +16 bytes a row: fragment reads hit 32 banks
-  constexpr int NS = kBlockK / 8;    // S n-tiles a warp owns (16 x 64)
-  constexpr int NO = D / 8;          // O n-tiles a warp owns (16 x D)
-  constexpr int KQ = D / 16;         // k-steps of Q K^T
-  constexpr int KP = kBlockK / 16;   // k-steps of P V
+__global__ void __launch_bounds__(kMmaThreads, 1)
+    flash_fwd_wgmma(const __grid_constant__ CUtensorMap tq,
+                    const __grid_constant__ CUtensorMap tk,
+                    const __grid_constant__ CUtensorMap tv, const Args a) {
+  using L = FwdLayout<D>;
+  constexpr int BN = kMmaKeys;
+  constexpr int kBlkQ = kMmaRows * 128;   // bytes of a 64-column block of Q
+  constexpr int kBlkKV = BN * 128;        // ... of K or V
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  uint16_t* qs = reinterpret_cast<uint16_t*>(smem_raw);
-  uint16_t* ks = qs + kBlockQ * LD;
-  uint16_t* vs = ks + kBlockK * LD;
+  // the 128-byte swizzle repeats every 1024 bytes: tiles start on that
+  unsigned char* qs = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~static_cast<uintptr_t>(1023));
+  unsigned char* kv = qs + L::kQBytes;    // stage s: K, then V
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(kv + L::kStages * L::kStageBytes);
+  uint64_t* full = q_full + 1;
+  uint64_t* empty = full + L::kStages;
 
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane >> 2, t = lane & 3;   // mma fragment coordinates
-  const int q0 = (gridDim.x - 1 - blockIdx.x) * kBlockQ;
-  const int b = blockIdx.y / a.heads, h = blockIdx.y % a.heads;
-  const uint16_t* q = static_cast<const uint16_t*>(a.q) + b * a.q_sb + h * a.q_sh;
-  const uint16_t* k = static_cast<const uint16_t*>(a.k) + b * a.k_sb + h * a.k_sh;
-  const uint16_t* v = static_cast<const uint16_t*>(a.v) + b * a.v_sb + h * a.v_sh;
-
-  load_rows<D, kBlockQ>(qs, q, a.q_ss, q0, a.seq_q);
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * kMmaRows;   // heaviest first
+  const int bh = blockIdx.x, b = bh / a.heads, h = bh % a.heads;
+  const int n_kv = kv_end(a, q0 + kMmaRows - 1, BN);
+  if (threadIdx.x == 0) {
+    hopper::mbar_init(q_full, 1);
+    for (int s = 0; s < L::kStages; ++s) {
+      hopper::mbar_init(&full[s], 1);
+      hopper::mbar_init(&empty[s], kConsumers / 32);   // one arrival a warp
+    }
+    hopper::fence_barrier_init();
+  }
   __syncthreads();
-  const int wr = warp * 16;
-  uint32_t qf[KQ][4];
-#pragma unroll
-  for (int kk = 0; kk < KQ; ++kk) {
-    const uint16_t* p = qs + (wr + g) * LD + kk * 16 + 2 * t;
-    qf[kk][0] = *reinterpret_cast<const uint32_t*>(p);
-    qf[kk][1] = *reinterpret_cast<const uint32_t*>(p + 8 * LD);
-    qf[kk][2] = *reinterpret_cast<const uint32_t*>(p + 8);
-    qf[kk][3] = *reinterpret_cast<const uint32_t*>(p + 8 * LD + 8);
+
+  if (threadIdx.x >= kConsumers) {
+    // the producer: one thread keeps the ring full
+    hopper::reg_dealloc<24>();
+    if (threadIdx.x == kConsumers && n_kv > 0) {
+      hopper::mbar_expect_tx(q_full, L::kQBytes);
+      for (int c = 0; c < D / 64; ++c)
+        hopper::tma_load_4d(qs + c * kBlkQ, &tq, q_full, c * 64, q0, h, b);
+      for (int j = 0; j < n_kv; ++j) {
+        const int s = j % L::kStages;
+        if (j >= L::kStages) hopper::mbar_wait(&empty[s], (j / L::kStages - 1) & 1);
+        unsigned char* ks = kv + s * L::kStageBytes;
+        hopper::mbar_expect_tx(&full[s], L::kStageBytes);
+        for (int c = 0; c < D / 64; ++c) {
+          hopper::tma_load_4d(ks + c * kBlkKV, &tk, &full[s], c * 64, j * BN, h, b);
+          hopper::tma_load_4d(ks + L::kTileBytes + c * kBlkKV, &tv, &full[s], c * 64,
+                              j * BN, h, b);
+        }
+      }
+    }
+    return;
   }
 
-  const int row0 = q0 + wr + g, row1 = row0 + 8;   // the two rows a thread holds
-  const int n_kv = kv_tiles(a, q0);
-  float acc[NO][4];
+  // a consumer warpgroup: query rows first .. first + 63
+  hopper::reg_alloc<240>();
+  const int wg = threadIdx.x / 128, warp = (threadIdx.x % 128) / 32;
+  const int lane = threadIdx.x % 32, g = lane >> 2, t = lane & 3;
+  const int first = q0 + wg * 64;
+  const int row0 = first + warp * 16 + g, row1 = row0 + 8;   // a thread's two rows
+  const int n_mine = kv_end(a, first + 63, BN);
+  const int n_full = min(n_mine, kv_full(a, first, BN));
+  const float sl2 = a.scale * kLog2e;
+  unsigned char* q_wg = qs + wg * 64 * 128;
+
+  float o[D / 2];
 #pragma unroll
-  for (int n = 0; n < NO; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
+  for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
   float m0 = kNegInf, m1 = kNegInf, l0 = 0.f, l1 = 0.f;
-
+  if (n_kv > 0) hopper::mbar_wait(q_full, 0);
+  // the warpgroups take turns issuing S = Q K^T (named barriers 3 and 4),
+  // so that one's softmax runs while the other's products do
+  if (wg == 1) hopper::bar_arrive(3, kConsumers);   // warpgroup 0 goes first
   for (int j = 0; j < n_kv; ++j) {
-    const int k0 = j * kBlockK;
-    __syncthreads();   // the previous tile's K/V are consumed
-    load_rows<D, kBlockK>(ks, k, a.k_ss, k0, a.seq_k);
-    load_rows<D, kBlockK>(vs, v, a.v_ss, k0, a.seq_k);
-    __syncthreads();
-
-    float s[NS][4];
-#pragma unroll
-    for (int n = 0; n < NS; ++n) {
-      s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
-#pragma unroll
-      for (int kk = 0; kk < KQ; ++kk) {
-        const uint16_t* p = ks + (n * 8 + g) * LD + kk * 16 + 2 * t;
-        const uint32_t bf[2] = {*reinterpret_cast<const uint32_t*>(p),
-                                *reinterpret_cast<const uint32_t*>(p + 8)};
-        Mma<T>::run(s[n], qf[kk], bf);
-      }
-    }
-
-    float mx0 = kNegInf, mx1 = kNegInf;
-#pragma unroll
-    for (int n = 0; n < NS; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int col = k0 + n * 8 + 2 * t + (e & 1);
-        const int row = e < 2 ? row0 : row1;
-        s[n][e] = visible(a, row, col) ? s[n][e] * a.scale : kNegInf;
-        if (e < 2) mx0 = fmaxf(mx0, s[n][e]);
-        else mx1 = fmaxf(mx1, s[n][e]);
-      }
-    // the four threads of a fragment group hold one row between them
-    mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 1));
-    mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 2));
-    mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 1));
-    mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 2));
-    const float mn0 = fmaxf(m0, mx0), mn1 = fmaxf(m1, mx1);
-    const bool live0 = mn0 > 0.5f * kNegInf, live1 = mn1 > 0.5f * kNegInf;
-    float sum0 = 0.f, sum1 = 0.f;
-#pragma unroll
-    for (int n = 0; n < NS; ++n) {
-      s[n][0] = live0 ? __expf(s[n][0] - mn0) : 0.f;
-      s[n][1] = live0 ? __expf(s[n][1] - mn0) : 0.f;
-      s[n][2] = live1 ? __expf(s[n][2] - mn1) : 0.f;
-      s[n][3] = live1 ? __expf(s[n][3] - mn1) : 0.f;
-      sum0 += s[n][0] + s[n][1];
-      sum1 += s[n][2] + s[n][3];
-    }
-    sum0 += __shfl_xor_sync(0xffffffffu, sum0, 1);
-    sum0 += __shfl_xor_sync(0xffffffffu, sum0, 2);
-    sum1 += __shfl_xor_sync(0xffffffffu, sum1, 1);
-    sum1 += __shfl_xor_sync(0xffffffffu, sum1, 2);
-    const float al0 = __expf(m0 - mn0), al1 = __expf(m1 - mn1);
-    l0 = al0 * l0 + sum0;
-    l1 = al1 * l1 + sum1;
-    m0 = mn0;
-    m1 = mn1;
-#pragma unroll
-    for (int n = 0; n < NO; ++n) {
-      acc[n][0] *= al0;
-      acc[n][1] *= al0;
-      acc[n][2] *= al1;
-      acc[n][3] *= al1;
-    }
-
-#pragma unroll
-    for (int kk = 0; kk < KP; ++kk) {
-      // the S accumulator of n-tiles 2kk, 2kk+1 is the A fragment of P V
-      const uint32_t pf[4] = {Mma<T>::pack(s[2 * kk][0], s[2 * kk][1]),
-                              Mma<T>::pack(s[2 * kk][2], s[2 * kk][3]),
-                              Mma<T>::pack(s[2 * kk + 1][0], s[2 * kk + 1][1]),
-                              Mma<T>::pack(s[2 * kk + 1][2], s[2 * kk + 1][3])};
-#pragma unroll
-      for (int n = 0; n < NO; ++n) {
-        const uint16_t* p = vs + (kk * 16 + 2 * t) * LD + n * 8 + g;
-        const uint32_t bf[2] = {pair(p[0], p[LD]), pair(p[8 * LD], p[9 * LD])};
-        Mma<T>::run(acc[n], pf, bf);
-      }
-    }
+    const int s = j % L::kStages;
+    hopper::mbar_wait(&full[s], (j / L::kStages) & 1);
+    hopper::bar_sync(3 + wg, kConsumers);   // this warpgroup's turn
+    const unsigned char* ks = kv + s * L::kStageBytes;
+    if (j < n_full)
+      attend_tile<T, D, false>(a, q_wg, ks, ks + L::kTileBytes, j * BN, row0, row1,
+                               sl2, o, m0, m1, l0, l1);
+    else if (j < n_mine)   // the diagonal and the end of S
+      attend_tile<T, D, true>(a, q_wg, ks, ks + L::kTileBytes, j * BN, row0, row1,
+                              sl2, o, m0, m1, l0, l1);
+    else   // no product to issue: pass the turn on
+      hopper::bar_arrive(4 - wg, kConsumers);
+    if (lane == 0) hopper::mbar_arrive(&empty[s]);
   }
 
+  // O through the warpgroup's own Q rows (its last product has read them),
+  // in the same 128-byte swizzle, then 16-byte stores of whole rows
   const float L0 = fmaxf(l0, 1e-30f), L1 = fmaxf(l1, 1e-30f);
-  uint32_t* o = static_cast<uint32_t*>(a.o);   // pairs of output values
-  if (row0 < a.seq_q) {
-    const long long base = ((static_cast<long long>(b) * a.seq_q + row0) * a.heads + h) * D;
+  const float inv0 = 1.f / L0, inv1 = 1.f / L1;
+  const int r0 = warp * 16 + g;   // local rows r0, r0 + 8; both r % 8 == g
+  hopper::bar_sync(1 + wg, 128);
 #pragma unroll
-    for (int n = 0; n < NO; ++n)
-      o[(base + n * 8 + 2 * t) / 2] = Mma<T>::pack(acc[n][0] / L0, acc[n][1] / L0);
-    if (t == 0)
-      a.lse[static_cast<long long>(blockIdx.y) * a.seq_q + row0] = m0 + logf(L0);
+  for (int n = 0; n < D / 8; ++n) {
+    unsigned char* blk = q_wg + (n / 8) * kBlkQ + (((n % 8) ^ g) * 16) + 4 * t;
+    *reinterpret_cast<uint32_t*>(blk + r0 * 128) =
+        hopper::pack2<T>(o[4 * n] * inv0, o[4 * n + 1] * inv0);
+    *reinterpret_cast<uint32_t*>(blk + (r0 + 8) * 128) =
+        hopper::pack2<T>(o[4 * n + 2] * inv1, o[4 * n + 3] * inv1);
   }
-  if (row1 < a.seq_q) {
-    const long long base = ((static_cast<long long>(b) * a.seq_q + row1) * a.heads + h) * D;
-#pragma unroll
-    for (int n = 0; n < NO; ++n)
-      o[(base + n * 8 + 2 * t) / 2] = Mma<T>::pack(acc[n][2] / L1, acc[n][3] / L1);
-    if (t == 0)
-      a.lse[static_cast<long long>(blockIdx.y) * a.seq_q + row1] = m1 + logf(L1);
+  hopper::bar_sync(1 + wg, 128);
+  constexpr int kChunks = D / 8;   // 16-byte pieces of a row
+  T* out = static_cast<T*>(a.o);
+  for (int i = threadIdx.x % 128; i < 64 * kChunks; i += 128) {
+    const int r = i / kChunks, ch = i % kChunks, q = first + r;
+    if (q >= a.seq_q) continue;
+    const uint4 v = *reinterpret_cast<const uint4*>(
+        q_wg + (ch / 8) * kBlkQ + r * 128 + (((ch % 8) ^ (r & 7)) * 16));
+    *reinterpret_cast<uint4*>(
+        out + ((static_cast<long long>(b) * a.seq_q + q) * a.heads + h) * D + ch * 8) = v;
+  }
+  if (t == 0) {
+    float* lse = a.lse + static_cast<long long>(bh) * a.seq_q;
+    // natural-log LSE; a row that saw no key keeps about -1e30
+    if (row0 < a.seq_q) lse[row0] = (m0 > 0.5f * kNegInf ? m0 * kLn2 : m0) + logf(L0);
+    if (row1 < a.seq_q) lse[row1] = (m1 > 0.5f * kNegInf ? m1 * kLn2 : m1) + logf(L1);
   }
 }
 
 // ---------------------------------------------------------------- launch
-
-template <typename Kernel>
-cudaError_t launch(Kernel kernel, size_t smem, dim3 grid, cudaStream_t stream,
-                   const Args& a) {
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-  if (err != cudaSuccess) return err;
-  kernel<<<grid, kThreads, smem, stream>>>(a);
-  return cudaGetLastError();
-}
 
 template <int D>
 size_t f32_smem() {
@@ -436,15 +497,53 @@ size_t f32_smem() {
 }
 
 template <int D>
-size_t mma_smem() {
-  return sizeof(uint16_t) * (kBlockQ + 2 * kBlockK) * (D + 8);
+cudaError_t launch_f32(const Args& a, int batch, cudaStream_t stream) {
+  const size_t smem = f32_smem<D>();
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_fwd_f32<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  const dim3 grid((a.seq_q + kBlockQ - 1) / kBlockQ, batch * a.heads);
+  flash_fwd_f32<D><<<grid, kThreads, smem, stream>>>(a);
+  return cudaGetLastError();
+}
+
+// One tensor map for each of q, k, v: dims (d, S, H, B) innermost first,
+// the BSHD strides in bytes, boxes of 64 values x `rows` positions.
+template <typename T, int D>
+cudaError_t launch_wgmma(const Args& a, int batch, cudaStream_t stream) {
+  const void* base[3] = {a.q, a.k, a.v};
+  const long long strides[3][3] = {
+      {a.q_ss, a.q_sh, a.q_sb}, {a.k_ss, a.k_sh, a.k_sb}, {a.v_ss, a.v_sh, a.v_sb}};
+  const int seq[3] = {a.seq_q, a.seq_k, a.seq_k};
+  const int rows[3] = {kMmaRows, kMmaKeys, kMmaKeys};
+  CUtensorMap maps[3];
+  for (int i = 0; i < 3; ++i) {
+    const cuuint64_t dims[4] = {static_cast<cuuint64_t>(D), static_cast<cuuint64_t>(seq[i]),
+                                static_cast<cuuint64_t>(a.heads),
+                                static_cast<cuuint64_t>(batch)};
+    const cuuint64_t bytes[3] = {static_cast<cuuint64_t>(strides[i][0]) * 2,
+                                 static_cast<cuuint64_t>(strides[i][1]) * 2,
+                                 static_cast<cuuint64_t>(strides[i][2]) * 2};
+    const cuuint32_t box[4] = {64, static_cast<cuuint32_t>(rows[i]), 1, 1};
+    if (!hopper::make_map(&maps[i], base[i], hopper::kIsHalf<T>, 4, dims, bytes, box))
+      return cudaErrorInvalidValue;
+  }
+  const size_t smem = FwdLayout<D>::kSmem;
+  cudaError_t err = cudaFuncSetAttribute(flash_fwd_wgmma<T, D>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  const dim3 grid(batch * a.heads, (a.seq_q + kMmaRows - 1) / kMmaRows);
+  flash_fwd_wgmma<T, D><<<grid, kMmaThreads, smem, stream>>>(maps[0], maps[1], maps[2], a);
+  return cudaGetLastError();
 }
 
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16, 2 = float16. head_dim: 64 or 128.
 // Returns a cudaError_t: the launch's own, or cudaErrorInvalidValue for
-// arguments the kernel does not take.
+// arguments the kernel does not take (or strides TMA cannot describe:
+// every stride and the base must be 16-byte aligned).
 extern "C" int flash_attention_fwd(
     const void* q, const void* k, const void* v, void* o, void* lse,
     long long q_sb, long long q_ss, long long q_sh,
@@ -458,19 +557,12 @@ extern "C" int flash_attention_fwd(
   const Args a{q, k, v, o, static_cast<float*>(lse),
                q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh,
                heads, seq_q, seq_k, scale, causal};
-  const dim3 grid((seq_q + kBlockQ - 1) / kBlockQ, batch * heads);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0 && head_dim == 64)
-    return launch(flash_fwd_f32<64>, f32_smem<64>(), grid, st, a);
-  if (dtype == 0 && head_dim == 128)
-    return launch(flash_fwd_f32<128>, f32_smem<128>(), grid, st, a);
-  if (dtype == 1 && head_dim == 64)
-    return launch(flash_fwd_mma<__nv_bfloat16, 64>, mma_smem<64>(), grid, st, a);
-  if (dtype == 1 && head_dim == 128)
-    return launch(flash_fwd_mma<__nv_bfloat16, 128>, mma_smem<128>(), grid, st, a);
-  if (dtype == 2 && head_dim == 64)
-    return launch(flash_fwd_mma<__half, 64>, mma_smem<64>(), grid, st, a);
-  if (dtype == 2 && head_dim == 128)
-    return launch(flash_fwd_mma<__half, 128>, mma_smem<128>(), grid, st, a);
+  if (dtype == 0 && head_dim == 64) return launch_f32<64>(a, batch, st);
+  if (dtype == 0 && head_dim == 128) return launch_f32<128>(a, batch, st);
+  if (dtype == 1 && head_dim == 64) return launch_wgmma<__nv_bfloat16, 64>(a, batch, st);
+  if (dtype == 1 && head_dim == 128) return launch_wgmma<__nv_bfloat16, 128>(a, batch, st);
+  if (dtype == 2 && head_dim == 64) return launch_wgmma<__half, 64>(a, batch, st);
+  if (dtype == 2 && head_dim == 128) return launch_wgmma<__half, 128>(a, batch, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }

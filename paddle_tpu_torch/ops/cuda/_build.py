@@ -1,9 +1,10 @@
 """Build the port's CUDA sources with ``nvcc`` and load them with ``ctypes``.
 
 Each ``paddle_tpu_torch/csrc/<name>.cu`` has a plain C interface and is
-compiled on its own into ``paddle_tpu_torch/_build/lib<name>-<hash>.so``.
-The hash covers the source and the flags, so an edited source builds
-anew and an unchanged one is loaded as it is. Nothing is built when a
+compiled on its own into ``paddle_tpu_torch/_build/lib<name>-<hash>.so``;
+``csrc/*.cuh`` are headers the sources share. The hash covers the source,
+the headers and the flags, so an edited source builds anew and an
+unchanged one is loaded as it is. Nothing is built when a
 module is imported: the first call that needs a library builds it, and
 ``build_all`` builds every source at once, one ``nvcc`` each, all started
 together.
@@ -20,6 +21,7 @@ import os
 import shutil
 import subprocess
 import threading
+import time
 from pathlib import Path
 from typing import Dict, Iterable, List
 
@@ -32,6 +34,8 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
+# seconds each nvcc of this process took, from its start to its end
+build_seconds: Dict[str, float] = {}
 
 
 def _nvcc() -> str:
@@ -46,11 +50,13 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    """Where ``csrc/<name>.cu`` builds to (keyed by source and flags)."""
-    src = CSRC_DIR / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"lib{name}-{digest}.so"
+    """Where ``csrc/<name>.cu`` builds to (keyed by the source, the shared
+    headers ``csrc/*.cuh`` and the flags)."""
+    digest = hashlib.sha256()
+    for src in [CSRC_DIR / f"{name}.cu", *sorted(CSRC_DIR.glob("*.cuh"))]:
+        digest.update(src.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
 
 
 def _start(name: str):
@@ -62,12 +68,13 @@ def _start(name: str):
     cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC_DIR / f"{name}.cu")]
     proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                             stderr=subprocess.PIPE, text=True)
-    return proc, tmp, out
+    return proc, tmp, out, time.perf_counter()
 
 
 def _finish(name: str, job) -> None:
-    proc, tmp, out = job
+    proc, tmp, out, t0 = job
     stdout, stderr = proc.communicate()
+    build_seconds[name] = time.perf_counter() - t0
     if proc.returncode != 0:
         tmp.unlink(missing_ok=True)
         raise RuntimeError(
@@ -91,13 +98,19 @@ def build_all(names: Iterable[str] = ()) -> Dict[str, Path]:
     with _lock:
         jobs = {n: _start(n) for n in names}
         errors = []
-        for n, job in jobs.items():
-            if job is None:
-                continue
+
+        def finish(n, job):
             try:
                 _finish(n, job)
             except RuntimeError as e:
                 errors.append(str(e))
+        # one waiter a build, so each one's time ends when its nvcc does
+        waiters = [threading.Thread(target=finish, args=(n, job))
+                   for n, job in jobs.items() if job is not None]
+        for w in waiters:
+            w.start()
+        for w in waiters:
+            w.join()
         if errors:
             raise RuntimeError("\n".join(errors))
     return {n: library_path(n) for n in names}

@@ -9,7 +9,8 @@ Counterpart of ``paddle_tpu/ops/pallas/fused_ops.py``:
 * K5 ``fused_bias_act`` -> ``csrc/fused_bias_act.cu`` (``_bias_act_kernel``):
   ``act(x + b)``;
 * K6 ``fused_matmul`` -> ``csrc/fused_matmul.cu`` (``_matmul_kernel``):
-  ``act(norm(x) W^T + b)``;
+  ``act(norm(x) W^T + b)``; in bf16/fp16 the norm is a row pass into a
+  scratch buffer, launched by the same call before the product;
 * K7 ``fused_matmul_rope`` -> ``csrc/fused_matmul.cu`` (``_matmul_rope_kernel``):
   ``rope(x W^T + b)`` over the flattened (batch, seq) rows.
 
@@ -56,20 +57,24 @@ def act_apply(y: torch.Tensor, act: Optional[str]) -> torch.Tensor:
 
 
 def normalize_rows(x32: torch.Tensor, w32: Optional[torch.Tensor],
-                   b32: Optional[torch.Tensor], kind: str,
-                   eps: float) -> torch.Tensor:
+                   b32: Optional[torch.Tensor], kind: str, eps: float,
+                   stats: torch.dtype = torch.float32) -> torch.Tensor:
     """Row-wise LayerNorm/RMSNorm over the last dim in fp32 (counterpart of
     ``_normalize_rows``): the centered variance for LayerNorm, the mean of
-    squares for RMSNorm; a missing weight is 1, a missing bias 0."""
-    if kind == "rms_norm":
-        ms = (x32 * x32).mean(dim=-1, keepdim=True)
-        y = x32 * torch.rsqrt(ms + eps)
-    elif kind == "layer_norm":
-        centered = x32 - x32.mean(dim=-1, keepdim=True)
-        var = (centered * centered).mean(dim=-1, keepdim=True)
-        y = centered * torch.rsqrt(var + eps)
-    else:
+    squares for RMSNorm; a missing weight is 1, a missing bias 0.
+
+    The mean, the mean square and rsqrt(var + eps) are taken in ``stats``
+    and rounded to fp32; the rest is fp32. fp32 is the TPU kernel's
+    arithmetic; float64 is K6's row pass, whose fp32-rounded statistics do
+    not depend on the order of the sums."""
+    if kind not in ("layer_norm", "rms_norm"):
         raise ValueError(f"unknown norm kind {kind!r}")
+    centered = x32
+    if kind == "layer_norm":
+        centered = x32 - x32.to(stats).mean(dim=-1, keepdim=True).float()
+    c = centered.to(stats)
+    var = (c * c).mean(dim=-1, keepdim=True).float()
+    y = centered * torch.rsqrt((var + eps).to(stats)).float()
     if w32 is not None:
         y = y * w32
     if b32 is not None:
@@ -107,12 +112,15 @@ def fused_matmul_plain(x: torch.Tensor, w: torch.Tensor,
                        norm_kind: str = "", act: str = "",
                        eps: float = 1e-5) -> torch.Tensor:
     """K6's function in plain PyTorch: x (M, K), w (N, K). The normalized
-    rows are rounded to x's type before the fp32 product, as the kernel
-    rounds them; bias and activation in fp32, rounded once."""
+    rows are rounded to x's type before the fp32 product, as the TPU kernel
+    rounds them; bias and activation in fp32, rounded once. The norm takes
+    its statistics in float64, as the kernel's row pass does, so both
+    round every normalized value alike; the TPU kernel's fp32 statistics
+    can put a value one rounding of x's type away."""
     xn = x
     if norm_kind:
         xn = normalize_rows(x.float(), _f32(norm_weight), _f32(norm_bias),
-                            norm_kind, eps).to(x.dtype)
+                            norm_kind, eps, stats=torch.float64).to(x.dtype)
     acc = xn.float() @ w.float().t()
     if bias is not None:
         acc = acc + bias.float()
@@ -263,7 +271,9 @@ def fused_matmul(x: torch.Tensor, w: torch.Tensor,
                  eps: float = 1e-5) -> torch.Tensor:
     """K6: act(norm(x) w^T + b) over x (M, K), w (N, K) -> (M, N) in x's
     type; ``norm_kind`` "" skips the norm. CPU tensors run the plain
-    version; CUDA tensors launch the kernel (K a multiple of 8) or raise."""
+    version; CUDA tensors launch the kernel (K a multiple of 8) or raise.
+    One call counts one launch: in bf16/fp16 with a norm it runs the row
+    pass and then the product."""
     if not x.is_cuda:
         return fused_matmul_plain(x, w, bias, norm_weight, norm_bias,
                                   norm_kind, act, eps)
@@ -275,11 +285,14 @@ def fused_matmul(x: torch.Tensor, w: torch.Tensor,
     _check_vec(name, norm_weight, k, "norm_weight")
     _check_vec(name, norm_bias, k, "norm_bias")
     out = torch.empty((m, n), dtype=x.dtype, device=x.device)
-    fn = _function("fused_matmul", name, [_P] * 6 + [_I] * 6 + [_F, _P])
+    # the bf16/fp16 kernel's row pass writes the normalized rows here
+    scratch = (torch.empty_like(x) if norm_kind and x.dtype != torch.float32
+               else None)
+    fn = _function("fused_matmul", name, [_P] * 7 + [_I] * 6 + [_F, _P])
     _launch(name, fn, x, x.data_ptr(), w.data_ptr(), _ptr(bias),
-            _ptr(norm_weight), _ptr(norm_bias), out.data_ptr(), m, n, k,
-            _DTYPE_CODE[x.dtype], NORM_CODE[norm_kind], ACT_CODE[act],
-            float(eps))
+            _ptr(norm_weight), _ptr(norm_bias), _ptr(scratch), out.data_ptr(),
+            m, n, k, _DTYPE_CODE[x.dtype], NORM_CODE[norm_kind],
+            ACT_CODE[act], float(eps))
     fused_matmul.launches += 1
     return out
 

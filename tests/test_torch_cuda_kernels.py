@@ -37,7 +37,12 @@ def _card():
 @pytest.mark.parametrize("dtype", sorted(TOLERANCES, key=str))
 @pytest.mark.parametrize("s_q,s_k,d,causal", [
     (130, 130, 64, True), (130, 130, 64, False), (1, 300, 64, True),
-    (90, 40, 64, True), (200, 200, 128, True)])
+    (90, 40, 64, True), (200, 200, 128, True),
+    # the bf16/fp16 body's edges: 128-row query tiles, 128-key tiles
+    (129, 129, 64, True), (65, 65, 64, True), (1000, 1000, 64, True),
+    (129, 129, 64, False), (1, 1024, 64, True), (17, 1024, 64, True),
+    (300, 64, 64, True), (2048, 2048, 128, True), (17, 1024, 128, True),
+    (1000, 1000, 128, False)])
 def test_flash_attention_fwd_matches_plain(s_q, s_k, d, causal, dtype):
     _card()
     gen = torch.Generator(device="cuda")
@@ -60,18 +65,21 @@ def test_flash_attention_fwd_matches_plain(s_q, s_k, d, causal, dtype):
 
 
 @pytest.mark.cuda
-def test_flash_attention_fwd_reads_strided_qkv_views():
-    """The GPT layer hands the kernel views into one qkv projection."""
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16], ids=str)
+@pytest.mark.parametrize("s,d", [(77, 64), (333, 128)])
+def test_flash_attention_fwd_reads_strided_qkv_views(s, d, dtype):
+    """The GPT layer hands the kernel views into one qkv projection (a
+    sequence stride of 3*H*d, which the kernel's tensor maps take)."""
     _card()
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
-    qkv = torch.randn((2, 77, 3 * 4 * 64), generator=gen,
-                      device="cuda").to(torch.bfloat16)
-    q, k, v = (t.view(2, 77, 4, 64) for t in qkv.split(4 * 64, dim=-1))
+    qkv = torch.randn((2, s, 3 * 4 * d), generator=gen,
+                      device="cuda").to(dtype)
+    q, k, v = (t.view(2, s, 4, d) for t in qkv.split(4 * d, dim=-1))
     assert not q.is_contiguous()
     out, _ = flash_attention_fwd(q, k, v, causal=True)
     ref, _ = flash_attention_fwd_plain(q, k, v, causal=True)
-    assert (out.float() - ref.float()).abs().max().item() <= 2e-2
+    assert (out.float() - ref.float()).abs().max().item() <= TOLERANCES[dtype]
 
 
 @pytest.mark.cuda
@@ -252,7 +260,15 @@ def test_fused_bias_act_matches_plain(rows, d, act, dtype):
     (130, 72, 200, "layer_norm", "gelu_tanh", True),
     (256, 1024, 384, "", "gelu", True),
     (77, 136, 129, "rms_norm", "silu", False),
-    (1, 64, 8, "", "relu", False)])
+    (1, 64, 8, "", "relu", False),
+    # the bf16/fp16 body's edges: 128 x 128 tiles, 64-wide k-tiles, rows
+    # that are not 16-byte aligned when N % 8 != 0
+    (300, 1024, 384, "layer_norm", "gelu_tanh", True),
+    (64, 256, 4100, "", "gelu", True),
+    (37, 128, 8, "rms_norm", "", False),
+    (50, 8, 136, "", "silu", True),
+    (1, 1024, 256, "rms_norm", "relu", True),
+    (129, 72, 129, "", "gelu_tanh", False)])
 def test_fused_matmul_matches_plain(m, k, n, norm_kind, act, with_bias,
                                     dtype):
     _card()

@@ -96,6 +96,43 @@ def test_matmul_plain_matches_pallas(norm_kind, act, with_bias):
     close(got, want)
 
 
+# One bf16 rounding step of the output, |got - want| <= 2^-7 |want| + 1e-3:
+# both sides round an fp32 value whose sums run in another order.
+SPLIT_TOL = {"float32": (TOL, TOL), "bfloat16": (1e-3, 2 ** -7)}
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("norm_kind", ["layer_norm", "rms_norm"])
+def test_matmul_norm_split_matches_pallas(norm_kind, dtype):
+    """The bf16/fp16 K6 runs its norm as a row pass (normalize, scale and
+    shift, round to x's type; statistics in float64) and then the product
+    with no norm: the plain versions of the two, one after the other,
+    compute the Pallas kernel's function, where it rounds included. The
+    row pass's normalized values sit within one rounding of x's type of
+    those from the TPU's fp32 statistics (2^-7 relative in bf16), and
+    within 1e-6 where a value near 0 makes that rounding smaller than the
+    two statistics' own fp32 difference."""
+    x, w = arr(40, 256), arr(256, 128, scale=0.06)
+    b, nw, nb = arr(128, scale=0.1), 1 + arr(256, scale=0.1), arr(256,
+                                                                 scale=0.1)
+    jdt, tdt = getattr(jnp, dtype), getattr(torch, dtype)
+    want = JK.fused_matmul(*(jnp.asarray(a).astype(jdt)
+                             for a in (x, w, b, nw, nb)),
+                           norm_kind=norm_kind, act="gelu_tanh", eps=1e-5)
+    xt, wt, bt, nwt, nbt = (t(a).to(tdt) for a in (x, w.T, b, nw, nb))
+    xn, xn_tpu = (FK.normalize_rows(xt.float(), nwt.float(), nbt.float(),
+                                    norm_kind, 1e-5, stats=s).to(tdt)
+                  for s in (torch.float64, torch.float32))
+    rtol, atol = (2 ** -7, 1e-6) if dtype == "bfloat16" else (TOL, TOL)
+    np.testing.assert_allclose(xn.float().numpy(), xn_tpu.float().numpy(),
+                               rtol=rtol, atol=atol)
+    got = FK.fused_matmul_plain(xn, wt, bt, act="gelu_tanh")
+    atol, rtol = SPLIT_TOL[dtype]
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(want.astype(jnp.float32)),
+                               atol=atol, rtol=rtol)
+
+
 @pytest.mark.parametrize("pos_offset", [0, 3])
 @pytest.mark.parametrize("with_bias", [False, True])
 @pytest.mark.parametrize("head_dim", [64, 128])
