@@ -11,9 +11,10 @@ Phases, in order; any failure exits non-zero and nothing is caught:
 * kernel  -- hold the flash-attention forward kernel (K1) and the backward
              kernels (K2 dQ, K3 dK/dV) against their plain PyTorch versions
              on the card, fp32, bf16 and fp16, at the path shapes and at the
-             edge shapes; time each at its path shape beside its bound, its
+             edge shapes, and K2/K3 against themselves (two calls bitwise
+             equal); time each at its path shapes beside its bound, its
              plain version and PyTorch's own flash attention (a yardstick the
-             port never calls), and K1's host time a call.
+             port never calls), and its host time a call.
 * fused_kernel -- the same for the fusion pass's kernels: K4 residual + norm,
              K5 bias + activation, K6 norm + matmul + activation, K7 matmul +
              rope, at the path shapes of the fusion phase and at edge shapes
@@ -175,7 +176,7 @@ def randn(shape, dtype, gen):
 # ------------------------------------------------------------------ build
 def _ptxas_summary(report):
     """(kernel, "N registers, spills") for each entry function of a
-    ``nvcc -Xptxas -v`` report, named like ``dq_mma<bf16, 64>``, and
+    ``nvcc -Xptxas -v`` report, named like ``dq_wgmma<bf16, 64>``, and
     ("warning", line) for each ptxas warning that ``setmaxnreg`` was
     ignored (C7508) or that wgmma was serialized ("Potential Performance
     Loss")."""
@@ -398,16 +399,22 @@ def _bwd_inputs(b, s_q, s_k, h, d, dtype, gen, strided=False):
 
 def _kernel_bwd(fa, gen, state):
     t = TRAIN_SHAPE
+    train = (t["b"], t["s"], t["s"], t["h"], t["d"])
+    llama = tuple(LLAMA_ATTN_SHAPE[x] for x in ("b", "s", "s", "h", "d"))
     cases = [
-        ("path", t["b"], t["s"], t["s"], t["h"], t["d"], True, False),
-        ("path non-causal", t["b"], t["s"], t["s"], t["h"], t["d"], False,
-         False),
+        ("path", *train, True, False),
+        ("path non-causal", *train, False, False),
+        ("llama path", *llama, True, False),
         ("s_q=17 vs 1024", 4, 17, 1024, 16, 64, True, False),
         ("s_q=100 vs 64 (blind rows)", 2, 100, 64, 16, 64, True, False),
+        ("s_q=300 vs 70 d=128 (blind rows)", 2, 300, 70, 4, 128, True,
+         False),
         ("ragged S=1000", 2, 1000, 1000, 16, 64, True, False),
+        ("ragged S=257 d=128 non-causal", 2, 257, 257, 4, 128, False,
+         False),
         ("d=128", 1, 2048, 2048, 8, 128, True, False),
-        ("strided qkv views", t["b"], t["s"], t["s"], t["h"], t["d"], True,
-         True),
+        ("strided qkv views", *train, True, True),
+        ("d=128 strided qkv views", 2, 333, 333, 4, 128, True, True),
     ]
     worst = {}
     for dtype, limit in BWD_LIMITS.items():
@@ -418,7 +425,7 @@ def _kernel_bwd(fa, gen, state):
             # fp32 is held to its max abs error, bf16/fp16 to the
             # norm-wise relative error
             held = [e[0] if dtype == torch.float32 else e[1] for e in errs]
-            log(f"  bwd {tag:8s} {name:28s} " + " ".join(
+            log(f"  bwd {tag:8s} {name:33s} " + " ".join(
                 f"{g}: abs={a:.2e} rel={r:.2e}"
                 for g, (a, r) in zip(("dq", "dk", "dv"), errs))
                 + f" blind_dq_max={blind:.1e}")
@@ -427,30 +434,62 @@ def _kernel_bwd(fa, gen, state):
                     f"backward kernels disagree with their plain version: "
                     f"{tag} {name}: {held} (limit {limit}), blind-row dq "
                     f"{blind}")
-            if name == "path" and dtype == torch.bfloat16:
-                worst["flash_attention_bwd_dq"] = errs[0][0]
-                worst["flash_attention_bwd_dkv"] = max(errs[1][0],
-                                                       errs[2][0])
+            if dtype == torch.bfloat16 and name in ("path", "llama path"):
+                worst[name] = {"flash_attention_bwd_dq": errs[0][0],
+                               "flash_attention_bwd_dkv": max(errs[1][0],
+                                                              errs[2][0])}
             del q, k, v, do
+    _bwd_deterministic(fa, gen)
 
-    # timing at the path shape, bf16, causal (the training step's)
-    b, s, h, d = t["b"], t["s"], t["h"], t["d"]
+    # timing at both path shapes, bf16, causal: the kernels line carries
+    # the GPT-2 345M training shape, with the LLaMA-770M shape under
+    # "shapes"
+    timed = [(case, _time_bwd(fa, gen, shape))
+             for case, shape in (("path", TRAIN_SHAPE),
+                                 ("llama path", LLAMA_ATTN_SHAPE))]
+    for name in ("flash_attention_bwd_dq", "flash_attention_bwd_dkv"):
+        rows = [dict(timing[name], max_abs_err=worst[case][name])
+                for case, timing in timed]
+        state["kernels"][name] = dict(rows[0], shapes=rows)
+
+
+def _bwd_deterministic(fa, gen):
+    """Two calls of K2 and K3 on one input give bitwise-equal dq, dk and dv
+    (no atomics: each sum runs in one order), in bf16 at a causal d=128
+    shape with ragged tiles."""
+    q, k, v, do = _bwd_inputs(2, 1000, 1000, 4, 128, torch.bfloat16, gen)
+    out, lse = fa.flash_attention_fwd(q, k, v, causal=True)
+    delta = fa.flash_attention_bwd_delta(out, do)
+    runs = [(fa.flash_attention_bwd_dq(q, k, v, do, lse, delta, causal=True),
+             *fa.flash_attention_bwd_dkv(q, k, v, do, lse, delta,
+                                         causal=True)) for _ in range(2)]
+    torch.cuda.synchronize()
+    same = [torch.equal(a, b) for a, b in zip(*runs)]
+    log(f"  bwd bfloat16 two calls bitwise equal (dq, dk, dv): {same}")
+    if not all(same):
+        raise AssertionError(f"K2/K3 differ from call to call: {same}")
+
+
+def _time_bwd(fa, gen, shape):
+    """K2 and K3 at one path shape (bf16, causal): each one's time beside
+    its bound, the plain backward and PyTorch's flash backward (one call
+    that computes dQ, dK and dV: one time for the pair), and the host time
+    a call; logs one row each and returns the kernels-line fields."""
+    b, s, h, d = shape["b"], shape["s"], shape["h"], shape["d"]
     q, k, v, do = _bwd_inputs(b, s, s, h, d, torch.bfloat16, gen)
     out, lse = fa.flash_attention_fwd(q, k, v, causal=True)
     delta = fa.flash_attention_bwd_delta(out, do)
-    dq_t = time_ms(lambda: fa.flash_attention_bwd_dq(q, k, v, do, lse, delta,
-                                                     causal=True),
-                   reps=KERNEL_REPS, queued=True)
-    dkv_t = time_ms(lambda: fa.flash_attention_bwd_dkv(q, k, v, do, lse,
-                                                       delta, causal=True),
-                    reps=KERNEL_REPS, queued=True)
-    # the plain version computes dq, dk and dv together: one time for both
+    calls = {
+        "flash_attention_bwd_dq": lambda: fa.flash_attention_bwd_dq(
+            q, k, v, do, lse, delta, causal=True),
+        "flash_attention_bwd_dkv": lambda: fa.flash_attention_bwd_dkv(
+            q, k, v, do, lse, delta, causal=True)}
+    times = {name: (time_ms(fn, reps=KERNEL_REPS, queued=True), host_ms(fn))
+             for name, fn in calls.items()}
     plain_ms, _, _ = time_ms(lambda: fa.flash_attention_bwd_plain(
         q, k, v, out, lse, do, causal=True), iters=5, queued=True)
     leaves, lib_out = _library_attention(q, k, v, True)
     lib_do = do.transpose(1, 2).contiguous()
-    # PyTorch's flash backward computes dQ, dK and dV in one call: one
-    # time for the pair
     library_ms, _, _ = time_ms(lambda: torch.autograd.grad(
         lib_out, leaves, lib_do, retain_graph=True), reps=KERNEL_REPS,
         queued=True)
@@ -459,26 +498,34 @@ def _kernel_bwd(fa, gen, state):
     pairs = _visible_pairs(s, s, True)
     plans = {
         # reads q, k, v, dO, lse, Delta; writes dQ. S, dP, dS K: 6d a pair
-        "flash_attention_bwd_dq": (dq_t, 5 * tensor_bytes + 2 * row_bytes,
+        "flash_attention_bwd_dq": (5 * tensor_bytes + 2 * row_bytes,
                                    6.0 * d * pairs * b * h),
         # reads the same; writes dK, dV. S, dP, P^T dO, dS^T Q: 8d a pair
-        "flash_attention_bwd_dkv": (dkv_t, 6 * tensor_bytes + 2 * row_bytes,
+        "flash_attention_bwd_dkv": (6 * tensor_bytes + 2 * row_bytes,
                                     8.0 * d * pairs * b * h),
     }
     label = f"B{b} S{s} H{h} d{d} bf16 causal"
-    for name, ((ms, q1, q3), moved, flops) in plans.items():
+    fields = {}
+    for name, (moved, flops) in plans.items():
+        (ms, q1, q3), host = times[name]
         bound_ms, bound_by = _bound(moved, flops)
         log(json.dumps({"kernel": name, "shape": label,
                         "kernel_ms": ms, "kernel_ms_q1": q1,
-                        "kernel_ms_q3": q3, "bound_ms": bound_ms,
-                        "bound_by": bound_by,
+                        "kernel_ms_q3": q3, "host_ms_a_call": host,
+                        "bound_ms": bound_ms, "bound_by": bound_by,
                         "library_ms_dq_dk_dv": library_ms,
                         "plain_ms_dq_dk_dv": plain_ms, "bytes": moved,
                         "flops": flops}))
-        state["kernels"][name] = dict(
-            max_abs_err=worst[name], ms=ms, plain_ms=plain_ms,
-            bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms,
-            shape=label)
+        fields[name] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                            bound_by=bound_by, library_ms=library_ms,
+                            shape=label)
+    k2_k3 = times["flash_attention_bwd_dq"][0][0] + \
+        times["flash_attention_bwd_dkv"][0][0]
+    log(json.dumps({"kernels": "flash_attention_bwd_dq + _dkv",
+                    "shape": label, "kernel_ms": k2_k3,
+                    "library_ms_dq_dk_dv": library_ms,
+                    "ratio_to_library": k2_k3 / library_ms}))
+    return fields
 
 
 # ----------------------------------------------------------- fused_kernel
@@ -1014,8 +1061,8 @@ def phase_train(state):
             lambda: _train_step(model, opt, batches[1],
                                 *_flash_launches(cfg.num_layers)),
             groups={"K1 flash_fwd": ("flash_fwd",),
-                    "K2 dq": ("dq_mma", "dq_f32"),
-                    "K3 dkv": ("dkv_mma", "dkv_f32"),
+                    "K2 dq": ("dq_wgmma", "dq_f32"),
+                    "K3 dkv": ("dkv_wgmma", "dkv_f32"),
                     "GEMM": ("gemm", "nvjet", "cutlass", "xmma")})
         # the profiler's host cost stretches the profiled step's wall, so
         # the unprofiled busy share is estimated: the profiled step's
@@ -1290,6 +1337,8 @@ def main(argv=None) -> int:
             "timing": f"median of CUDA-event pairs, each around "
                       f"{KERNEL_REPS} back-to-back launches queued behind "
                       f"a sleep kernel"})
+        if "shapes" in k:          # K2/K3: every path shape, this one first
+            rows[-1]["shapes"] = k["shapes"]
     log(json.dumps({"kernels": rows}))
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",

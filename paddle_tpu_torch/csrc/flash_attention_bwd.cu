@@ -17,49 +17,76 @@
 // needs atomics: dQ sums over key tiles, dK/dV over query tiles, each in
 // VMEM scratch across the sequential innermost grid axis. The split stays
 // (it keeps the gradients deterministic), and the sequential axis becomes
-// a loop inside one thread block:
-//   * K2: one block per (batch*head, 64-query tile), looping over key
-//     tiles up to the diagonal (K1's structure and fragment layout).
-//   * K3: one block per (batch*head, 64-key tile), looping over query
-//     tiles from the diagonal on. It computes the transposed score tile
-//     S^T = K Q^T directly, with lse and Delta indexed per column, so
-//     P^T and dS^T come out of the accumulator already in the layout that
-//     `mma.sync.m16n8k16` takes as its A operand: no transpose of P.
-// Inputs are read in their BSHD layout through the strides the wrapper
-// passes (q, k and v are views into the fused qkv projection); dq, dk and
-// dv are written contiguous (B, S, H, D); lse and Delta are (B, H, seq_q)
-// fp32.
+// a loop inside one thread block: K2 owns query rows and walks key tiles
+// up to the diagonal, K3 owns keys and walks query tiles from the
+// diagonal on. Inputs are read in their BSHD layout through the strides
+// the wrapper passes (q, k and v are views into the fused qkv projection,
+// dO may be a strided view); dq, dk and dv are written contiguous
+// (B, S, H, D); lse and Delta are (B, H, seq_q) fp32.
 //
 // Two bodies, one function each kernel:
-//   * bf16 / fp16: four warps, 16 rows each, products on the tensor cores
-//     through `mma.sync.m16n8k16` with fp32 accumulation.
+//   * bf16 / fp16, `dq_wgmma` and `dkv_wgmma`: warp-specialized, as K1's
+//     `flash_fwd_wgmma` (csrc/flash_attention_fwd.cu). A block has two
+//     consumer warpgroups of 64 rows each and a producer warpgroup that
+//     keeps 24 registers a thread and hands the rest to the consumers
+//     (`setmaxnreg`: 240 each). Every input is read through a 4-D BSHD
+//     tensor map encoded per call (dims d, S, H, B; 128-byte swizzle, rows
+//     of 64 values, a d = 128 row is two boxes), TMA's zero fill covers the
+//     ragged tails, and each ring stage is guarded by a `full` mbarrier
+//     (bytes landed) and an `empty` one (both consumer warpgroups done).
+//     All products are `wgmma` with fp32 accumulators in registers.
+//     - K2: 128 query rows a block; Q and dO are loaded once, then K/V
+//       tiles (128 keys at d = 64, 64 at d = 128, where dQ's 64
+//       accumulators a thread leave no room for 128-key S and dP) run
+//       through a 3-stage ring. A tile: S = Q K^T and dP = dO V^T
+//       (both operands K-major in shared memory, issued as two commit
+//       groups so P's exponentials run while dP is in flight); P and dS in
+//       registers in log2 units, the mask only on tiles that cross the
+//       diagonal or the end of the keys; dS rounded to T is the register A
+//       operand of dQ += dS K, with K read MN-major from the same stage.
+//       Heaviest query tiles first; dQ staged through the warpgroup's own
+//       Q rows and stored with 16-byte writes. lse and Delta: two rows a
+//       thread, read once.
+//     - K3: 128 keys a block; K and V are loaded once, then 64-row query
+//       tiles (Q, dO, and their lse and Delta, which the producer warp
+//       stores into the stage with plain loads before it arrives on the
+//       stage's barrier) run through a ring (4 stages at d = 64, 3 at
+//       d = 128). The scores are computed transposed, S^T = K Q^T and
+//       dP^T = V dO^T, with lse and Delta indexed per column, so P^T and
+//       dS^T come out of the accumulator in the layout of wgmma's register
+//       A operand: dV += P^T dO and dK += dS^T Q read dO and Q MN-major
+//       from the stage. At d = 64, dV's product runs while dS^T is
+//       computed (at d = 128 the registers do not allow it). The ring
+//       starts at the first query tile that sees the block's first key;
+//       the second warpgroup, whose keys are seen later, waits on and
+//       releases the stages before its own first tile without work. The
+//       first key tiles (which see the most queries) are scheduled first;
+//       dK and dV are staged through the warpgroup's K and V rows.
 //   * fp32: plain FMA on the CUDA cores (tensor cores would round the
-//     inputs to TF32), S/dS through shared memory.
-// At D = 128, K3 walks 32-query tiles, so that the dK and dV accumulators
-// (D fp32 registers a thread) and the score tiles fit in registers.
+//     inputs to TF32), S/dS through shared memory; at D = 128, K3 walks
+//     32-query tiles, so that the dK and dV accumulators fit in registers.
 //
-// Bound at the GPT-2 345M training shape (B=8, S=1024, H=16, d=64, bf16,
-// causal), per call: q, k, v, o, dO are 16.78 MB each. K2 reads q, k, v,
-// dO, lse and Delta and writes dQ: 84.9 MB, 25.3 us at 3.35 TB/s; it
-// does 3 products of 2d FLOPs for each of the 524,800 visible (q, k)
-// pairs of each of the 128 heads, 25.8 GFLOP, 26.1 us at 989 TFLOP/s.
-// K3 reads the same and writes dK and dV: 101.7 MB, 30.4 us; 4 products,
-// 34.4 GFLOP, 34.8 us. Both are bound by operations. What the design does
-// about it: no (S, S) matrix leaves the chip, and all products run on the
-// tensor cores. What it does not do yet: loads are synchronous (no
-// cp.async/TMA ring), the products use mma.sync rather than wgmma, and
-// K and V tiles are re-read from L2 by every query tile; that is later
-// work.
+// Bounds, per call, bf16, causal. GPT-2 345M training (B=8, S=1024,
+// H=16, d=64): q, k, v, o, dO are 16.78 MB each. K2 reads q, k, v, dO,
+// lse and Delta and writes dQ: 84.9 MB, 25.3 us at 3.35 TB/s; it does 3
+// products of 2d FLOPs for each of the 524,800 visible (q, k) pairs of
+// each of the 128 heads, 25.8 GFLOP, 26.1 us at 989 TFLOP/s. K3 reads
+// the same and writes dK and dV: 101.7 MB, 30.4 us; 4 products, 34.4
+// GFLOP, 34.8 us. LLaMA-770M (B=4, S=2048, H=12, d=128; 2,098,176 pairs
+// a head, 48 heads): K2 77.4 GFLOP, 78 us; K3 103.1 GFLOP, 104 us. All
+// four are bound by operations. What the design does about it: no (S, S)
+// matrix leaves the chip, every product runs on wgmma at m64, the loads
+// run ahead of the math in the TMA ring, and each block reads its own
+// rows once and the other operand's tiles once per block (from L2 when
+// another block of the head has read them).
 
-#include <cuda_runtime.h>
-#include <cuda_bf16.h>
-#include <cuda_fp16.h>
-#include <stdint.h>
+#include "hopper.cuh"
 
 namespace {
 
-constexpr int kBlock = 64;       // query tile of K2, key tile of K3
+constexpr int kBlock = 64;       // fp32 bodies: query tile of K2, key tile of K3
 constexpr int kThreads = 128;
+constexpr float kLog2e = 1.4426950408889634f;
 
 struct Args {
   const void* q;
@@ -85,13 +112,25 @@ __device__ __forceinline__ bool visible(const Args& a, int row, int col) {
          (!a.causal || row + (a.seq_k - a.seq_q) >= col);
 }
 
-// K2: key tiles the query tile starting at q0 must visit (all, or those
-// that start at or before the last key its last row sees).
-__device__ __forceinline__ int dq_key_tiles(const Args& a, int q0) {
-  int n = (a.seq_k + kBlock - 1) / kBlock;
+// Key tiles of `bn` keys that rows up to `last_row` must visit: all of
+// them, or, when causal, those that start at or before the last key that
+// row sees.
+__device__ __forceinline__ int key_tiles(const Args& a, int last_row, int bn) {
+  int n = (a.seq_k + bn - 1) / bn;
   if (a.causal) {
-    const int last = q0 + kBlock - 1 + (a.seq_k - a.seq_q);
-    n = last < 0 ? 0 : min(n, last / kBlock + 1);
+    const int last = last_row + (a.seq_k - a.seq_q);
+    n = last < 0 ? 0 : min(n, last / bn + 1);
+  }
+  return n;
+}
+
+// Leading key tiles that every row from `first_row` on sees whole: no
+// causal cut and no end of the keys inside them.
+__device__ __forceinline__ int full_key_tiles(const Args& a, int first_row, int bn) {
+  int n = a.seq_k / bn;
+  if (a.causal) {
+    const int f = first_row + (a.seq_k - a.seq_q) + 1;
+    n = f <= 0 ? 0 : min(n, f / bn);
   }
   return n;
 }
@@ -168,7 +207,7 @@ __global__ void __launch_bounds__(kThreads) dq_f32(const Args a) {
 #pragma unroll
     for (int n = 0; n < NC; ++n) acc[i][n] = 0.f;
 
-  const int n_kv = dq_key_tiles(a, q0);
+  const int n_kv = key_tiles(a, q0 + kBlock - 1, kBlock);
   for (int j = 0; j < n_kv; ++j) {
     const int k0 = j * kBlock;
     __syncthreads();   // the previous tile's K and dS are consumed
@@ -359,326 +398,515 @@ __global__ void __launch_bounds__(kThreads) dkv_f32(const Args a) {
 
 // ----------------------------------------------------- bf16 / fp16 bodies
 
-template <typename T>
-struct Mma;
+constexpr int kConsumers = 256;                // two consumer warpgroups
+constexpr int kMmaThreads = kConsumers + 128;  // and a producer warpgroup
+constexpr int kRows = 128;    // K2: query rows a block owns; K3: keys
+constexpr int kDkvQ = 64;     // K3: query rows a tile
 
-template <>
-struct Mma<__nv_bfloat16> {
-  static __device__ __forceinline__ void run(float* c, const uint32_t* a,
-                                             const uint32_t* b) {
-    asm volatile(
-        "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-        "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+__device__ __forceinline__ unsigned char* align_1024(unsigned char* p) {
+  // the 128-byte swizzle repeats every 1024 bytes: tiles start on that
+  return reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(p) + 1023) & ~static_cast<uintptr_t>(1023));
+}
+
+// The accumulator blocks 2kk, 2kk+1 of a 64 x 8N fp32 tile, rounded to T,
+// as the register A operand of k16 step kk of the next product.
+template <typename T, int N>
+__device__ __forceinline__ void acc_as_a(uint32_t (&f)[N / 16][4],
+                                         const float (&c)[N / 2]) {
+#pragma unroll
+  for (int kk = 0; kk < N / 16; ++kk) {
+    f[kk][0] = hopper::pack2<T>(c[8 * kk], c[8 * kk + 1]);
+    f[kk][1] = hopper::pack2<T>(c[8 * kk + 2], c[8 * kk + 3]);
+    f[kk][2] = hopper::pack2<T>(c[8 * kk + 4], c[8 * kk + 5]);
+    f[kk][3] = hopper::pack2<T>(c[8 * kk + 6], c[8 * kk + 7]);
   }
-  static __device__ __forceinline__ uint32_t pack(float lo, float hi) {
-    __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-    return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// A warpgroup's 64 x D accumulator, rounded to T, into 64 rows of a tile
+// in the 128-byte swizzle (64-column blocks `blk` bytes apart).
+template <typename T, int D>
+__device__ __forceinline__ void stage_rows(unsigned char* tile, int blk,
+                                           const float (&acc)[D / 2]) {
+  const int lane = threadIdx.x % 32, g = lane >> 2, t = lane & 3;
+  const int r0 = (threadIdx.x % 128) / 32 * 16 + g;   // r0, r0 + 8: both r % 8 == g
+#pragma unroll
+  for (int n = 0; n < D / 8; ++n) {
+    unsigned char* p = tile + (n / 8) * blk + (((n % 8) ^ g) * 16) + 4 * t;
+    *reinterpret_cast<uint32_t*>(p + r0 * 128) = hopper::pack2<T>(acc[4 * n], acc[4 * n + 1]);
+    *reinterpret_cast<uint32_t*>(p + (r0 + 8) * 128) =
+        hopper::pack2<T>(acc[4 * n + 2], acc[4 * n + 3]);
   }
+}
+
+// The 64 staged rows from `first` on, those below `seq`, into a contiguous
+// (B, seq, H, D) output with 16-byte stores.
+template <int D>
+__device__ __forceinline__ void store_rows(const Args& a, const unsigned char* tile,
+                                           int blk, void* out, int b, int h,
+                                           int seq, int first) {
+  constexpr int kChunks = D / 8;   // 16-byte pieces of a row
+  for (int i = threadIdx.x % 128; i < 64 * kChunks; i += 128) {
+    const int r = i / kChunks, ch = i % kChunks;
+    if (first + r >= seq) continue;
+    const uint4 v = *reinterpret_cast<const uint4*>(
+        tile + (ch / 8) * blk + r * 128 + (((ch % 8) ^ (r & 7)) * 16));
+    *reinterpret_cast<uint4*>(static_cast<uint16_t*>(out) +
+                              out_row(a, b, h, seq, first + r, D) + ch * 8) = v;
+  }
+}
+
+template <int D>
+struct DqLayout {
+  static constexpr int kKeys = D == 64 ? 128 : 64;   // keys a K/V tile holds
+  static constexpr int kStages = 3;
+  static constexpr uint32_t kQBytes = kRows * D * 2;        // Q or dO
+  static constexpr uint32_t kTileBytes = kKeys * D * 2;     // K or V
+  static constexpr uint32_t kStageBytes = 2 * kTileBytes;
+  static constexpr size_t kSmem =
+      1024 + 2 * kQBytes + kStages * kStageBytes + (1 + 2 * kStages) * sizeof(uint64_t);
 };
 
-template <>
-struct Mma<__half> {
-  static __device__ __forceinline__ void run(float* c, const uint32_t* a,
-                                             const uint32_t* b) {
-    asm volatile(
-        "mma.sync.aligned.m16n8k16.row.col.f32.f16.f16.f32 "
-        "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-  }
-  static __device__ __forceinline__ uint32_t pack(float lo, float hi) {
-    __half2 v = __floats2half2_rn(lo, hi);
-    return *reinterpret_cast<uint32_t*>(&v);
-  }
-};
-
-__device__ __forceinline__ uint32_t pair(uint16_t lo, uint16_t hi) {
-  return static_cast<uint32_t>(lo) | (static_cast<uint32_t>(hi) << 16);
+// Pin `x` here: the compiler may not compute from it any earlier. Per-element
+// mask tests hoisted above a tile's products would hold 32 predicates in
+// registers beside the live accumulators.
+__device__ __forceinline__ int pinned(int x) {
+  asm volatile("" : "+r"(x));
+  return x;
 }
 
-__device__ __forceinline__ uint32_t word(const uint16_t* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
+// K2: the end of the keys that `row` sees (0 for a row past seq_q).
+__device__ __forceinline__ int row_key_end(const Args& a, int row) {
+  if (row >= a.seq_q) return 0;
+  return a.causal ? min(a.seq_k, row + (a.seq_k - a.seq_q) + 1) : a.seq_k;
 }
 
-// ROWS rows of D 16-bit values from a strided source into a shared tile
-// with row pitch D + 8, 16 bytes a thread; rows at or past `limit` are 0.
-template <int D, int ROWS>
-__device__ __forceinline__ void load_rows(uint16_t* dst, const uint16_t* src,
-                                          long long stride, int row0,
-                                          int limit) {
-  constexpr int LD = D + 8, PER_ROW = D / 8;
-  for (int i = threadIdx.x; i < ROWS * PER_ROW; i += kThreads) {
-    const int r = i / PER_ROW, c = (i % PER_ROW) * 8;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (row0 + r < limit)
-      val = *reinterpret_cast<const uint4*>(src + (row0 + r) * stride + c);
-    *reinterpret_cast<uint4*>(dst + r * LD + c) = val;
-  }
-}
+// K2, one key tile for one consumer warpgroup: S = Q K^T, dP = dO V^T,
+// dS = P (dP - Delta) scale, dQ += dS K. `nl` is -lse * log2(e), `dl`
+// Delta and `kend` the end of the keys seen, of the thread's two rows.
+// MASK applies `kend` per element: the causal cut, the end of the keys and
+// the end of the queries.
+template <typename T, int D, bool MASK>
+__device__ __forceinline__ void dq_tile(const unsigned char* q_wg,
+                                        const unsigned char* do_wg,
+                                        const unsigned char* ks,
+                                        const unsigned char* vs, int k0, int kend0,
+                                        int kend1, float nl0, float nl1, float dl0,
+                                        float dl1, float sl2, float scale,
+                                        float (&dq)[D / 2]) {
+  using hopper::desc_sw128;
+  constexpr int BN = DqLayout<D>::kKeys;
+  constexpr int kBlkQ = kRows * 128;   // bytes of a 64-column block of Q or dO
+  const int t = threadIdx.x & 3;
 
-// The A fragment (rows r0 + g, r0 + g + 8; k-step kk) of a row-major tile.
-template <int LD>
-__device__ __forceinline__ void frag_a(uint32_t* f, const uint16_t* tile,
-                                       int r0, int kk, int g, int t) {
-  const uint16_t* p = tile + (r0 + g) * LD + kk * 16 + 2 * t;
-  f[0] = word(p);
-  f[1] = word(p + 8 * LD);
-  f[2] = word(p + 8);
-  f[3] = word(p + 8 * LD + 8);
-}
-
-// The B fragment of X^T for n-tile n, k-step kk, where X is a row-major
-// tile whose rows are the product's columns (S = Q K^T takes K this way).
-template <int LD>
-__device__ __forceinline__ void frag_bt(uint32_t* f, const uint16_t* tile,
-                                        int n, int kk, int g, int t) {
-  const uint16_t* p = tile + (n * 8 + g) * LD + kk * 16 + 2 * t;
-  f[0] = word(p);
-  f[1] = word(p + 8);
-}
-
-// The B fragment of X itself for n-tile n, k-step kk (k runs down X's
-// rows: dQ = dS K takes K this way).
-template <int LD>
-__device__ __forceinline__ void frag_b(uint32_t* f, const uint16_t* tile,
-                                       int n, int kk, int g, int t) {
-  const uint16_t* p = tile + (kk * 16 + 2 * t) * LD + n * 8 + g;
-  f[0] = pair(p[0], p[LD]);
-  f[1] = pair(p[8 * LD], p[9 * LD]);
-}
-
-// The accumulator of n-tiles 2kk and 2kk+1, rounded to T, as the A
-// fragment of k-step kk of the next product.
-template <typename T>
-__device__ __forceinline__ void acc_as_a(uint32_t* f, float (*c)[4],
-                                         int kk) {
-  f[0] = Mma<T>::pack(c[2 * kk][0], c[2 * kk][1]);
-  f[1] = Mma<T>::pack(c[2 * kk][2], c[2 * kk][3]);
-  f[2] = Mma<T>::pack(c[2 * kk + 1][0], c[2 * kk + 1][1]);
-  f[3] = Mma<T>::pack(c[2 * kk + 1][2], c[2 * kk + 1][3]);
-}
-
-// Write a warp's 16 x D fp32 accumulator as rows r0 + g and r0 + g + 8 of a
-// contiguous (B, seq, H, D) output of type T.
-template <typename T, int D>
-__device__ __forceinline__ void store_rows(const Args& a, void* dst, int b,
-                                           int h, int seq, int r0, int g,
-                                           int t, float (*acc)[4]) {
-  uint32_t* o = static_cast<uint32_t*>(dst);   // pairs of output values
-  const int rows[2] = {r0 + g, r0 + g + 8};
+  float s[BN / 2], dp[BN / 2];
+  hopper::wgmma_fence();
 #pragma unroll
-  for (int half = 0; half < 2; ++half) {
-    if (rows[half] >= seq) continue;
-    const long long base = out_row(a, b, h, seq, rows[half], D);
-#pragma unroll
-    for (int n = 0; n < D / 8; ++n)
-      o[(base + n * 8 + 2 * t) / 2] =
-          Mma<T>::pack(acc[n][2 * half], acc[n][2 * half + 1]);
+  for (int kk = 0; kk < D / 16; ++kk) {
+    // k16 step kk: column block kk / 4 of the rows, 32 bytes in per step
+    const int blk = kk / 4, off = (kk % 4) * 32;
+    hopper::Wgmma<T, BN>::ss(s, desc_sw128(q_wg + blk * kBlkQ + off, 16, 1024),
+                             desc_sw128(ks + blk * BN * 128 + off, 16, 1024), kk);
   }
+  hopper::wgmma_commit();
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    const int blk = kk / 4, off = (kk % 4) * 32;
+    hopper::Wgmma<T, BN>::ss(dp, desc_sw128(do_wg + blk * kBlkQ + off, 16, 1024),
+                             desc_sw128(vs + blk * BN * 128 + off, 16, 1024), kk);
+  }
+  hopper::wgmma_commit();
+  hopper::wgmma_wait<1>();   // S has landed; dP is still in flight
+  hopper::fence_regs(s);
+  // column 8n + 2t + (e & 1) of the tile is seen when below lim
+  const int lim0 = MASK ? pinned(kend0 - k0 - 2 * t) : 0;
+  const int lim1 = MASK ? pinned(kend1 - k0 - 2 * t) : 0;
+#pragma unroll
+  for (int n = 0; n < BN / 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      // select, never multiply: a blind row's exponent is about +1e30
+      float p = exp2f(fmaf(s[4 * n + e], sl2, e < 2 ? nl0 : nl1));
+      if (MASK && 8 * n + (e & 1) >= (e < 2 ? lim0 : lim1)) p = 0.f;
+      s[4 * n + e] = p;
+    }
+  hopper::wgmma_wait<0>();
+  hopper::fence_regs(dp);
+#pragma unroll
+  for (int n = 0; n < BN / 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      dp[4 * n + e] = s[4 * n + e] * (dp[4 * n + e] - (e < 2 ? dl0 : dl1)) * scale;
+  uint32_t ds[BN / 16][4];
+  acc_as_a<T, BN>(ds, dp);
+  hopper::fence_regs(dq);
+  hopper::fence_regs(ds);
+  hopper::wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < BN / 16; ++kk)
+    // K (keys x d) read MN-major: 16 keys (2048 bytes) a k16 step, the
+    // two 64-column blocks of d = 128 BN * 128 bytes apart
+    hopper::Wgmma<T, D>::rs_t(dq, ds[kk], desc_sw128(ks + kk * 2048, BN * 128, 1024));
+  hopper::wgmma_commit();
+  hopper::wgmma_wait<0>();
+  hopper::fence_regs(dq);
+  hopper::fence_regs(ds);
 }
 
-// K2, bf16/fp16: warp w owns query rows 16w.. of the tile.
 template <typename T, int D>
-__global__ void __launch_bounds__(kThreads) dq_mma(const Args a) {
-  constexpr int LD = D + 8;          // +16 bytes a row: fragment reads hit 32 banks
-  constexpr int NS = kBlock / 8;     // S/dP n-tiles a warp owns (16 x 64)
-  constexpr int NO = D / 8;          // dQ n-tiles (16 x D)
-  constexpr int KD = D / 16;         // k-steps over the head dim
-  constexpr int KK = kBlock / 16;    // k-steps over the keys
+__global__ void __launch_bounds__(kMmaThreads, 1)
+    dq_wgmma(const __grid_constant__ CUtensorMap tq,
+             const __grid_constant__ CUtensorMap tk,
+             const __grid_constant__ CUtensorMap tv,
+             const __grid_constant__ CUtensorMap tdo, const Args a) {
+  using L = DqLayout<D>;
+  constexpr int BN = L::kKeys;
+  constexpr int kBlkQ = kRows * 128;   // bytes of a 64-column block of Q or dO
+  constexpr int kBlkKV = BN * 128;     // ... of K or V
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  uint16_t* qs = reinterpret_cast<uint16_t*>(smem_raw);
-  uint16_t* dos = qs + kBlock * LD;
-  uint16_t* ks = dos + kBlock * LD;
-  uint16_t* vs = ks + kBlock * LD;
+  unsigned char* qs = align_1024(smem_raw);
+  unsigned char* dos = qs + L::kQBytes;
+  unsigned char* kv = dos + L::kQBytes;   // stage s: K, then V
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(kv + L::kStages * L::kStageBytes);
+  uint64_t* full = q_full + 1;
+  uint64_t* empty = full + L::kStages;
 
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane >> 2, t = lane & 3;   // mma fragment coordinates
-  const int q0 = (gridDim.x - 1 - blockIdx.x) * kBlock;   // heaviest first
-  const int b = blockIdx.y / a.heads, h = blockIdx.y % a.heads;
-  const uint16_t* q = static_cast<const uint16_t*>(a.q) + b * a.q_sb + h * a.q_sh;
-  const uint16_t* k = static_cast<const uint16_t*>(a.k) + b * a.k_sb + h * a.k_sh;
-  const uint16_t* v = static_cast<const uint16_t*>(a.v) + b * a.v_sb + h * a.v_sh;
-  const uint16_t* dout = static_cast<const uint16_t*>(a.dout) + b * a.o_sb + h * a.o_sh;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * kRows;   // heaviest first
+  const int bh = blockIdx.x, b = bh / a.heads, h = bh % a.heads;
+  const int n_kv = key_tiles(a, q0 + kRows - 1, BN);
+  if (threadIdx.x == 0) {
+    hopper::mbar_init(q_full, 1);
+    for (int s = 0; s < L::kStages; ++s) {
+      hopper::mbar_init(&full[s], 1);
+      hopper::mbar_init(&empty[s], kConsumers / 32);   // one arrival a warp
+    }
+    hopper::fence_barrier_init();
+  }
+  __syncthreads();
 
-  load_rows<D, kBlock>(qs, q, a.q_ss, q0, a.seq_q);
-  load_rows<D, kBlock>(dos, dout, a.o_ss, q0, a.seq_q);
-  const int wr = warp * 16;
-  const int row0 = q0 + wr + g, row1 = row0 + 8;   // the two rows a thread holds
-  const long long at = static_cast<long long>(blockIdx.y) * a.seq_q;
-  const float lse0 = row0 < a.seq_q ? a.lse[at + row0] : 0.f;
-  const float lse1 = row1 < a.seq_q ? a.lse[at + row1] : 0.f;
+  if (threadIdx.x >= kConsumers) {
+    // the producer: one thread keeps the ring full
+    hopper::reg_dealloc<24>();
+    if (threadIdx.x == kConsumers && n_kv > 0) {
+      hopper::mbar_expect_tx(q_full, 2 * L::kQBytes);
+      for (int c = 0; c < D / 64; ++c) {
+        hopper::tma_load_4d(qs + c * kBlkQ, &tq, q_full, c * 64, q0, h, b);
+        hopper::tma_load_4d(dos + c * kBlkQ, &tdo, q_full, c * 64, q0, h, b);
+      }
+      for (int j = 0; j < n_kv; ++j) {
+        const int s = j % L::kStages;
+        if (j >= L::kStages) hopper::mbar_wait(&empty[s], (j / L::kStages - 1) & 1);
+        unsigned char* ks = kv + s * L::kStageBytes;
+        hopper::mbar_expect_tx(&full[s], L::kStageBytes);
+        for (int c = 0; c < D / 64; ++c) {
+          hopper::tma_load_4d(ks + c * kBlkKV, &tk, &full[s], c * 64, j * BN, h, b);
+          hopper::tma_load_4d(ks + L::kTileBytes + c * kBlkKV, &tv, &full[s], c * 64,
+                              j * BN, h, b);
+        }
+      }
+    }
+    return;
+  }
+
+  // a consumer warpgroup: query rows first .. first + 63
+  hopper::reg_alloc<240>();
+  const int wg = threadIdx.x / 128, warp = (threadIdx.x % 128) / 32;
+  const int lane = threadIdx.x % 32, g = lane >> 2;
+  const int first = q0 + wg * 64;
+  const int row0 = first + warp * 16 + g, row1 = row0 + 8;   // a thread's two rows
+  const int n_mine = key_tiles(a, first + 63, BN);
+  const int n_full = min(n_mine, full_key_tiles(a, first, BN));
+  const float sl2 = a.scale * kLog2e;
+  const long long at = static_cast<long long>(bh) * a.seq_q;
+  const float nl0 = row0 < a.seq_q ? -a.lse[at + row0] * kLog2e : 0.f;
+  const float nl1 = row1 < a.seq_q ? -a.lse[at + row1] * kLog2e : 0.f;
   const float dl0 = row0 < a.seq_q ? a.delta[at + row0] : 0.f;
   const float dl1 = row1 < a.seq_q ? a.delta[at + row1] : 0.f;
+  const int kend0 = row_key_end(a, row0), kend1 = row_key_end(a, row1);
+  unsigned char* q_wg = qs + wg * 64 * 128;
+  const unsigned char* do_wg = dos + wg * 64 * 128;
 
-  float acc[NO][4];
+  float dq[D / 2];
 #pragma unroll
-  for (int n = 0; n < NO; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
-
-  const int n_kv = dq_key_tiles(a, q0);
+  for (int i = 0; i < D / 2; ++i) dq[i] = 0.f;
+  if (n_kv > 0) hopper::mbar_wait(q_full, 0);
   for (int j = 0; j < n_kv; ++j) {
-    const int k0 = j * kBlock;
-    __syncthreads();   // Q/dO are loaded; the previous K/V are consumed
-    load_rows<D, kBlock>(ks, k, a.k_ss, k0, a.seq_k);
-    load_rows<D, kBlock>(vs, v, a.v_ss, k0, a.seq_k);
-    __syncthreads();
-
-    float s[NS][4], dp[NS][4];
-#pragma unroll
-    for (int n = 0; n < NS; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[n][e] = dp[n][e] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < KD; ++kk) {
-      uint32_t qf[4], df[4];
-      frag_a<LD>(qf, qs, wr, kk, g, t);
-      frag_a<LD>(df, dos, wr, kk, g, t);
-#pragma unroll
-      for (int n = 0; n < NS; ++n) {
-        uint32_t kf[2], vf[2];
-        frag_bt<LD>(kf, ks, n, kk, g, t);
-        frag_bt<LD>(vf, vs, n, kk, g, t);
-        Mma<T>::run(s[n], qf, kf);
-        Mma<T>::run(dp[n], df, vf);
-      }
-    }
-
-    // s becomes dS = P * (dP - Delta) * scale, P under the mask guard
-#pragma unroll
-    for (int n = 0; n < NS; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int col = k0 + n * 8 + 2 * t + (e & 1);
-        const bool top = e < 2;
-        const float p = visible(a, top ? row0 : row1, col)
-                            ? __expf(s[n][e] * a.scale - (top ? lse0 : lse1))
-                            : 0.f;
-        s[n][e] = p * (dp[n][e] - (top ? dl0 : dl1)) * a.scale;
-      }
-
-#pragma unroll
-    for (int kk = 0; kk < KK; ++kk) {
-      uint32_t sf[4];
-      acc_as_a<T>(sf, s, kk);
-#pragma unroll
-      for (int n = 0; n < NO; ++n) {
-        uint32_t kf[2];
-        frag_b<LD>(kf, ks, n, kk, g, t);
-        Mma<T>::run(acc[n], sf, kf);
-      }
-    }
+    const int s = j % L::kStages;
+    hopper::mbar_wait(&full[s], (j / L::kStages) & 1);
+    const unsigned char* ks = kv + s * L::kStageBytes;
+    if (j < n_full)
+      dq_tile<T, D, false>(q_wg, do_wg, ks, ks + L::kTileBytes, j * BN, kend0, kend1,
+                           nl0, nl1, dl0, dl1, sl2, a.scale, dq);
+    else if (j < n_mine)   // the diagonal and the end of the keys
+      dq_tile<T, D, true>(q_wg, do_wg, ks, ks + L::kTileBytes, j * BN, kend0, kend1,
+                          nl0, nl1, dl0, dl1, sl2, a.scale, dq);
+    // a warpgroup whose rows see fewer tiles still releases every stage
+    if (lane == 0) hopper::mbar_arrive(&empty[s]);
   }
-  store_rows<T, D>(a, a.dq, b, h, a.seq_q, q0 + wr, g, t, acc);
+
+  // dQ through the warpgroup's own Q rows (its last product has read them)
+  hopper::bar_sync(1 + wg, 128);
+  stage_rows<T, D>(q_wg, kBlkQ, dq);
+  hopper::bar_sync(1 + wg, 128);
+  store_rows<D>(a, q_wg, kBlkQ, a.dq, b, h, a.seq_q, first);
 }
 
-// K3, bf16/fp16: warp w owns keys 16w.. of the tile; the scores are
-// computed transposed (keys as rows, queries as columns).
+template <int D>
+struct DkvLayout {
+  static constexpr int kStages = D == 64 ? 4 : 3;
+  static constexpr uint32_t kKVBytes = kRows * D * 2;       // K or V
+  static constexpr uint32_t kTileBytes = kDkvQ * D * 2;     // Q or dO
+  static constexpr uint32_t kStageBytes = 2 * kTileBytes;
+  static constexpr uint32_t kStatBytes = 2 * kDkvQ * 4;     // lse, Delta
+  static constexpr size_t kSmem = 1024 + 2 * kKVBytes + kStages * kStageBytes +
+                                  kStages * kStatBytes +
+                                  (1 + 2 * kStages) * sizeof(uint64_t);
+};
+
+// K3: issue dV += P^T dO (one commit group); dO (queries x d) is read
+// MN-major, 16 queries (2048 bytes) a k16 step.
 template <typename T, int D>
-__global__ void __launch_bounds__(kThreads) dkv_mma(const Args a) {
-  constexpr int BQ = D == 64 ? 64 : 32;   // query tile
-  constexpr int LD = D + 8;
-  constexpr int NS = BQ / 8;              // S^T/dP^T n-tiles a warp owns (16 x BQ)
-  constexpr int NO = D / 8;               // dK/dV n-tiles (16 x D)
-  constexpr int KD = D / 16;
-  constexpr int KQ = BQ / 16;             // k-steps over the queries
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  uint16_t* ks = reinterpret_cast<uint16_t*>(smem_raw);
-  uint16_t* vs = ks + kBlock * LD;
-  uint16_t* qs = vs + kBlock * LD;
-  uint16_t* dos = qs + BQ * LD;
-  float* lse = reinterpret_cast<float*>(dos + BQ * LD);
-  float* delta = lse + BQ;
+__device__ __forceinline__ void issue_dv(float (&dv)[D / 2], uint32_t (&pt)[kDkvQ / 16][4],
+                                         const unsigned char* dos) {
+  hopper::fence_regs(dv);
+  hopper::fence_regs(pt);
+  hopper::wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < kDkvQ / 16; ++kk)
+    hopper::Wgmma<T, D>::rs_t(dv, pt[kk],
+                              hopper::desc_sw128(dos + kk * 2048, kDkvQ * 128, 1024));
+  hopper::wgmma_commit();
+}
 
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane >> 2, t = lane & 3;
-  const int k0 = blockIdx.x * kBlock;      // the first key tiles see the most
-  const int b = blockIdx.y / a.heads, h = blockIdx.y % a.heads;
-  const uint16_t* q = static_cast<const uint16_t*>(a.q) + b * a.q_sb + h * a.q_sh;
-  const uint16_t* k = static_cast<const uint16_t*>(a.k) + b * a.k_sb + h * a.k_sh;
-  const uint16_t* v = static_cast<const uint16_t*>(a.v) + b * a.v_sb + h * a.v_sh;
-  const uint16_t* dout = static_cast<const uint16_t*>(a.dout) + b * a.o_sb + h * a.o_sh;
+// K3: the queries [qbeg, qend) that see `key` (none for a key past seq_k).
+__device__ __forceinline__ int2 key_query_range(const Args& a, int key) {
+  if (key >= a.seq_k) return make_int2(0, 0);
+  return make_int2(a.causal ? key - (a.seq_k - a.seq_q) : 0, a.seq_q);
+}
 
-  load_rows<D, kBlock>(ks, k, a.k_ss, k0, a.seq_k);
-  load_rows<D, kBlock>(vs, v, a.v_ss, k0, a.seq_k);
-  const int wk = warp * 16;
-  const int key0 = k0 + wk + g, key1 = key0 + 8;   // the two keys a thread holds
+// K3, one query tile for one consumer warpgroup: S^T = K Q^T,
+// dP^T = V dO^T, dV += P^T dO, dK += dS^T Q. `stat` holds the tile's
+// lse * log2(e), then its Delta, by query; `qr` the queries that see each
+// of the thread's two keys. MASK applies `qr` per element: the causal cut,
+// the end of the keys and the end of the queries.
+template <typename T, int D, bool MASK>
+__device__ __forceinline__ void dkv_tile(const unsigned char* k_wg,
+                                         const unsigned char* v_wg,
+                                         const unsigned char* qs,
+                                         const unsigned char* dos, const float* stat,
+                                         int q0, int2 qr0, int2 qr1, float sl2,
+                                         float scale, float (&dk)[D / 2],
+                                         float (&dv)[D / 2]) {
+  using hopper::desc_sw128;
+  constexpr int BQ = kDkvQ;
+  constexpr int kBlkKV = kRows * 128;   // bytes of a 64-column block of K or V
+  const int t = threadIdx.x & 3;
 
-  float dk[NO][4], dv[NO][4];
+  float st[BQ / 2], dpt[BQ / 2];
+  hopper::wgmma_fence();
 #pragma unroll
-  for (int n = 0; n < NO; ++n)
+  for (int kk = 0; kk < D / 16; ++kk) {
+    const int blk = kk / 4, off = (kk % 4) * 32;
+    hopper::Wgmma<T, BQ>::ss(st, desc_sw128(k_wg + blk * kBlkKV + off, 16, 1024),
+                             desc_sw128(qs + blk * BQ * 128 + off, 16, 1024), kk);
+  }
+  hopper::wgmma_commit();
 #pragma unroll
-    for (int e = 0; e < 4; ++e) dk[n][e] = dv[n][e] = 0.f;
-
-  const int n_q = (a.seq_q + BQ - 1) / BQ;
-  for (int it = dkv_first_query_tile<BQ>(a, k0); it < n_q; ++it) {
-    const int q0 = it * BQ;
-    __syncthreads();   // K/V are loaded; the previous Q/dO/lse/Delta are consumed
-    load_rows<D, BQ>(qs, q, a.q_ss, q0, a.seq_q);
-    load_rows<D, BQ>(dos, dout, a.o_ss, q0, a.seq_q);
-    load_row_stats<BQ>(a, lse, delta, q0);
-    __syncthreads();
-
-    float st[NS][4], dpt[NS][4];
+  for (int kk = 0; kk < D / 16; ++kk) {
+    const int blk = kk / 4, off = (kk % 4) * 32;
+    hopper::Wgmma<T, BQ>::ss(dpt, desc_sw128(v_wg + blk * kBlkKV + off, 16, 1024),
+                             desc_sw128(dos + blk * BQ * 128 + off, 16, 1024), kk);
+  }
+  hopper::wgmma_commit();
+  hopper::wgmma_wait<1>();   // S^T has landed; dP^T is still in flight
+  hopper::fence_regs(st);
+  // column 8n + 2t + (e & 1) of the tile is seen from lo on, below hi
+  const int o = q0 + 2 * t;
+  const int lo0 = MASK ? pinned(qr0.x - o) : 0, hi0 = MASK ? pinned(qr0.y - o) : 0;
+  const int lo1 = MASK ? pinned(qr1.x - o) : 0, hi1 = MASK ? pinned(qr1.y - o) : 0;
 #pragma unroll
-    for (int n = 0; n < NS; ++n)
+  for (int n = 0; n < BQ / 8; ++n) {
+    const float2 l = *reinterpret_cast<const float2*>(stat + 8 * n + 2 * t);
 #pragma unroll
-      for (int e = 0; e < 4; ++e) st[n][e] = dpt[n][e] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < KD; ++kk) {
-      uint32_t kf[4], vf[4];
-      frag_a<LD>(kf, ks, wk, kk, g, t);
-      frag_a<LD>(vf, vs, wk, kk, g, t);
-#pragma unroll
-      for (int n = 0; n < NS; ++n) {
-        uint32_t qf[2], df[2];
-        frag_bt<LD>(qf, qs, n, kk, g, t);
-        frag_bt<LD>(df, dos, n, kk, g, t);
-        Mma<T>::run(st[n], kf, qf);     // S^T = K Q^T
-        Mma<T>::run(dpt[n], vf, df);    // dP^T = V dO^T
-      }
-    }
-
-    // st becomes P^T and dpt becomes dS^T, lse and Delta by column
-#pragma unroll
-    for (int n = 0; n < NS; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int col = n * 8 + 2 * t + (e & 1);
-        const float p = visible(a, q0 + col, e < 2 ? key0 : key1)
-                            ? __expf(st[n][e] * a.scale - lse[col]) : 0.f;
-        st[n][e] = p;
-        dpt[n][e] = p * (dpt[n][e] - delta[col]) * a.scale;
-      }
-
-#pragma unroll
-    for (int kk = 0; kk < KQ; ++kk) {
-      uint32_t pf[4], sf[4];
-      acc_as_a<T>(pf, st, kk);
-      acc_as_a<T>(sf, dpt, kk);
-#pragma unroll
-      for (int n = 0; n < NO; ++n) {
-        uint32_t of[2], qf[2];
-        frag_b<LD>(of, dos, n, kk, g, t);
-        frag_b<LD>(qf, qs, n, kk, g, t);
-        Mma<T>::run(dv[n], pf, of);     // dV += P^T dO
-        Mma<T>::run(dk[n], sf, qf);     // dK += dS^T Q
-      }
+    for (int e = 0; e < 4; ++e) {
+      // select, never multiply: a blind query's exponent is about +1e30
+      float p = exp2f(fmaf(st[4 * n + e], sl2, -((e & 1) ? l.y : l.x)));
+      const int c = 8 * n + (e & 1);
+      if (MASK && (e < 2 ? (c < lo0 || c >= hi0) : (c < lo1 || c >= hi1))) p = 0.f;
+      st[4 * n + e] = p;
     }
   }
-  store_rows<T, D>(a, a.dk, b, h, a.seq_k, k0 + wk, g, t, dk);
-  store_rows<T, D>(a, a.dv, b, h, a.seq_k, k0 + wk, g, t, dv);
+  // At d = 64, dV's product runs while dS^T is computed. At d = 128 that
+  // would keep P^T's fragments live beside fp32 P^T and dP^T and the 128
+  // dK/dV accumulators, past the consumers' 240 registers: both products
+  // are issued after dS^T there.
+  constexpr bool kOverlap = D == 64;
+  uint32_t pt[BQ / 16][4];
+  if constexpr (kOverlap) {
+    acc_as_a<T, BQ>(pt, st);
+    issue_dv<T, D>(dv, pt, dos);
+    hopper::wgmma_wait<1>();   // dP^T has landed; dV's product is in flight
+  } else {
+    hopper::wgmma_wait<0>();
+  }
+  hopper::fence_regs(dpt);
+#pragma unroll
+  for (int n = 0; n < BQ / 8; ++n) {
+    const float2 dl = *reinterpret_cast<const float2*>(stat + BQ + 8 * n + 2 * t);
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      dpt[4 * n + e] = st[4 * n + e] * (dpt[4 * n + e] - ((e & 1) ? dl.y : dl.x)) * scale;
+  }
+  if constexpr (!kOverlap) {
+    acc_as_a<T, BQ>(pt, st);
+    issue_dv<T, D>(dv, pt, dos);
+  }
+  uint32_t dst[BQ / 16][4];
+  acc_as_a<T, BQ>(dst, dpt);
+  hopper::fence_regs(dk);
+  hopper::fence_regs(dst);
+  hopper::wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < BQ / 16; ++kk)
+    hopper::Wgmma<T, D>::rs_t(dk, dst[kk], desc_sw128(qs + kk * 2048, BQ * 128, 1024));
+  hopper::wgmma_commit();
+  hopper::wgmma_wait<0>();
+  hopper::fence_regs(dv);
+  hopper::fence_regs(dk);
+  hopper::fence_regs(pt);
+  hopper::fence_regs(dst);
+}
+
+template <typename T, int D>
+__global__ void __launch_bounds__(kMmaThreads, 1)
+    dkv_wgmma(const __grid_constant__ CUtensorMap tq,
+              const __grid_constant__ CUtensorMap tk,
+              const __grid_constant__ CUtensorMap tv,
+              const __grid_constant__ CUtensorMap tdo, const Args a) {
+  using L = DkvLayout<D>;
+  constexpr int BQ = kDkvQ;
+  constexpr int kBlkKV = kRows * 128;   // bytes of a 64-column block of K or V
+  constexpr int kBlkQ = BQ * 128;       // ... of a Q or dO tile
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  unsigned char* ks = align_1024(smem_raw);
+  unsigned char* vs = ks + L::kKVBytes;
+  unsigned char* ring = vs + L::kKVBytes;   // stage s: Q, then dO
+  float* stats = reinterpret_cast<float*>(ring + L::kStages * L::kStageBytes);
+  uint64_t* kv_full = reinterpret_cast<uint64_t*>(
+      reinterpret_cast<unsigned char*>(stats) + L::kStages * L::kStatBytes);
+  uint64_t* full = kv_full + 1;
+  uint64_t* empty = full + L::kStages;
+
+  const int k0 = blockIdx.y * kRows;   // the first key tiles see the most queries
+  const int bh = blockIdx.x, b = bh / a.heads, h = bh % a.heads;
+  const int n_q = (a.seq_q + BQ - 1) / BQ;
+  const int it0 = dkv_first_query_tile<BQ>(a, k0);
+  const int n_it = max(n_q - it0, 0);
+  if (threadIdx.x == 0) {
+    hopper::mbar_init(kv_full, 1);
+    for (int s = 0; s < L::kStages; ++s) {
+      hopper::mbar_init(&full[s], 1 + 32);   // the TMA thread's, and the warp's
+      hopper::mbar_init(&empty[s], kConsumers / 32);
+    }
+    hopper::fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= kConsumers) {
+    // the producer: one warp; its first thread issues the TMA loads, and
+    // every lane stores two queries' lse and Delta into the stage
+    hopper::reg_dealloc<24>();
+    const int lane = threadIdx.x % 32;
+    if (threadIdx.x < kConsumers + 32 && n_it > 0) {
+      if (lane == 0) {
+        hopper::mbar_expect_tx(kv_full, 2 * L::kKVBytes);
+        for (int c = 0; c < D / 64; ++c) {
+          hopper::tma_load_4d(ks + c * kBlkKV, &tk, kv_full, c * 64, k0, h, b);
+          hopper::tma_load_4d(vs + c * kBlkKV, &tv, kv_full, c * 64, k0, h, b);
+        }
+      }
+      const float* lse = a.lse + static_cast<long long>(bh) * a.seq_q;
+      const float* delta = a.delta + static_cast<long long>(bh) * a.seq_q;
+      for (int j = 0; j < n_it; ++j) {
+        const int s = j % L::kStages, q0 = (it0 + j) * BQ;
+        if (j >= L::kStages) hopper::mbar_wait(&empty[s], (j / L::kStages - 1) & 1);
+        if (lane == 0) {
+          unsigned char* qst = ring + s * L::kStageBytes;
+          hopper::mbar_expect_tx(&full[s], L::kStageBytes);
+          for (int c = 0; c < D / 64; ++c) {
+            hopper::tma_load_4d(qst + c * kBlkQ, &tq, &full[s], c * 64, q0, h, b);
+            hopper::tma_load_4d(qst + L::kTileBytes + c * kBlkQ, &tdo, &full[s], c * 64,
+                                q0, h, b);
+          }
+        }
+        float* stat = stats + s * 2 * BQ;
+        for (int r = lane; r < BQ; r += 32) {
+          const bool ok = q0 + r < a.seq_q;
+          stat[r] = ok ? lse[q0 + r] * kLog2e : 0.f;
+          stat[BQ + r] = ok ? delta[q0 + r] : 0.f;
+        }
+        hopper::mbar_arrive(&full[s]);   // releases the stores above
+      }
+    }
+    return;
+  }
+
+  // a consumer warpgroup: keys kfirst .. kfirst + 63
+  hopper::reg_alloc<240>();
+  const int wg = threadIdx.x / 128, warp = (threadIdx.x % 128) / 32;
+  const int lane = threadIdx.x % 32, g = lane >> 2;
+  const int kfirst = k0 + wg * 64;
+  const int key0 = kfirst + warp * 16 + g;   // a thread's two keys: key0, key0 + 8
+  const int2 qr0 = key_query_range(a, key0), qr1 = key_query_range(a, key0 + 8);
+  // the first tile this warpgroup's keys see (none if they are past the end)
+  const int my0 = kfirst < a.seq_k ? dkv_first_query_tile<BQ>(a, kfirst) : n_q;
+  const bool keys_whole = kfirst + 64 <= a.seq_k;
+  const int off = a.seq_k - a.seq_q;
+  const float sl2 = a.scale * kLog2e;
+  unsigned char* k_wg = ks + wg * 64 * 128;
+  unsigned char* v_wg = vs + wg * 64 * 128;
+
+  float dk[D / 2], dv[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) dk[i] = dv[i] = 0.f;
+  if (n_it > 0) hopper::mbar_wait(kv_full, 0);
+  for (int j = 0; j < n_it; ++j) {
+    const int s = j % L::kStages, it = it0 + j, q0 = it * BQ;
+    hopper::mbar_wait(&full[s], (j / L::kStages) & 1);
+    const unsigned char* qst = ring + s * L::kStageBytes;
+    const float* stat = stats + s * 2 * BQ;
+    if (it >= my0) {
+      const bool whole = keys_whole && q0 + BQ <= a.seq_q &&
+                         (!a.causal || q0 + off >= kfirst + 63);
+      if (whole)
+        dkv_tile<T, D, false>(k_wg, v_wg, qst, qst + L::kTileBytes, stat, q0, qr0, qr1,
+                              sl2, a.scale, dk, dv);
+      else   // the diagonal and the ends of the keys and the queries
+        dkv_tile<T, D, true>(k_wg, v_wg, qst, qst + L::kTileBytes, stat, q0, qr0, qr1,
+                             sl2, a.scale, dk, dv);
+    }
+    // a warpgroup whose keys are seen later still releases every stage
+    if (lane == 0) hopper::mbar_arrive(&empty[s]);
+  }
+
+  // dK and dV through the warpgroup's own K and V rows
+  hopper::bar_sync(1 + wg, 128);
+  stage_rows<T, D>(k_wg, kBlkKV, dk);
+  stage_rows<T, D>(v_wg, kBlkKV, dv);
+  hopper::bar_sync(1 + wg, 128);
+  store_rows<D>(a, k_wg, kBlkKV, a.dk, b, h, a.seq_k, kfirst);
+  store_rows<D>(a, v_wg, kBlkKV, a.dv, b, h, a.seq_k, kfirst);
 }
 
 // ---------------------------------------------------------------- launch
 
-template <typename Kernel>
-cudaError_t launch(Kernel kernel, size_t smem, dim3 grid, cudaStream_t stream,
-                   const Args& a) {
+template <typename Kernel, typename... Params>
+cudaError_t launch(Kernel kernel, size_t smem, dim3 grid, int threads,
+                   cudaStream_t stream, const Params&... params) {
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return err;
-  kernel<<<grid, kThreads, smem, stream>>>(a);
+  kernel<<<grid, threads, smem, stream>>>(params...);
   return cudaGetLastError();
 }
 
@@ -694,15 +922,50 @@ size_t dkv_f32_smem() {
                           2 * kBlock * (BQ + 1) + 2 * BQ);
 }
 
-template <int D>
-size_t dq_mma_smem() {
-  return sizeof(uint16_t) * 4 * kBlock * (D + 8);
+// The tensor maps of q, k, v and dO: dims (d, S, H, B) innermost first, the
+// BSHD strides in bytes, boxes of 64 values x `rows[i]` positions. False if
+// cuTensorMapEncodeTiled refuses one (every stride and base must be a
+// multiple of 16 bytes).
+template <typename T, int D>
+bool bshd_maps(CUtensorMap (&maps)[4], const Args& a, int batch, const int (&rows)[4]) {
+  const void* base[4] = {a.q, a.k, a.v, a.dout};
+  const long long strides[4][3] = {{a.q_ss, a.q_sh, a.q_sb},
+                                   {a.k_ss, a.k_sh, a.k_sb},
+                                   {a.v_ss, a.v_sh, a.v_sb},
+                                   {a.o_ss, a.o_sh, a.o_sb}};
+  const int seq[4] = {a.seq_q, a.seq_k, a.seq_k, a.seq_q};
+  for (int i = 0; i < 4; ++i) {
+    const cuuint64_t dims[4] = {static_cast<cuuint64_t>(D), static_cast<cuuint64_t>(seq[i]),
+                                static_cast<cuuint64_t>(a.heads),
+                                static_cast<cuuint64_t>(batch)};
+    const cuuint64_t bytes[3] = {static_cast<cuuint64_t>(strides[i][0]) * 2,
+                                 static_cast<cuuint64_t>(strides[i][1]) * 2,
+                                 static_cast<cuuint64_t>(strides[i][2]) * 2};
+    const cuuint32_t box[4] = {64, static_cast<cuuint32_t>(rows[i]), 1, 1};
+    if (!hopper::make_map(&maps[i], base[i], hopper::kIsHalf<T>, 4, dims, bytes, box))
+      return false;
+  }
+  return true;
 }
 
-template <int D>
-size_t dkv_mma_smem() {
-  constexpr int BQ = D == 64 ? 64 : 32;
-  return sizeof(uint16_t) * (2 * kBlock + 2 * BQ) * (D + 8) + sizeof(float) * 2 * BQ;
+template <typename T, int D>
+cudaError_t launch_dq(const Args& a, int batch, cudaStream_t stream) {
+  CUtensorMap maps[4];
+  if (!bshd_maps<T, D>(maps, a, batch, {kRows, DqLayout<D>::kKeys, DqLayout<D>::kKeys, kRows}))
+    return cudaErrorInvalidValue;
+  const dim3 grid(batch * a.heads, (a.seq_q + kRows - 1) / kRows);
+  return launch(dq_wgmma<T, D>, DqLayout<D>::kSmem, grid, kMmaThreads, stream, maps[0],
+                maps[1], maps[2], maps[3], a);
+}
+
+template <typename T, int D>
+cudaError_t launch_dkv(const Args& a, int batch, cudaStream_t stream) {
+  CUtensorMap maps[4];
+  if (!bshd_maps<T, D>(maps, a, batch, {kDkvQ, kRows, kRows, kDkvQ}))
+    return cudaErrorInvalidValue;
+  const dim3 grid(batch * a.heads, (a.seq_k + kRows - 1) / kRows);
+  return launch(dkv_wgmma<T, D>, DkvLayout<D>::kSmem, grid, kMmaThreads, stream, maps[0],
+                maps[1], maps[2], maps[3], a);
 }
 
 bool valid(int batch, int heads, int seq_q, int seq_k) {
@@ -726,7 +989,8 @@ Args make_args(const void* q, const void* k, const void* v, const void* dout,
 // dtype: 0 = float32, 1 = bfloat16, 2 = float16. head_dim: 64 or 128.
 // Strides are the element strides (batch, seq, head) of q, k, v and dO.
 // Each returns a cudaError_t: the launch's own, or cudaErrorInvalidValue
-// for arguments the kernel does not take.
+// for arguments the kernel does not take (or, in bf16/fp16, strides TMA
+// cannot describe).
 extern "C" int flash_attention_bwd_dq(
     const void* q, const void* k, const void* v, const void* dout,
     const void* lse, const void* delta, void* dq,
@@ -745,17 +1009,13 @@ extern "C" int flash_attention_bwd_dq(
   const dim3 grid((seq_q + kBlock - 1) / kBlock, batch * heads);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0 && head_dim == 64)
-    return launch(dq_f32<64>, dq_f32_smem<64>(), grid, s, a);
+    return launch(dq_f32<64>, dq_f32_smem<64>(), grid, kThreads, s, a);
   if (dtype == 0 && head_dim == 128)
-    return launch(dq_f32<128>, dq_f32_smem<128>(), grid, s, a);
-  if (dtype == 1 && head_dim == 64)
-    return launch(dq_mma<__nv_bfloat16, 64>, dq_mma_smem<64>(), grid, s, a);
-  if (dtype == 1 && head_dim == 128)
-    return launch(dq_mma<__nv_bfloat16, 128>, dq_mma_smem<128>(), grid, s, a);
-  if (dtype == 2 && head_dim == 64)
-    return launch(dq_mma<__half, 64>, dq_mma_smem<64>(), grid, s, a);
-  if (dtype == 2 && head_dim == 128)
-    return launch(dq_mma<__half, 128>, dq_mma_smem<128>(), grid, s, a);
+    return launch(dq_f32<128>, dq_f32_smem<128>(), grid, kThreads, s, a);
+  if (dtype == 1 && head_dim == 64) return launch_dq<__nv_bfloat16, 64>(a, batch, s);
+  if (dtype == 1 && head_dim == 128) return launch_dq<__nv_bfloat16, 128>(a, batch, s);
+  if (dtype == 2 && head_dim == 64) return launch_dq<__half, 64>(a, batch, s);
+  if (dtype == 2 && head_dim == 128) return launch_dq<__half, 128>(a, batch, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -777,16 +1037,12 @@ extern "C" int flash_attention_bwd_dkv(
   const dim3 grid((seq_k + kBlock - 1) / kBlock, batch * heads);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0 && head_dim == 64)
-    return launch(dkv_f32<64>, dkv_f32_smem<64>(), grid, s, a);
+    return launch(dkv_f32<64>, dkv_f32_smem<64>(), grid, kThreads, s, a);
   if (dtype == 0 && head_dim == 128)
-    return launch(dkv_f32<128>, dkv_f32_smem<128>(), grid, s, a);
-  if (dtype == 1 && head_dim == 64)
-    return launch(dkv_mma<__nv_bfloat16, 64>, dkv_mma_smem<64>(), grid, s, a);
-  if (dtype == 1 && head_dim == 128)
-    return launch(dkv_mma<__nv_bfloat16, 128>, dkv_mma_smem<128>(), grid, s, a);
-  if (dtype == 2 && head_dim == 64)
-    return launch(dkv_mma<__half, 64>, dkv_mma_smem<64>(), grid, s, a);
-  if (dtype == 2 && head_dim == 128)
-    return launch(dkv_mma<__half, 128>, dkv_mma_smem<128>(), grid, s, a);
+    return launch(dkv_f32<128>, dkv_f32_smem<128>(), grid, kThreads, s, a);
+  if (dtype == 1 && head_dim == 64) return launch_dkv<__nv_bfloat16, 64>(a, batch, s);
+  if (dtype == 1 && head_dim == 128) return launch_dkv<__nv_bfloat16, 128>(a, batch, s);
+  if (dtype == 2 && head_dim == 64) return launch_dkv<__half, 64>(a, batch, s);
+  if (dtype == 2 && head_dim == 128) return launch_dkv<__half, 128>(a, batch, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -148,7 +148,14 @@ def _check_bwd(q, k, v, do, causal, dtype):
 @pytest.mark.parametrize("dtype", sorted(BWD_TOLERANCES, key=str))
 @pytest.mark.parametrize("s_q,s_k,d,causal", [
     (130, 130, 64, True), (130, 130, 64, False), (17, 300, 64, True),
-    (90, 40, 64, True), (200, 200, 128, True), (150, 70, 128, False)])
+    (90, 40, 64, True), (200, 200, 128, True), (150, 70, 128, False),
+    # the bf16/fp16 bodies' tiles: K2 128 query rows and 128 (d = 64) or
+    # 64 (d = 128) keys, K3 128 keys and 64 query rows
+    (127, 127, 64, True), (129, 129, 64, True), (257, 257, 64, False),
+    (127, 127, 128, False), (129, 129, 128, True), (257, 257, 128, True),
+    # s_q < s_k across a 128-key boundary; s_q > s_k with blind rows
+    (100, 200, 64, True), (60, 140, 128, True), (200, 70, 128, True),
+    (300, 129, 128, True)])
 def test_flash_attention_bwd_matches_plain(s_q, s_k, d, causal, dtype):
     _card()
     q, k, v, do = _bwd_inputs(2, s_q, s_k, 3, d, dtype, s_q * 5 + s_k)
@@ -156,20 +163,51 @@ def test_flash_attention_bwd_matches_plain(s_q, s_k, d, causal, dtype):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_flash_attention_bwd_reads_strided_qkv_views(dtype):
+@pytest.mark.parametrize("dtype,d", [(torch.float32, 64),
+                                     (torch.bfloat16, 64),
+                                     (torch.float16, 128)])
+def test_flash_attention_bwd_reads_strided_qkv_views(dtype, d):
     """K2 and K3 read q/k/v as views into one qkv projection, and a dO
     that is a strided view too."""
     _card()
     gen = torch.Generator(device="cuda")
     gen.manual_seed(1)
-    qkv = torch.randn((2, 77, 3 * 4 * 64), generator=gen,
+    qkv = torch.randn((2, 77, 3 * 4 * d), generator=gen,
                       device="cuda").to(dtype)
-    q, k, v = (t.view(2, 77, 4, 64) for t in qkv.split(4 * 64, dim=-1))
-    do = torch.randn((2, 77, 4, 2 * 64), generator=gen,
-                     device="cuda").to(dtype)[..., :64]
+    q, k, v = (t.view(2, 77, 4, d) for t in qkv.split(4 * d, dim=-1))
+    do = torch.randn((2, 77, 4, 2 * d), generator=gen,
+                     device="cuda").to(dtype)[..., :d]
     assert not q.is_contiguous() and not do.is_contiguous()
     _check_bwd(q, k, v, do, True, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+def test_flash_attention_bwd_reads_a_broadcast_do(dtype):
+    """dO as a broadcast view (strides 0, 0, 0, 1), as autograd hands over
+    the gradient of out.sum((0, 1, 2)): the tensor maps take zero strides."""
+    _card()
+    q, k, v, _ = _bwd_inputs(2, 77, 77, 4, 64, dtype, 3)
+    do = torch.randn(64, device="cuda").to(dtype).expand(2, 77, 4, 64)
+    _check_bwd(q, k, v, do, True, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16], ids=str)
+@pytest.mark.parametrize("d", [64, 128])
+def test_flash_attention_bwd_is_deterministic(d, dtype):
+    """Two calls of K2 and K3 give bitwise-equal dq, dk and dv: each sum
+    runs inside one block in one order, with no atomics."""
+    _card()
+    q, k, v, do = _bwd_inputs(2, 333, 333, 3, d, dtype, d)
+    out, lse = flash_attention_fwd(q, k, v, causal=True)
+    delta = flash_attention_bwd_delta(out, do)
+    runs = [(flash_attention_bwd_dq(q, k, v, do, lse, delta, causal=True),
+             *flash_attention_bwd_dkv(q, k, v, do, lse, delta, causal=True))
+            for _ in range(2)]
+    torch.cuda.synchronize()
+    for name, a, b in zip(("dq", "dk", "dv"), *runs):
+        assert torch.equal(a, b), f"{name} differs between two calls"
 
 
 @pytest.mark.cuda

@@ -54,7 +54,7 @@ def _bshd(x, b, h):
     return np.asarray(x).reshape(b, h, s, d).transpose(0, 2, 1, 3)
 
 
-@pytest.mark.parametrize("d,block_k", [(16, 32), (64, 64)])
+@pytest.mark.parametrize("d,block_k", [(16, 32), (64, 64), (128, 64)])
 @pytest.mark.parametrize("causal", [False, True])
 @pytest.mark.parametrize("s_q,s_k", [(128, 128), (17, 128), (100, 64),
                                      (100, 100)],
