@@ -18,10 +18,14 @@ Phases, in order; any failure exits non-zero and nothing is caught:
 * fused_kernel -- the same for the fusion pass's kernels: K4 residual + norm,
              K5 bias + activation, K6 norm + matmul + activation, K7 matmul +
              rope, at the path shapes of the fusion phase and at edge shapes
-             (ragged rows and columns, widths not multiples of 128, head dims
-             64 and 128, rope offsets, every activation, both norms, with and
-             without bias); each timed beside its bound, its plain version,
-             a PyTorch yardstick and its host time a call.
+             (ragged rows and columns, widths not multiples of 128, K = 8,
+             head dims 16 to 128, rope offsets up to 4000, every activation,
+             both norms, with and without bias), K7 against itself (two
+             calls bitwise equal); in bf16/fp16 K6's row pass and its
+             product are held apart (the rows against the plain rows:
+             ROW_NEIGHBOURS, ROW_FP32_ABS; the product against the plain
+             product of those rows); each timed beside its bound, its plain
+             version, a PyTorch yardstick and its host time a call.
 * forward -- GPT-2 small (full width, seeded random weights): fp32 logits on
              the card (through the kernel) against a CPU twin (plain
              attention); then a timed bf16 forward at B=4, S=1024.
@@ -108,6 +112,14 @@ KERNELS = {
 FUSED_FP32_TOL = 1e-4
 FUSED_REL = {torch.bfloat16: 2 ** -7, torch.float16: 2 ** -10}
 FUSED_ABS = 1e-3
+# K6's bf16/fp16 row pass against its plain version (fp32 statistics summed
+# in another order): each normalized value equal, the neighbour in x's type,
+# or within ROW_FP32_ABS of it, where the norm bias cancels the scaled row
+# near 0 and x's type is finer there than the terms' fp32 error (two fp32
+# units at 4, the rows' largest scale); values not equal at most
+# ROW_NEIGHBOURS of all, held where that share allows 100 values or more
+ROW_NEIGHBOURS = 1e-4
+ROW_FP32_ABS = 2 ** -20
 # fused against unfused bf16 step-1 loss (about 0.2% of ln(vocab)): K4
 # normalizes the fp32 sum where the unfused chain normalizes the rounded
 # sum, and K6/K7 round once where the unfused chain rounds after the
@@ -188,7 +200,7 @@ def _ptxas_summary(report):
             out.append(("warning", line.strip()))
         elif found:
             mangled = found.group(1)
-            base = re.search(r"(flash_fwd|dkv|dq|gemm)_(wgmma|mma|f32)"
+            base = re.search(r"(flash_fwd|dkv|dq|gemm|gemm_rope)_(wgmma|f32)"
                              r"|norm_rows|residual_norm|bias_act", mangled)
             dtype = ("fp16" if "__half" in mangled else
                      "bf16" if "bfloat16" in mangled else "fp32")
@@ -555,11 +567,69 @@ def _fused_check(name, case, dtype, got, ref):
     return err
 
 
+def _ordered(t):
+    """A bf16/fp16 tensor's values as integers in their order (the
+    sign-magnitude bits made two's complement): neighbours in the type
+    differ by 1, and -0 and +0 are both 0."""
+    bits = t.view(torch.int16).to(torch.int32)
+    return torch.where(bits < 0, -(bits & 0x7FFF), bits)
+
+
+def _rows_check(case, dtype, got, ref):
+    """Check (a) of K6's split: the row pass's normalized values against
+    the plain rows' (ROW_NEIGHBOURS, ROW_FP32_ABS); returns the max abs
+    error."""
+    diff = (got.float() - ref.float()).abs()
+    steps = (_ordered(got) - _ordered(ref)).abs()
+    near = int((steps == 1).sum())
+    fine = int(((steps > 1) & (diff <= ROW_FP32_ABS)).sum())
+    far = int(((steps > 1) & (diff > ROW_FP32_ABS)).sum())
+    n = got.numel()
+    tag = str(dtype).replace("torch.", "")
+    log(f"  {'fused_norm_rows':20s} {tag:8s} {case:34s} "
+        f"max_abs_err={diff.max().item():.3e} neighbours={near} "
+        f"further_within_fp32={fine} further={far} of {n}")
+    share_held = n * ROW_NEIGHBOURS >= 100
+    if far or (share_held and near + fine > ROW_NEIGHBOURS * n):
+        raise AssertionError(
+            f"K6's row pass disagrees with its plain version: {tag} {case}: "
+            f"{near} neighbours, {fine} further within {ROW_FP32_ABS}, "
+            f"{far} further of {n}")
+    return diff.max().item()
+
+
+def _k6_split_check(fk, case, dtype, args):
+    """K6 in bf16/fp16 with a norm, its two steps held apart: (a) the row
+    pass against the plain rows, (b) the kernel's product against the
+    plain product of the kernel's own rows, within the output limit; the
+    whole chain against the plain K6 is printed, not held (a neighbour in
+    the rows, times W, can pass the limit near 0). Returns the product's
+    max abs error."""
+    x, w, b, nw, nb, norm, act = args
+    rows = fk.fused_norm_rows(x, nw, nb, norm)
+    _rows_check(case, dtype, rows, fk.fused_norm_rows_plain(x, nw, nb, norm))
+    got = fk.fused_matmul(*args)
+    err = _fused_check("fused_matmul", case + " product", dtype, got,
+                       fk.fused_matmul_plain(rows, w, b, act=act))
+    whole = fk.fused_matmul_plain(*args).float()
+    ratio = ((got.float() - whole).abs()
+             / (FUSED_REL[dtype] * whole.abs() + FUSED_ABS)).max().item()
+    tag = str(dtype).replace("torch.", "")
+    log(f"  {'fused_matmul':20s} {tag:8s} {case + ' chain':34s} "
+        f"limit_ratio={ratio:.3f} (printed, not held)")
+    return err
+
+
 def _fused_cases(fk, gen, dtype):
-    """(kernel, case, kernel call, plain call) at the path shapes of the
-    fusion phase (the first case of each kernel) and at edge shapes."""
+    """(kernel, case, check) at the path shapes of the fusion phase (the
+    first case of each kernel) and at edge shapes; each check holds the
+    kernel against its plain version and returns the max abs error."""
     def r(*shape, scale=1.0):
         return randn(shape, torch.float32, gen).mul_(scale).to(dtype)
+
+    def held(name, case, run, plain):
+        return name, case, lambda: _fused_check(name, case, dtype, run(),
+                                                plain())
     cases = []
     for label, rows, d, kind, affine in (
             ("llama path rms 8192x1536", 8192, 1536, "rms_norm", "w"),
@@ -569,20 +639,21 @@ def _fused_cases(fk, gen, dtype):
         x, res = r(rows, d), r(rows, d)
         w = 1 + r(d, scale=0.1) if "w" in affine else None
         b = r(d, scale=0.1) if "b" in affine else None
-        cases.append(("fused_residual_norm", label,
-                      lambda x=x, res=res, w=w, b=b, kind=kind:
-                      fk.fused_residual_norm(x, res, w, b, kind=kind),
-                      lambda x=x, res=res, w=w, b=b, kind=kind:
-                      fk.fused_residual_norm_plain(x, res, w, b, kind)))
+        cases.append(held("fused_residual_norm", label,
+                          lambda x=x, res=res, w=w, b=b, kind=kind:
+                          fk.fused_residual_norm(x, res, w, b, kind=kind),
+                          lambda x=x, res=res, w=w, b=b, kind=kind:
+                          fk.fused_residual_norm_plain(x, res, w, b, kind)))
     for label, rows, d, acts in (("path 8192x4096", 8192, 4096, ("gelu",)),
                                  ("ragged 33x100", 33, 100, fk.ACT_CODE),
                                  ("64x4096", 64, 4096, fk.ACT_CODE)):
         x, b = r(rows, d), r(d, scale=0.5)
         for act in dict.fromkeys(a for a in acts if a):
-            cases.append(("fused_bias_act", f"{label} {act}",
-                          lambda x=x, b=b, act=act: fk.fused_bias_act(x, b, act),
-                          lambda x=x, b=b, act=act:
-                          fk.fused_bias_act_plain(x, b, act)))
+            cases.append(held("fused_bias_act", f"{label} {act}",
+                              lambda x=x, b=b, act=act:
+                              fk.fused_bias_act(x, b, act),
+                              lambda x=x, b=b, act=act:
+                              fk.fused_bias_act_plain(x, b, act)))
     for label, m, k, n, norm, act, bias in (
             ("gpt2 fc1 8192x1024->4096 gelu_tanh", 8192, 1024, 4096, "",
              "gelu_tanh", True),
@@ -606,23 +677,59 @@ def _fused_cases(fk, gen, dtype):
         nw = 1 + r(k, scale=0.1) if norm else None
         nb = r(k, scale=0.1) if norm else None
         args = (x, w, b, nw, nb, norm, act)
-        cases.append(("fused_matmul", label,
-                      lambda a=args: fk.fused_matmul(*a),
-                      lambda a=args: fk.fused_matmul_plain(*a)))
+        if norm and dtype != torch.float32:     # the row pass, then the product
+            cases.append(("fused_matmul", label,
+                          lambda a=args, label=label:
+                          _k6_split_check(fk, label, dtype, a)))
+        else:
+            cases.append(held("fused_matmul", label,
+                              lambda a=args: fk.fused_matmul(*a),
+                              lambda a=args: fk.fused_matmul_plain(*a)))
     for label, bt, s, k, heads, hd, off, bias in (
             ("llama q 8192x1536->1536 hd128", 4, 2048, 1536, 12, 128, 0,
              False),
             ("hd64 off5 bias 2x33 136->192", 2, 33, 136, 3, 64, 5, True),
-            ("hd128 off7 2x64 256->256", 2, 64, 256, 2, 128, 7, False)):
+            ("hd128 off7 2x64 256->256", 2, 64, 256, 2, 128, 7, False),
+            # the wgmma body's edges: ragged M (rows not a multiple of
+            # 128), N not a multiple of 128, K not a multiple of 64 and
+            # K = 8, head dims 16 and 32, a large offset (angles past 6000
+            # rad), the small LLaMA's GQA k projection
+            ("ragged M 3x100 hd128 256->256 bias", 3, 100, 256, 2, 128, 0,
+             True),
+            ("hd64x3 N=192 2x64 256->192", 2, 64, 256, 3, 64, 0, False),
+            ("K=136 hd128 2x80 136->384", 2, 80, 136, 3, 128, 2, False),
+            ("K=8 hd32 bias 2x40 8->64", 2, 40, 8, 2, 32, 0, True),
+            ("hd16 off3 bias 2x50 64->64", 2, 50, 64, 4, 16, 3, True),
+            ("hd32 off9 3x100 136->96", 3, 100, 136, 3, 32, 9, False),
+            ("off4000 hd128 2x2048 256->256", 2, 2048, 256, 2, 128, 4000,
+             False),
+            ("gqa k 2x512 1024->512 hd128", 2, 512, 1024, 4, 128, 0,
+             False)):
         x, w = r(bt * s, k), r(heads * hd, k, scale=k ** -0.5)
         b = r(heads * hd, scale=0.1) if bias else None
         kw = dict(seq=s, head_dim=hd, pos_offset=off)
-        cases.append(("fused_matmul_rope", label,
-                      lambda x=x, w=w, b=b, kw=kw:
-                      fk.fused_matmul_rope(x, w, b, **kw),
-                      lambda x=x, w=w, b=b, kw=kw:
-                      fk.fused_matmul_rope_plain(x, w, b, **kw)))
+        cases.append(held("fused_matmul_rope", label,
+                          lambda x=x, w=w, b=b, kw=kw:
+                          fk.fused_matmul_rope(x, w, b, **kw),
+                          lambda x=x, w=w, b=b, kw=kw:
+                          fk.fused_matmul_rope_plain(x, w, b, **kw)))
     return cases
+
+
+def _rope_deterministic(fk, gen):
+    """Two K7 calls on one input give bitwise-equal outputs (no atomics:
+    each sum runs in one order), in bf16 with ragged rows and a bias."""
+    x = randn((300, 1536), torch.bfloat16, gen)
+    w = (torch.randn((1536, 1536), generator=gen, device="cuda")
+         * 1536 ** -0.5).to(torch.bfloat16)
+    b = randn((1536,), torch.bfloat16, gen)
+    runs = [fk.fused_matmul_rope(x, w, b, seq=150, head_dim=128,
+                                 pos_offset=11) for _ in range(2)]
+    torch.cuda.synchronize()
+    same = torch.equal(*runs)
+    log(f"  fused_matmul_rope bfloat16 two calls bitwise equal: {same}")
+    if not same:
+        raise AssertionError("K7 differs from call to call")
 
 
 def _time_fused(name, label, run, plain, library, library_call, moved, flops,
@@ -654,12 +761,13 @@ def phase_fused_kernel(state):
     worst = {}
     for dtype in (torch.float32, torch.bfloat16, torch.float16):
         seen = set()
-        for name, case, run, plain in _fused_cases(fk, gen, dtype):
-            err = _fused_check(name, case, dtype, run(), plain())
+        for name, case, check in _fused_cases(fk, gen, dtype):
+            err = check()
             if dtype == torch.bfloat16 and name not in seen:   # path shape
                 worst[name] = err
             seen.add(name)
         torch.cuda.empty_cache()
+    _rope_deterministic(fk, gen)
 
     bf16 = torch.bfloat16
     rows = LLAMA_SHAPE["b"] * LLAMA_SHAPE["s"]        # = 8 x 1024 for GPT-2
@@ -716,22 +824,6 @@ def phase_fused_kernel(state):
                 (rows * d_gpt + 3 * d_gpt * d_gpt + rows * 3 * d_gpt
                  + 3 * d_gpt + 2 * d_gpt) * 2,
                 2.0 * rows * 3 * d_gpt * d_gpt)
-    # K6's plain version takes the norm's statistics in float64, as the
-    # kernel's row pass does; the TPU kernel takes them in fp32. How far
-    # the kernel sits from that function at the path shape (not a limit):
-    xn, xn_tpu = (fk.normalize_rows(xm.float(), wg.float(), bg.float(),
-                                    "layer_norm", 1e-5, stats=s).to(bf16)
-                  for s in (torch.float64, torch.float32))
-    tpu = fk.fused_matmul_plain(xn_tpu, wq, bq).float()
-    got = fk.fused_matmul(xm, wq, bq, wg, bg, "layer_norm").float()
-    log(json.dumps({
-        "kernel": "fused_matmul", "shape": f"{rows}x{d_gpt}->{3 * d_gpt} "
-        "bf16 layer_norm prologue, bias",
-        "normalized_values_off_fp32_statistics": int((xn != xn_tpu).sum()),
-        "normalized_values": xn.numel(),
-        "limit_ratio_against_fp32_statistics": (
-            (got - tpu).abs() / (FUSED_REL[bf16] * tpu.abs() + FUSED_ABS)
-        ).max().item()}))
     # K7: LLaMA-770M's q (and k) projection with its rope, 8192 x 1536
     xr, wr = r(rows, h), r(h, h, scale=h ** -0.5)
     seq, hd = LLAMA_SHAPE["s"], h // LLAMA_770M["num_heads"]
@@ -743,6 +835,12 @@ def phase_fused_kernel(state):
             LLAMA_SHAPE["b"], seq, h // hd, hd), 10000.0, 0),
         "torch.matmul, then the plain rope",
         (rows * h + h * h + rows * h) * 2, 2.0 * rows * h * h)
+    # the product alone, a floor for K7 (not a yardstick: no rotation)
+    matmul_ms, _, _ = time_ms(lambda: torch.matmul(xr, wr.t()),
+                              reps=KERNEL_REPS, queued=True)
+    log(json.dumps({"kernel": "fused_matmul_rope", "shape": f"{rows}x{h}->{h}",
+                    "torch_matmul_alone_ms": matmul_ms,
+                    "kernel_ms": timed["fused_matmul_rope"]["ms"]}))
     for name, row in timed.items():
         state.setdefault("kernels", {})[name] = dict(row,
                                                      max_abs_err=worst[name])
@@ -934,12 +1032,14 @@ def _no_decay(name):
                               "ln_f.weight"))
 
 
-def _train_step(forward, opt, ids, want_fwd, want_bwd, events=None):
+def _train_step(forward, opt, ids, want_fwd, want_bwd, events=None,
+                grad_norms=None):
     """One eager step, forward(ids, labels=ids) -> backward -> AdamW; holds
     the launches of the forward and of the backward to ``want_fwd`` and
     ``want_bwd`` (kernel -> launches; every other kernel none). ``events``,
     four CUDA events, split the step into forward, backward and
-    optimizer."""
+    optimizer. ``grad_norms``, a list, gets the step's global gradient
+    norm (fp32, on the card) appended."""
     c0 = _counts()
     if events:
         events[0].record()
@@ -951,6 +1051,10 @@ def _train_step(forward, opt, ids, want_fwd, want_bwd, events=None):
     c2 = _counts()
     if events:
         events[2].record()
+    if grad_norms is not None:
+        grads = [p.grad for p in opt._parameter_list if p.grad is not None]
+        grad_norms.append(torch.linalg.vector_norm(torch.stack(
+            torch._foreach_norm(grads, 2, dtype=torch.float32))))
     opt.step()
     opt.clear_grad()
     if events:
@@ -1109,8 +1213,9 @@ def _fused_training(label, model, batches, fused_fwd, profile=False,
     seeded batches taken in turn. Holds the step-1 losses to each other
     within FUSED_LOSS_TOL, every step's launches (the fused forward adds
     ``fused_fwd``), and a finite loss that falls on the repeated batch;
-    logs step times (the first step of each block warms its path up) and,
-    with ``profile``, a profile of one step of each."""
+    logs each step's loss and global gradient norm, step times (the first
+    step of each block warms its path up) and, with ``profile``, a profile
+    of one step of each."""
     from paddle_tpu_torch import to_static
     from paddle_tpu_torch.optimizer import AdamW
     plain_fwd, bwd = _flash_launches(model.cfg.num_layers)
@@ -1130,7 +1235,7 @@ def _fused_training(label, model, batches, fused_fwd, profile=False,
             "unfused": (model, plain_fwd)}
     walls = {name: [] for name in runs}
     split = {name: [] for name in runs}
-    losses = []
+    losses, grad_norms = [], []
     torch.cuda.reset_peak_memory_stats()
     for _ in range(blocks):
         for name, (forward, want_fwd) in runs.items():
@@ -1140,7 +1245,7 @@ def _fused_training(label, model, batches, fused_fwd, profile=False,
                 torch.cuda.synchronize()
                 t0 = time.perf_counter()
                 loss = _train_step(forward, opt, batches[len(losses) % 2],
-                                   want_fwd, bwd, events)
+                                   want_fwd, bwd, events, grad_norms)
                 torch.cuda.synchronize()
                 if k:
                     walls[name].append(time.perf_counter() - t0)
@@ -1150,7 +1255,8 @@ def _fused_training(label, model, batches, fused_fwd, profile=False,
     with torch.no_grad():
         again = float(fused(b0, labels=b0)[1])
     log(f"fusion: {label} losses {losses} (fused and unfused steps in blocks "
-        f"of {per_block}); batch 0 again {again}")
+        f"of {per_block}); batch 0 again {again}; global gradient norms "
+        f"{[float(g) for g in grad_norms]}")
     if not all(np.isfinite(losses + [again])) or not again < loss_f:
         raise AssertionError(f"{label}: loss {loss_f} -> {again} on the "
                              f"repeated batch")
@@ -1178,7 +1284,7 @@ def _fused_training(label, model, batches, fused_fwd, profile=False,
                      groups={"K1-K3 attention": ("flash_fwd", "dq_", "dkv_"),
                              "K4": ("residual_norm",),
                              "K6": ("gemm_wgmma", "norm_rows"),
-                             "K7": ("gemm_mma",),
+                             "K7": ("gemm_rope_wgmma",),
                              "cuBLAS GEMM": ("nvjet", "xmma", "cutlass",
                                              "cublas"),
                              "elementwise and reductions": (

@@ -1,5 +1,5 @@
 // Hopper building blocks shared by the port's warp-specialized kernels
-// (K1 in flash_attention_fwd.cu, K6 in fused_matmul.cu): mbarriers, TMA
+// (K1-K3 in flash_attention_*.cu, K6 and K7 in fused_matmul.cu): mbarriers, TMA
 // tile loads, wgmma shared-memory descriptors and the wgmma instructions
 // themselves, and the host-side tensor-map encoder.
 //
@@ -209,8 +209,8 @@ __device__ __forceinline__ uint32_t pack2<__half>(float lo, float hi) {
 // fragment: warp w of the group holds rows 16w..16w+15; for the 8-column
 // block j, d[4j], d[4j+1] are row 16w + lane/4, columns 8j + 2(lane%4) + 0/1,
 // and d[4j+2], d[4j+3] the same columns 8 rows below. A from registers
-// takes the layout of mma.sync's A fragment (a[0]: row lane/4, k 2(lane%4);
-// a[1]: 8 rows below; a[2], a[3]: k + 8), so two 8-column accumulator
+// takes the layout a[0]: row lane/4, k 2(lane%4); a[1]: 8 rows below;
+// a[2], a[3]: k + 8 (the m16n8k16 A fragment), so two 8-column accumulator
 // blocks of one product, packed to 16 bits, are the A operand of the next.
 template <typename T, int N>
 struct Wgmma;

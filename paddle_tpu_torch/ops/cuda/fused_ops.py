@@ -9,8 +9,9 @@ Counterpart of ``paddle_tpu/ops/pallas/fused_ops.py``:
 * K5 ``fused_bias_act`` -> ``csrc/fused_bias_act.cu`` (``_bias_act_kernel``):
   ``act(x + b)``;
 * K6 ``fused_matmul`` -> ``csrc/fused_matmul.cu`` (``_matmul_kernel``):
-  ``act(norm(x) W^T + b)``; in bf16/fp16 the norm is a row pass into a
-  scratch buffer, launched by the same call before the product;
+  ``act(norm(x) W^T + b)``; in bf16/fp16 the norm is K6's row pass
+  (``fused_norm_rows``, reachable on its own) into a buffer of x's type,
+  launched by the same call before the product;
 * K7 ``fused_matmul_rope`` -> ``csrc/fused_matmul.cu`` (``_matmul_rope_kernel``):
   ``rope(x W^T + b)`` over the flattened (batch, seq) rows.
 
@@ -57,24 +58,20 @@ def act_apply(y: torch.Tensor, act: Optional[str]) -> torch.Tensor:
 
 
 def normalize_rows(x32: torch.Tensor, w32: Optional[torch.Tensor],
-                   b32: Optional[torch.Tensor], kind: str, eps: float,
-                   stats: torch.dtype = torch.float32) -> torch.Tensor:
-    """Row-wise LayerNorm/RMSNorm over the last dim in fp32 (counterpart of
-    ``_normalize_rows``): the centered variance for LayerNorm, the mean of
-    squares for RMSNorm; a missing weight is 1, a missing bias 0.
-
-    The mean, the mean square and rsqrt(var + eps) are taken in ``stats``
-    and rounded to fp32; the rest is fp32. fp32 is the TPU kernel's
-    arithmetic; float64 is K6's row pass, whose fp32-rounded statistics do
-    not depend on the order of the sums."""
+                   b32: Optional[torch.Tensor], kind: str,
+                   eps: float) -> torch.Tensor:
+    """Row-wise LayerNorm/RMSNorm over the last dim in fp32, the sequence
+    of ``_normalize_rows``: LayerNorm takes the mean, the centered values,
+    their mean square and rsqrt(var + eps); RMSNorm the mean of x² and
+    x * rsqrt(ms + eps). Then ``* w + b``; a missing weight is 1, a missing
+    bias 0. K4 and K6 take these fp32 statistics."""
     if kind not in ("layer_norm", "rms_norm"):
         raise ValueError(f"unknown norm kind {kind!r}")
     centered = x32
     if kind == "layer_norm":
-        centered = x32 - x32.to(stats).mean(dim=-1, keepdim=True).float()
-    c = centered.to(stats)
-    var = (c * c).mean(dim=-1, keepdim=True).float()
-    y = centered * torch.rsqrt((var + eps).to(stats)).float()
+        centered = x32 - x32.mean(dim=-1, keepdim=True)
+    var = (centered * centered).mean(dim=-1, keepdim=True)
+    y = centered * torch.rsqrt(var + eps)
     if w32 is not None:
         y = y * w32
     if b32 is not None:
@@ -105,22 +102,30 @@ def fused_bias_act_plain(x: torch.Tensor, bias: torch.Tensor,
     return act_apply(x.float() + bias.float(), act).to(x.dtype)
 
 
+def fused_norm_rows_plain(x: torch.Tensor,
+                          norm_weight: Optional[torch.Tensor] = None,
+                          norm_bias: Optional[torch.Tensor] = None,
+                          kind: str = "layer_norm",
+                          eps: float = 1e-5) -> torch.Tensor:
+    """K6's row pass in plain PyTorch: norm(x) * w + b over x (M, K) with
+    fp32 statistics, rounded to x's type."""
+    return normalize_rows(x.float(), _f32(norm_weight), _f32(norm_bias), kind,
+                          eps).to(x.dtype)
+
+
 def fused_matmul_plain(x: torch.Tensor, w: torch.Tensor,
                        bias: Optional[torch.Tensor] = None,
                        norm_weight: Optional[torch.Tensor] = None,
                        norm_bias: Optional[torch.Tensor] = None,
                        norm_kind: str = "", act: str = "",
                        eps: float = 1e-5) -> torch.Tensor:
-    """K6's function in plain PyTorch: x (M, K), w (N, K). The normalized
-    rows are rounded to x's type before the fp32 product, as the TPU kernel
-    rounds them; bias and activation in fp32, rounded once. The norm takes
-    its statistics in float64, as the kernel's row pass does, so both
-    round every normalized value alike; the TPU kernel's fp32 statistics
-    can put a value one rounding of x's type away."""
+    """K6's function in plain PyTorch: x (M, K), w (N, K). The norm takes
+    fp32 statistics, and the normalized rows are rounded to x's type
+    before the fp32 product (``fused_norm_rows_plain``), as the TPU kernel
+    rounds them; bias and activation in fp32, rounded once."""
     xn = x
     if norm_kind:
-        xn = normalize_rows(x.float(), _f32(norm_weight), _f32(norm_bias),
-                            norm_kind, eps, stats=torch.float64).to(x.dtype)
+        xn = fused_norm_rows_plain(x, norm_weight, norm_bias, norm_kind, eps)
     acc = xn.float() @ w.float().t()
     if bias is not None:
         acc = acc + bias.float()
@@ -263,6 +268,44 @@ def _check_matmul(name, x, w, bias):
     return m, n, k
 
 
+def _norm_rows_into(name, out, x, norm_weight, norm_bias, kind, eps):
+    """Launch K6's row pass on checked inputs, x (M, K), into ``out``."""
+    fn = _function("fused_matmul", "fused_norm_rows",
+                   [_P] * 4 + [_I] * 4 + [_F, _P])
+    _launch(name, fn, x, x.data_ptr(), _ptr(norm_weight), _ptr(norm_bias),
+            out.data_ptr(), x.shape[0], x.shape[1], _DTYPE_CODE[x.dtype],
+            NORM_CODE[kind], float(eps))
+
+
+def fused_norm_rows(x: torch.Tensor, norm_weight: Optional[torch.Tensor] = None,
+                    norm_bias: Optional[torch.Tensor] = None,
+                    kind: str = "layer_norm", eps: float = 1e-5
+                    ) -> torch.Tensor:
+    """K6's row pass on its own: norm(x) * w + b over x (M, K) with fp32
+    statistics, rounded to x's type; what the bf16/fp16 K6 multiplies. CPU
+    tensors run the plain version; CUDA tensors launch the kernel (bf16 or
+    fp16, K a multiple of 8) or raise."""
+    if not x.is_cuda:
+        return fused_norm_rows_plain(x, norm_weight, norm_bias, kind, eps)
+    name = "fused_norm_rows"
+    if kind not in ("layer_norm", "rms_norm"):
+        raise ValueError(f"{name}: kind must be layer_norm or rms_norm, got "
+                         f"{kind!r}")
+    _check(name, x, norm_weight, norm_bias)
+    if x.dtype == torch.float32:
+        raise TypeError(f"{name}: takes bfloat16 or float16 (the fp32 K6 "
+                        f"normalizes inside its product)")
+    if x.dim() != 2 or x.shape[1] % 8 or x.numel() == 0:
+        raise ValueError(f"{name}: x must be (M, K) with K a multiple of 8, "
+                         f"got {tuple(x.shape)}")
+    _check_vec(name, norm_weight, x.shape[1], "norm_weight")
+    _check_vec(name, norm_bias, x.shape[1], "norm_bias")
+    out = torch.empty_like(x)
+    _norm_rows_into(name, out, x, norm_weight, norm_bias, kind, eps)
+    fused_norm_rows.launches += 1
+    return out
+
+
 def fused_matmul(x: torch.Tensor, w: torch.Tensor,
                  bias: Optional[torch.Tensor] = None,
                  norm_weight: Optional[torch.Tensor] = None,
@@ -273,7 +316,7 @@ def fused_matmul(x: torch.Tensor, w: torch.Tensor,
     type; ``norm_kind`` "" skips the norm. CPU tensors run the plain
     version; CUDA tensors launch the kernel (K a multiple of 8) or raise.
     One call counts one launch: in bf16/fp16 with a norm it runs the row
-    pass and then the product."""
+    pass into a buffer of x's type and then the product on those rows."""
     if not x.is_cuda:
         return fused_matmul_plain(x, w, bias, norm_weight, norm_bias,
                                   norm_kind, act, eps)
@@ -284,15 +327,18 @@ def fused_matmul(x: torch.Tensor, w: torch.Tensor,
     _check(name, x, norm_weight, norm_bias)
     _check_vec(name, norm_weight, k, "norm_weight")
     _check_vec(name, norm_bias, k, "norm_bias")
+    if norm_kind and x.dtype != torch.float32:
+        # the fp32 body normalizes its tiles itself; bf16/fp16 multiply
+        # the row pass's rows
+        xn = torch.empty_like(x)
+        _norm_rows_into(name, xn, x, norm_weight, norm_bias, norm_kind, eps)
+        x, norm_kind = xn, ""
     out = torch.empty((m, n), dtype=x.dtype, device=x.device)
-    # the bf16/fp16 kernel's row pass writes the normalized rows here
-    scratch = (torch.empty_like(x) if norm_kind and x.dtype != torch.float32
-               else None)
-    fn = _function("fused_matmul", name, [_P] * 7 + [_I] * 6 + [_F, _P])
+    fn = _function("fused_matmul", name, [_P] * 6 + [_I] * 6 + [_F, _P])
     _launch(name, fn, x, x.data_ptr(), w.data_ptr(), _ptr(bias),
-            _ptr(norm_weight), _ptr(norm_bias), _ptr(scratch), out.data_ptr(),
-            m, n, k, _DTYPE_CODE[x.dtype], NORM_CODE[norm_kind],
-            ACT_CODE[act], float(eps))
+            _ptr(norm_weight), _ptr(norm_bias), out.data_ptr(), m, n, k,
+            _DTYPE_CODE[x.dtype], NORM_CODE[norm_kind], ACT_CODE[act],
+            float(eps))
     fused_matmul.launches += 1
     return out
 
@@ -324,5 +370,6 @@ def fused_matmul_rope(x: torch.Tensor, w: torch.Tensor,
 
 fused_residual_norm.launches = 0
 fused_bias_act.launches = 0
+fused_norm_rows.launches = 0
 fused_matmul.launches = 0
 fused_matmul_rope.launches = 0

@@ -239,6 +239,13 @@ def test_flash_attention_autograd_matches_plain_autograd(causal):
 FUSED_FP32_TOL = 1e-4
 FUSED_REL = {torch.bfloat16: 2 ** -7, torch.float16: 2 ** -10}
 FUSED_DTYPES = [torch.float32, torch.bfloat16, torch.float16]
+# K6's row pass in bf16/fp16 against its plain version: fp32 statistics
+# summed in another order, so a normalized value may be the neighbour in
+# x's type, or within ROW_FP32_ABS where the norm bias cancels the scaled
+# row near 0 (x's type is finer there than the terms' fp32 error); values
+# not equal at most ROW_NEIGHBOURS of all, held where that allows 100
+ROW_NEIGHBOURS = 1e-4
+ROW_FP32_ABS = 2 ** -20
 
 
 def _fused_ok(got, ref, dtype):
@@ -248,6 +255,21 @@ def _fused_ok(got, ref, dtype):
         return diff.max().item() <= FUSED_FP32_TOL
     bound = FUSED_REL[dtype] * ref.float().abs() + 1e-3
     return bool((diff <= bound).all())
+
+
+def _rows_ok(got, ref):
+    """K6's row pass against the plain rows: every value equal, the
+    neighbour in its type or within ROW_FP32_ABS; the values not equal
+    at most ROW_NEIGHBOURS of all where that share is 100 or more."""
+    def ordered(t):
+        bits = t.view(torch.int16).to(torch.int32)
+        return torch.where(bits < 0, -(bits & 0x7FFF), bits)
+    steps = (ordered(got) - ordered(ref)).abs()
+    diff = (got.float() - ref.float()).abs()
+    if bool(((steps > 1) & (diff > ROW_FP32_ABS)).any()):
+        return False
+    n = got.numel()
+    return n * ROW_NEIGHBOURS < 100 or int((steps > 0).sum()) <= ROW_NEIGHBOURS * n
 
 
 def _rand(shape, dtype, gen, scale=1.0):
@@ -320,15 +342,53 @@ def test_fused_matmul_matches_plain(m, k, n, norm_kind, act, with_bias,
     got = FK.fused_matmul(x, w, b, nw, nb, norm_kind=norm_kind, act=act)
     torch.cuda.synchronize()
     assert FK.fused_matmul.launches == before + 1
-    ref = FK.fused_matmul_plain(x, w, b, nw, nb, norm_kind, act)
+    if norm_kind and dtype != torch.float32:
+        # the row pass and the product held apart: (a) the rows equal to
+        # the plain rows or their neighbours, (b) the product against the
+        # plain product of the kernel's own rows
+        rows = FK.fused_norm_rows(x, nw, nb, norm_kind)
+        assert _rows_ok(rows, FK.fused_norm_rows_plain(x, nw, nb, norm_kind))
+        ref = FK.fused_matmul_plain(rows, w, b, act=act)
+    else:
+        ref = FK.fused_matmul_plain(x, w, b, nw, nb, norm_kind, act)
     assert _fused_ok(got, ref, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16], ids=str)
+@pytest.mark.parametrize("m,k,kind,affine", [
+    (130, 72, "layer_norm", True), (64, 1536, "rms_norm", True),
+    (1, 1024, "layer_norm", False), (300, 136, "rms_norm", False),
+    # where 1e-4 of the values is 100 or more, the share is held too
+    (2048, 1024, "layer_norm", True), (1024, 1536, "rms_norm", True)])
+def test_fused_norm_rows_matches_plain(m, k, kind, affine, dtype):
+    """K6's row pass on its own, as ``_rows_ok``."""
+    _card()
+    gen = _gen(m * 7 + k)
+    x = _rand((m, k), dtype, gen, 2.0)
+    nw = (1 + _rand((k,), dtype, gen, 0.1)) if affine else None
+    nb = _rand((k,), dtype, gen, 0.1) if affine else None
+    before = FK.fused_norm_rows.launches
+    got = FK.fused_norm_rows(x, nw, nb, kind)
+    torch.cuda.synchronize()
+    assert FK.fused_norm_rows.launches == before + 1
+    ref = FK.fused_norm_rows_plain(x, nw, nb, kind)
+    assert got.dtype == ref.dtype == dtype and got.shape == ref.shape
+    assert _rows_ok(got, ref)
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", FUSED_DTYPES, ids=str)
 @pytest.mark.parametrize("b_,s,k,heads,head_dim,pos_offset,with_bias", [
     (2, 33, 136, 3, 64, 5, True), (2, 64, 256, 2, 128, 0, False),
-    (1, 2048, 128, 1, 128, 0, False)])
+    (1, 2048, 128, 1, 128, 0, False),
+    # the bf16/fp16 body's edges: 128 x 128 tiles (ragged M, N = 192),
+    # 64-wide k-tiles (K = 136, K = 8), head dims 16 and 32, angles past
+    # 6000 rad, the small LLaMA's GQA k projection
+    (3, 100, 256, 2, 128, 0, True), (2, 64, 256, 3, 64, 0, False),
+    (2, 80, 136, 3, 128, 2, False), (2, 40, 8, 2, 32, 0, True),
+    (2, 50, 64, 4, 16, 3, True), (3, 100, 136, 3, 32, 9, False),
+    (2, 2048, 256, 2, 128, 4000, False), (2, 512, 1024, 4, 128, 0, False)])
 def test_fused_matmul_rope_matches_plain(b_, s, k, heads, head_dim,
                                          pos_offset, with_bias, dtype):
     _card()
@@ -337,12 +397,31 @@ def test_fused_matmul_rope_matches_plain(b_, s, k, heads, head_dim,
     x = _rand((b_ * s, k), dtype, gen)
     w = _rand((n, k), dtype, gen, k ** -0.5)
     bias = _rand((n,), dtype, gen, 0.1) if with_bias else None
+    before = FK.fused_matmul_rope.launches
     got = FK.fused_matmul_rope(x, w, bias, seq=s, head_dim=head_dim,
                                pos_offset=pos_offset)
     torch.cuda.synchronize()
+    assert FK.fused_matmul_rope.launches == before + 1
     ref = FK.fused_matmul_rope_plain(x, w, bias, seq=s, head_dim=head_dim,
                                      pos_offset=pos_offset)
     assert _fused_ok(got, ref, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16], ids=str)
+@pytest.mark.parametrize("head_dim", [64, 128])
+def test_fused_matmul_rope_is_deterministic(head_dim, dtype):
+    """Two K7 calls give bitwise-equal outputs: each sum runs inside one
+    block in one order, with no atomics."""
+    _card()
+    gen = _gen(head_dim)
+    x = _rand((300, 512), dtype, gen)
+    w = _rand((512, 512), dtype, gen, 512 ** -0.5)
+    b = _rand((512,), dtype, gen, 0.1)
+    runs = [FK.fused_matmul_rope(x, w, b, seq=150, head_dim=head_dim,
+                                 pos_offset=11) for _ in range(2)]
+    torch.cuda.synchronize()
+    assert torch.equal(*runs)
 
 
 @pytest.mark.cuda
@@ -352,6 +431,10 @@ def test_fused_kernels_raise_on_what_they_do_not_take():
     x = torch.randn((4, 12), device="cuda")
     with pytest.raises(ValueError, match="multiple of 8"):
         FK.fused_matmul(x, torch.randn((8, 12), device="cuda"))
+    with pytest.raises(TypeError, match="bfloat16 or float16"):
+        FK.fused_norm_rows(x, kind="rms_norm")
+    with pytest.raises(ValueError, match="multiple of 8"):
+        FK.fused_norm_rows(x.half(), kind="rms_norm")
     with pytest.raises(ValueError, match="head_dim"):
         FK.fused_matmul_rope(torch.randn((4, 64), device="cuda"),
                              torch.randn((192, 64), device="cuda"), seq=4,

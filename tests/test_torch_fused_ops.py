@@ -101,17 +101,53 @@ def test_matmul_plain_matches_pallas(norm_kind, act, with_bias):
 SPLIT_TOL = {"float32": (TOL, TOL), "bfloat16": (1e-3, 2 ** -7)}
 
 
+def _steps(got, want):
+    """How many bf16 steps apart each value of ``got`` is from ``want``'s
+    (the bits made two's complement, so neighbours differ by 1)."""
+    def ordered(a):
+        bits = a.view(torch.int16).to(torch.int32)
+        return torch.where(bits < 0, -(bits & 0x7FFF), bits)
+    return (ordered(got) - ordered(want)).abs()
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("kind", ["layer_norm", "rms_norm"])
+def test_norm_rows_plain_matches_pallas(kind, dtype):
+    """K6's row pass on CPU tensors (its plain version) against the JAX
+    ``_normalize_rows`` that the Pallas K6 runs, rounded to x's type: fp32
+    to 1e-5; in bf16 (fp32 sums in another order) every value equal, a
+    neighbour, or within 2^-20 where the bias cancels the row near 0, and
+    at most 1e-3 of them not equal."""
+    x = arr(64, 256, scale=2.0) + 0.5
+    nw, nb = 1 + arr(256, scale=0.1), arr(256, scale=0.1)
+    jdt, tdt = getattr(jnp, dtype), getattr(torch, dtype)
+    xj, nwj, nbj = (jnp.asarray(a).astype(jdt).astype(jnp.float32)
+                    for a in (x, nw, nb))
+    want = JK._normalize_rows(xj, nwj[None], nbj[None], kind, 1e-5).astype(jdt)
+    want = t(np.array(want.astype(jnp.float32))).to(tdt)
+    got = FK.fused_norm_rows(*(t(a).to(tdt) for a in (x, nw, nb)), kind=kind,
+                             eps=1e-5)
+    assert got.dtype == tdt and got.shape == want.shape
+    if dtype == "float32":
+        close(got, want)
+    else:
+        steps = _steps(got, want)
+        diff = (got.float() - want.float()).abs()
+        assert not bool(((steps > 1) & (diff > 2 ** -20)).any())
+        assert int((steps > 0).sum()) <= 1e-3 * got.numel()
+
+
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("norm_kind", ["layer_norm", "rms_norm"])
 def test_matmul_norm_split_matches_pallas(norm_kind, dtype):
-    """The bf16/fp16 K6 runs its norm as a row pass (normalize, scale and
-    shift, round to x's type; statistics in float64) and then the product
-    with no norm: the plain versions of the two, one after the other,
-    compute the Pallas kernel's function, where it rounds included. The
-    row pass's normalized values sit within one rounding of x's type of
-    those from the TPU's fp32 statistics (2^-7 relative in bf16), and
-    within 1e-6 where a value near 0 makes that rounding smaller than the
-    two statistics' own fp32 difference."""
+    """The bf16/fp16 K6 runs its norm as a row pass (``fused_norm_rows``:
+    fp32 statistics, scale and shift, round to x's type) and then the
+    product with no norm: the plain versions of the two, one after the
+    other, are the port's plain K6 and compute the Pallas kernel's
+    function, where it rounds included. Held to the Pallas K6 in the
+    interpreter, in x's type: the rows sit equal or one rounding apart
+    (fp32 sums in another order), the outputs within one rounding of the
+    output."""
     x, w = arr(40, 256), arr(256, 128, scale=0.06)
     b, nw, nb = arr(128, scale=0.1), 1 + arr(256, scale=0.1), arr(256,
                                                                  scale=0.1)
@@ -120,13 +156,11 @@ def test_matmul_norm_split_matches_pallas(norm_kind, dtype):
                              for a in (x, w, b, nw, nb)),
                            norm_kind=norm_kind, act="gelu_tanh", eps=1e-5)
     xt, wt, bt, nwt, nbt = (t(a).to(tdt) for a in (x, w.T, b, nw, nb))
-    xn, xn_tpu = (FK.normalize_rows(xt.float(), nwt.float(), nbt.float(),
-                                    norm_kind, 1e-5, stats=s).to(tdt)
-                  for s in (torch.float64, torch.float32))
-    rtol, atol = (2 ** -7, 1e-6) if dtype == "bfloat16" else (TOL, TOL)
-    np.testing.assert_allclose(xn.float().numpy(), xn_tpu.float().numpy(),
-                               rtol=rtol, atol=atol)
+    xn = FK.fused_norm_rows(xt, nwt, nbt, norm_kind, 1e-5)
     got = FK.fused_matmul_plain(xn, wt, bt, act="gelu_tanh")
+    whole = FK.fused_matmul_plain(xt, wt, bt, nwt, nbt, norm_kind,
+                                  "gelu_tanh")
+    assert torch.equal(got, whole)
     atol, rtol = SPLIT_TOL[dtype]
     np.testing.assert_allclose(got.float().numpy(),
                                np.asarray(want.astype(jnp.float32)),
@@ -155,10 +189,11 @@ def test_cpu_calls_launch_nothing():
     FK.fused_bias_act(x, torch.zeros(64))
     FK.fused_residual_norm(x, x)
     FK.fused_matmul(x, torch.randn(16, 64), norm_kind="rms_norm", act="silu")
+    FK.fused_norm_rows(x, kind="rms_norm")
     FK.fused_matmul_rope(x, torch.randn(64, 64), seq=4, head_dim=32)
     assert (FK.fused_bias_act.launches, FK.fused_residual_norm.launches,
-            FK.fused_matmul.launches, FK.fused_matmul_rope.launches) == (
-                0, 0, 0, 0)
+            FK.fused_norm_rows.launches, FK.fused_matmul.launches,
+            FK.fused_matmul_rope.launches) == (0, 0, 0, 0, 0)
 
 
 # ------------------------------------------------ functionals and gradients
