@@ -52,18 +52,39 @@ Phases, in order; any failure exits non-zero and nothing is caught:
              the forward; GPT-2: K1 24, K4 48, K6 25; K2 and K3 24 each in the
              backward); then the bias_act program gelu(x W + b), which
              launches K5 once a call.
+* rungs   -- bench.py's training rungs at their own settings: bf16 resident
+             weights, fp32 masters, bench.py's AdamW, amp O1 bf16
+             auto_cast, two seeded batches in turn. GPT-2 345M B=8 S=1024
+             with the fused chunked loss, 10 steps (its peak below one
+             step's with the plain loss); LLaMA-770M B=4 S=2048 with block
+             recompute and the fused loss, 8 steps through to_static with
+             FLAGS_enable_fusion and 8 eager in blocks of 4 (step-1 losses
+             agree; its peak below one step's without recompute; K1 twice
+             a layer a step, K4/K7 in the replay too); LLaMA-1.3B B=2
+             S=2048 with recompute, the fused loss and int8 Adam moments,
+             4 steps (the moments at most 0.27 of fp32's bytes); GPT-2
+             345M fp16 O2 (decorate, GradScaler from 2^16), 10 steps, then
+             a step with an inf planted in a gradient: skipped, the scale
+             halved, weights, masters and moments bitwise unchanged. One
+             JSON line a rung: step ms (median, quartiles), the split by
+             CUDA events, tokens/s, MFU, peak memory beside the card's name
+             and power limit, the optimizer state's bytes, the losses, the
+             launches and the switches.
 
-The forward, serve, train and fusion phases are the main path: every
+The forward, serve, train, fusion and rungs phases are the main path: every
 kernel's launch count is set to 0 just before each of them and read just
 after it. The last lines are the kernels' JSON summary (all seven, with
 their launches over the main path), the card's name and power limit from
 nvidia-smi, and {"ok": true, "device": {...}}. ``--profile`` adds a
 torch.profiler breakdown of a bf16 forward, an engine run, one training
-step, and a fused and an unfused step of each fusion path.
+step, a fused and an unfused step of each fusion path, and one step of
+each rung.
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
+import dataclasses
 import json
 import re
 import statistics
@@ -75,8 +96,8 @@ import numpy as np
 import torch
 
 PHASES = ("build", "kernel", "fused_kernel", "forward", "serve", "train",
-          "fusion")
-MAIN_PATH = ("forward", "serve", "train", "fusion")
+          "fusion", "rungs")
+MAIN_PATH = ("forward", "serve", "train", "fusion", "rungs")
 PATH_SHAPE = dict(b=4, s=1024, h=12, d=64)      # GPT-2 small serving
 TRAIN_SHAPE = dict(b=8, s=1024, h=16, d=64)     # GPT-2 345M training
 LLAMA_ATTN_SHAPE = dict(b=4, s=2048, h=12, d=128)   # LLaMA-770M fusion path
@@ -1033,21 +1054,25 @@ def _no_decay(name):
 
 
 def _train_step(forward, opt, ids, want_fwd, want_bwd, events=None,
-                grad_norms=None):
+                grad_norms=None, amp_kw=None, scaler=None):
     """One eager step, forward(ids, labels=ids) -> backward -> AdamW; holds
     the launches of the forward and of the backward to ``want_fwd`` and
     ``want_bwd`` (kernel -> launches; every other kernel none). ``events``,
     four CUDA events, split the step into forward, backward and
     optimizer. ``grad_norms``, a list, gets the step's global gradient
-    norm (fp32, on the card) appended."""
+    norm (fp32, on the card) appended. ``amp_kw``: the forward runs under
+    ``amp.auto_cast(**amp_kw)``; ``scaler``: a ``GradScaler`` scales the
+    loss and takes the optimizer's step."""
+    from paddle_tpu_torch import amp
     c0 = _counts()
     if events:
         events[0].record()
-    _, loss = forward(ids, labels=ids)
+    with amp.auto_cast(**amp_kw) if amp_kw else contextlib.nullcontext():
+        _, loss = forward(ids, labels=ids)
     c1 = _counts()
     if events:
         events[1].record()
-    loss.backward()
+    (scaler.scale(loss) if scaler else loss).backward()
     c2 = _counts()
     if events:
         events[2].record()
@@ -1055,7 +1080,10 @@ def _train_step(forward, opt, ids, want_fwd, want_bwd, events=None,
         grads = [p.grad for p in opt._parameter_list if p.grad is not None]
         grad_norms.append(torch.linalg.vector_norm(torch.stack(
             torch._foreach_norm(grads, 2, dtype=torch.float32))))
-    opt.step()
+    if scaler:
+        scaler.step(opt)
+    else:
+        opt.step()
     opt.clear_grad()
     if events:
         events[3].record()
@@ -1389,6 +1417,317 @@ def phase_fusion(state):
     finally:
         set_flags({"FLAGS_enable_fusion": False})
 
+# ------------------------------------------------------------------ rungs
+# bench.py's training rungs run under amp O1 bf16 (bench.py:92)
+O1 = dict(level="O1", dtype="bfloat16")
+O2_FP16 = dict(level="O2", dtype="float16")
+LLAMA_1_3B = dict(vocab_size=32000, hidden_size=2048, intermediate_size=5504,
+                  num_layers=24, num_heads=16, max_seq_len=2048)  # bench.py:412
+# int8 moments against fp32 ones: 1 byte a value and a 4-byte scale every
+# 256 values (1 + 4/256 bytes) over 4 bytes, with room for the padding of
+# each tensor to whole blocks
+INT8_STATE_RATIO = 0.27
+
+
+def _card_line() -> str:
+    """The card's name and power limit, as nvidia-smi prints them."""
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60, check=True)
+    return smi.stdout.strip().splitlines()[0]
+
+
+def _state_bytes(opt):
+    """(moments, fp32 masters) bytes of an optimizer's state; an int8
+    moment counts its codes and its scales."""
+    def nbytes(v):
+        if isinstance(v, dict):
+            return sum(nbytes(t) for t in v.values())
+        return v.numel() * v.element_size()
+    moments = sum(nbytes(v) for st in opt._accumulators.values()
+                  for v in st.values())
+    return moments, sum(nbytes(v) for v in opt._master_weights.values())
+
+
+def _rung_adamw(model, **kw):
+    """bench.py's AdamW on fp32 masters of bf16 resident weights."""
+    from paddle_tpu_torch.optimizer import AdamW
+    return AdamW(learning_rate=LR, parameters=model.named_parameters(),
+                 multi_precision=True, **ADAMW, **kw)
+
+
+def _rung_batches(vocab, b, s, seed):
+    return [torch.from_numpy(np.random.RandomState(seed + i).randint(
+        0, vocab, (b, s))).cuda() for i in range(2)]
+
+
+def _run_rung(label, model, opt, batches, runs, steps, switches, card,
+              amp_kw=O1, scaler=None, blocks=1, profile=False):
+    """Train ``model`` with each of ``runs`` (name -> (forward, launches a
+    forward, launches a backward)) in turn, ``steps`` steps a block, on
+    the two ``batches`` taken in turn, under ``amp.auto_cast(**amp_kw)``.
+    Every step's launches are held (``_train_step``); the losses must be
+    finite and the loss on batch 0 again below the first. Returns the
+    rung's row: step times (the first step of each block warms its path
+    up and is not timed), the split by CUDA events, tokens/s, MFU, the
+    peak memory, the optimizer state's bytes, the losses and the
+    launches."""
+    from paddle_tpu_torch import amp
+    walls = {name: [] for name in runs}
+    split = {name: [] for name in runs}
+    losses = []
+    steps_before = opt._step_count
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    c0 = _counts()
+    for _ in range(blocks):
+        for name, (forward, want_fwd, want_bwd) in runs.items():
+            for k in range(steps):
+                events = [torch.cuda.Event(enable_timing=True)
+                          for _ in range(4)]
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                loss = _train_step(forward, opt, batches[len(losses) % 2],
+                                   want_fwd, want_bwd, events,
+                                   amp_kw=amp_kw, scaler=scaler)
+                torch.cuda.synchronize()
+                if k:
+                    walls[name].append(time.perf_counter() - t0)
+                    split[name].append([events[j].elapsed_time(events[j + 1])
+                                        for j in range(3)])
+                losses.append(float(loss.detach()))
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    launched = _launched(c0, _counts())
+    first = next(iter(runs.values()))[0]
+    b0 = batches[0]
+    with torch.no_grad(), amp.auto_cast(**amp_kw):
+        again = float(first(b0, labels=b0)[1])
+    log(f"rungs: {label} losses {losses}; batch 0 again {again}")
+    if not all(np.isfinite(losses + [again])) or not again < losses[0]:
+        raise AssertionError(f"{label}: loss {losses[0]} -> {again} on the "
+                             f"repeated batch")
+    moments, masters = _state_bytes(opt)
+    tokens = b0.numel()
+    row = {"rung": label, "card": card, "params": model.num_params(),
+           "switches": switches, "steps": len(losses),
+           "optimizer_steps_taken": opt._step_count - steps_before,
+           "flops_per_token": model.flops_per_token(),
+           "peak_memory_gb": peak, "moment_bytes": moments,
+           "master_bytes": masters, "loss_first": losses[0],
+           "loss_last": losses[-1], "loss_batch0_again": again,
+           "launches": launched}
+    for name, (forward, want_fwd, want_bwd) in runs.items():
+        q1, median, q3 = statistics.quantiles(walls[name], n=4)
+        fwd, bwd, upd = (statistics.median(x[j] for x in split[name])
+                         for j in range(3))
+        row[name] = {"step_ms": median * 1e3, "step_ms_q1": q1 * 1e3,
+                     "step_ms_q3": q3 * 1e3, "forward_ms": fwd,
+                     "backward_ms": bwd, "optimizer_ms": upd,
+                     "tokens_per_s": tokens / median,
+                     "mfu": model.flops_per_token() * tokens / median
+                     / BF16_FLOP_PER_S}
+        if profile:
+            prof = _profile(
+                f"{label} {name} step",
+                lambda: _train_step(forward, opt, b0, want_fwd, want_bwd,
+                                    amp_kw=amp_kw, scaler=scaler),
+                groups={"K1-K3 attention": ("flash_fwd", "dq_", "dkv_"),
+                        "K4": ("residual_norm",), "K7": ("gemm_rope_wgmma",),
+                        "cuBLAS GEMM": ("nvjet", "xmma", "cutlass",
+                                        "cublas"),
+                        "elementwise and reductions": (
+                            "elementwise", "reduce", "vectorized")})
+            row[name]["profiled_device_ms"] = prof["device_busy_s"] * 1e3
+    return row
+
+
+def _peak_of_step(model, opt, ids, want_fwd, want_bwd, **changes):
+    """The peak memory (GB) of one eager O1 step with the model's
+    configuration changed by ``changes`` for that step."""
+    saved = {k: getattr(model.cfg, k) for k in changes}
+    for k, v in changes.items():
+        setattr(model.cfg, k, v)
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _train_step(model, opt, ids, want_fwd, want_bwd, amp_kw=O1)
+        torch.cuda.synchronize()
+        return torch.cuda.max_memory_allocated() / 1e9
+    finally:
+        for k, v in saved.items():
+            setattr(model.cfg, k, v)
+
+
+def _recompute_launches(layers, fused_fwd=None):
+    """A step's launches with block recompute: (forward, backward). The
+    backward replays each block's forward, so it launches K1 (and a fused
+    forward's K4/K7) again, beside K2 and K3."""
+    fwd = dict({"flash_attention_fwd": layers}, **(fused_fwd or {}))
+    bwd = dict(fwd, flash_attention_bwd_dq=layers,
+               flash_attention_bwd_dkv=layers)
+    return fwd, bwd
+
+
+def _rung_gpt(card, profile):
+    """GPT-2 345M (bench.py _bench_gpt): O1 bf16, fused loss, 10 steps;
+    its peak against one step of the plain loss. The weights and batches
+    are the ``train`` phase's (seeds 5 and 100): the same program there
+    with the rung's switches on. (From seed 12 the loss spikes after step
+    10 with or without amp and the fused loss alike, this optimizer's
+    dynamics on two repeated batches: tools/torch_train_trajectory.py.)"""
+    from paddle_tpu_torch.models import GPTForCausalLM, gpt2_medium
+    cfg = gpt2_medium(fused_loss=True)
+    b, s = TRAIN_SHAPE["b"], TRAIN_SHAPE["s"]
+    model = GPTForCausalLM(cfg, device="cuda", dtype="bfloat16",
+                           seed=5).train()
+    opt = _rung_adamw(model)
+    batches = _rung_batches(cfg.vocab_size, b, s, 100)
+    fwd, bwd = _flash_launches(cfg.num_layers)
+    row = _run_rung(f"gpt2_medium O1 bf16 fused_loss B{b} S{s}", model, opt,
+                    batches, {"eager": (model, fwd, bwd)}, 10,
+                    dict(amp="O1 bfloat16", fused_loss=True, recompute=False,
+                         moment_dtype=None, fusion=False), card,
+                    profile=profile)
+    row["peak_memory_gb_plain_loss_step"] = _peak_of_step(
+        model, opt, batches[0], fwd, bwd, fused_loss=False)
+    log(json.dumps(row))
+    if not row["peak_memory_gb"] < row["peak_memory_gb_plain_loss_step"]:
+        raise AssertionError(f"345M: the fused loss's peak "
+                             f"{row['peak_memory_gb']} GB is not below the "
+                             f"plain loss's "
+                             f"{row['peak_memory_gb_plain_loss_step']} GB")
+
+
+def _rung_llama_770m(card, profile):
+    """LLaMA-770M (bench.py _bench_llama): O1 bf16, recompute, fused loss;
+    8 steps through to_static with fusion and 8 eager, in blocks of 4; the
+    fused and eager step-1 losses agree; its peak against one step
+    without recompute."""
+    from paddle_tpu_torch import amp, set_flags, to_static
+    from paddle_tpu_torch.models import LlamaConfig, LlamaForCausalLM
+    cfg = LlamaConfig(**LLAMA_770M, recompute=True, fused_loss=True)
+    b, s, layers = LLAMA_SHAPE["b"], LLAMA_SHAPE["s"], cfg.num_layers
+    model = LlamaForCausalLM(cfg, device="cuda", dtype="bfloat16",
+                             seed=13).train()
+    opt = _rung_adamw(model)
+    batches = _rung_batches(cfg.vocab_size, b, s, 500)
+    b0 = batches[0]
+    set_flags({"FLAGS_enable_fusion": True})
+    try:
+        fused = to_static(model)
+        with torch.no_grad(), amp.auto_cast(**O1):
+            loss_u = float(model(b0, labels=b0)[1])
+            loss_f = float(fused(b0, labels=b0)[1])       # traces
+        log(f"rungs: llama_770m step-1 loss fused {loss_f} eager {loss_u} "
+            f"(tolerance {FUSED_LOSS_TOL}); fusion_stats "
+            f"{fused.fusion_stats}")
+        if not abs(loss_f - loss_u) <= FUSED_LOSS_TOL:
+            raise AssertionError(f"llama_770m: fused step-1 loss {loss_f} "
+                                 f"against eager {loss_u}")
+        runs = {"fused": (fused, *_recompute_launches(
+                    layers, {"fused_residual_norm": layers,
+                             "fused_matmul_rope": 2 * layers})),
+                "eager": (model, *_recompute_launches(layers))}
+        row = _run_rung(f"llama_770m O1 bf16 recompute fused_loss B{b} S{s}",
+                        model, opt, batches, runs, 4,
+                        dict(amp="O1 bfloat16", fused_loss=True,
+                             recompute=True, moment_dtype=None,
+                             fusion="fused run: to_static with "
+                                    "FLAGS_enable_fusion"),
+                        card, blocks=2, profile=profile)
+    finally:
+        set_flags({"FLAGS_enable_fusion": False})
+    row["loss_step1_fused"], row["loss_step1_eager"] = loss_f, loss_u
+    row["rewritten"] = fused.fusion_stats["rewritten"]
+    row["peak_memory_gb_no_recompute_step"] = _peak_of_step(
+        model, opt, b0, *_flash_launches(layers), recompute=False)
+    log(json.dumps(row))
+    if not row["peak_memory_gb"] < row["peak_memory_gb_no_recompute_step"]:
+        raise AssertionError(f"llama_770m: the peak with recompute "
+                             f"{row['peak_memory_gb']} GB is not below one "
+                             f"step's without it "
+                             f"{row['peak_memory_gb_no_recompute_step']} GB")
+
+
+def _rung_llama_1_3b(card, profile):
+    """LLaMA-1.3B (bench.py _bench_llama14): O1 bf16, recompute, fused
+    loss, int8 Adam moments, 4 steps; the int8 state at most
+    INT8_STATE_RATIO of fp32 moments'."""
+    from paddle_tpu_torch.models import LlamaConfig, LlamaForCausalLM
+    cfg = LlamaConfig(**LLAMA_1_3B, recompute=True, fused_loss=True)
+    b, s = 2, 2048
+    model = LlamaForCausalLM(cfg, device="cuda", dtype="bfloat16",
+                             seed=14).train()
+    opt = _rung_adamw(model, moment_dtype="int8")
+    batches = _rung_batches(cfg.vocab_size, b, s, 600)
+    row = _run_rung(f"llama_1.3b O1 bf16 recompute fused_loss int8 moments "
+                    f"B{b} S{s}", model, opt, batches,
+                    {"eager": (model, *_recompute_launches(cfg.num_layers))},
+                    4, dict(amp="O1 bfloat16", fused_loss=True,
+                            recompute=True, moment_dtype="int8",
+                            fusion=False), card, profile=profile)
+    fp32_moments = 2 * 4 * model.num_params()
+    row["moment_bytes_over_fp32"] = row["moment_bytes"] / fp32_moments
+    log(json.dumps(row))
+    if not row["moment_bytes_over_fp32"] <= INT8_STATE_RATIO:
+        raise AssertionError(f"1.3B: int8 moments take "
+                             f"{row['moment_bytes_over_fp32']:.4f} of fp32's")
+
+
+def _rung_gpt_fp16(card, profile):
+    """GPT-2 345M fp16 O2: decorate and a GradScaler from 2^16, 10 steps;
+    then one step with an inf planted in a gradient, which is skipped:
+    the scale halves and the weights, masters and moments stay bitwise."""
+    from paddle_tpu_torch import amp
+    from paddle_tpu_torch.models import GPTForCausalLM, gpt2_medium
+    cfg = gpt2_medium(fused_loss=True)
+    b, s = TRAIN_SHAPE["b"], TRAIN_SHAPE["s"]
+    model = GPTForCausalLM(cfg, device="cuda", seed=15).train()
+    opt = _rung_adamw(model)
+    model, opt = amp.decorate(model, opt, level="O2", dtype="float16")
+    scaler = amp.GradScaler(init_loss_scaling=65536.0)
+    batches = _rung_batches(cfg.vocab_size, b, s, 700)
+    fwd, bwd = _flash_launches(cfg.num_layers)
+    row = _run_rung(f"gpt2_medium O2 fp16 GradScaler fused_loss B{b} S{s}",
+                    model, opt, batches, {"eager": (model, fwd, bwd)}, 10,
+                    dict(amp="O2 float16 (decorate, GradScaler)",
+                         fused_loss=True, recompute=False, moment_dtype=None,
+                         fusion=False), card, amp_kw=O2_FP16, scaler=scaler,
+                    profile=profile)
+    # the overflow step
+    scale = scaler._scale
+    with amp.auto_cast(**O2_FP16):
+        _, loss = model(batches[0], labels=batches[0])
+    scaler.scale(loss).backward()
+    model.gpt.blocks[0].mlp.fc1.weight.grad[0, 0] = float("inf")
+    weights = [p.detach().clone() for p in model.parameters()]
+    masters = {n: v.clone() for n, v in opt._master_weights.items()}
+    moments = {n: {k: v.clone() for k, v in st.items()}
+               for n, st in opt._accumulators.items()}
+    scaler.step(opt)
+    opt.clear_grad()
+    unchanged = (all(torch.equal(a, p) for a, p in
+                     zip(weights, model.parameters()))
+                 and all(torch.equal(v, opt._master_weights[n])
+                         for n, v in masters.items())
+                 and all(torch.equal(v, opt._accumulators[n][k])
+                         for n, st in moments.items() for k, v in st.items()))
+    row.update(scale_before_overflow=scale, scale_after_overflow=scaler._scale,
+               overflow_step_left_state_bitwise=unchanged)
+    log(json.dumps(row))
+    if not (unchanged and scaler._scale == scale / 2):
+        raise AssertionError(f"fp16 overflow step: scale {scale} -> "
+                             f"{scaler._scale}, state unchanged {unchanged}")
+
+
+def phase_rungs(state):
+    card = _card_line()
+    for rung in (_rung_gpt, _rung_llama_770m, _rung_llama_1_3b,
+                 _rung_gpt_fp16):
+        rung(card, state.get("profile"))
+        torch.cuda.empty_cache()
+
 
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
@@ -1396,8 +1735,9 @@ def main(argv=None) -> int:
                         help="comma-separated subset of " + ",".join(PHASES))
     parser.add_argument("--profile", action="store_true",
                         help="also print torch.profiler breakdowns of a "
-                        "bf16 forward, engine run and training step, and of a "
-                        "fused and an unfused step of each fusion path")
+                        "bf16 forward, engine run and training step, of a "
+                        "fused and an unfused step of each fusion path, "
+                        "and of one step of each rung")
     args = parser.parse_args(argv)
     phases = [p for p in args.phases.split(",") if p]
     unknown = set(phases) - set(PHASES)
@@ -1446,11 +1786,7 @@ def main(argv=None) -> int:
         if "shapes" in k:          # K2/K3: every path shape, this one first
             rows[-1]["shapes"] = k["shapes"]
     log(json.dumps({"kernels": rows}))
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        timeout=60, check=True)
-    log(smi.stdout.strip().splitlines()[0])
+    log(_card_line())
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -12,17 +12,21 @@ training (cross entropy, AdamW with gradient clipping and LR schedules)
 through the forward and backward flash-attention kernels; LLaMA, and
 ``jit.to_static`` whose graph-fusion pass (``FLAGS_enable_fusion``)
 rewrites training onto the fused kernels (residual + norm, bias +
-activation, norm + matmul + activation, matmul + rope).
+activation, norm + matmul + activation, matmul + rope); amp (O1
+``auto_cast``, O2 ``decorate``, ``GradScaler``), the fused chunked
+LM-head loss, block recompute (``distributed.fleet.recompute``) and
+bf16/int8 Adam moments.
 """
-from . import compile, core, inference, jit, models, nn, ops, optimizer
+from . import (amp, compile, core, distributed, inference, jit, models, nn,
+               ops, optimizer)
 from .core import get_flag, resolve_device, set_flags
 from .inference import GPTPagedEngine, PagedEngine
 from .jit import to_static
 from .models import (GPTConfig, GPTForCausalLM, LlamaConfig, LlamaForCausalLM,
                      gpt2_medium, gpt2_small)
 
-__all__ = ["compile", "core", "inference", "jit", "models", "nn", "ops",
-           "optimizer", "resolve_device", "get_flag", "set_flags",
-           "to_static", "GPTConfig", "GPTForCausalLM", "gpt2_small",
-           "gpt2_medium", "LlamaConfig", "LlamaForCausalLM", "PagedEngine",
-           "GPTPagedEngine"]
+__all__ = ["amp", "compile", "core", "distributed", "inference", "jit",
+           "models", "nn", "ops", "optimizer", "resolve_device", "get_flag",
+           "set_flags", "to_static", "GPTConfig", "GPTForCausalLM",
+           "gpt2_small", "gpt2_medium", "LlamaConfig", "LlamaForCausalLM",
+           "PagedEngine", "GPTPagedEngine"]

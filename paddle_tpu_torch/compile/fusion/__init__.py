@@ -70,6 +70,9 @@ class FusedStep:
     in_shapes: tuple = ()
     out_shapes: tuple = ()
     pattern: str = ""
+    #: the amp state the anchor record was traced under (``amp_state()``);
+    #: the fused op runs under it, as the chain's first op would have
+    amp: Optional[tuple] = None
     #: provenance of the anchor record (the chain's first step)
     loc: str = ""
 
@@ -389,6 +392,7 @@ def fuse_steps(steps: Sequence, external_ids) -> Tuple[list, dict]:
             stats["rewritten"][pattern] = \
                 stats["rewritten"].get(pattern, 0) + 1
             consumed.update(idxs)
+            fused.amp = getattr(g.steps[i], "amp", None)
             fused.loc = getattr(g.steps[i], "loc", "") or ""
             replacement[i] = fused
             break

@@ -5,12 +5,18 @@
 ``trace_program`` traces a callable with ``torch.fx`` and, with fusion on,
 runs the pass:
 
-1. The tracer traces *into* every module (``nn.Linear`` and
-   ``nn.LayerNorm`` become ``F.linear`` and ``F.layer_norm`` calls with
-   their parameters as inputs) and keeps whole the port's functionals that
-   launch kernels, draw random numbers or are one op to the pass
-   (``_leaves``: attention, cross entropy, dropout, the norms, swiglu,
-   rotary embedding, the fused ops).
+1. The tracer traces *into* every module (the port's ``Linear`` and
+   ``LayerNorm`` become ``F.linear`` and ``F.layer_norm`` calls with their
+   parameters as inputs) and keeps whole the port's functionals that
+   launch kernels, draw random numbers, cast for amp or are one op to the
+   pass (``_leaves``: linear, matmul, attention, the losses, dropout, the
+   norms, softmax, swiglu, rotary embedding, the fused ops). Each leaf
+   node runs under the amp state it was traced under (recorded in
+   ``node.meta["amp"]``), so amp's casts happen inside the leaves and the
+   records hold no cast: the chains match as they do without amp.
+   A block under ``remat_block`` (recompute) becomes a region: its own
+   graph, traced, shape-propagated and fused apart, which the outer graph
+   calls under ``fleet.recompute``; no chain crosses a region's edge.
 2. ``ShapeProp`` on the example inputs gives every node its shape.
 3. Each node that computes a tensor becomes a record with the JAX
    package's op name and attributes (``linear``, ``layer_norm``,
@@ -22,8 +28,9 @@ runs the pass:
    outputs take over the chain's, and dead code is removed.
 
 The trace is specialized on the arguments that are not tensors (they are
-part of ``to_static``'s cache key). While tracing, the leaves are swapped
-into the namespaces that call them and restored afterwards.
+part of ``to_static``'s cache key, as is the amp state). While tracing,
+the leaves are swapped into the namespaces that call them and restored
+afterwards.
 """
 from __future__ import annotations
 
@@ -37,6 +44,7 @@ from torch import fx, nn
 from torch.fx.passes.shape_prop import ShapeProp, TensorMetadata
 from torch.nn import functional as TF
 
+from ...amp.state import AmpState, amp_state, amp_state_as
 from . import fuse_steps
 
 
@@ -44,9 +52,10 @@ def _leaves() -> tuple:
     """The port functionals the tracer keeps as single calls."""
     from ...models.llama import rotary_embedding
     from ...nn import functional as F
-    return (F.flash_attention, F.scaled_dot_product_attention,
-            F.block_multihead_attention, F.cross_entropy, F.dropout,
-            F.layer_norm, F.rms_norm, F.swiglu, rotary_embedding,
+    return (F.linear, F.matmul, F.flash_attention,
+            F.scaled_dot_product_attention, F.block_multihead_attention,
+            F.cross_entropy, F.fused_linear_cross_entropy, F.dropout,
+            F.layer_norm, F.rms_norm, F.softmax, F.swiglu, rotary_embedding,
             F.fused_bias_act, F.fused_residual_norm, F.fused_norm_linear,
             F.fused_rope_proj)
 
@@ -58,10 +67,24 @@ def _tracer_of(args, kwargs):
     return found[0].tracer if found else None
 
 
+def _bound(fn, amp: AmpState, fixed: Optional[dict] = None):
+    """``fn`` run under the amp state ``amp`` with the keyword arguments
+    ``fixed`` added; ``.leaf`` is ``fn``."""
+    fixed = fixed or {}
+
+    def target(*a, **kw):
+        with amp_state_as(amp):
+            return fn(*a, **kw, **fixed)
+    functools.update_wrapper(target, fn)
+    target.leaf = fn
+    return target
+
+
 def _as_leaf(fn):
     """``fn`` that records one ``call_function`` node when it meets a proxy
-    (a ``torch.Generator`` argument is bound into the node's target, as a
-    graph cannot hold one) and runs as itself otherwise."""
+    and runs as itself otherwise. The node's target runs under the amp
+    state of the trace at that point; a ``torch.Generator`` argument is
+    bound into it, as a graph cannot hold one."""
     @functools.wraps(fn)
     def call(*args, **kwargs):
         tracer = _tracer_of(args, kwargs)
@@ -69,22 +92,78 @@ def _as_leaf(fn):
             return fn(*args, **kwargs)
         fixed = {k: v for k, v in kwargs.items()
                  if isinstance(v, torch.Generator)}
-        target = fn
-        if fixed:
-            def target(*a, **kw):
-                return fn(*a, **kw, **fixed)
-            functools.update_wrapper(target, fn)
-            kwargs = {k: v for k, v in kwargs.items() if k not in fixed}
-        return tracer.create_proxy("call_function", target, args, kwargs)
+        kwargs = {k: v for k, v in kwargs.items() if k not in fixed}
+        amp = amp_state()
+        proxy = tracer.create_proxy("call_function", _bound(fn, amp, fixed),
+                                    args, kwargs)
+        proxy.node.meta["amp"] = amp
+        return proxy
+    return call
+
+
+class _Region:
+    """A block that the model checkpoints (``remat_block``): its own graph
+    module, called under ``fleet.recompute`` with the block's generators
+    while grad is enabled. With ``propagate`` set, a call runs
+    ``ShapeProp`` over its graph instead, for the fusion pass. The block
+    is traced once the trace that met it has ended (``trace``): fx's
+    tracers do not nest."""
+
+    def __init__(self, blk: nn.Module):
+        from ...distributed.fleet.recompute.recompute import \
+            _discover_generators
+        self.blk = blk
+        self.generators = _discover_generators(blk)
+        self.gm: Optional[fx.GraphModule] = None
+        self.regions: List["_Region"] = []
+        self.propagate = False
+
+    def trace(self) -> List["_Region"]:
+        """Trace the block; returns this region and every region within
+        it, traced."""
+        tracer = _Tracer(_leaves())
+        self.gm = fx.GraphModule(self.blk, tracer.trace(self.blk))
+        self.regions = tracer.regions
+        return [self] + [r for inner in self.regions for r in inner.trace()]
+
+    def __call__(self, *args):
+        if self.propagate:
+            return ShapeProp(self.gm).propagate(*args)
+        if not torch.is_grad_enabled():
+            return self.gm(*args)
+        from ...distributed.fleet.recompute import recompute
+        return recompute(self.gm, *args, generators=self.generators)
+
+
+def _as_region(fn):
+    """``remat_block`` that, when it meets a proxy, traces the block into
+    a ``_Region`` and records one call of it."""
+    @functools.wraps(fn)
+    def call(blk, *args):
+        tracer = _tracer_of(args, {})
+        if tracer is None:
+            return fn(blk, *args)
+        region = _Region(blk)
+        tracer.regions.append(region)
+
+        def recompute_block(*xs):
+            return region(*xs)
+        recompute_block.region = region
+        return tracer.create_proxy("call_function", recompute_block, args,
+                                   {})
     return call
 
 
 class _Tracer(fx.Tracer):
     def __init__(self, leaf_fns: Sequence):
         super().__init__()
-        self._leaf_ids = {id(f) for f in leaf_fns}
+        from ...models._remat import remat_block
+        self._wrap = {id(f): _as_leaf for f in leaf_fns}
+        self._wrap[id(remat_block)] = _as_region
         self._saved: List[Tuple[dict, str, object]] = []
         self._patched: set = set()
+        #: the checkpointed blocks met, in order
+        self.regions: List[_Region] = []
 
     def is_leaf_module(self, m: nn.Module, qualname: str) -> bool:
         return False
@@ -94,9 +173,10 @@ class _Tracer(fx.Tracer):
             return
         self._patched.add(id(namespace))
         for key, value in list(namespace.items()):
-            if id(value) in self._leaf_ids:
+            wrap = self._wrap.get(id(value))
+            if wrap is not None:
                 self._saved.append((namespace, key, value))
-                namespace[key] = _as_leaf(value)
+                namespace[key] = wrap(value)
 
     def call_module(self, m, forward, args, kwargs):
         # every module is traced through, also one a plain function closes
@@ -137,15 +217,16 @@ class _Record:
     """One traced node as the pass sees it; value ids are fx nodes."""
 
     __slots__ = ("name", "in_ids", "out_ids", "attrs", "in_shapes",
-                 "out_shapes", "loc")
+                 "out_shapes", "loc", "amp")
 
     def __init__(self, name, in_ids, out_ids, attrs, in_shapes, out_shapes,
-                 loc):
+                 loc, amp):
         self.name = name
         self.in_ids, self.out_ids = tuple(in_ids), tuple(out_ids)
         self.attrs = attrs
         self.in_shapes, self.out_shapes = tuple(in_shapes), tuple(out_shapes)
         self.loc = loc
+        self.amp = amp
 
 
 def _meta(node) -> Optional[object]:
@@ -163,16 +244,18 @@ def _is_node(a) -> bool:
 
 def _classify(node, port) -> Tuple[str, dict, list]:
     """(record name, attrs, tensor inputs in order) of a call node."""
-    t, args, kwargs = node.target, node.args, node.kwargs
+    t, args, kwargs = getattr(node.target, "leaf", node.target), node.args, \
+        node.kwargs
 
     def arg(i, name, default=None):
         return args[i] if len(args) > i else kwargs.get(name, default)
 
     if node.op == "call_function":
-        if t is TF.linear:
+        if t is TF.linear or t is port["linear"]:
             bias = arg(2, "bias")
-            return "linear", {}, [arg(0, "input"), arg(1, "weight")] + (
-                [bias] if _is_node(bias) else [])
+            return "linear", {}, [
+                arg(0, "input" if t is TF.linear else "x"),
+                arg(1, "weight")] + ([bias] if _is_node(bias) else [])
         if t is TF.layer_norm or t is port["layer_norm"]:
             shape = arg(1, "normalized_shape")
             w, b = arg(2, "weight"), arg(3, "bias")
@@ -226,8 +309,8 @@ def _records(graph: fx.Graph) -> Tuple[list, set]:
     """The pass's records of a shape-propagated graph, and the returned
     values (the external set)."""
     from ...models.llama import rotary_embedding
-    from ...nn.functional import layer_norm, rms_norm
-    port = {"layer_norm": layer_norm, "rms_norm": rms_norm,
+    from ...nn.functional import layer_norm, linear, rms_norm
+    port = {"linear": linear, "layer_norm": layer_norm, "rms_norm": rms_norm,
             "rotary_embedding": rotary_embedding}
     steps, external = [], set()
     for node in graph.nodes:
@@ -240,7 +323,7 @@ def _records(graph: fx.Graph) -> Tuple[list, set]:
         name, attrs, ins = _classify(node, port)
         steps.append(_Record(name, ins, (node,), attrs,
                              [_shape(a) for a in ins], [_shape(node)],
-                             node.name))
+                             node.name, node.meta.get("amp")))
     return steps, external
 
 
@@ -260,8 +343,9 @@ def _rewrite(gm: fx.GraphModule, plan: list) -> None:
         if not getattr(st, "pattern", ""):
             continue
         args, kwargs = st.fn.bind([current.get(v, v) for v in st.in_ids])
+        target = st.fn.fn if st.amp is None else _bound(st.fn.fn, st.amp)
         with graph.inserting_before(by_name[st.loc]):
-            new = graph.call_function(st.fn.fn, args, kwargs)
+            new = graph.call_function(target, args, kwargs)
             outs = [new] if len(st.out_ids) == 1 else [
                 graph.call_function(operator.getitem, (new, k))
                 for k in range(len(st.out_ids))]
@@ -284,12 +368,37 @@ def trace_program(fn, args: Sequence, concrete: Dict, fuse: bool
     graph = tracer.trace(fn, concrete_args=dict(concrete) or None)
     gm = fx.GraphModule(fn if isinstance(fn, nn.Module) else tracer.root,
                         graph)
+    regions = [r for region in tracer.regions for r in region.trace()]
     if not fuse:
         return gm, None
-    with torch.no_grad():
-        ShapeProp(gm).propagate(*args)
+    for region in regions:
+        region.propagate = True
+    try:
+        with torch.no_grad():
+            ShapeProp(gm).propagate(*args)
+    finally:
+        for region in regions:
+            region.propagate = False
+    stats = _fuse(gm)
+    for region in regions:
+        _add_stats(stats, _fuse(region.gm))
+    return gm, stats
+
+
+def _fuse(gm: fx.GraphModule) -> dict:
+    """Run the pass over one shape-propagated graph and rewrite it."""
     steps, external = _records(gm.graph)
     plan, stats = fuse_steps(steps, external)
     if stats["rewritten"]:
         _rewrite(gm, plan)
-    return gm, stats
+    return stats
+
+
+def _add_stats(total: dict, more: dict) -> None:
+    """Fold a region's pass stats into the program's."""
+    for key, value in more.items():
+        if isinstance(value, dict):
+            for name, n in value.items():
+                total[key][name] = total[key].get(name, 0) + n
+        else:
+            total[key] += value

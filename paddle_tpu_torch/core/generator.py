@@ -8,6 +8,8 @@ make their inputs with numpy and copy weights across.
 """
 from __future__ import annotations
 
+from typing import List, Sequence
+
 import torch
 
 from .place import DeviceLike
@@ -31,3 +33,20 @@ def normal_(tensor: torch.Tensor, std: float,
         draw.normal_(0.0, std, generator=generator)
         tensor.copy_(draw)
     return tensor
+
+
+def get_rng_state(generators: Sequence[torch.Generator]
+                  ) -> List[torch.Tensor]:
+    """A snapshot of each generator's state, in order (the JAX package
+    snapshots its one global generator; the port has one per consumer)."""
+    return [g.get_state() for g in generators]
+
+
+def set_rng_state(generators: Sequence[torch.Generator],
+                  states: Sequence[torch.Tensor]) -> None:
+    """Put each generator back to its state from ``get_rng_state``."""
+    if len(generators) != len(states):
+        raise ValueError(f"set_rng_state: {len(states)} states for "
+                         f"{len(generators)} generators")
+    for g, st in zip(generators, states):
+        g.set_state(st)

@@ -4,8 +4,10 @@ The JAX package traces a function into one XLA program per input
 signature; the port traces it with ``torch.fx`` into a ``GraphModule`` per
 signature and runs that eagerly. The signature is the tensors' shapes,
 dtypes and devices, the values of the other arguments, the modules'
-``training`` flags and, with ``FLAGS_enable_fusion``, the fusion pass's
-fingerprint, so fused and unfused traces never share an entry. With the
+``training`` flags, the amp state (``amp.auto_cast``'s level, dtype and
+custom lists; each leaf of a trace runs under the state it was traced
+under) and, with ``FLAGS_enable_fusion``, the fusion pass's fingerprint,
+so fused and unfused traces never share an entry. With the
 flag on, the graph-fusion pass (``compile/fusion``) rewrites the trace
 onto the fused ops, and ``fusion_stats`` holds the pass's stats for the
 last call's signature (``None`` with the flag off, as in the JAX package).
@@ -25,6 +27,7 @@ from typing import Callable, Dict, Optional
 import torch
 from torch import nn
 
+from ..amp.state import amp_state
 from ..compile import fusion
 from ..compile.fusion.fx import trace_program
 
@@ -66,7 +69,7 @@ class StaticFunction:
         fuse = fusion.enabled()
         modes = tuple(m.training for m in self._fn.modules()) \
             if isinstance(self._fn, nn.Module) else ()
-        key = (fuse and fusion.fingerprint(), modes,
+        key = (fuse and fusion.fingerprint(), modes, amp_state(),
                tuple(_describe(n, v) for n, v in bound.arguments.items()))
         program = self._programs.get(key)
         if program is None:

@@ -5,10 +5,13 @@ so state-dict keys line up (``models/convert.py`` copies weights across).
 Attention is the flash-attention functional, which launches the Hopper
 flash kernels on the card: K1 forward, and K2/K3 on backward when the
 model trains. ``GPTForCausalLM(ids, labels=ids)`` returns the logits and
-the shifted next-token loss. Dropout draws from a ``torch.Generator``
-that ``GPTModel`` owns on its device, seeded from the constructor's
-``seed``. Tensor and sequence parallelism, recompute, the fused loss and
-context parallelism are later slices and raise.
+the shifted next-token loss; with ``fused_loss``, ``(None, loss)`` from
+the chunked LM-head loss against the tied ``wte``. ``recompute``
+checkpoints each block (``models/_remat.py``). Dropout draws from a
+``torch.Generator`` that ``GPTModel`` owns on its device, seeded from the
+constructor's ``seed``. The linears and norms are the port's layers, so
+amp casts their inputs. Tensor and sequence parallelism and context
+parallelism are later slices and raise.
 """
 from __future__ import annotations
 
@@ -24,6 +27,8 @@ from ..core.dtype import convert_dtype
 from ..core.generator import make_generator, normal_
 from ..core.place import DeviceLike, resolve_device
 from ..nn import functional as F
+from ..nn.layer import LayerNorm, Linear
+from ._remat import remat_block
 
 LN_EPS = 1e-5
 
@@ -54,8 +59,6 @@ class GPTConfig:
         later = [name for name, on in (
             ("mp_degree > 1", self.mp_degree > 1),
             ("sequence_parallel", self.sequence_parallel),
-            ("recompute", self.recompute),
-            ("fused_loss", self.fused_loss),
             ("context_parallel", bool(self.context_parallel))) if on]
         if later:
             raise NotImplementedError(f"later slice: {', '.join(later)}")
@@ -82,8 +85,8 @@ class GPTAttention(nn.Module):
         self.use_flash = cfg.use_flash_attention
         self.dropout = cfg.dropout
         h = cfg.hidden_size
-        self.qkv_proj = nn.Linear(h, 3 * h, device=device, dtype=dtype)
-        self.out_proj = nn.Linear(h, h, device=device, dtype=dtype)
+        self.qkv_proj = Linear(h, 3 * h, device=device, dtype=dtype)
+        self.out_proj = Linear(h, h, device=device, dtype=dtype)
 
     def forward(self, x):
         b, s, h = x.shape
@@ -108,8 +111,8 @@ class GPTMLP(nn.Module):
     def __init__(self, cfg: GPTConfig, device=None, dtype=None):
         super().__init__()
         h, ffn = cfg.hidden_size, cfg.intermediate_size
-        self.fc1 = nn.Linear(h, ffn, device=device, dtype=dtype)
-        self.fc2 = nn.Linear(ffn, h, device=device, dtype=dtype)
+        self.fc1 = Linear(h, ffn, device=device, dtype=dtype)
+        self.fc2 = Linear(ffn, h, device=device, dtype=dtype)
 
     def forward(self, x):
         return self.fc2(TF.gelu(self.fc1(x), approximate="tanh"))
@@ -121,9 +124,9 @@ class GPTBlock(nn.Module):
         super().__init__()
         h = cfg.hidden_size
         self.generator = generator
-        self.ln1 = nn.LayerNorm(h, eps=LN_EPS, device=device, dtype=dtype)
+        self.ln1 = LayerNorm(h, eps=LN_EPS, device=device, dtype=dtype)
         self.attn = GPTAttention(cfg, device, dtype, generator)
-        self.ln2 = nn.LayerNorm(h, eps=LN_EPS, device=device, dtype=dtype)
+        self.ln2 = LayerNorm(h, eps=LN_EPS, device=device, dtype=dtype)
         self.mlp = GPTMLP(cfg, device, dtype)
         self.dropout = cfg.dropout
 
@@ -156,14 +159,14 @@ class GPTModel(nn.Module):
         self.blocks = nn.ModuleList([GPTBlock(cfg, device, dtype,
                                               self.generator)
                                      for _ in range(cfg.num_layers)])
-        self.ln_f = nn.LayerNorm(h, eps=LN_EPS, device=device, dtype=dtype)
+        self.ln_f = LayerNorm(h, eps=LN_EPS, device=device, dtype=dtype)
 
     def forward(self, input_ids):
         s = input_ids.shape[1]
         pos = torch.arange(s, device=input_ids.device)
         x = self.wte(input_ids) + self.wpe(pos)
         for blk in self.blocks:
-            x = blk(x)
+            x = remat_block(blk, x) if self.cfg.recompute else blk(x)
         return self.ln_f(x)
 
 
@@ -201,9 +204,16 @@ class GPTForCausalLM(nn.Module):
 
     def forward(self, input_ids, labels=None):
         """Logits (B, S, vocab); with ``labels``, ``(logits, loss)`` where
-        the loss predicts ``labels[:, 1:]`` from positions ``:-1``."""
+        the loss predicts ``labels[:, 1:]`` from positions ``:-1``, or
+        ``(None, loss)`` with ``fused_loss``."""
         h = self.gpt(input_ids)
-        logits = torch.matmul(h, self.gpt.wte.weight.t())
+        if labels is not None and self.cfg.fused_loss:
+            loss = F.fused_linear_cross_entropy(
+                h[:, :-1, :].reshape(-1, self.cfg.hidden_size),
+                self.gpt.wte.weight, labels[:, 1:].reshape(-1),
+                transpose_y=True)
+            return None, loss
+        logits = F.matmul(h, self.gpt.wte.weight, transpose_y=True)
         if labels is None:
             return logits
         v = logits.shape[-1]

@@ -8,9 +8,12 @@ backward on the card). ``LlamaForCausalLM(ids, labels=ids)`` returns the
 logits and the shifted next-token loss. Through ``jit.to_static`` with
 ``FLAGS_enable_fusion`` the fusion pass rewrites each q/k projection and
 its rope onto ``fused_rope_proj`` (K7) and each residual add and the norm
-after it onto ``fused_residual_norm`` (K4). Cached decoding (``generate``,
-the paged engine), tensor/sequence/context parallelism, recompute and the
-fused loss are later slices and raise.
+after it onto ``fused_residual_norm`` (K4). ``fused_loss`` computes the
+chunked LM-head loss (``(None, loss)``), against ``lm_head`` or the tied
+embedding; ``recompute`` checkpoints each block (``models/_remat.py``).
+The linears are the port's ``Linear``, so amp casts their inputs. Cached
+decoding (``generate``, the paged engine) and tensor/sequence/context
+parallelism are later slices and raise.
 """
 from __future__ import annotations
 
@@ -24,7 +27,8 @@ from ..core.dtype import convert_dtype
 from ..core.generator import make_generator, normal_
 from ..core.place import DeviceLike, resolve_device
 from ..nn import functional as F
-from ..nn.layer import RMSNorm
+from ..nn.layer import Linear, RMSNorm
+from ._remat import remat_block
 
 
 @dataclass
@@ -57,9 +61,7 @@ class LlamaConfig:
         later = [name for name, on in (
             ("mp_degree > 1", self.mp_degree > 1),
             ("sequence_parallel", self.sequence_parallel),
-            ("context_parallel", bool(self.context_parallel)),
-            ("recompute", self.recompute),
-            ("fused_loss", self.fused_loss)) if on]
+            ("context_parallel", bool(self.context_parallel))) if on]
         if later:
             raise NotImplementedError(f"later slice: {', '.join(later)}")
 
@@ -140,10 +142,10 @@ class LlamaAttention(nn.Module):
         self.head_dim = cfg.hidden_size // cfg.num_heads
         h = cfg.hidden_size
         kv = self.num_kv_heads * self.head_dim
-        self.q_proj = nn.Linear(h, h, bias=False, device=device, dtype=dtype)
-        self.k_proj = nn.Linear(h, kv, bias=False, device=device, dtype=dtype)
-        self.v_proj = nn.Linear(h, kv, bias=False, device=device, dtype=dtype)
-        self.o_proj = nn.Linear(h, h, bias=False, device=device, dtype=dtype)
+        self.q_proj = Linear(h, h, bias=False, device=device, dtype=dtype)
+        self.k_proj = Linear(h, kv, bias=False, device=device, dtype=dtype)
+        self.v_proj = Linear(h, kv, bias=False, device=device, dtype=dtype)
+        self.o_proj = Linear(h, h, bias=False, device=device, dtype=dtype)
 
     def forward(self, x):
         b, s, h = x.shape
@@ -170,12 +172,11 @@ class LlamaMLP(nn.Module):
     def __init__(self, cfg: LlamaConfig, device=None, dtype=None):
         super().__init__()
         h, ffn = cfg.hidden_size, cfg.intermediate_size
-        self.gate_proj = nn.Linear(h, ffn, bias=False, device=device,
-                                   dtype=dtype)
-        self.up_proj = nn.Linear(h, ffn, bias=False, device=device,
-                                 dtype=dtype)
-        self.down_proj = nn.Linear(ffn, h, bias=False, device=device,
-                                   dtype=dtype)
+        self.gate_proj = Linear(h, ffn, bias=False, device=device,
+                                dtype=dtype)
+        self.up_proj = Linear(h, ffn, bias=False, device=device, dtype=dtype)
+        self.down_proj = Linear(ffn, h, bias=False, device=device,
+                                dtype=dtype)
 
     def forward(self, x):
         return self.down_proj(F.swiglu(self.gate_proj(x), self.up_proj(x)))
@@ -211,7 +212,7 @@ class LlamaModel(nn.Module):
     def forward(self, input_ids):
         x = self.embed_tokens(input_ids)
         for blk in self.layers:
-            x = blk(x)
+            x = remat_block(blk, x) if self.cfg.recompute else blk(x)
         return self.norm(x)
 
 
@@ -229,7 +230,7 @@ class LlamaForCausalLM(nn.Module):
         device = resolve_device(device)
         dtype = convert_dtype(dtype)
         self.model = LlamaModel(cfg, device, dtype)
-        self.lm_head = None if cfg.tie_embeddings else nn.Linear(
+        self.lm_head = None if cfg.tie_embeddings else Linear(
             cfg.hidden_size, cfg.vocab_size, bias=False, device=device,
             dtype=dtype)
         gen = make_generator(seed)
@@ -240,10 +241,20 @@ class LlamaForCausalLM(nn.Module):
 
     def forward(self, input_ids, labels=None):
         """Logits (B, S, vocab); with ``labels``, ``(logits, loss)`` where
-        the loss predicts ``labels[:, 1:]`` from positions ``:-1``."""
+        the loss predicts ``labels[:, 1:]`` from positions ``:-1``, or
+        ``(None, loss)`` with ``fused_loss``."""
         h = self.model(input_ids)
+        head = self.model.embed_tokens if self.lm_head is None \
+            else self.lm_head
+        if labels is not None and self.cfg.fused_loss:
+            # both heads hold (vocab, hidden): the embedding table, and
+            # nn.Linear's (out, in) weight
+            loss = F.fused_linear_cross_entropy(
+                h[:, :-1, :].reshape(-1, self.cfg.hidden_size), head.weight,
+                labels[:, 1:].reshape(-1), transpose_y=True)
+            return None, loss
         if self.lm_head is None:
-            logits = torch.matmul(h, self.model.embed_tokens.weight.t())
+            logits = F.matmul(h, head.weight, transpose_y=True)
         else:
             logits = self.lm_head(h)
         if labels is None:

@@ -2,7 +2,7 @@
 port."""
 from . import functional
 from .clip import ClipGradByGlobalNorm, ClipGradByNorm, ClipGradByValue
-from .layer import RMSNorm
+from .layer import LayerNorm, Linear, RMSNorm
 
 __all__ = ["functional", "ClipGradByGlobalNorm", "ClipGradByNorm",
-           "ClipGradByValue", "RMSNorm"]
+           "ClipGradByValue", "Linear", "LayerNorm", "RMSNorm"]

@@ -6,7 +6,9 @@ head_dim). ``flash_attention`` with no dropout goes to
 and an input that requires it, through the autograd Function (the K1
 forward kernel, then the K2/K3 backward kernels); otherwise K1 alone.
 CUDA tensors launch the Hopper kernels, CPU tensors run their plain
-versions. Dropout draws from the caller's ``torch.Generator``. The JAX
+versions. Dropout draws from the caller's ``torch.Generator``. Both
+functionals are on amp's white list and cast q/k/v (and an additive
+mask) for it. The JAX
 package's sequence-length crossover and its measured choice between
 implementations are TPU measurements and have no counterpart here.
 """
@@ -17,6 +19,7 @@ from typing import Optional
 
 import torch
 
+from ...amp.state import amp_cast
 from ...ops.cuda.flash_attention import flash_attention_fwd
 from .common import dropout as _dropout
 
@@ -50,6 +53,7 @@ def flash_attention(query, key, value, dropout=0.0, causal=False,
     """Returns ``(out, None)``. With dropout active (``dropout > 0`` while
     training) the plain path runs, as in the JAX package, drawing from
     ``generator``; otherwise the flash kernels."""
+    query, key, value = amp_cast("flash_attention", query, key, value)
     if dropout > 0.0 and training:
         out = _sdpa_plain(query, key, value, causal=causal,
                           dropout_p=dropout, generator=generator)
@@ -65,6 +69,8 @@ def scaled_dot_product_attention(query, key, value, attn_mask=None,
     """softmax(q·kᵀ/√d)·v over BSHD q/k/v. With no mask and no active
     dropout this is the flash kernels; a mask (additive, or boolean where
     True keeps) or dropout (from ``generator``) takes the plain path."""
+    query, key, value, attn_mask = amp_cast(
+        "scaled_dot_product_attention", query, key, value, attn_mask)
     drop = dropout_p if training else 0.0
     if attn_mask is None and drop == 0.0:
         out, _ = flash_attention_fwd(query, key, value, causal=is_causal)

@@ -24,6 +24,7 @@ from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 
+from ...amp.state import amp_cast
 from ...ops.cuda import fused_ops as FK
 
 __all__ = ["fused_bias_act", "fused_residual_norm", "fused_norm_linear",
@@ -179,6 +180,8 @@ def fused_norm_linear(x: torch.Tensor, weight: torch.Tensor,
     ``nn.Linear`` layout; ``norm_type=''`` skips the norm and
     ``activation=''`` the activation. The normalized rows are rounded to
     x's type before the product."""
+    x, weight, bias, norm_weight, norm_bias = amp_cast(
+        "fused_norm_linear", x, weight, bias, norm_weight, norm_bias)
     attrs = dict(norm_type=norm_type, epsilon=epsilon, activation=activation)
     return _FusedFunction.apply(
         functools.partial(_norm_linear_kernel, **attrs),
@@ -219,6 +222,7 @@ def fused_rope_proj(x: torch.Tensor, weight: torch.Tensor,
                          f"{tuple(x.shape)}")
     if isinstance(pos_offset, bool) or not isinstance(pos_offset, int):
         raise TypeError("fused_rope_proj: pos_offset must be a Python int")
+    x, weight, bias = amp_cast("fused_rope_proj", x, weight, bias)
     attrs = dict(num_heads=int(num_heads), theta=float(theta),
                  pos_offset=pos_offset)
     return _FusedFunction.apply(

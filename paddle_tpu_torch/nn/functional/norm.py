@@ -1,11 +1,20 @@
 """Normalization functionals (counterpart of
 ``paddle_tpu/nn/functional/norm.py``): statistics in fp32, the output in
-the input's dtype, as the JAX lowerings compute them."""
+the input's dtype, as the JAX lowerings compute them. Both are on amp's
+black list: under O1/O2 their inputs go to fp32 first, so they return
+fp32."""
 from __future__ import annotations
 
 from typing import Optional, Sequence, Union
 
 import torch
+from torch.nn import functional as TF
+
+from ...amp.state import amp_cast
+
+
+def _f32(t: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
+    return None if t is None else t.float()
 
 
 def _affine(y: torch.Tensor, weight: Optional[torch.Tensor],
@@ -22,14 +31,17 @@ def layer_norm(x: torch.Tensor, normalized_shape: Union[int, Sequence[int]],
                bias: Optional[torch.Tensor] = None, epsilon: float = 1e-5,
                name=None) -> torch.Tensor:
     """(x - mean) / sqrt(var + epsilon) * weight + bias over the trailing
-    ``normalized_shape`` dims."""
-    ndim = 1 if isinstance(normalized_shape, int) else len(normalized_shape)
-    dims = tuple(range(x.dim() - ndim, x.dim()))
-    a32 = x.float()
-    mean = a32.mean(dim=dims, keepdim=True)
-    var = a32.var(dim=dims, unbiased=False, keepdim=True)
-    y = (a32 - mean) / torch.sqrt(var + epsilon)
-    return _affine(y, weight, bias).to(x.dtype)
+    ``normalized_shape`` dims. Where the weight and bias share x's dtype,
+    torch's own layer norm computes it (fp32 statistics and affine, one
+    rounding); otherwise x and the parameters go to fp32 and the result
+    back to x's dtype."""
+    x, weight, bias = amp_cast("layer_norm", x, weight, bias)
+    shape = ((normalized_shape,) if isinstance(normalized_shape, int)
+             else tuple(normalized_shape))
+    if all(t is None or t.dtype == x.dtype for t in (weight, bias)):
+        return TF.layer_norm(x, shape, weight, bias, epsilon)
+    return TF.layer_norm(x.float(), shape, _f32(weight), _f32(bias),
+                         epsilon).to(x.dtype)
 
 
 def rms_norm(x: torch.Tensor, weight: Optional[torch.Tensor] = None,
@@ -37,6 +49,7 @@ def rms_norm(x: torch.Tensor, weight: Optional[torch.Tensor] = None,
              begin_norm_axis: int = -1, name=None) -> torch.Tensor:
     """x / sqrt(mean(x^2) + epsilon) * weight + bias over the dims from
     ``begin_norm_axis`` on."""
+    x, weight, bias = amp_cast("rms_norm", x, weight, bias)
     axis = begin_norm_axis % x.dim()
     dims = tuple(range(axis, x.dim()))
     a32 = x.float()

@@ -1,4 +1,6 @@
-"""Layers of the port that ``torch.nn`` does not have."""
-from .norm import RMSNorm
+"""Layers of the port: ``torch.nn`` layers routed through the port's
+functionals, and those ``torch.nn`` does not have."""
+from .common import Linear
+from .norm import LayerNorm, RMSNorm
 
-__all__ = ["RMSNorm"]
+__all__ = ["Linear", "LayerNorm", "RMSNorm"]

@@ -1,4 +1,5 @@
-"""RMSNorm (counterpart of ``RMSNorm`` in ``paddle_tpu/nn/layer/norm.py``)."""
+"""LayerNorm and RMSNorm (counterparts of ``LayerNorm`` and ``RMSNorm`` in
+``paddle_tpu/nn/layer/norm.py``)."""
 from __future__ import annotations
 
 import torch
@@ -7,9 +8,20 @@ from torch import nn
 from .. import functional as F
 
 
+class LayerNorm(nn.LayerNorm):
+    """``torch.nn.LayerNorm`` (its parameters and init) whose forward is
+    the port's ``F.layer_norm``, so that amp casts its inputs. A
+    ``torch.nn.LayerNorm``, so O2 ``decorate`` keeps it fp32."""
+
+    def forward(self, x):
+        return F.layer_norm(x, self.normalized_shape, self.weight, self.bias,
+                            epsilon=self.eps)
+
+
 class RMSNorm(nn.Module):
     """x / rms(x) * weight over the last dim, statistics in fp32; the
-    parameter ``weight`` starts at 1."""
+    parameter ``weight`` starts at 1. Not a LayerNorm: O2 ``decorate``
+    casts its weight, as the JAX package's."""
 
     def __init__(self, hidden_size: int, epsilon: float = 1e-6, device=None,
                  dtype=None):

@@ -7,7 +7,15 @@ port runs the same fp32 update rule with plain multi-tensor torch ops
 few for each) on the parameters' device. It updates the moments, the
 fp32 master copies and fp32 parameters in place (no second copy of the
 optimizer state is made); a bf16/fp16 parameter is written back from its
-fp32 result.
+fp32 result. Parameters are updated in groups of at most ``_GROUP_NUMEL``
+values, so the fp32 copies of the gradients and the update's temporaries
+exist for one group at a time, never for the whole model.
+
+Adam's moments may be stored as bf16, or as int8 in blocks of 256 values
+with one fp32 absmax scale a block (``moment_dtype``; v is quantized in
+sqrt space). Those are decoded to fp32, updated and encoded one
+parameter at a time, so no fp32 copy of all the moments exists at once;
+checkpoints hold them decoded, in fp32.
 
 Parameters carry names: JAX parameter names are global counters
 (``param_4``), so the port names each parameter by its dotted path in
@@ -25,6 +33,66 @@ from .lr import LRScheduler
 
 ParamsArg = Iterable[Union[torch.Tensor, Tuple[str, torch.Tensor]]]
 _LOW_PRECISION = (torch.bfloat16, torch.float16)
+
+#: values a block in int8 moment storage, each block with one fp32 scale
+_MOMENT_BLOCK = 256
+#: values a group of parameters updated together holds at most (one
+#: parameter larger than this is a group of its own)
+_GROUP_NUMEL = 1 << 26
+
+
+def _groups(items, numel):
+    """Consecutive runs of ``items`` whose ``numel(item)`` sum to at most
+    ``_GROUP_NUMEL``."""
+    group, size = [], 0
+    for item in items:
+        n = numel(item)
+        if group and size + n > _GROUP_NUMEL:
+            yield group
+            group, size = [], 0
+        group.append(item)
+        size += n
+    if group:
+        yield group
+
+
+def _moment_encode(x: torch.Tensor, dtype: Optional[str],
+                   nonneg: bool = False):
+    """fp32 moment -> storage form: itself (``dtype`` None), bf16, or for
+    int8 ``{"q": int8 (blocks, 256), "s": fp32 (blocks, 1)}``: flattened,
+    padded with zeros to whole blocks, each block scaled by its absmax /
+    127 and rounded half to even. A non-negative moment (Adam's v) is
+    quantized in sqrt space, which keeps the small entries that set the
+    effective step."""
+    if dtype is None:
+        return x
+    if dtype == "bfloat16":
+        return x.to(torch.bfloat16)
+    if nonneg:
+        x = torch.sqrt(torch.clamp_min(x, 0.0))
+    flat = x.reshape(-1)
+    pad = (-flat.numel()) % _MOMENT_BLOCK
+    if pad:
+        flat = torch.nn.functional.pad(flat, (0, pad))
+    blocks = flat.reshape(-1, _MOMENT_BLOCK)
+    scale = blocks.abs().amax(dim=1, keepdim=True) / 127.0
+    q = torch.round(blocks / torch.clamp_min(scale, 1e-30)).clamp(
+        -127, 127).to(torch.int8)
+    return {"q": q, "s": scale.float()}
+
+
+def _moment_decode(st, shape, dtype: Optional[str],
+                   nonneg: bool = False) -> torch.Tensor:
+    """Storage form -> fp32 moment of ``shape``."""
+    if dtype is None:
+        return st
+    if dtype == "bfloat16":
+        return st.float()
+    size = 1
+    for d in shape:
+        size *= int(d)
+    out = (st["q"].float() * st["s"]).reshape(-1)[:size].reshape(shape)
+    return out * out if nonneg else out
 
 
 class Optimizer:
@@ -89,20 +157,31 @@ class Optimizer:
     def _ensure_state(self, name: str, p: torch.Tensor):
         if name in self._accumulators:
             return
-        self._accumulators[name] = {
-            s: torch.zeros(p.shape, dtype=torch.float32, device=p.device)
-            for s in self._state_names}
+        self._accumulators[name] = self._init_state(p)
         if self._multi_precision and p.dtype in _LOW_PRECISION:
             self._master_weights[name] = p.detach().float().clone()
 
+    def _init_state(self, p: torch.Tensor) -> dict:
+        return {s: torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+                for s in self._state_names}
+
+    def _state_to_checkpoint(self, state: str, v, p: torch.Tensor
+                             ) -> torch.Tensor:
+        """Storage form -> the fp32 tensor a checkpoint holds."""
+        return v.detach().clone()
+
+    def _state_from_checkpoint(self, state: str, arr: torch.Tensor,
+                               p: torch.Tensor):
+        return arr
+
     # ----------------------------------------------------------------- hooks
     def _update(self, ws: List[torch.Tensor], gs: List[torch.Tensor],
-                states: Dict[str, List[torch.Tensor]], lr: float, step: int,
+                states: Dict[str, list], lr: float, step: int,
                 wd_flags: List[float]) -> None:
-        """Update the fp32 tensors ``ws`` and the lists in ``states`` (one
-        per state name) in place from the fp32 gradients ``gs``; the i-th
-        entry of each list belongs to one parameter. Subclasses
-        implement."""
+        """Update the fp32 tensors ``ws`` in place from the fp32 gradients
+        ``gs``, and the lists in ``states`` (one per state name; the i-th
+        entry of each list belongs to one parameter), in place or by
+        putting new entries in the lists. Subclasses implement."""
         raise NotImplementedError
 
     def _wd_flag(self, name: str) -> float:
@@ -119,22 +198,29 @@ class Optimizer:
         if self._grad_clip is not None:
             params_grads = self._grad_clip(params_grads)
         self._step_count += 1
-        works, grads, back = [], [], []
-        for (name, p), (_, g) in zip(live, params_grads):
-            self._ensure_state(name, p)
-            work = self._master_weights.get(name)
-            if work is None:
-                work = p if p.dtype == torch.float32 else p.float()
-            if work is not p:
-                back.append((p, work))
-            works.append(work)
-            grads.append(g.float())
-        states = {s: [self._accumulators[n][s] for n, _ in live]
-                  for s in self._state_names}
-        self._update(works, grads, states, float(self.get_lr()),
-                     self._step_count, [self._wd_flag(n) for n, _ in live])
-        for p, work in back:
-            p.copy_(work)
+        lr = float(self.get_lr())
+        for group in _groups(zip(live, params_grads),
+                             lambda item: item[0][1].numel()):
+            names = [name for (name, _), _ in group]
+            works, grads, back = [], [], []
+            for (name, p), (_, g) in group:
+                self._ensure_state(name, p)
+                work = self._master_weights.get(name)
+                if work is None:
+                    work = p if p.dtype == torch.float32 else p.float()
+                if work is not p:
+                    back.append((p, work))
+                works.append(work)
+                grads.append(g.float())
+            states = {s: [self._accumulators[n][s] for n in names]
+                      for s in self._state_names}
+            self._update(works, grads, states, lr, self._step_count,
+                         [self._wd_flag(n) for n in names])
+            for s, values in states.items():
+                for name, v in zip(names, values):
+                    self._accumulators[name][s] = v
+            for p, work in back:
+                p.copy_(work)
 
     def clear_grad(self, set_to_zero: bool = False):
         for p in self._parameter_list:
@@ -155,12 +241,12 @@ class Optimizer:
         """``{name}_{moment}`` and ``{name}_master`` copies, the step count
         and the scheduler's state, under the JAX package's keys."""
         sd = {}
-        for name in self._names:
+        for name, p in zip(self._names, self._parameter_list):
             st = self._accumulators.get(name)
             if st is None:
                 continue
             for s, v in st.items():
-                sd[f"{name}_{s}"] = v.detach().clone()
+                sd[f"{name}_{s}"] = self._state_to_checkpoint(s, v, p)
             mw = self._master_weights.get(name)
             if mw is not None:
                 sd[f"{name}_master"] = mw.detach().clone()
@@ -175,8 +261,9 @@ class Optimizer:
                                                        LRScheduler):
             self._learning_rate.set_state_dict(state_dict["LR_Scheduler"])
         for name, p in zip(self._names, self._parameter_list):
-            st = {s: torch.as_tensor(state_dict[f"{name}_{s}"]).to(
-                      device=p.device, dtype=torch.float32).clone()
+            st = {s: self._state_from_checkpoint(s, torch.as_tensor(
+                      state_dict[f"{name}_{s}"]).to(
+                          device=p.device, dtype=torch.float32).clone(), p)
                   for s in self._state_names
                   if f"{name}_{s}" in state_dict}
             if st:
@@ -188,9 +275,11 @@ class Optimizer:
 
 
 class Adam(Optimizer):
-    """Adam with fp32 moments; ``weight_decay`` is L2 folded into the
-    gradient. bf16/int8 moments (``moment_dtype``) and ``amsgrad`` are a
-    later slice."""
+    """Adam; ``weight_decay`` is L2 folded into the gradient.
+    ``moment_dtype``: None (fp32 moments), ``"bfloat16"`` or ``"int8"``
+    (blockwise). ``amsgrad`` steps with the running max of v
+    (``moment2_max``); it refuses int8 moments, whose requantization would
+    drift a running max. The update math runs in fp32 either way."""
 
     _state_names = ["moment1", "moment2"]
 
@@ -201,12 +290,52 @@ class Adam(Optimizer):
                  name=None):
         super().__init__(learning_rate, parameters, weight_decay, grad_clip,
                          multi_precision, name)
-        if moment_dtype is not None or amsgrad:
-            raise NotImplementedError(
-                "later slice: moment_dtype (bf16/int8 moments) and amsgrad")
+        if moment_dtype not in (None, "bfloat16", "int8"):
+            raise ValueError(
+                f"moment_dtype must be None, 'bfloat16' or 'int8', got "
+                f"{moment_dtype!r}")
+        if amsgrad and moment_dtype == "int8":
+            raise ValueError("amsgrad tracks a running max; int8 "
+                             "requantization would drift it — use "
+                             "moment_dtype='bfloat16' or None")
         self._beta1 = beta1
         self._beta2 = beta2
         self._epsilon = epsilon
+        self._amsgrad = amsgrad
+        self._moment_dtype = moment_dtype
+        if amsgrad:
+            self._state_names = self._state_names + ["moment2_max"]
+
+    def _init_state(self, p):
+        if self._moment_dtype is None:
+            return super()._init_state(p)
+        zero = torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+        return {s: _moment_encode(zero, self._moment_dtype,
+                                  nonneg=s.startswith("moment2"))
+                for s in self._state_names}
+
+    def _state_to_checkpoint(self, state, v, p):
+        return _moment_decode(v, p.shape, self._moment_dtype,
+                              nonneg=state.startswith("moment2")
+                              ).detach().clone()
+
+    def _state_from_checkpoint(self, state, arr, p):
+        return _moment_encode(arr, self._moment_dtype,
+                              nonneg=state.startswith("moment2"))
+
+    def _update(self, ws, gs, states, lr, step, wd_flags):
+        md = self._moment_dtype
+        if md is None:
+            self._update_fp32(ws, gs, states, lr, step, wd_flags)
+            return
+        for i, w in enumerate(ws):    # one parameter's moments at a time
+            one = {s: [_moment_decode(v[i], w.shape, md,
+                                      nonneg=s.startswith("moment2"))]
+                   for s, v in states.items()}
+            self._update_fp32([w], [gs[i]], one, lr, step, [wd_flags[i]])
+            for s, v in states.items():
+                v[i] = _moment_encode(one[s][0], md,
+                                      nonneg=s.startswith("moment2"))
 
     def _moments(self, gs, states, step):
         """m and v updated in place; returns the bias corrections."""
@@ -219,13 +348,19 @@ class Adam(Optimizer):
         return 1 - b1 ** step, 1 - b2 ** step
 
     def _apply(self, ws, states, lr, bc1, bc2):
-        """w -= lr * m_hat / (sqrt(v_hat) + eps)."""
-        denom = torch._foreach_div(states["moment2"], bc2)
+        """w -= lr * m_hat / (sqrt(v_hat) + eps); with amsgrad v_hat is
+        the running max of v, bias-corrected."""
+        v = states["moment2"]
+        if self._amsgrad:
+            torch._foreach_maximum_(states["moment2_max"], v)
+            v = states["moment2_max"]
+        denom = torch._foreach_div(v, bc2)
         torch._foreach_sqrt_(denom)
         torch._foreach_add_(denom, self._epsilon)
         torch._foreach_addcdiv_(ws, states["moment1"], denom, value=-lr / bc1)
 
-    def _update(self, ws, gs, states, lr, step, wd_flags):
+    def _update_fp32(self, ws, gs, states, lr, step, wd_flags):
+        """The update on fp32 moments, in place."""
         if self._weight_decay:     # L2: g + coeff * w, per the flag
             gs = torch._foreach_add(
                 gs, torch._foreach_mul(ws, [self._weight_decay * f
@@ -237,7 +372,8 @@ class Adam(Optimizer):
 class AdamW(Adam):
     """Decoupled weight decay: w *= 1 - lr * weight_decay before the Adam
     step, for the parameters ``apply_decay_param_fun(name)`` accepts (all
-    when it is None)."""
+    when it is None). ``amsgrad`` works as in ``Adam`` (the JAX package's
+    AdamW ignores it, a fault of the reference)."""
 
     def __init__(self, learning_rate=0.001, beta1=0.9, beta2=0.999,
                  epsilon=1e-8, parameters=None, weight_decay=0.01,
@@ -258,7 +394,7 @@ class AdamW(Adam):
             return 1.0 if self._apply_decay_param_fun(name) else 0.0
         return 1.0
 
-    def _update(self, ws, gs, states, lr, step, wd_flags):
+    def _update_fp32(self, ws, gs, states, lr, step, wd_flags):
         bc1, bc2 = self._moments(gs, states, step)
         if self._wd_coeff:
             torch._foreach_mul_(ws, [1 - lr * self._wd_coeff * f

@@ -468,3 +468,83 @@ def test_fused_functionals_launch_forward_and_recompute_backward():
     assert (out - ref).abs().max().item() <= FUSED_FP32_TOL
     assert (x.grad - xr.grad).abs().max().item() <= 1e-4
     assert (w.grad - wr.grad).abs().max().item() <= 1e-4
+
+
+# ---------------------------------------------- amp, fused loss, recompute
+@pytest.mark.cuda
+@pytest.mark.parametrize("level,dtype", [("O1", "bfloat16"),
+                                         ("O2", "float16")])
+def test_amp_hands_the_kernels_their_dtype(level, dtype):
+    """Under auto_cast, fp32 inputs reach K1 and the white-list fused ops
+    in the amp dtype, and each launches its kernel."""
+    from paddle_tpu_torch import amp
+    _card()
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(4)
+    want = getattr(torch, dtype)
+    q = torch.randn((2, 128, 4, 64), generator=gen, device="cuda")
+    x = torch.randn((2, 64, 256), generator=gen, device="cuda")
+    w = torch.randn((512, 256), generator=gen, device="cuda") / 16
+    wr = torch.randn((256, 256), generator=gen, device="cuda") / 16
+    counts = (FK.fused_matmul.launches, FK.fused_matmul_rope.launches,
+              flash_attention_fwd.launches)
+    with amp.auto_cast(level=level, dtype=dtype):
+        out, _ = F.flash_attention(q, q, q, causal=True)
+        y = F.fused_norm_linear(x, w, norm_weight=torch.ones(
+            256, device="cuda"), norm_type="layer_norm")
+        r = F.fused_rope_proj(x, wr, num_heads=2)
+    torch.cuda.synchronize()
+    assert (out.dtype, y.dtype, r.dtype) == (want,) * 3
+    assert (FK.fused_matmul.launches, FK.fused_matmul_rope.launches,
+            flash_attention_fwd.launches) == tuple(c + 1 for c in counts)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+def test_fused_linear_cross_entropy_on_the_card(dtype):
+    """The chunked loss on the card: its loss and gradients against the
+    plain cross entropy on the full logits."""
+    _card()
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(5)
+    x = torch.randn((300, 128), generator=gen, device="cuda").to(dtype)
+    w = (torch.randn((1000, 128), generator=gen, device="cuda")
+         / 12).to(dtype)
+    lab = torch.randint(0, 1000, (300,), generator=gen, device="cuda")
+    lab[::7] = -100
+    grads = []
+    for fused in (True, False):
+        xl, wl = x.clone().requires_grad_(), w.clone().requires_grad_()
+        loss = (F.fused_linear_cross_entropy(xl, wl, lab, transpose_y=True,
+                                             chunk_rows=128) if fused else
+                F.cross_entropy(torch.matmul(xl, wl.t()), lab))
+        loss.backward()
+        grads.append((loss.detach(), xl.grad.float(), wl.grad.float()))
+    tol = 1e-4 if dtype == torch.float32 else 2e-2
+    for got, want in zip(*grads):
+        err = (got.float() - want.float()).norm() / want.float().norm()
+        assert err.item() <= tol
+
+
+@pytest.mark.cuda
+def test_recompute_on_the_card_launches_k1_in_the_replay():
+    """A recomputed LLaMA block launches K1 in the forward and again in
+    the backward's replay; the gradients equal those without recompute."""
+    from paddle_tpu_torch.models import LlamaConfig, LlamaForCausalLM
+    _card()
+    cfg = dict(vocab_size=256, hidden_size=256, intermediate_size=512,
+               num_layers=2, num_heads=2, max_seq_len=128)
+    grads, launches = [], []
+    ids = torch.randint(0, 256, (2, 128), device="cuda")
+    for on in (False, True):
+        model = LlamaForCausalLM(LlamaConfig(**cfg, recompute=on),
+                                 device="cuda", seed=6)
+        before = flash_attention_fwd.launches
+        _, loss = model(ids, labels=ids)
+        loss.backward()
+        torch.cuda.synchronize()
+        launches.append(flash_attention_fwd.launches - before)
+        grads.append([p.grad for p in model.parameters()])
+    assert launches == [2, 4]
+    for a, b in zip(*grads):
+        assert (a - b).abs().max().item() <= 1e-5

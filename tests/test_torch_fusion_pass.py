@@ -9,24 +9,40 @@
   same configuration, and outputs within 1e-4 of the JAX fused program on
   carried weights (its Pallas kernels interpreted).
 * With the flag off, ``to_static`` is bit-equal to eager and runs no pass.
+* Under amp O1 bf16 with the fused loss, ``llama_tiny`` (B2 S32) gets the
+  JAX ``to_static``'s ``fusion_stats``, and two fused AdamW steps keep the
+  losses and gradients of the JAX fused steps within the O1 tolerances of
+  ``test_torch_gpt``.
+* With ``recompute``, the JAX ``to_static`` + fusion raises
+  (``UnexpectedTracerError``, a fault of the reference); the port's fused
+  and recomputed step is held to the JAX fused step without recompute
+  (recompute does not change the function), and its pass runs inside each
+  checkpointed block.
 """
 import numpy as np
 import pytest
 import torch
 
 import paddle_tpu as paddle
+import jax
+import jax.numpy as jnp
+
+from paddle_tpu import amp as jamp
 from paddle_tpu.compile import fusion as jfusion
+from paddle_tpu.core.tensor import Tensor as JTensor
 from paddle_tpu.models import GPTConfig as JaxGPTConfig
 from paddle_tpu.models import GPTForCausalLM as JaxGPT
 from paddle_tpu.models import LlamaConfig as JaxLlamaConfig
 from paddle_tpu.models import LlamaForCausalLM as JaxLlama
 from paddle_tpu.nn import functional as JF
 from paddle_tpu.ops.pallas import fused_ops as JK
-from paddle_tpu_torch import get_flag, set_flags, to_static
+from paddle_tpu_torch import amp, get_flag, set_flags, to_static
 from paddle_tpu_torch.compile import fusion
 from paddle_tpu_torch.models import (GPTConfig, GPTForCausalLM, LlamaConfig,
                                      LlamaForCausalLM, load_jax_state)
 from paddle_tpu_torch.nn import functional as F
+from paddle_tpu_torch.optimizer import AdamW
+from test_torch_gpt import assert_o1_close, port_amp_loss_and_grads
 from test_torch_gpt import seeded_state as gpt_state
 from test_torch_llama import seeded_state as llama_state
 
@@ -255,6 +271,94 @@ def test_a_signature_change_retraces(fusion_on):
     set_flags({"FLAGS_enable_fusion": False})
     sf(ids)
     assert sf.fusion_stats is None
+
+
+def _jax_fused_loss_and_grads(jmodel, ids, level="O0"):
+    """The JAX fused program (``to_static`` with fusion) under
+    ``jax.value_and_grad`` and ``auto_cast(level)``, as ``bench.py``'s
+    rungs run it: the loss, the gradients by name (JAX layout) and the
+    pass's stats."""
+    static = paddle.jit.to_static(jmodel, full_graph=True)
+    named = list(jmodel.named_parameters())
+    params = [p for _, p in named]
+
+    def loss_of(arrays):
+        originals = [p._data for p in params]
+        for p, a in zip(params, arrays):
+            p._data = a
+        try:
+            with jamp.auto_cast(level=level, dtype="bfloat16"):
+                _, loss = jmodel(JTensor(ids), labels=JTensor(ids))
+            return loss._data.astype(jnp.float32)
+        finally:
+            for p, o in zip(params, originals):
+                p._data = o
+
+    loss, grads = jax.value_and_grad(loss_of)([p._data for p in params])
+    return (float(loss), {n: np.asarray(g.astype(jnp.float32))
+                          for (n, _), g in zip(named, grads)},
+            static.forward.fusion_stats)
+
+
+LLAMA_O1 = dict(vocab_size=512, hidden_size=128, intermediate_size=256,
+                num_layers=2, num_heads=4, max_seq_len=128,
+                use_flash_attention=False, fused_loss=True)
+
+
+def test_o1_fused_loss_stats_and_two_adamw_steps_match_jax(fusion_on):
+    """``llama_tiny`` under O1 bf16 with the fused loss, B2 S32: the JAX
+    pass's stats (O1 changes no fusion decision), and two fused AdamW steps
+    with the losses and gradients of the JAX fused program's."""
+    jmodel, tmodel = _pair("llama", LLAMA_O1)
+    batches = [np.random.RandomState(30 + i).randint(0, 512, (2, 32))
+               for i in range(2)]
+    j_opt = paddle.optimizer.AdamW(parameters=jmodel.parameters(),
+                                   learning_rate=1e-3, epsilon=1e-4)
+    opt = AdamW(parameters=tmodel.named_parameters(), learning_rate=1e-3,
+                epsilon=1e-4)
+    sf = to_static(tmodel)
+    for ids in batches:
+        j_loss, j_grads, j_stats = _jax_fused_loss_and_grads(jmodel, ids,
+                                                             "O1")
+        got = port_amp_loss_and_grads(tmodel, ids, forward=sf,
+                                      keep_grads=True)
+        assert_o1_close(got, (j_loss, j_grads))
+        assert {k: sf.fusion_stats[k] for k in STAT_KEYS} == {
+            k: j_stats[k] for k in STAT_KEYS}
+        assert sf.fusion_stats["rewritten"] == {"rope_proj": 4,
+                                                "residual_norm": 4}
+        assert sf.fusion_stats["rejected"] == {"norm_linear": 1}
+        for name, jp in jmodel.named_parameters():
+            jp.grad = JTensor(jnp.asarray(j_grads[name]))
+        opt.step()
+        opt.clear_grad()
+        j_opt.step()
+        j_opt.clear_grad()
+
+
+@pytest.mark.parametrize("family,cfg", [("llama", dict(LLAMA_TINY,
+                                                        fused_loss=True)),
+                                        ("gpt", GPT_TINY)])
+def test_fused_recompute_matches_jax_fused_without_recompute(family, cfg,
+                                                            fusion_on):
+    """The JAX fused program with ``recompute=True`` raises; the port's
+    fused program with recompute has the loss and gradients of the JAX
+    fused program without it (fp32), and its pass ran inside the blocks."""
+    jmodel, _ = _pair(family, cfg)
+    _, tmodel = _pair(family, dict(cfg, recompute=True))
+    ids = np.random.RandomState(12).randint(0, cfg["vocab_size"], (2, 16))
+    sf = to_static(tmodel)
+    loss, grads = port_amp_loss_and_grads(tmodel, ids, level="O0",
+                                          forward=sf)
+    j_loss, j_grads, _ = _jax_fused_loss_and_grads(jmodel, ids)
+    np.testing.assert_allclose(loss, j_loss, atol=TOL, rtol=TOL)
+    for key, want in j_grads.items():
+        np.testing.assert_allclose(grads[key], want, atol=TOL, rtol=TOL,
+                                   err_msg=key)
+    want_rewrite = ({"rope_proj": 4, "residual_norm": 2} if family == "llama"
+                    else {"norm_linear": 2, "residual_norm": 2,
+                          "linear_act": 2})
+    assert sf.fusion_stats["rewritten"] == want_rewrite
 
 
 def test_flags():

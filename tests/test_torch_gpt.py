@@ -3,19 +3,32 @@
 A tiny JAX GPT gets numpy-seeded weights (wider than GPT-2's init, so the
 logits are far from uniform); ``load_jax_state`` copies them into the
 port's model, and the fp32 logits must agree. On CPU tensors the port's
-attention runs the flash kernel's plain version.
+attention runs the flash kernel's plain version. With ``recompute`` and
+``fused_loss`` under amp O1 bf16, the port's loss and gradients are held
+to ``jax.value_and_grad`` of the JAX model under the same ``auto_cast``
+(as ``bench.py``'s rungs run it): the loss within O1_LOSS_RTOL, each
+gradient within O1_GRAD_RTOL norm-wise.
 """
+import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
 import paddle_tpu as paddle
+from paddle_tpu import amp as jamp
+from paddle_tpu.core.tensor import Tensor as JTensor
 from paddle_tpu.models import GPTConfig as JaxGPTConfig
 from paddle_tpu.models import GPTForCausalLM as JaxGPT
+from paddle_tpu_torch import amp
 from paddle_tpu_torch.models import (GPTConfig, GPTForCausalLM, gpt2_medium,
                                      gpt2_small, load_jax_state)
 
 ATOL = RTOL = 1e-4
+# amp O1 bf16: both packages round the same products to bf16, in sums of
+# another order
+O1_LOSS_RTOL = 5e-3
+O1_GRAD_RTOL = 2e-2
 TINY = dict(vocab_size=83, hidden_size=64, num_layers=2, num_heads=4,
             max_seq_len=64)
 
@@ -92,10 +105,11 @@ def test_configs_and_later_slices():
     m = gpt2_medium()
     assert (m.hidden_size, m.num_layers, m.num_heads) == (1024, 24, 16)
     for kw in (dict(mp_degree=2), dict(sequence_parallel=True),
-               dict(recompute=True), dict(fused_loss=True),
                dict(context_parallel="ring")):
         with pytest.raises(NotImplementedError, match="later slice"):
             GPTConfig(**kw)
+    cfg = GPTConfig(recompute=True, fused_loss=True)
+    assert cfg.recompute and cfg.fused_loss
 
 
 def test_seeded_init_is_reproducible():
@@ -110,3 +124,72 @@ def test_seeded_init_is_reproducible():
             assert not torch.equal(x, z)
     std = a.gpt.blocks[0].mlp.fc1.weight.std().item()
     assert 0.015 < std < 0.025
+
+
+def jax_amp_loss_and_grads(jmodel, ids, level="O1", dtype="bfloat16"):
+    """``bench.py``'s step: ``jax.value_and_grad`` of the JAX model's loss
+    with the parameters rebound to the traced arrays, under
+    ``auto_cast``. Returns the loss and the gradients by parameter name."""
+    named = [(n, p) for n, p in jmodel.named_parameters()
+             if not p.stop_gradient]
+    params = [p for _, p in named]
+
+    def loss_of(arrays):
+        originals = [p._data for p in params]
+        for p, a in zip(params, arrays):
+            p._data = a
+        try:
+            with jamp.auto_cast(level=level, dtype=dtype):
+                _, loss = jmodel(JTensor(ids), labels=JTensor(ids))
+            return loss._data.astype(jnp.float32)
+        finally:
+            for p, o in zip(params, originals):
+                p._data = o
+
+    loss, grads = jax.value_and_grad(loss_of)([p._data for p in params])
+    return float(loss), {n: np.asarray(g.astype(jnp.float32))
+                         for (n, _), g in zip(named, grads)}
+
+
+def port_amp_loss_and_grads(tmodel, ids, level="O1", dtype="bfloat16",
+                            forward=None, keep_grads=False):
+    """The port's loss under ``auto_cast`` and its gradients by parameter
+    name, in the JAX layout (Linear weights transposed); the ``.grad``s are
+    cleared unless ``keep_grads``."""
+    t = torch.from_numpy(ids)
+    with amp.auto_cast(level=level, dtype=dtype):
+        _, loss = (forward or tmodel)(t, labels=t)
+    loss.backward()
+    linear = {f"{n}.weight" for n, m in tmodel.named_modules()
+              if isinstance(m, torch.nn.Linear)}
+    grads = {}
+    for n, p in tmodel.named_parameters():
+        g = p.grad.float().numpy()
+        grads[n] = g.T if n in linear else g
+    if not keep_grads:
+        tmodel.zero_grad()
+    return float(loss.detach()), grads
+
+
+def assert_o1_close(got, want):
+    (loss, grads), (j_loss, j_grads) = got, want
+    assert abs(loss - j_loss) <= O1_LOSS_RTOL * abs(j_loss), (loss, j_loss)
+    assert set(grads) == set(j_grads)
+    for key, g in j_grads.items():
+        rel = np.linalg.norm(grads[key] - g) / np.linalg.norm(g)
+        assert rel <= O1_GRAD_RTOL, (key, rel)
+
+
+@pytest.mark.parametrize("recompute,fused_loss", [(True, True),
+                                                  (False, True),
+                                                  (True, False)])
+def test_o1_recompute_fused_loss_matches_jax(recompute, fused_loss):
+    cfg = dict(TINY, recompute=recompute, fused_loss=fused_loss)
+    jmodel = JaxGPT(JaxGPTConfig(**cfg))
+    state = seeded_state(jmodel, seed=2)
+    jmodel.set_state_dict(state)
+    tmodel = GPTForCausalLM(GPTConfig(**cfg), device="cpu").train()
+    load_jax_state(tmodel, state)
+    ids = np.random.RandomState(9).randint(0, TINY["vocab_size"], (2, 24))
+    assert_o1_close(port_amp_loss_and_grads(tmodel, ids),
+                    jax_amp_loss_and_grads(jmodel, ids))

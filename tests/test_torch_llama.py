@@ -7,6 +7,9 @@ with MHA and GQA; ``rope_rotate`` with an int and a per-batch
 offset; and two AdamW steps of the fused programs (``to_static`` with
 ``FLAGS_enable_fusion``; the JAX side under ``jax.value_and_grad`` with its
 Pallas kernels interpreted) must land on the same losses and weights.
+With ``recompute`` and ``fused_loss`` under amp O1 bf16 (tied and untied
+heads), the loss and gradients are held to the JAX model's under the same
+``auto_cast`` (``test_torch_gpt``'s O1 tolerances).
 """
 import jax
 import jax.numpy as jnp
@@ -26,6 +29,8 @@ from paddle_tpu_torch.models import (LlamaConfig, LlamaForCausalLM,
                                      llama2_70b, llama_7b, llama_tiny,
                                      load_jax_state, rope_rotate)
 from paddle_tpu_torch.optimizer import AdamW
+from test_torch_gpt import (assert_o1_close, jax_amp_loss_and_grads,
+                            port_amp_loss_and_grads)
 
 TOL = 1e-4
 STEP_TOL = 1e-5
@@ -176,7 +181,21 @@ def test_configs_params_and_later_slices():
     with pytest.raises(ValueError):
         LlamaConfig(num_heads=4, num_kv_heads=3)
     for kw in (dict(mp_degree=2), dict(sequence_parallel=True),
-               dict(recompute=True), dict(fused_loss=True),
                dict(context_parallel="ring")):
         with pytest.raises(NotImplementedError, match="later slice"):
             LlamaConfig(**kw)
+    cfg = LlamaConfig(recompute=True, fused_loss=True)
+    assert cfg.recompute and cfg.fused_loss
+
+
+@pytest.mark.parametrize("tie", [False, True], ids=["lm_head", "tied"])
+@pytest.mark.parametrize("recompute,fused_loss", [(True, True),
+                                                  (False, True),
+                                                  (True, False)])
+def test_o1_recompute_fused_loss_matches_jax(recompute, fused_loss, tie):
+    cfg = dict(GQA, recompute=recompute, fused_loss=fused_loss,
+               tie_embeddings=tie)
+    jmodel, tmodel = tiny_pair(cfg, seed=3)
+    ids = _ids(seed=8)
+    assert_o1_close(port_amp_loss_and_grads(tmodel, ids),
+                    jax_amp_loss_and_grads(jmodel, ids))
