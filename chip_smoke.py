@@ -33,6 +33,24 @@ Phases, in order; any failure exits non-zero and nothing is caught:
              its 8 slots); its greedy tokens must equal a full-recompute
              greedy loop through model(ids); then the same requests on a
              bf16 engine, timed.
+* serve_llama -- bench.py's serving rung (_bench_serving): LLaMA with
+             vocab 32000, hidden 1024, intermediate 2816, 16 layers, 16
+             heads of 64, seeded random weights, LlamaPagedEngine at
+             bench.py's geometry (8 slots, blocks of 32), its prompts
+             (24 lengths in [32, 192) from RandomState(7), tokens from
+             RandomState(11)). In fp32, on 8 of them, 32 new tokens each:
+             greedy tokens against a full-recompute loop through
+             model(ids) (K1 at d=64); int8 KV pages against a loop whose
+             K/V are rounded as the pages round them; n-gram speculation
+             (k=4, prompts repeated three times) and a prefill budget of
+             32 tokens against plain decode, the budget deferring chunks
+             while a running request gains a token every tick (all up to
+             near ties, TOP2_GAP); sampling (temperature 0.8, top_p 0.9)
+             equal in two runs under one seed and under eviction, and
+             different under another seed. Then bf16, timed: the whole
+             burst, 96 new tokens each, plain, int8 and speculative, one
+             JSON line each (tokens/s, median decode tick and prefill
+             chunk ms, ticks, agreement with plain, the card).
 * train   -- GPT-2 small fp32 on the card against a CPU twin: 3 AdamW steps
              (warm-up/cosine schedule, global-norm clipping) with per-step
              losses equal to 1e-4; then GPT-2 345M with bf16 weights and
@@ -71,14 +89,14 @@ Phases, in order; any failure exits non-zero and nothing is caught:
              and power limit, the optimizer state's bytes, the losses, the
              launches and the switches.
 
-The forward, serve, train, fusion and rungs phases are the main path: every
-kernel's launch count is set to 0 just before each of them and read just
-after it. The last lines are the kernels' JSON summary (all seven, with
-their launches over the main path), the card's name and power limit from
-nvidia-smi, and {"ok": true, "device": {...}}. ``--profile`` adds a
-torch.profiler breakdown of a bf16 forward, an engine run, one training
-step, a fused and an unfused step of each fusion path, and one step of
-each rung.
+The forward, serve, serve_llama, train, fusion and rungs phases are the
+main path: every kernel's launch count is set to 0 just before each of
+them and read just after it. The last lines are the kernels' JSON summary
+(all seven, with their launches over the main path), the card's name and
+power limit from nvidia-smi, and {"ok": true, "device": {...}}.
+``--profile`` adds a torch.profiler breakdown of a bf16 forward, a GPT-2
+and a LLaMA engine run, one training step, a fused and an unfused step of
+each fusion path, and one step of each rung.
 """
 from __future__ import annotations
 
@@ -95,9 +113,9 @@ import time
 import numpy as np
 import torch
 
-PHASES = ("build", "kernel", "fused_kernel", "forward", "serve", "train",
-          "fusion", "rungs")
-MAIN_PATH = ("forward", "serve", "train", "fusion", "rungs")
+PHASES = ("build", "kernel", "fused_kernel", "forward", "serve",
+          "serve_llama", "train", "fusion", "rungs")
+MAIN_PATH = ("forward", "serve", "serve_llama", "train", "fusion", "rungs")
 PATH_SHAPE = dict(b=4, s=1024, h=12, d=64)      # GPT-2 small serving
 TRAIN_SHAPE = dict(b=8, s=1024, h=16, d=64)     # GPT-2 345M training
 LLAMA_ATTN_SHAPE = dict(b=4, s=2048, h=12, d=128)   # LLaMA-770M fusion path
@@ -918,20 +936,38 @@ def phase_forward(state):
 
 
 # ------------------------------------------------------------------ serve
-def _reference_greedy(model, prompt, n_new):
-    """Full-recompute greedy loop through model(ids); keeps the top-two
-    logit gap of each step."""
+def _reference_greedy(forward, prompt, n_new):
+    """Full-recompute greedy loop through ``forward(ids)`` (a model, or a
+    function of the ids); keeps the top-two logit gap of each step."""
     ids = list(prompt)
     toks, gaps = [], []
     with torch.inference_mode():
         for _ in range(n_new):
-            logits = model(torch.tensor([ids], device="cuda"))[0, -1].float()
+            ids_t = torch.tensor([ids], device="cuda")
+            logits = forward(ids_t)[0, -1].float()
             top = torch.topk(logits, 2).values
             nxt = int(torch.argmax(logits))
             toks.append(nxt)
             gaps.append(float(top[0] - top[1]))
             ids.append(nxt)
     return toks, gaps
+
+
+def _hold(label, got, ref, gap_at):
+    """Every request's tokens equal ``ref``'s, or first differ at a near
+    tie: ``gap_at(i, j)`` is the top-two logit gap of request i's step j
+    in the reference, which must be below TOP2_GAP there."""
+    for i, (toks, want) in enumerate(zip(got, ref)):
+        if toks == want:
+            continue
+        j = next(j for j, (a, b) in enumerate(zip(toks, want)) if a != b)
+        gap = gap_at(i, j)
+        if gap >= TOP2_GAP:
+            raise AssertionError(
+                f"{label}: request {i}: token {toks[j:j + 1]} != reference "
+                f"{want[j:j + 1]} at step {j} (top-two gap {gap:.3e})")
+        log(f"  {label}: request {i} diverges at step {j} on a near tie "
+            f"(top-two gap {gap:.3e} < {TOP2_GAP}); accepted")
 
 
 def _serve(model, prompts, n_new):
@@ -993,17 +1029,9 @@ def phase_serve(state):
     got, wall, _ = _serve(model, prompts, n_new)
     log(f"serve: fp32 engine answered {len(prompts)} requests "
         f"(prompt lengths {[len(p) for p in prompts]}) in {wall:.2f} s")
-    for i, (p, toks) in enumerate(zip(prompts, got)):
-        ref, gaps = _reference_greedy(model, p, n_new)
-        if toks == ref:
-            continue
-        j = next(j for j, (a, b) in enumerate(zip(toks, ref)) if a != b)
-        if gaps[j] >= TOP2_GAP:
-            raise AssertionError(
-                f"request {i}: engine token {toks[j]} != reference {ref[j]} "
-                f"at step {j} (top-two gap {gaps[j]:.3e})")
-        log(f"  request {i}: diverges at step {j} on a near tie (top-two "
-            f"gap {gaps[j]:.3e} < {TOP2_GAP}); accepted")
+    refs = [_reference_greedy(model, p, n_new) for p in prompts]
+    _hold("serve", got, [r for r, _ in refs],
+          lambda i, j: refs[i][1][j])
     log("serve: fp32 greedy tokens match the full-recompute loop")
 
     if state.get("profile"):
@@ -1022,6 +1050,264 @@ def phase_serve(state):
         "decode_ticks": len(decode), "prefill_chunks": len(prefill),
         "prefill_chunk_ms_median": statistics.median(prefill) * 1e3,
         "tokens_equal_to_fp32": same}))
+
+
+# ------------------------------------------------------------ serve_llama
+# bench.py _bench_serving (:532-535): the JAX package's serving rung
+LLAMA_SERVING = dict(vocab_size=32000, hidden_size=1024,
+                     intermediate_size=2816, num_layers=16, num_heads=16,
+                     max_seq_len=1024)
+SAMPLED = dict(temperature=0.8, top_p=0.9)
+
+
+def _llama_prompts():
+    """bench.py's burst: 24 prompt lengths from RandomState(7) in
+    [32, 192), tokens from RandomState(11)."""
+    lens = np.random.RandomState(7).randint(32, 192, size=24)
+    rng = np.random.RandomState(11)
+    return [[int(t) for t in rng.randint(1, LLAMA_SERVING["vocab_size"],
+                                         size=int(n))] for n in lens]
+
+
+def _llama_engine(model, prompts, n_new, **kw):
+    """A LlamaPagedEngine at bench.py's geometry for these requests."""
+    from paddle_tpu_torch.inference import LlamaPagedEngine
+    longest = max(len(p) for p in prompts)
+    geometry = dict(max_batch=8, block_size=32, max_blocks_per_seq=64,
+                    num_blocks=max(64, (longest + n_new) // 32 * 8 * 2))
+    return LlamaPagedEngine(model, **dict(geometry, **kw))
+
+
+def _run_engine(eng, prompts, n_new, requests=None):
+    """Serve ``prompts`` to completion; (tokens per request, wall s)."""
+    requests = requests or [{}] * len(prompts)
+    rids = [eng.add_request(p, max_new_tokens=n_new, **r)
+            for p, r in zip(prompts, requests)]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = eng.run_to_completion()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    missing = [r for r in rids if r not in out or len(out[r]) != n_new]
+    if missing:
+        raise AssertionError(f"requests {missing} did not finish")
+    return [out[r] for r in rids], wall
+
+
+def _llama_rounded_kv(model):
+    """The model's full-recompute forward with its post-rope K and V
+    passed through kv_dequantize_int8(kv_quantize_int8(.)), what the int8
+    engine's pages hold; attention through K1."""
+    from paddle_tpu_torch.models.llama import rotary_embedding
+    from paddle_tpu_torch.nn import functional as F
+    from paddle_tpu_torch.ops.cuda.serving import (kv_dequantize_int8,
+                                                   kv_quantize_int8)
+    cfg, m = model.cfg, model.model
+    nh, nkv = cfg.num_heads, cfg.num_kv_heads
+    hd = cfg.hidden_size // nh
+
+    def rounded(t):
+        return kv_dequantize_int8(*kv_quantize_int8(t)).to(t.dtype)
+
+    def forward(ids):
+        B, S = ids.shape
+        x = m.embed_tokens(ids)
+        for blk in m.layers:
+            att, ln = blk.self_attn, blk.input_layernorm(x)
+            q = rotary_embedding(att.q_proj(ln).view(B, S, nh, hd),
+                                 cfg.rope_theta)
+            k = rounded(rotary_embedding(att.k_proj(ln).view(B, S, nkv, hd),
+                                         cfg.rope_theta))
+            v = rounded(att.v_proj(ln).view(B, S, nkv, hd))
+            k = k.repeat_interleave(nh // nkv, dim=2)
+            v = v.repeat_interleave(nh // nkv, dim=2)
+            out, _ = F.flash_attention(q, k, v, causal=True)
+            x = x + att.o_proj(out.reshape(B, S, nh * hd))
+            x = x + blk.mlp(blk.post_attention_layernorm(x))
+        return model._head(m.norm(x))
+    return forward
+
+
+def _top2_gap(model, ids):
+    """The top-two gap of the model's next-token logits after ``ids``."""
+    with torch.inference_mode():
+        logits = model(torch.tensor([ids], device="cuda"))[0, -1].float()
+    top = torch.topk(logits, 2).values
+    return float(top[0] - top[1])
+
+
+def phase_serve_llama(state):
+    import paddle_tpu_torch.ops.cuda.flash_attention as fa
+    from paddle_tpu_torch.models import LlamaConfig, LlamaForCausalLM
+    from paddle_tpu_torch.serving import SchedulerConfig
+
+    marks = [time.perf_counter()]
+
+    def lap():
+        """Seconds since the previous lap (each check logs its own)."""
+        marks.append(time.perf_counter())
+        return marks[-1] - marks[-2]
+
+    cfg = LlamaConfig(**LLAMA_SERVING, use_flash_attention=True)
+    model = LlamaForCausalLM(cfg, device="cuda", seed=0).eval()
+    log(f"serve_llama: fp32 model built ({lap():.1f} s)")
+    prompts = _llama_prompts()
+    p8, n_new = prompts[:8], 32
+
+    def near_tie_vs(ref, prompts_):      # gaps of the fp32 model at the ref
+        return lambda i, j: _top2_gap(model, prompts_[i] + ref[i][:j])
+
+    # 1. fp32 greedy against a full-recompute loop through model(ids), K1
+    plain_eng = _llama_engine(model, p8, n_new)
+    plain, _ = _run_engine(plain_eng, p8, n_new)
+    before = fa.flash_attention_fwd.launches
+    refs = [_reference_greedy(model, p, n_new) for p in p8]
+    k1 = fa.flash_attention_fwd.launches - before
+    if k1 != cfg.num_layers * n_new * len(p8):
+        raise AssertionError(f"the reference loop launched K1 {k1} times")
+    _hold("serve_llama fp32", plain, [r for r, _ in refs],
+          lambda i, j: refs[i][1][j])
+    log(f"serve_llama: fp32 greedy tokens of {len(p8)} requests (prompt "
+        f"lengths {[len(p) for p in p8]}) match the full-recompute loop "
+        f"({k1} K1 launches at d={cfg.hidden_size // cfg.num_heads}; "
+        f"{lap():.1f} s)")
+
+    # 2. int8 pages against a loop whose K/V are rounded as the pages are
+    int8_eng = _llama_engine(model, p8, n_new, kv_dtype="int8")
+    int8, _ = _run_engine(int8_eng, p8, n_new)
+    rounded = _llama_rounded_kv(model)
+    refs8 = [_reference_greedy(rounded, p, n_new) for p in p8]
+    _hold("serve_llama int8", int8, [r for r, _ in refs8],
+          lambda i, j: refs8[i][1][j])
+    bf16_bytes = 2 * cfg.num_layers * cfg.num_kv_heads * 2 * (
+        cfg.hidden_size // cfg.num_heads)
+    same = sum(a == b for x, y in zip(plain, int8) for a, b in zip(x, y))
+    log(f"serve_llama: int8 KV tokens match the rounded-K/V loop; "
+        f"kv_bytes_per_token {int8_eng.kv_bytes_per_token} = "
+        f"{int8_eng.kv_bytes_per_token / plain_eng.kv_bytes_per_token:.4f}"
+        f" of fp32's, {int8_eng.kv_bytes_per_token / bf16_bytes:.4f} of "
+        f"bf16's; {same} of {len(p8) * n_new} tokens equal to the fp32 "
+        f"pages' "
+        f"({lap():.1f} s)")
+
+    # 3. speculative decoding on the prompts repeated three times
+    rep = [p * 3 for p in p8]
+    base_eng = _llama_engine(model, rep, n_new)
+    base, _ = _run_engine(base_eng, rep, n_new)
+    spec_eng = _llama_engine(model, rep, n_new, speculate="ngram",
+                             speculate_k=4)
+    spec, _ = _run_engine(spec_eng, rep, n_new)
+    _hold("serve_llama speculative", spec, base, near_tie_vs(base, rep))
+    if not spec_eng.spec_proposed:
+        raise AssertionError("the n-gram proposer never drafted")
+    log(f"serve_llama: speculative (k=4) tokens match plain decode; "
+        f"spec_proposed {spec_eng.spec_proposed}, spec_accepted "
+        f"{spec_eng.spec_accepted}, ticks {spec_eng._ticks} against "
+        f"{base_eng._ticks} plain ({lap():.1f} s)")
+
+    # 4. the scheduler: one 32-token chunk of prefill a tick
+    sched = _llama_engine(model, p8, n_new, scheduler=SchedulerConfig(
+        prefill_token_budget=32))
+    first = sched.add_request(p8[0], max_new_tokens=n_new)
+    while sched._prefilling or sched.queue or not sched.slots[0]:
+        sched.step()
+    running = sched.slots[0]
+    rids = [first] + [sched.add_request(p, max_new_tokens=n_new)
+                      for p in p8[1:]]
+    out, overlapped = {}, 0
+    while sched.has_work():
+        before = len(running.generated)
+        prefilling = bool(sched._prefilling or sched.queue)
+        out.update(sched.step())
+        if running.status == "RUNNING" or before < n_new:
+            if len(running.generated) != min(before + 1, n_new):
+                raise AssertionError("decode starved while prompts "
+                                     "prefilled")
+            overlapped += prefilling
+    budgeted = [out[r] for r in rids]
+    _hold("serve_llama scheduler", budgeted, plain, near_tie_vs(plain, p8))
+    if not sched.scheduler.deferred_chunks or not overlapped:
+        raise AssertionError("the budget deferred no chunk")
+    log(f"serve_llama: prefill_token_budget=32 tokens match plain decode; "
+        f"deferred_chunks {sched.scheduler.deferred_chunks}; the running "
+        f"request gained one token in each of the {overlapped} ticks that "
+        f"also prefilled; ticks {sched._ticks}, prefill_tokens "
+        f"{sched.scheduler.prefill_tokens}, decode_tokens "
+        f"{sched.scheduler.decode_tokens} ({lap():.1f} s)")
+
+    # 5. sampling: reproducible, unchanged by preemption, seed-dependent
+    def sample(ps, n, seed, **kw):
+        eng = _llama_engine(model, ps, n, seed=seed, **kw)
+        return _run_engine(eng, ps, n, [SAMPLED] * len(ps))[0], eng
+    a, _ = sample(p8, 16, 123)
+    if a != sample(p8, 16, 123)[0]:
+        raise AssertionError("two sampled runs under seed 123 differ")
+    if a == sample(p8, 16, 124)[0]:
+        raise AssertionError("seeds 123 and 124 sampled the same tokens")
+    # three requests whose prefixes fill the pool exactly: each must take
+    # a new block within 40 tokens, so every slot stalls and one is evicted
+    trio = [p for p in p8 if len(p) % 32][:3]
+    roomy, _ = sample(trio, 40, 123)
+    usable = sum(-(-len(p) // 32) for p in trio)
+    tight, tight_eng = sample(trio, 40, 123, max_batch=3,
+                              num_blocks=usable + 1)
+    if tight_eng.evictions < 1 or tight != roomy:
+        raise AssertionError(f"preemption changed the sampled tokens "
+                             f"(evictions {tight_eng.evictions})")
+    log(f"serve_llama: sampling (temperature 0.8, top_p 0.9) reproduces "
+        f"under seed 123, differs under 124, and is unchanged by "
+        f"{tight_eng.evictions} evictions ({lap():.1f} s)")
+    del plain_eng, int8_eng, base_eng, spec_eng, sched, tight_eng
+
+    # 6. bf16, timed: bench.py's whole burst, 96 new tokens each
+    card = _card_line()
+    bf16 = model.to(torch.bfloat16)         # the same weights, rounded
+    del model
+    torch.cuda.empty_cache()
+    n_burst = 96
+    plain16 = None
+    for name, kw in (("plain", {}), ("int8", dict(kv_dtype="int8")),
+                     ("speculative", dict(speculate="ngram",
+                                          speculate_k=4))):
+        eng = _llama_engine(bf16, prompts, n_burst, **kw)
+        _run_engine(eng, prompts[:1], 4)                   # warm-up
+        eng.phase_seconds = {"prefill": [], "decode": []}
+        ticks0, prop0, acc0 = eng._ticks, eng.spec_proposed, eng.spec_accepted
+        if state.get("profile") and name == "plain":
+            _profile("serve_llama bf16, 8 requests",
+                     lambda: _run_engine(eng, prompts[:8], 32))
+            eng.phase_seconds = {"prefill": [], "decode": []}
+            ticks0 = eng._ticks
+        toks, wall = _run_engine(eng, prompts, n_burst)
+        plain16 = plain16 or toks
+        generated = len(prompts) * n_burst
+        row = {"serve_llama": f"bench.py _bench_serving LLaMA bf16 {name}",
+               "requests": len(prompts), "new_tokens": n_burst,
+               "max_batch": 8, "block_size": 32,
+               "num_blocks": eng._total_usable + 1,
+               "wall_s": wall, "tokens_per_s": generated / wall,
+               "decode_tick_ms_median":
+                   statistics.median(eng.phase_seconds["decode"]) * 1e3,
+               "prefill_chunk_ms_median":
+                   statistics.median(eng.phase_seconds["prefill"]) * 1e3,
+               "ticks": eng._ticks - ticks0,
+               "decode_programs": len(eng.phase_seconds["decode"]),
+               "prefill_programs": len(eng.phase_seconds["prefill"]),
+               "kv_bytes_per_token": eng.kv_bytes_per_token,
+               "evictions": eng.evictions,
+               "tokens_equal_to_plain": sum(
+                   a == b for x, y in zip(plain16, toks)
+                   for a, b in zip(x, y)) / generated,
+               "card": card}
+        if name == "speculative":
+            row.update(spec_proposed=eng.spec_proposed - prop0,
+                       spec_accepted=eng.spec_accepted - acc0)
+        log(json.dumps(row))
+        del eng
+    del bf16
+    torch.cuda.empty_cache()
+    lap()
+    log(f"serve_llama: phase took {marks[-1] - marks[0]:.1f} s")
 
 
 # ------------------------------------------------------------------ train

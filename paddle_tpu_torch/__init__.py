@@ -7,7 +7,9 @@ on a ported path is a kernel written by hand for Hopper under
 caller passes ``device="cpu"``.
 
 Ported so far: GPT-2 inference through the flash-attention forward
-kernel, greedy serving over paged KV caches (``PagedEngine``), and GPT-2
+kernel, serving of GPT-2 and LLaMA over paged KV caches (``PagedEngine``:
+per-request sampling, int8 KV pages, the phase-split scheduler and n-gram
+speculative decoding, ``serving``), and GPT-2
 training (cross entropy, AdamW with gradient clipping and LR schedules)
 through the forward and backward flash-attention kernels; LLaMA, and
 ``jit.to_static`` whose graph-fusion pass (``FLAGS_enable_fusion``)
@@ -18,15 +20,16 @@ LM-head loss, block recompute (``distributed.fleet.recompute``) and
 bf16/int8 Adam moments.
 """
 from . import (amp, compile, core, distributed, inference, jit, models, nn,
-               ops, optimizer)
+               ops, optimizer, serving)
 from .core import get_flag, resolve_device, set_flags
-from .inference import GPTPagedEngine, PagedEngine
+from .inference import GPTPagedEngine, LlamaPagedEngine, PagedEngine
 from .jit import to_static
 from .models import (GPTConfig, GPTForCausalLM, LlamaConfig, LlamaForCausalLM,
                      gpt2_medium, gpt2_small)
 
 __all__ = ["amp", "compile", "core", "distributed", "inference", "jit",
-           "models", "nn", "ops", "optimizer", "resolve_device", "get_flag",
+           "models", "nn", "ops", "optimizer", "serving", "resolve_device",
+           "get_flag",
            "set_flags", "to_static", "GPTConfig", "GPTForCausalLM",
            "gpt2_small", "gpt2_medium", "LlamaConfig", "LlamaForCausalLM",
-           "PagedEngine", "GPTPagedEngine"]
+           "PagedEngine", "GPTPagedEngine", "LlamaPagedEngine"]

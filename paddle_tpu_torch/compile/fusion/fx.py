@@ -35,6 +35,7 @@ afterwards.
 from __future__ import annotations
 
 import functools
+import inspect
 import operator
 import sys
 from typing import Dict, List, Optional, Sequence, Tuple
@@ -122,7 +123,13 @@ class _Region:
         """Trace the block; returns this region and every region within
         it, traced."""
         tracer = _Tracer(_leaves())
-        self.gm = fx.GraphModule(self.blk, tracer.trace(self.blk))
+        # the checkpointed call passes the block's tensors only: arguments
+        # with defaults (LLaMA's decode cache and position) keep them
+        params = inspect.signature(self.blk.forward).parameters.values()
+        defaults = {p.name: p.default for p in params
+                    if p.default is not inspect.Parameter.empty}
+        self.gm = fx.GraphModule(self.blk,
+                                 tracer.trace(self.blk, defaults or None))
         self.regions = tracer.regions
         return [self] + [r for inner in self.regions for r in inner.trace()]
 

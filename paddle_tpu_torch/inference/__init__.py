@@ -1,6 +1,7 @@
 """Serving of the PyTorch port, under the JAX package's names."""
 from .resilience import RequestStatus
-from .serving import BlockManager, GPTPagedEngine, PagedEngine, Request
+from .serving import (BlockManager, GPTPagedEngine, LlamaPagedEngine,
+                      PagedEngine, Request)
 
-__all__ = ["BlockManager", "Request", "PagedEngine", "GPTPagedEngine",
-           "RequestStatus"]
+__all__ = ["BlockManager", "Request", "PagedEngine", "LlamaPagedEngine",
+           "GPTPagedEngine", "RequestStatus"]

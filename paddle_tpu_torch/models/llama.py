@@ -11,14 +11,18 @@ its rope onto ``fused_rope_proj`` (K7) and each residual add and the norm
 after it onto ``fused_residual_norm`` (K4). ``fused_loss`` computes the
 chunked LM-head loss (``(None, loss)``), against ``lm_head`` or the tied
 embedding; ``recompute`` checkpoints each block (``models/_remat.py``).
-The linears are the port's ``Linear``, so amp casts their inputs. Cached
-decoding (``generate``, the paged engine) and tensor/sequence/context
-parallelism are later slices and raise.
+The linears are the port's ``Linear``, so amp casts their inputs.
+``generate`` decodes greedily or by temperature, with a KV cache (a
+prefill, then a Python loop of (B, 1) steps: the JAX package's
+``lax.scan``) or by full recompute; the paged engine serves the model
+through ``inference/serving.py``'s ``_LlamaArch``. Tensor, sequence and
+context parallelism are later slices and raise.
 """
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass
-from typing import Union
+from typing import Optional, Union
 
 import torch
 from torch import nn
@@ -147,14 +151,19 @@ class LlamaAttention(nn.Module):
         self.v_proj = Linear(h, kv, bias=False, device=device, dtype=dtype)
         self.o_proj = Linear(h, h, bias=False, device=device, dtype=dtype)
 
-    def forward(self, x):
+    def forward(self, x, cache=None, pos: int = 0):
+        """Self-attention of x (B, S, hidden) at positions pos..pos+S-1.
+        With ``cache`` ({"k", "v"}: (B, total, KVH, D)), returns
+        ``(out, cache)`` after writing this step's K/V at ``pos``."""
         b, s, h = x.shape
         hd, nh, nkv = self.head_dim, self.num_heads, self.num_kv_heads
         q = self.q_proj(x).view(b, s, nh, hd)
         k = self.k_proj(x).view(b, s, nkv, hd)
         v = self.v_proj(x).view(b, s, nkv, hd)
-        q = rotary_embedding(q, self.cfg.rope_theta, pos_offset=0)
-        k = rotary_embedding(k, self.cfg.rope_theta, pos_offset=0)
+        q = rotary_embedding(q, self.cfg.rope_theta, pos_offset=pos)
+        k = rotary_embedding(k, self.cfg.rope_theta, pos_offset=pos)
+        if cache is not None:
+            return self._cached_attention(x, q, k, v, cache, pos)
         if nkv != nh:   # GQA: kv head j serves query heads j*rep .. j*rep+rep-1
             rep = nh // nkv
             k = k.repeat_interleave(rep, dim=2)
@@ -164,6 +173,31 @@ class LlamaAttention(nn.Module):
         else:
             out = F.scaled_dot_product_attention(q, k, v, is_causal=True)
         return self.o_proj(out.reshape(b, s, h))
+
+    def _cached_attention(self, x, q, k, v, cache, pos: int):
+        """Decode-time attention against the KV cache: writes this step's
+        K/V at ``pos`` (in place) and attends each query over the cached
+        positions at or before its own, with an fp32 softmax under a -1e30
+        mask. Returns (out, cache)."""
+        b, s, h = x.shape
+        nh, nkv = self.num_heads, self.num_kv_heads
+        kc, vc = cache["k"], cache["v"]
+        kc[:, pos:pos + s] = k.to(kc.dtype)
+        vc[:, pos:pos + s] = v.to(vc.dtype)
+        kk, vv = kc, vc
+        if nkv != nh:   # GQA: kv head j serves query heads j*rep .. +rep-1
+            rep = nh // nkv
+            kk = kc.repeat_interleave(rep, dim=2)
+            vv = vc.repeat_interleave(rep, dim=2)
+        logits = torch.einsum("bqhd,bkhd->bhqk", q.to(kk.dtype),
+                              kk).float() * (1.0 / math.sqrt(self.head_dim))
+        kpos = torch.arange(kk.shape[1], device=x.device)
+        qpos = pos + torch.arange(s, device=x.device)
+        logits = logits.masked_fill(kpos[None, :] > qpos[:, None], -1e30)
+        # probabilities in q's dtype, as the JAX function casts them
+        probs = torch.softmax(logits, dim=-1).to(q.dtype)
+        out = torch.einsum("bhqk,bkhd->bqhd", probs.to(vv.dtype), vv)
+        return self.o_proj(out.reshape(b, s, h).to(x.dtype)), cache
 
 
 class LlamaMLP(nn.Module):
@@ -193,7 +227,12 @@ class LlamaBlock(nn.Module):
                                                 device=device, dtype=dtype)
         self.mlp = LlamaMLP(cfg, device, dtype)
 
-    def forward(self, x):
+    def forward(self, x, cache=None, pos: int = 0):
+        if cache is not None:
+            att, cache = self.self_attn(self.input_layernorm(x), cache=cache,
+                                        pos=pos)
+            x = x + att
+            return x + self.mlp(self.post_attention_layernorm(x)), cache
         x = x + self.self_attn(self.input_layernorm(x))
         return x + self.mlp(self.post_attention_layernorm(x))
 
@@ -253,16 +292,73 @@ class LlamaForCausalLM(nn.Module):
                 h[:, :-1, :].reshape(-1, self.cfg.hidden_size), head.weight,
                 labels[:, 1:].reshape(-1), transpose_y=True)
             return None, loss
-        if self.lm_head is None:
-            logits = F.matmul(h, head.weight, transpose_y=True)
-        else:
-            logits = self.lm_head(h)
+        logits = self._head(h)
         if labels is None:
             return logits
         v = logits.shape[-1]
         loss = F.cross_entropy(logits[:, :-1, :].reshape(-1, v),
                                labels[:, 1:].reshape(-1))
         return logits, loss
+
+    def _head(self, h):
+        if self.lm_head is None:
+            return F.matmul(h, self.model.embed_tokens.weight,
+                            transpose_y=True)
+        return self.lm_head(h)
+
+    def _decode_logits(self, tokens, cache, pos: int):
+        """One cached step over tokens (B, t) at positions pos..pos+t-1;
+        returns the last position's logits (B, vocab)."""
+        h = self.model.embed_tokens(tokens)
+        for blk, layer_cache in zip(self.model.layers, cache):
+            h, _ = blk(h, cache=layer_cache, pos=pos)
+        return self._head(self.model.norm(h))[:, -1, :]
+
+    def generate(self, input_ids, max_new_tokens: int = 32,
+                 temperature: float = 0.0, use_cache: bool = True,
+                 generator: Optional[torch.Generator] = None):
+        """Autoregressive decode; returns (B, prompt + max_new_tokens) ids.
+
+        ``use_cache=True`` prefills a KV cache once and then runs one
+        (B, 1) step a token against it; ``use_cache=False`` recomputes the
+        whole context every token (the ground truth). Greedy with
+        ``temperature=0``; otherwise each token is drawn from
+        softmax(logits / temperature) with ``generator``, which the caller
+        must give (the port keeps no global RNG)."""
+        if temperature > 0 and generator is None:
+            raise ValueError("generate: sampling (temperature > 0) needs a "
+                             "torch.Generator")
+        ids = torch.as_tensor(input_ids, device=self.model.norm.weight.device)
+
+        def pick(last):
+            if temperature > 0:
+                probs = torch.softmax(last.float() / temperature, dim=-1)
+                draw = torch.multinomial(probs.to(generator.device), 1,
+                                         generator=generator)
+                return draw.to(ids.device, ids.dtype)
+            return torch.argmax(last, dim=-1, keepdim=True).to(ids.dtype)
+
+        with torch.inference_mode():
+            if not use_cache:
+                for _ in range(max_new_tokens):
+                    ids = torch.cat([ids, pick(self(ids)[:, -1, :])], dim=1)
+                return ids
+            cfg = self.cfg
+            b, prompt_len = ids.shape
+            total = prompt_len + max_new_tokens
+            hd = cfg.hidden_size // cfg.num_heads
+            # an fp32 cache, as the JAX package's
+            cache = [{name: torch.zeros((b, total, cfg.num_kv_heads, hd),
+                                        dtype=torch.float32, device=ids.device)
+                      for name in ("k", "v")} for _ in range(cfg.num_layers)]
+            logits = self._decode_logits(ids, cache, 0)
+            new = []
+            for pos in range(prompt_len, total):
+                nxt = pick(logits)
+                new.append(nxt)
+                if pos + 1 < total:
+                    logits = self._decode_logits(nxt, cache, pos)
+            return torch.cat([ids] + new, dim=1)
 
     def num_params(self) -> int:
         return sum(p.numel() for p in self.parameters())

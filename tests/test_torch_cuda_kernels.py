@@ -548,3 +548,37 @@ def test_recompute_on_the_card_launches_k1_in_the_replay():
     assert launches == [2, 4]
     for a, b in zip(*grads):
         assert (a - b).abs().max().item() <= 1e-5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("switches", [
+    dict(), dict(kv_dtype="int8"), dict(speculate="ngram", speculate_k=3)],
+    ids=["plain", "int8", "speculative"])
+def test_llama_engine_on_the_card_matches_cpu_tensors(switches):
+    """A tiny fp32 LLaMA engine (GQA) gives the same greedy tokens on the
+    card as the same engine on CPU tensors, and the sampler's uniforms
+    are the same numbers on both."""
+    from paddle_tpu_torch.inference import LlamaPagedEngine
+    from paddle_tpu_torch.inference.serving import _request_uniforms
+    from paddle_tpu_torch.models import LlamaConfig, LlamaForCausalLM
+    _card()
+    cfg = LlamaConfig(vocab_size=97, hidden_size=64, intermediate_size=128,
+                      num_layers=2, num_heads=4, num_kv_heads=2,
+                      max_seq_len=256, use_flash_attention=False)
+    gen = torch.Generator().manual_seed(3)
+    prompts = [torch.randint(1, 97, (n,), generator=gen).tolist() * 2
+               for n in (5, 11, 3, 9)]
+    outs = []
+    for device in ("cuda", "cpu"):
+        model = LlamaForCausalLM(cfg, device=device, seed=4).eval()
+        eng = LlamaPagedEngine(model, max_batch=2, block_size=4,
+                               num_blocks=48, max_blocks_per_seq=12,
+                               device=device, **switches)
+        rids = [eng.add_request(p, max_new_tokens=8) for p in prompts]
+        out = eng.run_to_completion()
+        outs.append([out[r] for r in rids])
+    assert outs[0] == outs[1]
+    rids, ngens = torch.arange(1, 9), torch.arange(8) * 3
+    assert torch.equal(_request_uniforms(5, rids.cuda(), ngens.cuda(),
+                                         97).cpu(),
+                       _request_uniforms(5, rids, ngens, 97))

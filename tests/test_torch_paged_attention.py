@@ -73,10 +73,20 @@ def test_read_only_attention_matches_jax():
 
 
 def test_int8_pages_are_a_later_slice():
+    """int8 pages came with slice 8: both scales are needed, and the call
+    returns the scales beside the caches (held to JAX in
+    test_torch_kv_int8.py)."""
     q, kc, vc, tables, sl, nk, nv = _inputs(1, 2, 2, [3, 4, 5])
+    kq = torch.zeros(kc.shape, dtype=torch.int8)
+    vq = torch.zeros(vc.shape, dtype=torch.int8)
     scales = torch.ones(kc.shape[:3])
-    with pytest.raises(NotImplementedError):
-        block_multihead_attention(
-            torch.from_numpy(q), torch.from_numpy(kc), torch.from_numpy(vc),
-            torch.from_numpy(tables), torch.from_numpy(sl),
-            k_scale=scales, v_scale=scales)
+    args = (torch.from_numpy(q), kq, vq, torch.from_numpy(tables),
+            torch.from_numpy(sl))
+    for one in (dict(k_scale=scales), dict(v_scale=scales)):
+        with pytest.raises(ValueError, match="both k_scale and v_scale"):
+            block_multihead_attention(*args, **one)
+    out = block_multihead_attention(*args, new_k=torch.from_numpy(nk),
+                                    new_v=torch.from_numpy(nv),
+                                    k_scale=scales, v_scale=scales.clone())
+    assert len(out) == 5 and out[1] is kq and out[3] is scales
+    assert torch.isfinite(out[0]).all() and kq.abs().max() == 127

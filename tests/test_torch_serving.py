@@ -118,8 +118,10 @@ def test_request_validation_and_never_fitting():
         eng.add_request([1], max_new_tokens=0)
     with pytest.raises(ValueError, match="position table"):
         eng.add_request([1] * 60, max_new_tokens=10)
-    with pytest.raises(NotImplementedError):
-        eng.add_request([1, 2], temperature=0.7)
+    with pytest.raises(ValueError, match="top_p"):
+        eng.add_request([1, 2], temperature=0.7, top_p=0.0)
+    with pytest.raises(ValueError, match="temperature"):
+        eng.add_request([1, 2], temperature=-0.7)
     bad = eng.add_request(list(range(1, 30)), max_new_tokens=4)
     assert "blocks" in eng.rejected[bad] and not eng.queue
     rid = eng.add_request([1, 2, 3], max_new_tokens=2)
