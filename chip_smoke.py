@@ -51,6 +51,34 @@ Phases, in order; any failure exits non-zero and nothing is caught:
              burst, 96 new tokens each, plain, int8 and speculative, one
              JSON line each (tokens/s, median decode tick and prefill
              chunk ms, ticks, agreement with plain, the card).
+* serve_tier -- the serving tier's front end at bench.py's resilience and
+             router rungs (_bench_serving_resilience, _bench_serving_router,
+             _bench_serving_reqtrace): serve_llama's LLaMA without flash
+             attention, 8 slots, blocks of 32. In fp32: 8 of serve_llama's
+             prompts, 16 new tokens each, through a Router of 2 replicas
+             and through a TokenStream, against a plain engine (up to near
+             ties, TOP2_GAP); every request timeline complete (validate),
+             every router timeline stitched with its replica legs; then the
+             reqtrace rung: 150 pairs of decode ticks with FLAGS_reqtrace
+             off and on, the order alternating (the ratio, with no limit).
+             In bf16: the crash drill (serving.crash_at_tick fails exactly
+             the in-flight requests with the injected fault, fresh pages,
+             DEGRADED; the queued ones finish and 4 new requests get a
+             fresh engine's tokens), the stall drill (serving.tick_stall of
+             1.5 s past a 0.5 s watchdog: DEGRADED, recover() -> READY) and
+             drain() (STOPPED, every KV block free); the resilience rung
+             (48 requests of 32-160 prompt tokens, 64 new tokens each,
+             max_queue 192, high-water 32, warmup(80, 64), the capacity
+             probe, then 0.5x/1x/2x of its rate under deadlines sized from
+             it) and the router rung (its request count cut from
+             bench.py's 48 to 32: R=1 and R=2 at saturating arrivals, 64
+             requests; then R=2 at 0.5x/1x/2x and a burst of 128, the
+             replicas with bounded queues and no high-water mark). One JSON
+             line a load point (goodput, p50/p99 TTFT and inter-token
+             latency, outcomes, device_attribution: host and card time
+             inside the programs, the router's breakdown, the card). Every
+             run: each submission terminal, no FAILED outcome, no tick
+             failure, no KV block leaked; no shed inside a replica.
 * train   -- GPT-2 small fp32 on the card against a CPU twin: 3 AdamW steps
              (warm-up/cosine schedule, global-norm clipping) with per-step
              losses equal to 1e-4; then GPT-2 345M with bf16 weights and
@@ -89,9 +117,11 @@ Phases, in order; any failure exits non-zero and nothing is caught:
              and power limit, the optimizer state's bytes, the losses, the
              launches and the switches.
 
-The forward, serve, serve_llama, train, fusion and rungs phases are the
-main path: every kernel's launch count is set to 0 just before each of
-them and read just after it. The last lines are the kernels' JSON summary
+The forward, serve, serve_llama, serve_tier, train, fusion and rungs
+phases are the main path (serve_tier launches no kernel: the tier is host
+code over the engine, and its LLaMA runs without flash attention, as
+bench.py's rungs do): every kernel's launch count is set to 0 just before
+each of them and read just after it. The last lines are the kernels' JSON summary
 (all seven, with their launches over the main path), the card's name and
 power limit from nvidia-smi, and {"ok": true, "device": {...}}.
 ``--profile`` adds a torch.profiler breakdown of a bf16 forward, a GPT-2
@@ -114,8 +144,9 @@ import numpy as np
 import torch
 
 PHASES = ("build", "kernel", "fused_kernel", "forward", "serve",
-          "serve_llama", "train", "fusion", "rungs")
-MAIN_PATH = ("forward", "serve", "serve_llama", "train", "fusion", "rungs")
+          "serve_llama", "serve_tier", "train", "fusion", "rungs")
+MAIN_PATH = ("forward", "serve", "serve_llama", "serve_tier", "train",
+             "fusion", "rungs")
 PATH_SHAPE = dict(b=4, s=1024, h=12, d=64)      # GPT-2 small serving
 TRAIN_SHAPE = dict(b=8, s=1024, h=16, d=64)     # GPT-2 345M training
 LLAMA_ATTN_SHAPE = dict(b=4, s=2048, h=12, d=128)   # LLaMA-770M fusion path
@@ -1308,6 +1339,383 @@ def phase_serve_llama(state):
     torch.cuda.empty_cache()
     lap()
     log(f"serve_llama: phase took {marks[-1] - marks[0]:.1f} s")
+
+
+# ------------------------------------------------------------- serve_tier
+# bench.py _bench_serving_resilience / _bench_serving_router (:628-637,
+# :711-721): the LLaMA of serve_llama without flash attention, 48 requests
+# of 32-160 prompt tokens, 64 new tokens each, 8 slots, blocks of 32
+TIER_REQUESTS = 48
+TIER_NEW = 64
+TIER_BATCH = 8
+TIER_PROMPTS = (32, 160)
+TIER_BLOCKS = (TIER_PROMPTS[1] + TIER_NEW + 31) // 32     # bench.py:641
+# the router rung's requests (BENCH_REQUESTS), cut from 48 to 32 to keep
+# the phase near 4 minutes: 48 took the rung 172 s of a 291 s phase
+ROUTER_REQUESTS = 32
+SATURATING_RPS = 10_000.0
+REQTRACE_PAIRS = 150          # bench.py:887 (BENCH_REQTRACE_PAIRS)
+
+
+def _tier_engine(model, max_queue, high_water=None, budget=None):
+    """A PagedEngine at the rungs' geometry (bench.py:642-647, :723-733)."""
+    from paddle_tpu_torch.inference import PagedEngine, ResilienceConfig
+    from paddle_tpu_torch.serving import SchedulerConfig
+    return PagedEngine(
+        model, max_batch=TIER_BATCH, block_size=32,
+        num_blocks=max(64, TIER_BLOCKS * TIER_BATCH * 2),
+        max_blocks_per_seq=max(TIER_BLOCKS + 1, 8),
+        scheduler=SchedulerConfig(prefill_token_budget=budget)
+        if budget else None,
+        resilience=ResilienceConfig(max_queue=max_queue,
+                                    queue_high_water=high_water))
+
+
+def _tier_replica(model, max_queue):
+    """A router replica (bench.py:723-733): one chunk batch of prefill a
+    tick and no high-water mark, so that the router owns shedding."""
+    return _tier_engine(model, max_queue, budget=32 * TIER_BATCH)
+
+
+def _clean(label, engines):
+    """No tick failure, no FAILED outcome left, no KV block held."""
+    for eng in engines:
+        if eng.tick_failures:
+            raise AssertionError(f"{label}: {eng.lifecycle.name} contained "
+                                 f"{eng.tick_failures} tick failures: "
+                                 f"{eng.last_tick_failure!r}")
+        h = eng.health()
+        if h["kv_blocks_free"] != h["kv_blocks_total"]:
+            raise AssertionError(f"{label}: {eng.lifecycle.name} leaked "
+                                 f"{h['kv_blocks_total'] - h['kv_blocks_free']}"
+                                 f" KV blocks")
+
+
+def _load_point(label, engine, engines, card, **kw):
+    """One run_load point: every submitted request terminal, none FAILED,
+    no tick failure, no KV block leaked; one JSON line."""
+    from paddle_tpu_torch.tools.loadgen import run_load
+    common = dict(n_requests=TIER_REQUESTS, vocab_size=LLAMA_SERVING[
+        "vocab_size"], prompt_len_range=TIER_PROMPTS,
+        max_new_tokens=TIER_NEW, seed=13)
+    report = run_load(engine, **dict(common, **kw))
+    if sum(report["outcomes"].values()) != report["submitted"]:
+        raise AssertionError(f"{label}: {report['outcomes']} do not account "
+                             f"for {report['submitted']} submissions")
+    if report["failed"]:
+        raise AssertionError(f"{label}: {report['failed']} requests FAILED")
+    _clean(label, engines)
+    row = {"serve_tier": label, **{k: report[k] for k in (
+        "offered_rps", "achieved_arrival_rps", "n_requests", "submitted",
+        "overloaded", "outcomes", "finished", "shed", "deadline_missed",
+        "goodput_tokens_per_sec", "goodput_requests_per_sec", "p50_ttft_s",
+        "p99_ttft_s", "p50_itl_s", "p99_itl_s", "wall_s",
+        "device_attribution", "p99_ttft_exemplar", "router")},
+        "card": card}
+    log(json.dumps(row))
+    return report
+
+
+def _tier_parity(model, lap):
+    """fp32: a Router of 2 replicas and a TokenStream against a plain
+    engine, up to near ties; every timeline complete, router timelines
+    stitched with their replica legs."""
+    from paddle_tpu_torch.observability import reqtrace
+    from paddle_tpu_torch.serving import Router
+    prompts, n_new = _llama_prompts()[:8], 16
+    reqtrace.RECORDER.clear()
+    plain_eng = _tier_engine(model, 64)
+    plain, _ = _run_engine(plain_eng, prompts, n_new)
+
+    def near_tie(i, j):
+        return _top2_gap(model, prompts[i] + plain[i][:j])
+
+    router = Router([_tier_engine(model, 64) for _ in range(2)]).warmup()
+    rids = [router.add_request(p, max_new_tokens=n_new) for p in prompts]
+    router.run_to_completion()
+    outcomes = router.drain_outcomes()
+    if any(outcomes[r].status != "FINISHED" for r in rids):
+        raise AssertionError("serve_tier: router requests did not finish")
+    _hold("serve_tier router fp32", [outcomes[r].tokens for r in rids],
+          plain, near_tie)
+    routed = [r["routed"] for r in router.stats()["per_replica"]]
+    if min(routed) == 0:
+        raise AssertionError(f"serve_tier: routing {routed} used one replica")
+    stitched = 0
+    for rid in rids:
+        tl = reqtrace.stitch(reqtrace.RECORDER.timeline(router.name, rid))
+        legs = {e["scope"] for e in tl["events"]} - {router.name}
+        problems = reqtrace.validate(tl)
+        if problems or not legs:
+            raise AssertionError(f"serve_tier: router rid {rid}: legs "
+                                 f"{legs}, {problems}")
+        stitched += 1
+
+    eng = _tier_engine(model, 64)
+    srids = [eng.add_request(p, max_new_tokens=n_new) for p in prompts]
+    stream = eng.stream(srids[3])
+    streamed = list(stream)
+    eng.run_to_completion()
+    if stream.status != "FINISHED" or streamed != eng.outcomes[srids[3]].tokens:
+        raise AssertionError(f"serve_tier: stream ended {stream.status} with "
+                             f"{len(streamed)} tokens")
+    _hold("serve_tier stream fp32", [streamed], [plain[3]],
+          lambda i, j: near_tie(3, j))
+    checked = 0
+    for e in [plain_eng, eng] + router.replicas:
+        for rid in e.outcomes:
+            problems = reqtrace.validate(
+                reqtrace.RECORDER.timeline(e.reqtrace_scope, rid))
+            if problems:
+                raise AssertionError(f"serve_tier: {e.reqtrace_scope} rid "
+                                     f"{rid}: {problems}")
+            checked += 1
+    router.drain()
+    _clean("serve_tier parity", [plain_eng, eng] + router.replicas)
+    log(f"serve_tier: fp32 router (2 replicas, routed {routed}) and stream "
+        f"tokens match a plain engine for {len(prompts)} requests of "
+        f"{n_new} tokens; {stitched} router timelines stitched, {checked} "
+        f"replica timelines complete ({lap():.1f} s)")
+
+
+def _reqtrace_overhead(model, card, lap):
+    """bench.py _bench_serving_reqtrace (:857-953), fp32: one full batch
+    of long-running requests, each decode tick timed with FLAGS_reqtrace
+    off and on in pairs whose order alternates; the median tick off and
+    the median of the paired differences."""
+    import paddle_tpu_torch as ptt
+    from paddle_tpu_torch.inference import PagedEngine
+    from paddle_tpu_torch.observability import reqtrace
+    warm, bs, prompt_len = 20, 16, 8
+    ticks_needed = warm + 2 * REQTRACE_PAIRS + 16
+    bps = -(-(prompt_len + ticks_needed + bs) // bs) + 1
+    eng = PagedEngine(model, max_batch=TIER_BATCH, block_size=bs,
+                      num_blocks=TIER_BATCH * bps + 2, max_blocks_per_seq=bps)
+    rng = np.random.RandomState(3)
+    for _ in range(TIER_BATCH):
+        eng.add_request([int(t) for t in rng.randint(
+            1, LLAMA_SERVING["vocab_size"], size=prompt_len)],
+            max_new_tokens=ticks_needed)
+
+    def one_tick():
+        t0 = time.perf_counter()
+        eng.step()
+        return time.perf_counter() - t0
+
+    t_off, diffs = [], []
+    reqtrace.RECORDER.clear()
+    try:
+        for _ in range(warm):
+            eng.step()
+        for i in range(REQTRACE_PAIRS):
+            order = (False, True) if i % 2 == 0 else (True, False)
+            took = {}
+            for on in order:
+                ptt.set_flags({"FLAGS_reqtrace": on})
+                took[on] = one_tick()
+            t_off.append(took[False])
+            diffs.append(took[True] - took[False])
+        recorded = sum(len(tl["events"])
+                       for tl in reqtrace.RECORDER.live_timelines())
+    finally:
+        ptt.set_flags({"FLAGS_reqtrace": True})
+    eng.drain()
+    reqtrace.RECORDER.clear()
+    reqtrace.EXEMPLARS.clear()
+    _clean("serve_tier reqtrace", [eng])
+    off = statistics.median(t_off)
+    on = off + statistics.median(diffs)
+    log(json.dumps({
+        "serve_tier": "bench.py _bench_serving_reqtrace LLaMA fp32",
+        "pairs": REQTRACE_PAIRS, "batch": TIER_BATCH,
+        "tick_off_ms": off * 1e3, "tick_on_ms": on * 1e3,
+        "off_over_on": off / on, "overhead_pct": (on / off - 1) * 100,
+        "events_recorded": recorded, "card": card}))
+    if not recorded:
+        raise AssertionError("serve_tier: the traced ticks recorded nothing")
+    log(f"serve_tier: reqtrace overhead measured ({lap():.1f} s)")
+
+
+def _tier_drills(model, lap):
+    """bf16: a crash fails exactly the in-flight requests, reallocates
+    the pages and degrades, and the next requests get a fresh engine's
+    tokens; a stall past the watchdog's timeout degrades and recover()
+    readies; drain() stops with every KV block free."""
+    from paddle_tpu_torch.distributed.watchdog import Watchdog
+    from paddle_tpu_torch.fault import inject
+    prompts, n_new = _llama_prompts()[:12], 16
+
+    eng = _tier_engine(model, 64).warmup()
+    rids = [eng.add_request(p, max_new_tokens=n_new) for p in prompts]
+    for _ in range(3):
+        eng.step()
+    in_flight = {s.rid for s in eng.slots if s is not None}
+    queued = {r.rid for r in eng.queue}
+    tick = eng._ticks + 1
+    with inject.armed("serving.crash_at_tick", tick=tick):
+        eng.step()
+    failed = {r for r, oc in eng.outcomes.items() if oc.status == "FAILED"}
+    want = f"tick {tick} failed: InjectedFault('injected crash at tick {tick}')"
+    exc = eng.last_tick_failure
+    if (failed != in_flight or not in_flight
+            or any(eng.outcomes[r].detail != want for r in failed)
+            or not isinstance(exc, inject.InjectedFault)
+            or exc.point != "serving.crash_at_tick"):
+        raise AssertionError(f"serve_tier crash drill: FAILED {sorted(failed)}"
+                             f", in flight {sorted(in_flight)}, contained "
+                             f"{exc!r}")
+    if eng.lifecycle.state != "DEGRADED" or eng.tick_failures != 1:
+        raise AssertionError(f"serve_tier crash drill: {eng.health()}")
+    if any(bool(t.any()) for t in eng.kc + eng.vc):
+        raise AssertionError("serve_tier crash drill: pages not fresh")
+    survivors = eng.run_to_completion()
+    if set(survivors) != queued:
+        raise AssertionError(f"serve_tier crash drill: queued {sorted(queued)}"
+                             f" finished {sorted(survivors)}")
+    after, _ = _run_engine(eng, prompts[:4], n_new)
+    fresh, _ = _run_engine(_tier_engine(model, 64), prompts[:4], n_new)
+    if after != fresh:
+        raise AssertionError("serve_tier crash drill: tokens after the crash "
+                             "differ from a fresh engine's")
+    eng.recover()
+    log(f"serve_tier: crash drill at tick {tick} failed exactly the "
+        f"{len(in_flight)} in-flight requests, reallocated the pages, "
+        f"finished the {len(queued)} queued, and 4 new requests match a "
+        f"fresh engine ({lap():.1f} s)")
+
+    hangs = []
+    wd = Watchdog(timeout=0.5, poll_interval=0.05,
+                  on_hang=lambda w: hangs.append(w.timeout)).start()
+    try:
+        eng.attach_watchdog(wd)
+        _run_engine(eng, prompts[:8], n_new)
+        if wd.hang_count or eng.lifecycle.state != "READY":
+            raise AssertionError(f"serve_tier stall drill: a plain run "
+                                 f"tripped the watchdog ({wd.hang_count})")
+        rid = eng.add_request(prompts[0], max_new_tokens=4)
+        with inject.armed("serving.tick_stall", seconds=1.5):
+            eng.step()
+        if not wd.hang_count or not hangs or eng.lifecycle.state != "DEGRADED":
+            raise AssertionError(f"serve_tier stall drill: hangs "
+                                 f"{wd.hang_count}, {eng.lifecycle.state}")
+        eng.recover()
+        out = eng.run_to_completion()
+        if len(out.get(rid, ())) != 4 or eng.lifecycle.state != "READY":
+            raise AssertionError("serve_tier stall drill: no recovery")
+    finally:
+        wd.stop()
+    log(f"serve_tier: stall drill: a 1.5 s stall tripped the 0.5 s watchdog "
+        f"({wd.hang_count} report), DEGRADED, recover() -> READY "
+        f"({lap():.1f} s)")
+
+    eng.drain()
+    h = eng.health()
+    if (h["state"] != "STOPPED" or h["kv_blocks_free"] != h["kv_blocks_total"]
+            or h["tick_failures"] != 1):
+        raise AssertionError(f"serve_tier drain: {h}")
+    log(f"serve_tier: drain() -> STOPPED, {h['kv_blocks_free']} of "
+        f"{h['kv_blocks_total']} KV blocks free ({lap():.1f} s)")
+
+
+def _resilience_rung(model, card, lap):
+    """bench.py _bench_serving_resilience (:602-689): the capacity probe,
+    then 0.5x, 1x and 2x of its rate under deadlines sized from it."""
+    eng = _tier_engine(model, 4 * TIER_REQUESTS, high_water=4 * TIER_BATCH)
+    eng.warmup(prompt_len=TIER_PROMPTS[1] // 2, max_new_tokens=TIER_NEW)
+    probe = _load_point("resilience probe", eng, [eng], card,
+                        offered_rps=SATURATING_RPS)
+    # bench.py probes with the high-water mark set: a burst that fills
+    # the queue past it sheds there, and every other request finishes
+    if (probe["finished"] + probe["shed"] != TIER_REQUESTS
+            or probe["deadline_missed"] or probe["overloaded"]):
+        raise AssertionError(f"serve_tier: the probe ended {probe['outcomes']}"
+                             f" ({probe['overloaded']} overloaded)")
+    cap_rps = max(probe["goodput_requests_per_sec"], 1e-3)
+    ttft_dl = max((probe["p99_ttft_s"] or 0.01) * 8, 1e-3)
+    total_dl = ttft_dl + 4 * TIER_NEW * (probe["p99_itl_s"] or 0.01)
+    for mult in (0.5, 1.0, 2.0):
+        _load_point(f"resilience {mult}x", eng, [eng], card,
+                    offered_rps=mult * cap_rps, ttft_deadline_s=ttft_dl,
+                    deadline_s=total_dl)
+    eng.drain()
+    _clean("serve_tier resilience", [eng])
+    log(f"serve_tier: resilience rung: capacity {cap_rps:.3f} req/s, TTFT "
+        f"deadline {ttft_dl:.4f} s, total {total_dl:.4f} s ({lap():.1f} s)")
+
+
+def _router_rung(model, card, lap):
+    """bench.py _bench_serving_router (:692-854): goodput at saturating
+    arrivals for R=1 and R=2, then the 2x-overload curve at R=2 with the
+    burst point; all shedding must be the router's."""
+    from paddle_tpu_torch.serving import Router
+    goodput = {}
+    for r in (1, 2):
+        reps = [_tier_replica(model, 8 * ROUTER_REQUESTS) for _ in range(r)]
+        tier = Router(reps).warmup()
+        goodput[r] = _load_point(f"router R={r} saturating", tier, reps,
+                                 card, offered_rps=SATURATING_RPS,
+                                 n_requests=2 * ROUTER_REQUESTS)
+        tier.drain()
+        if goodput[r]["finished"] != 2 * ROUTER_REQUESTS:
+            raise AssertionError(f"serve_tier: the R={r} probe ended "
+                                 f"{goodput[r]['outcomes']}")
+    g1 = goodput[1]["goodput_tokens_per_sec"]
+    g2 = goodput[2]["goodput_tokens_per_sec"]
+    cap_rps = max(goodput[2]["goodput_requests_per_sec"], 1e-3)
+    ttft_dl = max((goodput[2]["p99_ttft_s"] or 0.01) * 8, 1e-3)
+    total_dl = ttft_dl + 4 * TIER_NEW * (goodput[2]["p99_itl_s"] or 0.01)
+    replica_side_shed = shed_at_router = 0
+    for mult, n in ((0.5, ROUTER_REQUESTS), (1.0, ROUTER_REQUESTS),
+                    (2.0, ROUTER_REQUESTS), ("burst", 4 * ROUTER_REQUESTS)):
+        reps = [_tier_replica(model, max(TIER_BATCH, 4)) for _ in range(2)]
+        tier = Router(reps).warmup()
+        rate = SATURATING_RPS if mult == "burst" else mult * cap_rps
+        pt = _load_point(f"router R=2 {mult}" + ("" if mult == "burst"
+                                                  else "x"),
+                         tier, reps, card, offered_rps=rate, n_requests=n,
+                         ttft_deadline_s=ttft_dl, deadline_s=total_dl)
+        tier.drain()
+        shed_at_router += pt["router"]["shed_at_router"]
+        replica_side_shed += pt["shed"] - pt["router"]["shed_at_router"]
+    log(json.dumps({"serve_tier": "router R=2 / R=1 goodput",
+                    "requests": ROUTER_REQUESTS,
+                    "goodput_tokens_per_sec_R1": g1,
+                    "goodput_tokens_per_sec_R2": g2, "R2_over_R1": g2 / g1,
+                    "shed_at_router_total": shed_at_router,
+                    "replica_side_shed_total": replica_side_shed,
+                    "card": card}))
+    if replica_side_shed:
+        raise AssertionError(f"serve_tier: {replica_side_shed} requests shed "
+                             f"inside a replica")
+    log(f"serve_tier: router rung: R=2/R=1 goodput {g2 / g1:.3f}, "
+        f"{shed_at_router} shed at the router, none inside a replica "
+        f"({lap():.1f} s)")
+
+
+def phase_serve_tier(state):
+    from paddle_tpu_torch.models import LlamaConfig, LlamaForCausalLM
+
+    marks = [time.perf_counter()]
+
+    def lap():
+        marks.append(time.perf_counter())
+        return marks[-1] - marks[-2]
+
+    card = _card_line()
+    cfg = LlamaConfig(**LLAMA_SERVING, use_flash_attention=False)
+    model = LlamaForCausalLM(cfg, device="cuda", seed=0).eval()
+    log(f"serve_tier: fp32 model built ({lap():.1f} s)")
+    _tier_parity(model, lap)
+    _reqtrace_overhead(model, card, lap)
+    bf16 = model.to(torch.bfloat16)         # the same weights, rounded
+    del model
+    torch.cuda.empty_cache()
+    _tier_drills(bf16, lap)
+    _resilience_rung(bf16, card, lap)
+    _router_rung(bf16, card, lap)
+    del bf16
+    torch.cuda.empty_cache()
+    log(f"serve_tier: phase took {marks[-1] - marks[0]:.1f} s")
 
 
 # ------------------------------------------------------------------ train

@@ -17,18 +17,23 @@ rewrites training onto the fused kernels (residual + norm, bias +
 activation, norm + matmul + activation, matmul + rope); amp (O1
 ``auto_cast``, O2 ``decorate``, ``GradScaler``), the fused chunked
 LM-head loss, block recompute (``distributed.fleet.recompute``) and
-bf16/int8 Adam moments.
+bf16/int8 Adam moments; the serving tier's front end: the replica
+lifecycle, deadlines and backpressure (``inference.resilience``),
+request tracing and metrics (``observability``), ``serving.Router``,
+``serving.TokenStream`` and the open-loop load harness
+(``tools.loadgen``).
 """
-from . import (amp, compile, core, distributed, inference, jit, models, nn,
-               ops, optimizer, serving)
+from . import (amp, compile, core, distributed, fault, inference, jit, models,
+               nn, observability, ops, optimizer, serving, tools)
 from .core import get_flag, resolve_device, set_flags
 from .inference import GPTPagedEngine, LlamaPagedEngine, PagedEngine
 from .jit import to_static
 from .models import (GPTConfig, GPTForCausalLM, LlamaConfig, LlamaForCausalLM,
                      gpt2_medium, gpt2_small)
 
-__all__ = ["amp", "compile", "core", "distributed", "inference", "jit",
-           "models", "nn", "ops", "optimizer", "serving", "resolve_device",
+__all__ = ["amp", "compile", "core", "distributed", "fault", "inference",
+           "jit", "models", "nn", "observability", "ops", "optimizer",
+           "serving", "tools", "resolve_device",
            "get_flag",
            "set_flags", "to_static", "GPTConfig", "GPTForCausalLM",
            "gpt2_small", "gpt2_medium", "LlamaConfig", "LlamaForCausalLM",

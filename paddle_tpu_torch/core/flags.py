@@ -2,17 +2,20 @@
 
 Only the flags the port reads are defined. Names may carry the ``FLAGS_``
 prefix, as in the JAX package, and an environment variable ``FLAGS_<name>``
-overrides a flag's default when the flag is defined.
+overrides a flag's default when the flag is defined. ``on_change``
+subscribes to a flag: the hot paths (metrics, request tracing) keep a
+mirror of their flag in a dict that ``set_flags`` updates.
 """
 from __future__ import annotations
 
 import os
 import threading
-from typing import Any, Dict
+from typing import Any, Callable, Dict, List
 
 _lock = threading.Lock()
 _values: Dict[str, Any] = {}
 _types: Dict[str, type] = {}
+_observers: Dict[str, List[Callable[[Any], None]]] = {}
 
 
 def _key(name: str) -> str:
@@ -25,9 +28,10 @@ def _coerce(ty: type, value):
     return ty(value)
 
 
-def define_flag(name: str, default):
+def define_flag(name: str, default, help: str = ""):
     """Register a flag; ``FLAGS_<name>`` in the environment overrides the
-    default. Returns the flag's value."""
+    default. Returns the flag's value. ``help`` documents it where it is
+    defined, as in the JAX package."""
     with _lock:
         if name not in _values:
             ty = type(default)
@@ -52,6 +56,13 @@ def set_flags(flags: Dict[str, Any]) -> None:
             if key not in _values:
                 raise KeyError(f"Flag {name!r} is not defined")
             _values[key] = _coerce(_types[key], value)
+            for fn in _observers.get(key, ()):
+                fn(_values[key])
+
+
+def on_change(name: str, fn: Callable[[Any], None]) -> None:
+    """Call ``fn(value)`` after every ``set_flags`` of ``name``."""
+    _observers.setdefault(_key(name), []).append(fn)
 
 
 # rewrite matched subgraphs (norm->linear->act, residual+norm, bias+act,

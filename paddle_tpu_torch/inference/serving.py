@@ -36,11 +36,28 @@ The JAX engine donates its cache arrays to a jitted program each tick;
 here the caches are per-layer tensors that paged attention updates in
 place. The whole forward runs under ``torch.inference_mode()``.
 
-The resilience layer (lifecycle, deadlines, backpressure, outcomes,
-streams) and the request tracing and metrics come with a later slice.
+Resilience contract (``inference/resilience.py``): the tick loop never
+raises: overload, deadline expiry, memory races and injected faults
+become per-request terminal statuses
+(``FINISHED/SHED/DEADLINE_MISSED/CANCELLED/FAILED``) recorded in
+``engine.outcomes``, with per-token timestamps; submitters see
+:class:`Overloaded` backpressure from the bounded queue; the replica
+walks an explicit lifecycle (``STARTING→WARMING→READY→DEGRADED→
+DRAINING→STOPPED``) with ``drain()`` and health/readiness probes, and a
+stalled tick flips it DEGRADED through an attached watchdog.
+``engine.stream(rid)`` yields a request's tokens as they come. Every
+request's lifecycle is stamped into the request flight recorder
+(``observability/reqtrace.py``) from the engine's clock seam
+(``engine._clock``; ``phase_seconds`` stays on the host's clock). The
+multi-replica front door is ``serving.Router``.
+
+A tick's results reach the host in a device-to-host copy of the chosen
+ids, which waits for the program; token timestamps are taken after it,
+so TTFT includes the card's time.
 """
 from __future__ import annotations
 
+import logging
 import time
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional
@@ -50,15 +67,26 @@ import torch
 
 from ..core.dtype import convert_dtype
 from ..core.place import DeviceLike, resolve_device
+from ..fault import inject as _inject
 from ..nn.functional.paged_attention import block_multihead_attention
+from ..observability import reqtrace as _reqtrace
+from ..observability import trace as _otrace
 from ..ops.cuda.serving import spec_accept_prefix
 from ..ops.search import nucleus_sample_ids
+from ..serving import speculative as _spec_mod
 from ..serving.scheduler import Scheduler, SchedulerConfig
 from ..serving.speculative import NgramProposer
-from .resilience import RequestStatus
+from ..serving.stream import TokenStream
+from . import resilience as _res
+from .resilience import (Overloaded, ReplicaLifecycle, ReplicaState,
+                         RequestOutcome, RequestStatus, ResilienceConfig,
+                         TERMINAL_STATUSES)
 
 __all__ = ["BlockManager", "Request", "PagedEngine", "LlamaPagedEngine",
-           "GPTPagedEngine", "RequestStatus"]
+           "GPTPagedEngine", "Overloaded", "RequestStatus", "ReplicaState",
+           "ResilienceConfig", "RequestOutcome"]
+
+_log = logging.getLogger(__name__)
 
 
 class BlockManager:
@@ -93,7 +121,15 @@ class Request:
     temperature: float = 0.0          # 0 = greedy
     top_p: float = 1.0
     generated: List[int] = field(default_factory=list)
+    # --- resilience bookkeeping (engine-managed) ---
     status: str = RequestStatus.QUEUED
+    detail: str = ""                  # terminal reason for non-FINISHED
+    submit_t: Optional[float] = None
+    first_token_t: Optional[float] = None
+    finish_t: Optional[float] = None
+    token_times: List[float] = field(default_factory=list)
+    ttft_deadline_s: Optional[float] = None   # submit -> first token
+    deadline_s: Optional[float] = None        # submit -> completion
 
     @property
     def seq_len(self) -> int:
@@ -283,13 +319,17 @@ class PagedEngine:
     model's floating dtype), a float dtype, or ``"int8"``/``torch.int8``;
     ``scheduler`` a ``SchedulerConfig`` or ``Scheduler`` (None: no
     prefill budget); ``speculate`` ``"ngram"`` (an ``NgramProposer`` of
-    ``speculate_k`` tokens) or a proposer object."""
+    ``speculate_k`` tokens) or a proposer object; ``resilience`` a
+    ``ResilienceConfig`` (queue bound, shedding, default deadlines, SLO
+    windows)."""
 
     def __init__(self, model, *, max_batch: int = 8, block_size: int = 16,
                  num_blocks: int = 256, max_blocks_per_seq: int = 32,
                  eos_id: Optional[int] = None, seed: int = 0,
                  kv_dtype=None, scheduler=None, speculate=None,
-                 speculate_k: int = 4, device: DeviceLike = None):
+                 speculate_k: int = 4,
+                 resilience: Optional[ResilienceConfig] = None,
+                 device: DeviceLike = None):
         self.device = resolve_device(device)
         param = next(model.parameters())
         if param.device != self.device:
@@ -354,6 +394,30 @@ class PagedEngine:
         #: ends in a device-to-host copy of the chosen ids)
         self.phase_seconds: Dict[str, List[float]] = {"prefill": [],
                                                       "decode": []}
+        # --- resilience state ---
+        self.resilience = resilience or ResilienceConfig()
+        self._clock = time.monotonic      # seam for deterministic tests
+        self.lifecycle = ReplicaLifecycle(clock=self._clock)
+        # SLO burn-rate accounting: every terminal outcome feeds the
+        # multiwindow burn gauges of this replica's scope
+        rc = self.resilience
+        self._slo = _reqtrace.SloTracker(
+            self.lifecycle.name, target=rc.slo_target,
+            fast_window_s=rc.slo_fast_window_s,
+            slow_window_s=rc.slo_slow_window_s)
+        #: terminal outcome per request (drained by ``drain_outcomes``;
+        #: long-running callers should drain it alongside step())
+        self.outcomes: Dict[int, RequestOutcome] = {}
+        self.tick_failures = 0
+        #: the last contained tick failure (its traceback is logged)
+        self.last_tick_failure: Optional[BaseException] = None
+        self._watchdog = None
+        # finished results produced while warmup() owned the step loop,
+        # handed out by the next step()/run_to_completion
+        self._spillover: Dict[int, List[int]] = {}
+        #: per-request incremental token buffers (see stream())
+        self._stream_bufs: Dict[int, List[int]] = {}
+        _res.M_KV_BYTES_PER_TOKEN.set(self.kv_bytes_per_token)
 
     def _fresh_cache(self):
         """One layer's K (or V) page pool: a float tensor, or the int8
@@ -374,9 +438,26 @@ class PagedEngine:
             per += self.num_kv_heads * 4          # fp32 scale
         return 2 * self.cfg.num_layers * per      # K and V
 
+    # ------------------------------------------------- request tracing
+    @property
+    def reqtrace_scope(self) -> str:
+        """Timeline scope this replica records under (the lifecycle's
+        stable per-process replica name)."""
+        return self.lifecycle.name
+
+    def _rt_event(self, rid: int, event: str,
+                  t: Optional[float] = None, **meta):
+        """Stamp one lifecycle event into the request flight recorder
+        (``reqtrace.emit``: the disabled path reads no clock; timestamps
+        come from the engine's clock seam)."""
+        _reqtrace.emit(self.lifecycle.name, self._clock, rid, event, t,
+                       **meta)
+
     # ---------------------------------------------------------------- API
     def add_request(self, prompt_ids, max_new_tokens: int = 32,
-                    temperature: float = 0.0, top_p: float = 1.0) -> int:
+                    temperature: float = 0.0, top_p: float = 1.0,
+                    ttft_deadline_s: Optional[float] = None,
+                    deadline_s: Optional[float] = None) -> int:
         prompt = [int(t) for t in prompt_ids]
         if not prompt:
             raise ValueError("add_request: prompt must be non-empty")
@@ -394,19 +475,44 @@ class PagedEngine:
                 f"add_request: prompt ({len(prompt)}) + max_new_tokens "
                 f"({max_new_tokens}) exceeds the model's position table "
                 f"({max_pos})")
+        # ---- admission control: backpressure is an exception the
+        # submitter handles; everything after acceptance is a status ----
+        if not self.lifecycle.admitting():
+            raise Overloaded(
+                f"replica is {self.lifecycle.state}: not accepting "
+                f"requests")
+        rcfg = self.resilience
+        if len(self.queue) >= rcfg.max_queue:
+            raise Overloaded(
+                f"admission queue full ({rcfg.max_queue} queued); retry "
+                f"on another replica")
         self._rid += 1
         req = Request(self._rid, prompt, max_new_tokens,
                       temperature=float(temperature), top_p=float(top_p))
+        req.submit_t = self._clock()
+        req.ttft_deadline_s = (ttft_deadline_s if ttft_deadline_s
+                               is not None
+                               else rcfg.default_ttft_deadline_s)
+        req.deadline_s = (deadline_s if deadline_s is not None
+                          else rcfg.default_deadline_s)
+        self._rt_event(req.rid, "submitted", t=req.submit_t,
+                       prompt_tokens=len(prompt),
+                       max_new_tokens=max_new_tokens,
+                       ttft_deadline_s=req.ttft_deadline_s,
+                       deadline_s=req.deadline_s)
         need_total = self._blocks_needed(len(prompt) + max_new_tokens)
         if (need_total > self.max_blocks_per_seq
                 or need_total > self._total_usable):
+            # can never fit this replica's geometry: terminal FAILED at
+            # submit time
             reason = (f"needs {need_total} blocks (max_blocks_per_seq="
                       f"{self.max_blocks_per_seq}, usable="
                       f"{self._total_usable})")
             self.rejected[req.rid] = reason
-            req.status = RequestStatus.FAILED
+            self._finish_request(req, RequestStatus.FAILED, detail=reason)
             return req.rid
         self.queue.append(req)
+        _res.M_QUEUE_DEPTH.set(len(self.queue))
         return req.rid
 
     @property
@@ -426,7 +532,11 @@ class PagedEngine:
         """Run ``program`` (``_paged_forward`` or ``_paged_verify``) over
         the batch, in eval mode under inference mode, and copy its results
         to the host; books its seconds and scheduled tokens under
-        ``phase``. ``sampling_np`` is (temps, top_ps, rids, ngens)."""
+        ``phase``, and a ``serving.<phase>`` span (category ``device``)
+        when the span buffer is active. The copy waits for the program,
+        so the seconds and the span cover the host's launches and the
+        card's time together. ``sampling_np`` is (temps, top_ps, rids,
+        ngens)."""
         was_training = self.model.training
         if was_training:
             self.model.eval()
@@ -445,9 +555,15 @@ class PagedEngine:
         finally:
             if was_training:
                 self.model.train()
-        seconds = time.perf_counter() - t0
-        self.phase_seconds[phase].append(seconds)
-        self.scheduler.note_phase(phase, tokens_np.size, seconds)
+        t1 = time.perf_counter()
+        self.phase_seconds[phase].append(t1 - t0)
+        self.scheduler.note_phase(phase, tokens_np.size, t1 - t0)
+        if _otrace._active["on"]:
+            args = {"phase": phase, "batch": int(len(seq_lens_np))}
+            if program is _paged_verify:
+                args["speculative"] = True
+            _otrace.add_complete(f"serving.{phase}", "device", t0, t1,
+                                 args)
         return out
 
     def _run_chunk(self, tokens_np, seq_lens_np, sampling_np,
@@ -511,8 +627,19 @@ class PagedEngine:
             self.slot_blocks[slot] = []
             # allocate the prefix blocks now, so the next admission's
             # availability check sees the reduced pool
-            self._ensure_blocks(slot, prefix_len)
+            raced = _inject.fire("serving.admission_oom") is not None
+            if raced or not self._ensure_blocks(slot, prefix_len):
+                # admission raced cache exhaustion (another slot's growth
+                # won the last blocks): un-admit and retry next tick
+                self._release_slot(slot)
+                self.queue.insert(0, req)
+                break
             req.status = RequestStatus.RUNNING
+            _res.M_ADMITTED.inc()
+            self._rt_event(req.rid, "admitted", slot=slot,
+                           prefix_tokens=prefix_len,
+                           tick=self._ticks,
+                           kv_blocks=len(self.slot_blocks[slot]))
             # stage the chunked prefill, left-padded to whole chunks
             bs = self.block_size
             prefix = np.asarray(req.prompt + req.generated, np.int32)
@@ -538,6 +665,15 @@ class PagedEngine:
                     self.scheduler.note_deferred(sum(
                         st["n_chunks"] - st["next"]
                         for st in self._prefilling.values()))
+                    # the why of a slow TTFT: this tick's budget pushed
+                    # these requests' remaining chunks to a later tick
+                    for slot, st in self._prefilling.items():
+                        req = self.slots[slot]
+                        if req is not None:
+                            self._rt_event(
+                                req.rid, "prefill_deferred",
+                                tick=self._ticks,
+                                chunks_left=st["n_chunks"] - st["next"])
                     return
             tokens = np.zeros((self.max_batch, bs), np.int32)
             seq = np.zeros((self.max_batch,), np.int32)   # 0 = inactive
@@ -554,6 +690,15 @@ class PagedEngine:
                                   phase="prefill")
             if quota is not None:
                 quota -= len(slots)
+            now = self._clock()
+            for slot in slots:
+                # the chunk just computed is the one before the cursor
+                st = self._prefilling[slot]
+                req = self.slots[slot]
+                self._rt_event(req.rid, "prefill_chunk", t=now,
+                               chunk=st["next"] - 1,
+                               n_chunks=st["n_chunks"], tokens=bs,
+                               tick=self._ticks)
             for slot in finalists:
                 del self._prefilling[slot]
                 req = self.slots[slot]
@@ -563,22 +708,23 @@ class PagedEngine:
                 tok = int(nxt[slot])
                 req.generated.append(tok)
                 self.last_token[slot] = tok
+                self._record_token(req, now)
                 self._maybe_finish(slot)
 
-    def _evict(self, slot: int):
+    def _evict(self, slot: int,
+               reason: str = "kv-block pressure (livelock preemption)"):
         """Preempt a running request: release its blocks and requeue it
         (its generated prefix re-prefills at re-admission)."""
         req = self.slots[slot]
+        freed = len(self.slot_blocks[slot])
         self._release_slot(slot)
         req.status = RequestStatus.QUEUED
         self.evictions += 1
+        _res.M_EVICTIONS.inc()
+        self._rt_event(req.rid, "preempted", victim_reason=reason,
+                       tick=self._ticks, kv_blocks_reclaimed=freed,
+                       tokens_so_far=len(req.generated))
         self.queue.append(req)
-
-    def _evict_youngest(self, skipped: List[int]):
-        """Every active slot is stalled on memory: preempt the youngest
-        request (the JAX engine's victim when no deadlines are set) and
-        retry next tick with its blocks free."""
-        self._evict(max(skipped, key=lambda s: self.slots[s].rid))
 
     def _release_slot(self, slot: int):
         """Return a slot's KV blocks to the free list and reset its lane
@@ -591,33 +737,201 @@ class PagedEngine:
         self.seq_lens[slot] = 1
         self.last_token[slot] = 0
 
+    def _finish_request(self, req: Request, status: str,
+                        detail: str = ""):
+        """Move ``req`` to a terminal status and record its outcome. The
+        caller must already have released any slot/blocks it held."""
+        req.status = status
+        req.detail = detail
+        req.finish_t = self._clock()
+        self._rt_event(req.rid, "terminal", t=req.finish_t,
+                       outcome=status, detail=detail,
+                       tokens=len(req.generated))
+        self._slo.note(req.finish_t,
+                       good=(status == RequestStatus.FINISHED))
+        _res.M_REQUESTS.inc(outcome=status)
+        if status == RequestStatus.SHED:
+            _res.M_SHED.inc()
+        elif status == RequestStatus.DEADLINE_MISSED:
+            _res.M_DEADLINE_MISSED.inc()
+        self.outcomes[req.rid] = RequestOutcome(
+            rid=req.rid, status=status, detail=detail,
+            tokens=list(req.generated), submit_t=req.submit_t,
+            first_token_t=req.first_token_t, finish_t=req.finish_t,
+            token_times=list(req.token_times))
+        self._stream_bufs.pop(req.rid, None)
+        if status == RequestStatus.FINISHED:
+            self._done.append(req)
+
+    def _record_token(self, req: Request, now: float):
+        """TTFT / inter-token latency bookkeeping for one new token; the
+        worst TTFT/ITL samples keep their request id (exemplars), so a
+        p99 regression resolves to a timeline."""
+        traced = _reqtrace.enabled()
+        if req.first_token_t is None:
+            req.first_token_t = now
+            if req.submit_t is not None:
+                ttft = now - req.submit_t
+                _res.M_TTFT.observe(ttft)
+                if traced:
+                    self._rt_event(req.rid, "first_token", t=now,
+                                   ttft_s=ttft)
+                    _reqtrace.EXEMPLARS.note(
+                        "ttft", self.lifecycle.name, req.rid, ttft, now)
+        elif req.token_times:
+            itl = now - req.token_times[-1]
+            _res.M_ITL.observe(itl)
+            if traced:
+                _reqtrace.EXEMPLARS.note(
+                    "itl", self.lifecycle.name, req.rid, itl, now)
+        req.token_times.append(now)
+        buf = self._stream_bufs.get(req.rid)
+        if buf is not None:
+            buf.append(req.generated[-1])
+
     def _maybe_finish(self, slot: int):
         req = self.slots[slot]
+        if req is None:
+            return
         last = req.generated[-1] if req.generated else None
         if (len(req.generated) >= req.max_new_tokens
                 or (self.eos_id is not None and last == self.eos_id)):
             self._release_slot(slot)
-            req.status = RequestStatus.FINISHED
-            self._done.append(req)
+            self._finish_request(req, RequestStatus.FINISHED)
+
+    # ------------------------------------------------- deadlines/overload
+    def _deadline_expired(self, req: Request, now: float) -> Optional[str]:
+        """Reason string when ``req`` is past a deadline, else None."""
+        if req.submit_t is None:
+            return None
+        waited = now - req.submit_t
+        if req.deadline_s is not None and waited > req.deadline_s:
+            return (f"total deadline {req.deadline_s}s expired after "
+                    f"{waited:.3f}s ({len(req.generated)} tokens)")
+        if (req.first_token_t is None and req.ttft_deadline_s is not None
+                and waited > req.ttft_deadline_s):
+            return (f"TTFT deadline {req.ttft_deadline_s}s expired after "
+                    f"{waited:.3f}s with no first token")
+        return None
+
+    def _expire_deadlines(self):
+        """Cancel queued and in-flight requests whose TTFT/total deadline
+        has passed; in-flight cancellations reclaim their KV blocks."""
+        now = self._clock()
+        kept = []
+        for req in self.queue:
+            why = self._deadline_expired(req, now)
+            if why is None:
+                kept.append(req)
+            else:
+                self._finish_request(req, RequestStatus.DEADLINE_MISSED,
+                                     detail=why)
+        self.queue = kept
+        for slot, req in enumerate(self.slots):
+            if req is None:
+                continue
+            why = self._deadline_expired(req, now)
+            if why is not None:
+                self._release_slot(slot)
+                self._finish_request(req, RequestStatus.DEADLINE_MISSED,
+                                     detail=why)
+
+    def _shed_overload(self):
+        """Past the queue high-water mark, shed the newest queued
+        requests (they would wait longest) down to the mark. Preempted
+        requests carrying generated tokens are spared: shedding them
+        would discard paid-for compute (the queue stays bounded by
+        max_queue regardless)."""
+        hw = self.resilience.queue_high_water
+        if hw is None or len(self.queue) <= hw:
+            return
+        excess = len(self.queue) - hw
+        kept_rev: List[Request] = []
+        for req in reversed(self.queue):          # newest first
+            if excess > 0 and not req.generated:
+                excess -= 1
+                self._finish_request(
+                    req, RequestStatus.SHED,
+                    detail=f"queue past high-water mark ({hw})")
+            else:
+                kept_rev.append(req)
+        self.queue = kept_rev[::-1]
+
+    def _eviction_key(self, slot: int):
+        """Preemption victim ordering: most deadline slack first (no
+        deadline = infinite slack), youngest rid as tie-break: evicting
+        the request closest to its deadline would turn one preemption
+        into a deadline miss."""
+        req = self.slots[slot]
+        if req.deadline_s is not None and req.submit_t is not None:
+            dl = req.submit_t + req.deadline_s
+        else:
+            dl = float("inf")
+        return (dl, req.rid)
 
     # ------------------------------------------------------------- ticks
     def step(self) -> Dict[int, List[int]]:
-        """One engine tick: admit queued requests, advance chunked prefill
-        under the scheduler's budget, then one batched decode (or
-        speculative verify) step for every fully prefilled slot. Returns
-        {rid: generated_tokens} for requests that finished."""
+        """One engine tick: expire deadlines, admit queued requests,
+        shed overload, advance chunked prefill under the scheduler's
+        budget, then one batched decode (or speculative verify) step for
+        every fully prefilled slot. Returns {rid: generated_tokens} for
+        requests that finished this tick.
+
+        Never raises from scheduling, memory pressure, or injected
+        faults: a tick failure marks the in-flight requests FAILED,
+        reclaims their KV blocks, reallocates the pages and flips the
+        replica DEGRADED; the engine keeps serving. Only an error in
+        that containment itself (a sticky CUDA error makes the page
+        allocation raise) leaves the tick."""
+        wd = self._watchdog
+        if wd is not None:
+            wd.begin_work()
         self._ticks += 1
+        t0 = time.perf_counter()
+        span_args = {"tick": self._ticks}
         try:
-            self._admit()
-            # phase split: bounded prefill, then decode, which runs every
-            # tick there is decodable work
-            self._prefill_step()
-            self._decode_active()
+            with _otrace.span("serving.tick", "serving", args=span_args):
+                try:
+                    self._tick()
+                    if self.lifecycle.state == ReplicaState.STARTING:
+                        self.lifecycle.to(ReplicaState.READY, "serving")
+                except Exception as e:
+                    self._on_tick_failure(e)
+                finally:
+                    # this tick's phase split rides its span (read at
+                    # span exit, before end_tick resets it)
+                    span_args.update(
+                        self.scheduler.tick_phase_seconds())
         finally:
+            if wd is not None:
+                wd.end_work()
             self.scheduler.end_tick()
-        out = {req.rid: req.generated for req in self._done}
-        self._done.clear()
-        return out
+            _res.M_TICK_SECONDS.observe(time.perf_counter() - t0)
+            _res.M_QUEUE_DEPTH.set(len(self.queue))
+            _res.M_KV_BLOCKS.set(self._total_usable - self.bm.available)
+        return self._drain_done()
+
+    def _tick(self):
+        stall = _inject.fire("serving.tick_stall")
+        if stall is not None:
+            # a wedged device transfer: the tick thread blocks and no
+            # progress reaches the watchdog
+            time.sleep(float(stall.get("seconds", 0.1)))
+        if _inject.fire("serving.crash_at_tick",
+                        tick=self._ticks) is not None:
+            raise _inject.InjectedFault(
+                "serving.crash_at_tick",
+                f"injected crash at tick {self._ticks}")
+        self._expire_deadlines()
+        # admit before shedding: a burst hitting an idle replica flows
+        # into free decode slots first; only what capacity could not
+        # absorb this tick counts against the high-water mark
+        self._admit()
+        self._shed_overload()
+        # phase split: bounded prefill, then decode, which runs every
+        # tick there is decodable work
+        self._prefill_step()
+        self._decode_active()
 
     def _decode_active(self):
         active = [i for i, s in enumerate(self.slots)
@@ -654,11 +968,15 @@ class PagedEngine:
                 seq[i] = 0
                 skipped.append(i)
         if skipped and len(skipped) == len(active):
-            self._evict_youngest(skipped)
+            # every active slot is stalled on memory: nobody can finish
+            # to free blocks. Preempt the slot with the most deadline
+            # slack and retry next tick with its blocks free.
+            self._evict(max(skipped, key=self._eviction_key))
             return
         tokens = self.last_token[:, None].astype(np.int32)
         nxt = self._run_chunk(tokens, seq, self._slot_sampling(active),
                               phase="decode")
+        now = self._clock()
         for i in active:
             if seq[i] == 0:
                 continue
@@ -666,6 +984,9 @@ class PagedEngine:
             req.generated.append(int(nxt[i]))
             self.seq_lens[i] = int(seq[i])   # cached positions now
             self.last_token[i] = int(nxt[i])
+            self._rt_event(req.rid, "decode_tick", t=now,
+                           tick=self._ticks, new_tokens=1)
+            self._record_token(req, now)
             self._maybe_finish(i)
 
     def _decode_speculative(self, active: List[int]):
@@ -714,7 +1035,7 @@ class PagedEngine:
             seq[i] = req.seq_len + k
             max_accept[i] = ma
         if skipped and len(skipped) == len(active):
-            self._evict_youngest(skipped)
+            self._evict(max(skipped, key=self._eviction_key))
             return
         if not skipped and not max_accept.any():
             # nothing speculates this tick (a sampling-only batch, or the
@@ -726,30 +1047,85 @@ class PagedEngine:
         emit, n_emit = self._run_verify(tokens, seq,
                                         self._slot_sampling(ready),
                                         max_accept)
+        now = self._clock()
         proposed = accepted = 0
         for i in ready:
             req = self.slots[i]
             ne = int(n_emit[i])
             proposed += int(max_accept[i])
             accepted += ne - 1
+            self._rt_event(req.rid, "spec_verify", t=now,
+                           tick=self._ticks,
+                           proposed=int(max_accept[i]),
+                           accepted=ne - 1, new_tokens=ne)
             for j in range(ne):
                 tok = int(emit[i, j])
                 req.generated.append(tok)
                 self.last_token[i] = tok
+                self._record_token(req, now)
                 if (len(req.generated) >= req.max_new_tokens
                         or (self.eos_id is not None and tok == self.eos_id)):
                     break            # _maybe_finish releases the slot
             # cached positions: all but the newest token, as after decode
             self.seq_lens[i] = req.seq_len - 1
             self._maybe_finish(i)
-        self.spec_proposed += proposed
-        self.spec_accepted += accepted
+        if proposed:
+            self.spec_proposed += proposed
+            self.spec_accepted += accepted
+            _spec_mod.M_SPEC_PROPOSED.inc(proposed)
+            _spec_mod.M_SPEC_ACCEPTED.inc(accepted)
+            _spec_mod.M_SPEC_ACCEPT_RATE.set(
+                self.spec_accepted / max(self.spec_proposed, 1))
+
+    def _on_tick_failure(self, exc: BaseException):
+        """Contain an unexpected tick error: the in-flight requests are
+        FAILED (their KV state is suspect), their blocks reclaimed, the
+        pages reallocated, and the replica degrades: it keeps serving new
+        requests, but the readiness probe goes red so a balancer backs
+        off. The traceback is logged; the exception is kept in
+        ``last_tick_failure``."""
+        _res.M_TICK_FAILURES.inc()
+        self.tick_failures += 1
+        detail = f"tick {self._ticks} failed: {exc!r}"
+        _log.error("%s; in-flight requests FAILED", detail, exc_info=exc)
+        self.last_tick_failure = exc
+        for slot, req in enumerate(self.slots):
+            if req is None:
+                continue
+            try:
+                self._release_slot(slot)
+            except Exception:
+                self.slots[slot] = None   # never mask the containment
+            self._finish_request(req, RequestStatus.FAILED, detail=detail)
+        # the pages were written in place, and a program that failed part
+        # way left partial writes in them: reallocate, as the JAX engine
+        # does for its donated buffers. Every slot was discarded above, so
+        # later admissions re-prefill from their prompts. The old pools go
+        # first (the traceback's frames hold them too), so the peak does
+        # not double the KV memory.
+        exc.__traceback__ = None
+        self.kc = self.vc = []
+        self.kc = [self._fresh_cache() for _ in range(self.cfg.num_layers)]
+        self.vc = [self._fresh_cache() for _ in range(self.cfg.num_layers)]
+        self.lifecycle.degrade(detail)
+
+    def _drain_done(self) -> Dict[int, List[int]]:
+        """Hand completed requests to the caller and drop them: a
+        long-running server must not retain every request ever served."""
+        out = dict(self._spillover)   # client traffic served mid-warmup
+        self._spillover.clear()
+        out.update((req.rid, req.generated) for req in self._done)
+        self._done.clear()
+        return out
 
     def run_to_completion(self, max_ticks: int = 10_000
                           ) -> Dict[int, List[int]]:
-        """Tick until no work remains; returns {rid: generated_tokens} for
-        finished requests (never-fitting submissions are in
-        ``self.rejected``)."""
+        """Tick until no work remains; returns {rid: generated_tokens}
+        for FINISHED requests. Requests that ended SHED /
+        DEADLINE_MISSED / CANCELLED / FAILED are absent here: read
+        ``self.outcomes`` (or ``drain_outcomes()``) for their terminal
+        records; never-fitting submissions also appear in
+        ``self.rejected``."""
         out: Dict[int, List[int]] = {}
         ticks = 0
         while self.has_work():
@@ -758,6 +1134,207 @@ class PagedEngine:
             if ticks > max_ticks:
                 raise RuntimeError("serving engine did not converge")
         return out
+
+    # ------------------------------------------------ replica operations
+    def request_status(self, rid: int) -> Optional[str]:
+        """Current status of a submitted request (terminal statuses stay
+        readable until ``drain_outcomes`` pops them); None = unknown."""
+        oc = self.outcomes.get(rid)
+        if oc is not None:
+            return oc.status
+        for req in self.queue:
+            if req.rid == rid:
+                return req.status
+        for req in self.slots:
+            if req is not None and req.rid == rid:
+                return req.status
+        return None
+
+    def drain_outcomes(self) -> Dict[int, RequestOutcome]:
+        """Hand terminal outcomes to the caller and drop them (a
+        long-running replica must not retain every request ever
+        served)."""
+        out, self.outcomes = self.outcomes, {}
+        for rid in out:          # rejected mirrors submit-time FAILED
+            self.rejected.pop(rid, None)
+        return out
+
+    def cancel(self, rid: int, reason: str = "cancelled by caller") -> bool:
+        """Cancel a queued or in-flight request; its KV blocks return to
+        the free list immediately. False if ``rid`` is not live."""
+        for i, req in enumerate(self.queue):
+            if req.rid == rid:
+                self.queue.pop(i)
+                self._finish_request(req, RequestStatus.CANCELLED,
+                                     detail=reason)
+                return True
+        for slot, req in enumerate(self.slots):
+            if req is not None and req.rid == rid:
+                self._release_slot(slot)
+                self._finish_request(req, RequestStatus.CANCELLED,
+                                     detail=reason)
+                return True
+        return False
+
+    # --------------------------------------------------------- streaming
+    def open_stream(self, rid: int) -> List[int]:
+        """Attach (or fetch) the incremental token buffer for ``rid``;
+        every token the request generates from now on is appended.
+        Tokens generated before the stream opened are replayed first, so
+        a late-attaching client still sees the whole completion. The
+        buffer stays valid after the request ends."""
+        buf = self._stream_bufs.get(rid)
+        if buf is not None:
+            return buf
+        buf = []
+        oc = self.outcomes.get(rid)
+        if oc is not None:               # already terminal: replay only
+            buf.extend(oc.tokens)
+            return buf
+        for req in list(self.queue) + [s for s in self.slots
+                                       if s is not None]:
+            if req.rid == rid:
+                buf.extend(req.generated)
+                self._stream_bufs[rid] = buf
+                return buf
+        return buf                       # unknown rid: empty, terminal
+
+    def stream(self, rid: int) -> TokenStream:
+        """Incremental token stream for one request: iterate tokens as
+        ticks produce them (the iterator pumps ``step()`` while the
+        request is live); iteration ends at the terminal status, left on
+        ``stream.status``."""
+        return TokenStream(
+            rid, self.open_stream(rid), self.step,
+            lambda: self.request_status(rid),
+            lambda s: s is None or s in TERMINAL_STATUSES,
+            trace_hook=lambda ev, **meta: self._rt_event(rid, ev, **meta))
+
+    def warmup(self, prompt_len: Optional[int] = None,
+               max_new_tokens: int = 2) -> "PagedEngine":
+        """Run one synthetic request through prefill and decode before
+        real traffic: STARTING→WARMING→READY. Idempotent on a READY
+        replica.
+
+        Traffic that arrived before READY (admission is open from
+        STARTING) is served alongside the synthetic request; its results
+        are handed out by the next ``step()``/``run_to_completion``."""
+        if self.lifecycle.state == ReplicaState.READY:
+            return self
+        self.lifecycle.to(ReplicaState.WARMING, "warmup")
+        n = prompt_len if prompt_len is not None else self.block_size
+        rid = self.add_request([1] * max(1, n),
+                               max_new_tokens=max_new_tokens)
+        # the synthetic request is operator work: no SLO deadlines, and
+        # it jumps to the queue head so a pre-READY client burst can
+        # neither starve nor shed it
+        for i, req in enumerate(self.queue):
+            if req.rid == rid:
+                req.ttft_deadline_s = req.deadline_s = None
+                self.queue.insert(0, self.queue.pop(i))
+                break
+        while self.outcomes.get(rid) is None and self.has_work():
+            res = self.step()
+            res.pop(rid, None)          # warmup is not traffic
+            self._spillover.update(res)
+        oc = self.outcomes.pop(rid, None)
+        if oc is None or oc.status != RequestStatus.FINISHED:
+            # stay in WARMING (still admits): READY would advertise a
+            # replica that never completed a request
+            raise RuntimeError(
+                f"warmup request ended "
+                f"{oc.status if oc else '<missing>'}: "
+                f"{oc.detail if oc else ''}")
+        self.lifecycle.to(ReplicaState.READY, "warmup complete")
+        return self
+
+    def drain(self, max_ticks: int = 10_000) -> Dict[int, List[int]]:
+        """Graceful shutdown: stop admission, finish in-flight decodes,
+        then STOP. Queued requests that never got a slot are CANCELLED
+        (their clients retry on another replica); running requests
+        decode to completion. Returns {rid: tokens} finished during the
+        drain."""
+        if self.lifecycle.state == ReplicaState.STOPPED:
+            return {}
+        self.lifecycle.to(ReplicaState.DRAINING, "drain()")
+        for req in self.queue:
+            self._finish_request(req, RequestStatus.CANCELLED,
+                                 detail="drained before admission")
+        self.queue = []
+        out: Dict[int, List[int]] = {}
+        ticks = 0
+        # loop on has_work(), not num_active: livelock preemption can
+        # bounce an in-flight request back through the queue mid-drain,
+        # and it still must reach a terminal status
+        while self.has_work():
+            out.update(self.step())
+            ticks += 1
+            if ticks > max_ticks:
+                # fail whatever is still live rather than spin forever
+                for req in self.queue:
+                    self._finish_request(req, RequestStatus.FAILED,
+                                         detail="drain did not converge")
+                self.queue = []
+                for slot, req in enumerate(self.slots):
+                    if req is not None:
+                        self._release_slot(slot)
+                        self._finish_request(
+                            req, RequestStatus.FAILED,
+                            detail="drain did not converge")
+                break
+        self.lifecycle.to(ReplicaState.STOPPED, "drained")
+        _res.M_QUEUE_DEPTH.set(0)
+        _res.M_KV_BLOCKS.set(self._total_usable - self.bm.available)
+        return out
+
+    def recover(self, reason: str = "operator recover"):
+        """DEGRADED → READY once the operator (or an orchestrator health
+        check) has decided the stall/crash cause is gone."""
+        self.lifecycle.to(ReplicaState.READY, reason)
+
+    def attach_watchdog(self, watchdog) -> "PagedEngine":
+        """Wire a :class:`~paddle_tpu_torch.distributed.watchdog.Watchdog`
+        into the tick loop: every tick brackets begin_work/end_work (so
+        an idle engine stays quiet), and a tick stalled past the
+        watchdog's timeout flips this replica DEGRADED while the
+        watchdog dumps thread stacks and the span buffer's tail."""
+        self._watchdog = watchdog
+        prev = watchdog.on_hang
+
+        def _on_hang(wd):
+            self.lifecycle.degrade(
+                f"tick stalled > {wd.timeout}s (watchdog)")
+            if prev is not None:
+                prev(wd)
+
+        watchdog.on_hang = _on_hang
+        return self
+
+    def health(self) -> dict:
+        """Liveness/readiness probe payload (what an HTTP /healthz in
+        front of this replica returns)."""
+        lc = self.lifecycle
+        h = {"state": lc.state, "ready": lc.ready(),
+             "live": lc.live(),
+             "queue_depth": len(self.queue),
+             "active": self.num_active,
+             "prefilling": len(self._prefilling),
+             "kv_blocks_free": self.bm.available,
+             "kv_blocks_total": self._total_usable,
+             "kv_dtype": str(self.kv_dtype).replace("torch.", ""),
+             "kv_bytes_per_token": self.kv_bytes_per_token,
+             "ticks": self._ticks,
+             "tick_failures": self.tick_failures,
+             "phase_share": self.scheduler.phase_share(),
+             # the probe doubles as the burn-rate decay poll: an idle
+             # replica's windows age out here, so the gauges fall back
+             # to 0 after an incident instead of pinning high
+             "slo_burn_rate": self._slo.burn_rates(self._clock())}
+        if self._spec is not None:
+            h["spec_acceptance_rate"] = (
+                self.spec_accepted / self.spec_proposed
+                if self.spec_proposed else None)
+        return h
 
 
 # The generic engine picks the adapter itself (the JAX package's names).

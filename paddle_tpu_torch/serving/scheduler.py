@@ -9,16 +9,41 @@ first, prefill gets the budget. ``prefill_token_budget=None`` keeps the
 unbudgeted behaviour (every pending chunk in the admission tick).
 
 The scheduler keeps its totals locally (``prefill_tokens``,
-``decode_tokens``, ``deferred_chunks``, ``phase_share()``). The JAX
-package also exports them as process-wide metrics counters; the port's
-metrics registry comes with a later slice.
+``decode_tokens``, ``deferred_chunks``, ``phase_share()``) and exports
+them under the JAX package's metric names:
+``paddle_tpu_serving_prefill_tokens_total`` /
+``paddle_tpu_serving_decode_tokens_total`` count scheduled tokens per
+phase, ``paddle_tpu_serving_prefill_chunks_deferred_total`` the chunks
+the budget pushed to a later tick, and
+``paddle_tpu_serving_tick_phase_share{phase=}`` is the sliding share of
+program time each phase took over recent ticks.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
 from typing import Optional
 
+from ..observability import metrics as _metrics
+
 __all__ = ["SchedulerConfig", "Scheduler"]
+
+M_PREFILL_TOKENS = _metrics.counter(
+    "paddle_tpu_serving_prefill_tokens_total",
+    "Prompt tokens scheduled through chunked prefill (includes chunk "
+    "padding — the tokens the chip actually processed).")
+M_DECODE_TOKENS = _metrics.counter(
+    "paddle_tpu_serving_decode_tokens_total",
+    "Tokens scheduled through the batched decode step (speculative "
+    "verify positions count — they are decode compute).")
+M_TICK_PHASE_SHARE = _metrics.gauge(
+    "paddle_tpu_serving_tick_phase_share",
+    "Sliding share of per-tick device time spent in each serving phase "
+    "(prefill vs decode), over the last window of ticks.",
+    labelnames=("phase",))
+M_PREFILL_DEFERRED = _metrics.counter(
+    "paddle_tpu_serving_prefill_chunks_deferred_total",
+    "Prefill chunks ready to run but pushed to a later tick by the "
+    "scheduler's token budget (decode-priority interleaving at work).")
 
 
 @dataclass
@@ -79,6 +104,7 @@ class Scheduler:
     def note_deferred(self, chunks: int):
         if chunks > 0:
             self.deferred_chunks += chunks
+            M_PREFILL_DEFERRED.inc(chunks)
 
     def tick_phase_seconds(self) -> dict:
         """The current tick's seconds per phase (before ``end_tick``)."""
@@ -90,13 +116,16 @@ class Scheduler:
         its result to the host)."""
         if phase == "prefill":
             self.prefill_tokens += tokens
+            M_PREFILL_TOKENS.inc(tokens)
         else:
             self.decode_tokens += tokens
+            M_DECODE_TOKENS.inc(tokens)
         self._tick_s[phase if phase in self._tick_s else "decode"] += \
             seconds
 
     def end_tick(self):
-        """Close the tick: fold its phase seconds into the window."""
+        """Close the tick: fold its phase seconds into the window and
+        export the share gauges."""
         cur = (self._tick_s["prefill"], self._tick_s["decode"])
         self._tick_s = {"prefill": 0.0, "decode": 0.0}
         if cur == (0.0, 0.0):
@@ -104,6 +133,12 @@ class Scheduler:
         self._window.append(cur)
         if len(self._window) > self.config.share_window_ticks:
             self._window.pop(0)
+        p = sum(w[0] for w in self._window)
+        d = sum(w[1] for w in self._window)
+        total = p + d
+        if total > 0:
+            M_TICK_PHASE_SHARE.set(p / total, phase="prefill")
+            M_TICK_PHASE_SHARE.set(d / total, phase="decode")
 
     def phase_share(self) -> dict:
         """Each phase's share of the window's seconds (None when empty)."""

@@ -13,15 +13,30 @@ program yields.
 
 Any object with ``propose(context) -> list[int]`` (at most ``k``
 tokens) and a ``k`` attribute can be given as ``PagedEngine(speculate=)``.
-The JAX package's process-wide proposed/accepted counters come with the
-port's metrics registry in a later slice; the engine keeps its own
-``spec_proposed``/``spec_accepted``.
+The engine keeps its own ``spec_proposed``/``spec_accepted`` and
+counts them into this process's metrics below (the JAX package's names).
 """
 from __future__ import annotations
 
 from typing import List, Sequence
 
-__all__ = ["NgramProposer"]
+from ..observability import metrics as _metrics
+
+__all__ = ["NgramProposer", "M_SPEC_PROPOSED", "M_SPEC_ACCEPTED",
+           "M_SPEC_ACCEPT_RATE"]
+
+
+M_SPEC_PROPOSED = _metrics.counter(
+    "paddle_tpu_serving_spec_proposed_tokens_total",
+    "Draft tokens proposed into speculative verify steps.")
+M_SPEC_ACCEPTED = _metrics.counter(
+    "paddle_tpu_serving_spec_accepted_tokens_total",
+    "Draft tokens accepted by the target model (each saves one decode "
+    "tick).")
+M_SPEC_ACCEPT_RATE = _metrics.gauge(
+    "paddle_tpu_serving_spec_acceptance_rate",
+    "Cumulative accepted/proposed draft-token ratio of this process's "
+    "speculative engines.")
 
 
 class NgramProposer:

@@ -21,6 +21,8 @@ from paddle_tpu_torch.models import (GPTConfig, GPTForCausalLM, LlamaConfig,
 from paddle_tpu_torch.ops.cuda import flash_attention as fa
 from paddle_tpu_torch.ops.cuda import fused_ops as FK
 from paddle_tpu_torch.optimizer import AdamW
+from paddle_tpu_torch.serving import Router
+from paddle_tpu_torch.tools.loadgen import run_load
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TINY = GPTConfig(vocab_size=83, hidden_size=64, num_layers=2, num_heads=4,
@@ -53,9 +55,11 @@ def test_imports_without_jax_or_paddle_tpu():
                           timeout=300)
     assert proc.returncode == 0, proc.stderr
     # every module was walked: serving, the training slice's functionals,
-    # clipping, schedulers and optimizers, and the fusion slice's flags,
-    # norms, activations, fused ops, LLaMA, fusion pass and to_static
-    assert int(proc.stdout.split()[-1]) >= 37
+    # clipping, schedulers and optimizers, the fusion slice's flags,
+    # norms, activations, fused ops, LLaMA, fusion pass and to_static,
+    # and the serving tier's observability, fault, watchdog, router,
+    # stream and tools modules
+    assert int(proc.stdout.split()[-1]) >= 65
 
 
 def test_no_silent_cpu_without_cuda():
@@ -68,6 +72,12 @@ def test_no_silent_cpu_without_cuda():
     model = GPTForCausalLM(TINY, device="cpu")
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         PagedEngine(model)
+    engine = PagedEngine(model, device="cpu")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        Router([engine])
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        run_load(engine, offered_rps=1.0, n_requests=1)
+    assert engine.queue == [] and engine._ticks == 0
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         LlamaForCausalLM(LlamaConfig(vocab_size=83, hidden_size=64,
                                      num_layers=1, num_heads=2))
