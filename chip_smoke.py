@@ -116,17 +116,32 @@ Phases, in order; any failure exits non-zero and nothing is caught:
              CUDA events, tokens/s, MFU, peak memory beside the card's name
              and power limit, the optimizer state's bytes, the losses, the
              launches and the switches.
+* paddle_api -- the Paddle API's eager core (``import paddle_tpu_torch as
+             paddle``): bench.py's _bench_dispatch (300 128x128 fp32
+             ``paddle.matmul``s with grad, under no_grad, and raw
+             ``torch.matmul``: us an op); a tiny fp32 BERT (bench.py's
+             small config with 2 heads of 64: K1-K3 take head dims 64 and
+             128) on the card against a CPU twin with the same weights,
+             logits within LOGITS_TOL and three AdamW steps' losses
+             within LOSS_TOL, K1/K2/K3 once a layer a step; K1-K3 at
+             BERT-base's attention (B48 S512 H12 d64, non-causal, bf16)
+             against their plain versions, two K2/K3 calls bitwise equal,
+             timed beside bound and SDPA (rows under each kernel's
+             "shapes"); then bench.py's BERT-base rung (_bench_bert:
+             vocab 30592, 12 layers, B=48, S=512, the fused loss, bf16
+             weights, fp32 masters, AdamW, O1), 10 timed steps after 2 of
+             warm-up, one JSON line like the rungs'.
 
-The forward, serve, serve_llama, serve_tier, train, fusion and rungs
-phases are the main path (serve_tier launches no kernel: the tier is host
-code over the engine, and its LLaMA runs without flash attention, as
-bench.py's rungs do): every kernel's launch count is set to 0 just before
-each of them and read just after it. The last lines are the kernels' JSON summary
+The forward, serve, serve_llama, serve_tier, train, fusion, rungs and
+paddle_api phases are the main path (serve_tier launches no kernel: the
+tier is host code over the engine, and its LLaMA runs without flash
+attention, as bench.py's rungs do): every kernel's launch count is set to
+0 just before each of them and read just after it. The last lines are the kernels' JSON summary
 (all seven, with their launches over the main path), the card's name and
 power limit from nvidia-smi, and {"ok": true, "device": {...}}.
 ``--profile`` adds a torch.profiler breakdown of a bf16 forward, a GPT-2
 and a LLaMA engine run, one training step, a fused and an unfused step of
-each fusion path, and one step of each rung.
+each fusion path, one step of each rung and one BERT-base step.
 """
 from __future__ import annotations
 
@@ -144,9 +159,10 @@ import numpy as np
 import torch
 
 PHASES = ("build", "kernel", "fused_kernel", "forward", "serve",
-          "serve_llama", "serve_tier", "train", "fusion", "rungs")
+          "serve_llama", "serve_tier", "train", "fusion", "rungs",
+          "paddle_api")
 MAIN_PATH = ("forward", "serve", "serve_llama", "serve_tier", "train",
-             "fusion", "rungs")
+             "fusion", "rungs", "paddle_api")
 PATH_SHAPE = dict(b=4, s=1024, h=12, d=64)      # GPT-2 small serving
 TRAIN_SHAPE = dict(b=8, s=1024, h=16, d=64)     # GPT-2 345M training
 LLAMA_ATTN_SHAPE = dict(b=4, s=2048, h=12, d=128)   # LLaMA-770M fusion path
@@ -395,6 +411,10 @@ def _bound(moved, flops, peak=BF16_FLOP_PER_S):
             "bytes" if bytes_ms >= flops_ms else "operations")
 
 
+def _mode(causal):
+    return "causal" if causal else "non-causal"
+
+
 def _visible_pairs(s_q, s_k, causal):
     """(query, key) pairs a head computes: all, or the bottom-right causal
     triangle (query i sees keys <= i + s_k - s_q)."""
@@ -415,27 +435,27 @@ def _library_attention(q, k, v, causal):
     return (qt, kt, vt), out
 
 
-def _time_fwd(fa, gen, shape):
-    """K1 at one path shape (bf16, causal): its time beside its bound, its
-    plain version and PyTorch's SDPA; logs the row and returns the
-    kernels-line fields."""
+def _time_fwd(fa, gen, shape, causal=True):
+    """K1 at one path shape (bf16, causal unless told): its time beside
+    its bound, its plain version and PyTorch's SDPA; logs the row and
+    returns the kernels-line fields."""
     b, s, h, d = shape["b"], shape["s"], shape["h"], shape["d"]
     q, k, v = _qkv(b, s, s, h, d, torch.bfloat16, gen)
     def run():
-        return fa.flash_attention_fwd(q, k, v, causal=True)
+        return fa.flash_attention_fwd(q, k, v, causal=causal)
     ms, q1, q3 = time_ms(run, reps=KERNEL_REPS, queued=True)
     host = host_ms(run)
     plain_ms, _, _ = time_ms(
-        lambda: fa.flash_attention_fwd_plain(q, k, v, causal=True), iters=5,
+        lambda: fa.flash_attention_fwd_plain(q, k, v, causal=causal), iters=5,
         queued=True)
     qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
     library_ms, _, _ = time_ms(
         lambda: torch.nn.functional.scaled_dot_product_attention(
-            qt, kt, vt, is_causal=True), reps=KERNEL_REPS, queued=True)
+            qt, kt, vt, is_causal=causal), reps=KERNEL_REPS, queued=True)
     moved = 4 * b * s * h * d * q.element_size() + b * h * s * 4  # +lse
-    flops = 4.0 * b * h * d * _visible_pairs(s, s, True)
+    flops = 4.0 * b * h * d * _visible_pairs(s, s, causal)
     bound_ms, bound_by = _bound(moved, flops)
-    label = f"B{b} S{s} H{h} d{d} bf16 causal"
+    label = f"B{b} S{s} H{h} d{d} bf16 {_mode(causal)}"
     log(json.dumps({"kernel": "flash_attention_fwd", "shape": label,
                     "kernel_ms": ms, "kernel_ms_q1": q1, "kernel_ms_q3": q3,
                     "host_ms_a_call": host, "bound_ms": bound_ms, "bound_by": bound_by,
@@ -535,49 +555,52 @@ def _kernel_bwd(fa, gen, state):
         state["kernels"][name] = dict(rows[0], shapes=rows)
 
 
-def _bwd_deterministic(fa, gen):
+def _bwd_deterministic(fa, gen, shape=(2, 1000, 4, 128), causal=True):
     """Two calls of K2 and K3 on one input give bitwise-equal dq, dk and dv
-    (no atomics: each sum runs in one order), in bf16 at a causal d=128
-    shape with ragged tiles."""
-    q, k, v, do = _bwd_inputs(2, 1000, 1000, 4, 128, torch.bfloat16, gen)
-    out, lse = fa.flash_attention_fwd(q, k, v, causal=True)
+    (no atomics: each sum runs in one order), in bf16; by default at a
+    causal d=128 shape with ragged tiles."""
+    b, s, h, d = shape
+    q, k, v, do = _bwd_inputs(b, s, s, h, d, torch.bfloat16, gen)
+    out, lse = fa.flash_attention_fwd(q, k, v, causal=causal)
     delta = fa.flash_attention_bwd_delta(out, do)
-    runs = [(fa.flash_attention_bwd_dq(q, k, v, do, lse, delta, causal=True),
+    runs = [(fa.flash_attention_bwd_dq(q, k, v, do, lse, delta, causal=causal),
              *fa.flash_attention_bwd_dkv(q, k, v, do, lse, delta,
-                                         causal=True)) for _ in range(2)]
+                                         causal=causal)) for _ in range(2)]
     torch.cuda.synchronize()
     same = [torch.equal(a, b) for a, b in zip(*runs)]
-    log(f"  bwd bfloat16 two calls bitwise equal (dq, dk, dv): {same}")
+    log(f"  bwd bfloat16 {shape} {_mode(causal)} two calls bitwise equal "
+        f"(dq, dk, dv): {same}")
     if not all(same):
         raise AssertionError(f"K2/K3 differ from call to call: {same}")
 
 
-def _time_bwd(fa, gen, shape):
-    """K2 and K3 at one path shape (bf16, causal): each one's time beside
-    its bound, the plain backward and PyTorch's flash backward (one call
-    that computes dQ, dK and dV: one time for the pair), and the host time
-    a call; logs one row each and returns the kernels-line fields."""
+def _time_bwd(fa, gen, shape, causal=True):
+    """K2 and K3 at one path shape (bf16, causal unless told): each one's
+    time beside its bound, the plain backward and PyTorch's flash backward
+    (one call that computes dQ, dK and dV: one time for the pair), and the
+    host time a call; logs one row each and returns the kernels-line
+    fields."""
     b, s, h, d = shape["b"], shape["s"], shape["h"], shape["d"]
     q, k, v, do = _bwd_inputs(b, s, s, h, d, torch.bfloat16, gen)
-    out, lse = fa.flash_attention_fwd(q, k, v, causal=True)
+    out, lse = fa.flash_attention_fwd(q, k, v, causal=causal)
     delta = fa.flash_attention_bwd_delta(out, do)
     calls = {
         "flash_attention_bwd_dq": lambda: fa.flash_attention_bwd_dq(
-            q, k, v, do, lse, delta, causal=True),
+            q, k, v, do, lse, delta, causal=causal),
         "flash_attention_bwd_dkv": lambda: fa.flash_attention_bwd_dkv(
-            q, k, v, do, lse, delta, causal=True)}
+            q, k, v, do, lse, delta, causal=causal)}
     times = {name: (time_ms(fn, reps=KERNEL_REPS, queued=True), host_ms(fn))
              for name, fn in calls.items()}
     plain_ms, _, _ = time_ms(lambda: fa.flash_attention_bwd_plain(
-        q, k, v, out, lse, do, causal=True), iters=5, queued=True)
-    leaves, lib_out = _library_attention(q, k, v, True)
+        q, k, v, out, lse, do, causal=causal), iters=5, queued=True)
+    leaves, lib_out = _library_attention(q, k, v, causal)
     lib_do = do.transpose(1, 2).contiguous()
     library_ms, _, _ = time_ms(lambda: torch.autograd.grad(
         lib_out, leaves, lib_do, retain_graph=True), reps=KERNEL_REPS,
         queued=True)
     tensor_bytes = b * s * h * d * q.element_size()
     row_bytes = b * h * s * 4                       # lse or Delta
-    pairs = _visible_pairs(s, s, True)
+    pairs = _visible_pairs(s, s, causal)
     plans = {
         # reads q, k, v, dO, lse, Delta; writes dQ. S, dP, dS K: 6d a pair
         "flash_attention_bwd_dq": (5 * tensor_bytes + 2 * row_bytes,
@@ -586,7 +609,7 @@ def _time_bwd(fa, gen, shape):
         "flash_attention_bwd_dkv": (6 * tensor_bytes + 2 * row_bytes,
                                     8.0 * d * pairs * b * h),
     }
-    label = f"B{b} S{s} H{h} d{d} bf16 causal"
+    label = f"B{b} S{s} H{h} d{d} bf16 {_mode(causal)}"
     fields = {}
     for name, (moved, flops) in plans.items():
         (ms, q1, q3), host = times[name]
@@ -2423,6 +2446,268 @@ def phase_rungs(state):
         torch.cuda.empty_cache()
 
 
+# ------------------------------------------------------------ paddle_api
+# bench.py _bench_bert (:287-339): BERT-base, dropouts 0, the fused loss
+BERT_BASE = dict(vocab_size=30592, hidden_size=768, num_hidden_layers=12,
+                 num_attention_heads=12, intermediate_size=3072,
+                 hidden_dropout_prob=0.0, attention_probs_dropout_prob=0.0,
+                 fused_loss=True)
+BERT_SHAPE = dict(b=48, s=512, h=12, d=64)        # its attention
+BERT_STEPS, BERT_WARMUP = 10, 2
+# bench.py's small BERT with 2 heads of 64 where it has 4 of 32: K1-K3 take
+# head dims 64 and 128 only, and the parity run must launch them
+BERT_TINY = dict(vocab_size=512, hidden_size=128, num_hidden_layers=2,
+                 num_attention_heads=2, intermediate_size=256,
+                 max_position_embeddings=128, hidden_dropout_prob=0.0,
+                 attention_probs_dropout_prob=0.0)
+DISPATCH_OPS = 300          # bench.py _bench_dispatch: 128x128 matmuls
+
+
+def _dispatch_overhead(paddle, card):
+    """bench.py _bench_dispatch (:2242): a loop of DISPATCH_OPS 128x128
+    fp32 ``paddle.matmul``s with grad recorded, under ``no_grad``, and the
+    same loop on raw ``torch.matmul`` (the floor); host time a op after a
+    warm-up, ending in a synchronize."""
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    xa = torch.randn(128, 128, generator=gen, device="cuda")
+    wa = torch.randn(128, 128, generator=gen, device="cuda") / 128 ** 0.5
+    x, w = paddle.to_tensor(xa), paddle.to_tensor(wa)
+    w.stop_gradient = False
+
+    def loop(mm, y, wt):
+        for _ in range(DISPATCH_OPS):
+            y = mm(y, wt)
+        return y
+
+    def us_per_op(mm, y, wt):
+        loop(mm, y, wt)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loop(mm, y, wt)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) / DISPATCH_OPS * 1e6
+
+    grad = us_per_op(paddle.matmul, x, w)
+    with paddle.no_grad():
+        no_grad = us_per_op(paddle.matmul, x, w)
+    raw = us_per_op(torch.matmul, xa, wa)
+    row = {"dispatch": "paddle.matmul 128x128 fp32", "ops": DISPATCH_OPS,
+           "us_per_op_grad": grad, "us_per_op_no_grad": no_grad,
+           "us_per_op_torch_matmul": raw, "card": card}
+    log(json.dumps(row))
+    return row
+
+
+def _bert_step(paddle, model, opt, ids, events=None, amp_kw=None):
+    """One eager step: forward (loss), backward, AdamW; returns the loss
+    and the step's launches, which must be one K1, K2 and K3 a layer."""
+    from paddle_tpu_torch import amp
+    layers = model.bert.cfg.num_hidden_layers
+    c0 = _counts()
+    if events:
+        events[0].record()
+    with (amp.auto_cast(**amp_kw) if amp_kw else contextlib.nullcontext()):
+        loss = model(ids, masked_lm_labels=ids)[2]
+    if events:
+        events[1].record()
+    loss.backward()
+    if events:
+        events[2].record()
+    opt.step()
+    opt.clear_grad()
+    if events:
+        events[3].record()
+    launched = _launched(c0, _counts())
+    want = {"flash_attention_fwd": layers, "flash_attention_bwd_dq": layers,
+            "flash_attention_bwd_dkv": layers}
+    if launched != want:
+        raise AssertionError(f"BERT step launched {launched}, wants {want}")
+    return loss
+
+
+def _bert_tiny_parity(paddle):
+    """fp32 tiny BERT on the card against a CPU twin with the same weights:
+    MLM and NSP logits within LOGITS_TOL, three AdamW steps' losses within
+    LOSS_TOL; each card step launches K1, K2 and K3 once a layer."""
+    from paddle_tpu_torch.models import BertConfig, BertForPretraining
+    b, s = 2, 128
+    paddle.seed(11)
+    card = BertForPretraining(BertConfig(**BERT_TINY, fused_loss=True))
+    state = {k: v.numpy() for k, v in card.state_dict().items()}
+    with paddle.device_guard("cpu"):
+        twin = BertForPretraining(BertConfig(**BERT_TINY, fused_loss=True))
+        twin.set_state_dict(state)
+    batches = [np.random.RandomState(40 + i).randint(
+        0, BERT_TINY["vocab_size"], (b, s)) for i in range(3)]
+    with paddle.no_grad():          # no labels: (MLM logits, NSP logits)
+        got = card(paddle.to_tensor(batches[0]))
+        with paddle.device_guard("cpu"):
+            ref = twin(paddle.to_tensor(batches[0]))
+    err = max(float(np.abs(g.numpy() - r.numpy()).max())
+              for g, r in zip(got, ref))
+    losses = []
+    for model, dev in ((card, None), (twin, "cpu")):
+        guard = (paddle.device_guard(dev) if dev
+                 else contextlib.nullcontext())
+        with guard:
+            opt = paddle.optimizer.AdamW(learning_rate=LR,
+                                         parameters=model.parameters(),
+                                         **ADAMW)
+            run = []
+            for ids in batches:
+                t = paddle.to_tensor(ids)
+                if dev:
+                    loss = model(t, masked_lm_labels=t)[2]
+                    loss.backward()
+                    opt.step()
+                    opt.clear_grad()
+                else:
+                    loss = _bert_step(paddle, model, opt, t)
+                run.append(float(loss.item()))
+            losses.append(run)
+    loss_err = max(abs(a - c) for a, c in zip(*losses))
+    log(f"paddle_api: tiny BERT fp32 card vs CPU: logits max abs err {err:.3e}"
+        f" (limit {LOGITS_TOL}); losses {losses[0]} vs {losses[1]}, max err "
+        f"{loss_err:.3e} (limit {LOSS_TOL})")
+    if not (err <= LOGITS_TOL and loss_err <= LOSS_TOL):
+        raise AssertionError("tiny BERT: the card disagrees with its CPU "
+                             "twin")
+
+
+def _bert_kernels(state):
+    """K1-K3 at BERT-base's attention (B48 S512 H12 d64, non-causal), bf16:
+    K1 against its plain version (BF16_TOL), K2/K3 norm-wise against the
+    plain backward (BWD_LIMITS), two K2/K3 calls bitwise equal; each timed
+    beside its bound and SDPA. The rows go under each kernel's "shapes" in
+    the kernels line."""
+    import paddle_tpu_torch.ops.cuda.flash_attention as fa
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(4321)
+    sh = BERT_SHAPE
+    err, lse_err, blind = _kernel_case(fa, sh["b"], sh["s"], sh["s"],
+                                       sh["h"], sh["d"], False, True,
+                                       torch.bfloat16, gen)
+    q, k, v, do = _bwd_inputs(sh["b"], sh["s"], sh["s"], sh["h"], sh["d"],
+                              torch.bfloat16, gen)
+    errs, _ = _bwd_case(fa, q, k, v, do, False)
+    del q, k, v, do
+    rel = [e[1] for e in errs]
+    log(f"  bert attention bf16 non-causal: K1 max_abs_err={err:.3e} "
+        f"lse_err={lse_err:.3e}; K2/K3 norm-wise dq/dk/dv {rel}")
+    if not (err <= BF16_TOL and lse_err <= BF16_TOL
+            and max(rel) <= BWD_LIMITS[torch.bfloat16]):
+        raise AssertionError(f"K1-K3 at {sh}: fwd {err}, lse {lse_err}, "
+                             f"bwd {rel}")
+    _bwd_deterministic(fa, gen, (sh["b"], sh["s"], sh["h"], sh["d"]), False)
+    rows = {"flash_attention_fwd": dict(_time_fwd(fa, gen, sh, False),
+                                        max_abs_err=err)}
+    for name, row in _time_bwd(fa, gen, sh, False).items():
+        k_err = errs[0][0] if name.endswith("dq") else max(errs[1][0],
+                                                          errs[2][0])
+        rows[name] = dict(row, max_abs_err=k_err)
+    for name, row in rows.items():
+        k = state.setdefault("kernels", {}).setdefault(name, {})
+        k.setdefault("shapes", [dict(k)] if k else []).append(row)
+    return rows
+
+
+def _bert_base_rung(paddle, card, profile):
+    """bench.py's BERT-base rung: bf16-resident weights (every float
+    parameter, LayerNorm too), AdamW with fp32 masters, O1 bf16, B=48,
+    S=512, the fused loss; BERT_WARMUP steps, then BERT_STEPS timed, each
+    on its own RandomState(i) batch with labels = ids (make_inputs)."""
+    from paddle_tpu_torch.models import BertConfig, BertForPretraining
+    cfg = BertConfig(**BERT_BASE)
+    b, s = BERT_SHAPE["b"], BERT_SHAPE["s"]
+    paddle.seed(12)
+    model = BertForPretraining(cfg)
+    model.to(dtype="bfloat16")
+    n_params = sum(p.size for p in model.parameters())
+    opt = paddle.optimizer.AdamW(learning_rate=LR, multi_precision=True,
+                                 parameters=model.parameters(), **ADAMW)
+    batches = [paddle.to_tensor(np.random.RandomState(i).randint(
+        0, cfg.vocab_size, (b, s)).astype(np.int64))
+        for i in range(BERT_STEPS)]
+    warm = [paddle.to_tensor(np.random.RandomState(1000 + i).randint(
+        0, cfg.vocab_size, (b, s)).astype(np.int64))
+        for i in range(BERT_WARMUP)]
+    for ids in warm:
+        _bert_step(paddle, model, opt, ids, amp_kw=O1)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    c0 = _counts()
+    walls, split, losses = [], [], []
+    for ids in batches:
+        events = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss = _bert_step(paddle, model, opt, ids, events, amp_kw=O1)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        split.append([events[j].elapsed_time(events[j + 1])
+                      for j in range(3)])
+        losses.append(float(loss.item()))
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    launched = _launched(c0, _counts())
+    q1, median, q3 = statistics.quantiles(walls, n=4)
+    fwd, bwd, upd = (statistics.median(x[j] for x in split)
+                     for j in range(3))
+    tokens = b * s
+    flops_per_token = 6 * n_params + 12 * cfg.num_hidden_layers \
+        * cfg.hidden_size * s
+    row = {"rung": f"bert_base O1 bf16 fused_loss B{b} S{s}", "card": card,
+           "params": n_params, "steps": len(losses), "step_ms": median * 1e3,
+           "step_ms_q1": q1 * 1e3, "step_ms_q3": q3 * 1e3,
+           "forward_ms": fwd, "backward_ms": bwd, "optimizer_ms": upd,
+           "tokens_per_s": tokens / median,
+           "mfu": flops_per_token * tokens / median / BF16_FLOP_PER_S,
+           "flops_per_token": flops_per_token, "peak_memory_gb": peak,
+           "loss_first": losses[0], "loss_last": losses[-1],
+           "losses": losses, "launches": launched,
+           "switches": dict(amp="O1 bfloat16", bf16_weights=True,
+                            master_weights="fp32", fused_loss=True,
+                            recompute=False, fusion=False)}
+    if profile:
+        prof = _profile(
+            "bert_base step",
+            lambda: _bert_step(paddle, model, opt, batches[0], amp_kw=O1),
+            groups={"K1-K3 attention": ("flash_fwd", "dq_", "dkv_"),
+                    "cuBLAS GEMM": ("nvjet", "xmma", "cutlass", "cublas"),
+                    "elementwise and reductions": (
+                        "elementwise", "reduce", "vectorized")})
+        row["profiled_device_ms"] = prof["device_busy_s"] * 1e3
+        row["device_busy_share"] = prof["device_busy_share"]
+    log(json.dumps(row))
+    if not (all(np.isfinite(losses)) and losses[-1] < losses[0]):
+        raise AssertionError(f"bert_base: losses {losses}")
+    layers = cfg.num_hidden_layers * len(losses)
+    if launched != {"flash_attention_fwd": layers,
+                    "flash_attention_bwd_dq": layers,
+                    "flash_attention_bwd_dkv": layers}:
+        raise AssertionError(f"bert_base launched {launched}")
+    return row
+
+
+def phase_paddle_api(state):
+    """The Paddle-API eager core on the card: dispatch overhead, a tiny
+    BERT against its CPU twin, K1-K3 at BERT-base's attention, and
+    bench.py's BERT-base rung."""
+    import paddle_tpu_torch as paddle
+    card = _card_line()
+    with paddle.device_guard("gpu:0"):
+        _dispatch_overhead(paddle, card)
+        _bert_tiny_parity(paddle)
+        # the comparisons and timings are not the main path: their
+        # launches do not count
+        counts = _counts()
+        _bert_kernels(state)
+        for name, n in counts.items():
+            _wrapper(name).launches = n
+        torch.cuda.empty_cache()
+        _bert_base_rung(paddle, card, state.get("profile"))
+    torch.cuda.empty_cache()
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--phases", default=",".join(PHASES),
@@ -2431,7 +2716,7 @@ def main(argv=None) -> int:
                         help="also print torch.profiler breakdowns of a "
                         "bf16 forward, engine run and training step, of a "
                         "fused and an unfused step of each fusion path, "
-                        "and of one step of each rung")
+                        "of one step of each rung and of a BERT-base step")
     args = parser.parse_args(argv)
     phases = [p for p in args.phases.split(",") if p]
     unknown = set(phases) - set(PHASES)

@@ -22,19 +22,49 @@ lifecycle, deadlines and backpressure (``inference.resilience``),
 request tracing and metrics (``observability``), ``serving.Router``,
 ``serving.TokenStream`` and the open-loop load harness
 (``tools.loadgen``).
+
+The Paddle API's eager core, as in the JAX package: ``Tensor`` over a
+``torch.Tensor`` payload with torch's autograd, the op dispatcher
+(``core.dispatch``: amp casts, NaN/Inf checks, op hooks, metrics), the
+ops, ``autograd`` (``backward``, ``grad``, ``PyLayer``, jacobian and
+hessian), ``nn.Layer`` and its layers, and BERT written on them:
+``import paddle_tpu_torch as paddle``, then ``paddle.to_tensor``,
+``paddle.nn.Linear``, ``loss.backward()`` and
+``paddle.optimizer.AdamW(parameters=layer.parameters())``. Tensors land
+on the card unless ``paddle.set_device("cpu")`` asked for the CPU.
 """
-from . import (amp, compile, core, distributed, fault, inference, jit, models,
-               nn, observability, ops, optimizer, serving, tools)
+from . import (amp, autograd, compile, core, distributed, fault, incubate,
+               inference, jit, models, nn, observability, ops, optimizer,
+               serving, tools)
+from .autograd import PyLayer, backward, grad, is_grad_enabled
 from .core import get_flag, resolve_device, set_flags
+from .core.dispatch import (enable_grad, no_grad,
+                            set_grad_enabled_ctx as set_grad_enabled)
+from .core.dtype import (bfloat16, bool_ as bool, complex64, complex128,
+                         float16, float32, float64, get_default_dtype, int8,
+                         int16, int32, int64, set_default_dtype, uint8)
+from .core.generator import get_rng_state, seed, set_rng_state
+from .core.place import (CPUPlace, CUDAPlace, Place, device_count,
+                         device_guard, get_device, set_device)
+from .core.tensor import Tensor, is_tensor
+from .nn.parameter import ParamAttr, create_parameter
+from .ops import *  # noqa: F401,F403
+from .ops import __all__ as _ops
 from .inference import GPTPagedEngine, LlamaPagedEngine, PagedEngine
 from .jit import to_static
 from .models import (GPTConfig, GPTForCausalLM, LlamaConfig, LlamaForCausalLM,
                      gpt2_medium, gpt2_small)
 
-__all__ = ["amp", "compile", "core", "distributed", "fault", "inference",
-           "jit", "models", "nn", "observability", "ops", "optimizer",
-           "serving", "tools", "resolve_device",
-           "get_flag",
-           "set_flags", "to_static", "GPTConfig", "GPTForCausalLM",
+__all__ = ["amp", "autograd", "compile", "core", "distributed", "fault",
+           "incubate", "inference", "jit", "models", "nn", "observability",
+           "ops", "optimizer", "serving", "tools", "resolve_device",
+           "Tensor", "is_tensor", "no_grad", "enable_grad",
+           "set_grad_enabled", "is_grad_enabled", "backward", "grad",
+           "PyLayer", "seed", "get_rng_state", "set_rng_state",
+           "set_device", "get_device", "device_guard", "device_count",
+           "Place", "CPUPlace", "CUDAPlace", "ParamAttr", "create_parameter",
+           "bool", "uint8", "int8", "int16", "int32", "int64", "float16",
+           "bfloat16", "float32", "float64", "complex64", "complex128",
+           "get_default_dtype", "set_default_dtype", "get_flag", "set_flags", "to_static", "GPTConfig", "GPTForCausalLM",
            "gpt2_small", "gpt2_medium", "LlamaConfig", "LlamaForCausalLM",
-           "PagedEngine", "GPTPagedEngine", "LlamaPagedEngine"]
+           "PagedEngine", "GPTPagedEngine", "LlamaPagedEngine"] + list(_ops)

@@ -1,10 +1,12 @@
 """Automatic mixed precision (counterpart of ``paddle_tpu/amp/``).
 
 ``auto_cast`` O1/O2 with the JAX package's op lists (``amp_lists``),
-applied by the port's functionals through ``amp_cast`` alike on the CPU
-and the card; ``decorate`` for O2; the fp16 ``GradScaler``. The JAX
-package's ``amp.debugging`` is a later slice: it needs the op dispatch
-that the port does not have yet.
+applied by the op dispatcher and the port's torch-level functionals
+through ``amp_cast`` alike on the CPU and the card; ``decorate`` for O2
+(a ``torch.nn.Module`` or a Paddle-API ``Layer``); the fp16
+``GradScaler``. The JAX package's ``amp.debugging`` is still to port
+(it stands on the dispatcher's ``check_nan_inf``, which the port now
+has).
 """
 from .amp_lists import AMP_BLACK_OPS, AMP_WHITE_OPS
 from .auto_cast import amp_decorate, amp_guard, auto_cast, decorate

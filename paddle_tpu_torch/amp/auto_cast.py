@@ -46,18 +46,31 @@ def decorate(models, optimizers=None, level="O1", dtype="bfloat16",
     (the same ``Parameter`` objects, so optimizers built on them stay
     valid), except those of LayerNorm and BatchNorm layers and of
     ``excluded_layers`` (layer types); the port's ``RMSNorm`` is cast, as
-    the JAX package's is. Each optimizer keeps fp32 masters
-    (``_multi_precision``). O0/O1 return the arguments unchanged."""
+    the JAX package's is. A model is a ``torch.nn.Module`` or a Paddle-API
+    ``Layer`` (whose Parameters keep their payloads, cast in place). Each
+    optimizer keeps fp32 masters (``_multi_precision``). O0/O1 return the
+    arguments unchanged."""
     if level in ("O0", "O1"):
         return (models, optimizers) if optimizers is not None else models
     target = convert_dtype(dtype)
     model_list = models if isinstance(models, (list, tuple)) else [models]
-    keep = (nn.LayerNorm, _BatchNorm) + tuple(excluded_layers or ())
+    from ..nn.layer.layers import Layer
+    from ..nn.layer.norm import LayerNorm, _BatchNormBase
+    keep = (nn.LayerNorm, _BatchNorm, LayerNorm, _BatchNormBase) + tuple(
+        excluded_layers or ())
     for model in model_list:
-        for layer in model.modules():
+        if isinstance(model, Layer):
+            layers = model.sublayers(include_self=True)
+            params = [[p._data for p in layer.parameters(
+                include_sublayers=False)] for layer in layers]
+        else:
+            layers = list(model.modules())
+            params = [list(layer.parameters(recurse=False))
+                      for layer in layers]
+        for layer, ps in zip(layers, params):
             if isinstance(layer, keep):
                 continue     # norm layers stay fp32 for numeric stability
-            for p in layer.parameters(recurse=False):
+            for p in ps:
                 if p.is_floating_point():
                     p.data = p.data.to(target)
     out = models if isinstance(models, (list, tuple)) else model_list[0]

@@ -2,9 +2,11 @@
 ``set_amp_state``/``restore_amp_state``/``_amp_cast_inputs`` in
 ``paddle_tpu/core/dispatch.py``).
 
-The JAX package casts inside its op dispatcher. The port has none, so
-each functional that the JAX package dispatches under a name of either
-list calls ``amp_cast(name, ...)`` on its inputs first. ``torch.autocast``
+The JAX package casts inside its op dispatcher. The port's Paddle-API
+ops cast in ``core.dispatch.call`` as well; its torch-level functionals
+(the GPT-2 and LLaMA models' and the fusion pass's) have no dispatcher,
+so each that the JAX package dispatches under a name of either list
+calls ``amp_cast(name, ...)`` on its inputs first. ``torch.autocast``
 is not used: its lists are not Paddle's, they differ between CPU and
 CUDA, and it does not cast an autograd Function's inputs. A cast is an
 autograd op, so gradients come back in the inputs' own dtypes, as the

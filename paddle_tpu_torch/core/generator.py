@@ -1,18 +1,22 @@
 """Seeded ``torch.Generator`` helpers (counterpart of ``paddle_tpu/core/generator.py``).
 
-The JAX package keeps a global key and folds a counter into it. The port
-keeps no global RNG state: every consumer is handed a generator made
-here from an explicit seed. A JAX key and a torch generator never give
-the same numbers from one seed, so tests that compare the two packages
-make their inputs with numpy and copy weights across.
+The JAX package keeps one global key and folds a counter into it. The
+port never draws from torch's global RNG. The Paddle API (``seed``,
+random creation ops, initializers, ``Dropout``) draws from one explicit
+``torch.Generator`` per device (``default_generator``), all seeded by
+``seed``; the torch-level models are handed generators made here from
+an explicit seed. A JAX key and a torch generator never give the same
+numbers from one seed, so tests that compare the two packages make their
+inputs with numpy and copy weights across.
 """
 from __future__ import annotations
 
-from typing import List, Sequence
+from typing import Dict, List, Optional, Sequence
 
+import numpy as np
 import torch
 
-from .place import DeviceLike
+from .place import DeviceLike, current_device
 
 
 def make_generator(seed: int, device: DeviceLike = "cpu") -> torch.Generator:
@@ -35,16 +39,49 @@ def normal_(tensor: torch.Tensor, std: float,
     return tensor
 
 
-def get_rng_state(generators: Sequence[torch.Generator]
+# ------------------------------------------------- the Paddle API's streams
+_state: Dict[str, object] = {"seed": None, "generators": {}}
+
+
+def seed(s: int) -> None:
+    """paddle.seed: every device's generator restarts from ``s``."""
+    _state["seed"] = int(s) & 0xFFFFFFFFFFFFFFFF
+    for g in _state["generators"].values():
+        g.manual_seed(_state["seed"])
+
+
+def default_generator(device: DeviceLike = None) -> torch.Generator:
+    """The Paddle API's generator of ``device`` (the current device by
+    default), made on first use from the last ``seed`` (or a seed drawn
+    from numpy's global RNG when none was set, as the JAX package does)."""
+    dev = current_device() if device is None else torch.device(device)
+    key = str(dev if dev.type == "cpu" or dev.index is not None
+              else torch.device(dev.type, 0))
+    g = _state["generators"].get(key)
+    if g is None:
+        if _state["seed"] is None:
+            _state["seed"] = int(np.random.randint(0, 2 ** 31 - 1))
+        g = make_generator(_state["seed"], key)
+        _state["generators"][key] = g
+    return g
+
+
+def get_rng_state(generators: Optional[Sequence[torch.Generator]] = None
                   ) -> List[torch.Tensor]:
-    """A snapshot of each generator's state, in order (the JAX package
-    snapshots its one global generator; the port has one per consumer)."""
+    """A snapshot of each generator's state, in order; with no argument,
+    of the current device's Paddle-API generator (the JAX package
+    snapshots its one global generator)."""
+    if generators is None:
+        generators = [default_generator()]
     return [g.get_state() for g in generators]
 
 
-def set_rng_state(generators: Sequence[torch.Generator],
-                  states: Sequence[torch.Tensor]) -> None:
-    """Put each generator back to its state from ``get_rng_state``."""
+def set_rng_state(generators, states=None) -> None:
+    """Put each generator back to its state from ``get_rng_state``:
+    ``set_rng_state(generators, states)``, or ``set_rng_state(states)``
+    for the current device's Paddle-API generator."""
+    if states is None:
+        generators, states = [default_generator()], generators
     if len(generators) != len(states):
         raise ValueError(f"set_rng_state: {len(states)} states for "
                          f"{len(generators)} generators")

@@ -1,0 +1,167 @@
+"""BERT encoder family (counterpart of ``paddle_tpu/models/bert.py``).
+
+The JAX model's code on the port's Paddle API: embeddings (word +
+position + token type) -> LayerNorm -> ``nn.TransformerEncoder`` ->
+pooler, and the MLM/NSP heads with the decoder tied to the word
+embeddings. Written entirely in Paddle-API layers and ops, so its
+``state_dict`` is the JAX model's, key for key and layout for layout.
+With no attention mask and no attention dropout, each encoder layer's
+attention is the flash kernels (K1 forward, K2/K3 backward) on the
+card, non-causal. ``recompute=True`` raises until ``Layer``s get a
+counterpart of ``models/_remat.remat_block`` (ROADMAP).
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+from .. import nn, ops
+from ..nn import functional as F
+from ..nn.initializer import Normal
+from ..nn.parameter import ParamAttr
+
+
+@dataclass
+class BertConfig:
+    vocab_size: int = 30522
+    hidden_size: int = 768
+    num_hidden_layers: int = 12
+    num_attention_heads: int = 12
+    intermediate_size: int = 3072
+    hidden_dropout_prob: float = 0.1
+    attention_probs_dropout_prob: float = 0.1
+    max_position_embeddings: int = 512
+    type_vocab_size: int = 2
+    initializer_range: float = 0.02
+    recompute: bool = False          # activation-checkpoint every layer
+    #: fused MLM decoder + chunked streaming CE over the tied embedding
+    #: matrix (forward returns (None, nsp_logits, loss) with labels)
+    fused_loss: bool = False
+
+
+def bert_base(**kw) -> "BertConfig":
+    return BertConfig(**kw)
+
+
+def bert_large(**kw) -> "BertConfig":
+    kw.setdefault("hidden_size", 1024)
+    kw.setdefault("num_hidden_layers", 24)
+    kw.setdefault("num_attention_heads", 16)
+    kw.setdefault("intermediate_size", 4096)
+    return BertConfig(**kw)
+
+
+class BertEmbeddings(nn.Layer):
+    def __init__(self, cfg: BertConfig):
+        super().__init__()
+        attr = ParamAttr(initializer=Normal(0.0, cfg.initializer_range))
+        self.word_embeddings = nn.Embedding(cfg.vocab_size, cfg.hidden_size,
+                                            weight_attr=attr)
+        self.position_embeddings = nn.Embedding(
+            cfg.max_position_embeddings, cfg.hidden_size, weight_attr=attr)
+        self.token_type_embeddings = nn.Embedding(
+            cfg.type_vocab_size, cfg.hidden_size, weight_attr=attr)
+        self.layer_norm = nn.LayerNorm(cfg.hidden_size)
+        self.dropout = nn.Dropout(cfg.hidden_dropout_prob)
+
+    def forward(self, input_ids, token_type_ids=None):
+        b, s = input_ids.shape
+        pos = ops.arange(0, s, dtype="int64")
+        x = self.word_embeddings(input_ids) + self.position_embeddings(pos)
+        if token_type_ids is not None:
+            x = x + self.token_type_embeddings(token_type_ids)
+        return self.dropout(self.layer_norm(x))
+
+
+class BertPooler(nn.Layer):
+    def __init__(self, cfg: BertConfig):
+        super().__init__()
+        self.dense = nn.Linear(cfg.hidden_size, cfg.hidden_size)
+
+    def forward(self, hidden):
+        return ops.tanh(self.dense(hidden[:, 0]))
+
+
+class BertModel(nn.Layer):
+    def __init__(self, cfg: BertConfig):
+        super().__init__()
+        self.cfg = cfg
+        self.embeddings = BertEmbeddings(cfg)
+        enc_layer = nn.TransformerEncoderLayer(
+            cfg.hidden_size, cfg.num_attention_heads,
+            cfg.intermediate_size, dropout=cfg.hidden_dropout_prob,
+            activation="gelu",
+            attn_dropout=cfg.attention_probs_dropout_prob)
+        self.encoder = nn.TransformerEncoder(enc_layer,
+                                             cfg.num_hidden_layers)
+        self.pooler = BertPooler(cfg)
+
+    def forward(self, input_ids, token_type_ids=None, attention_mask=None):
+        x = self.embeddings(input_ids, token_type_ids)
+        if attention_mask is not None:
+            # [B, S] 1/0 -> additive [B, 1, 1, S]
+            m = ops.reshape(attention_mask,
+                            [attention_mask.shape[0], 1, 1, -1])
+            attention_mask = (1.0 - m.astype("float32")) * -1e4
+        if self.cfg.recompute:
+            raise NotImplementedError(
+                "later slice: recompute of Paddle-API Layers")
+        seq = self.encoder(x, src_mask=attention_mask)
+        return seq, self.pooler(seq)
+
+
+class BertForSequenceClassification(nn.Layer):
+    def __init__(self, cfg: BertConfig, num_classes: int = 2):
+        super().__init__()
+        self.bert = BertModel(cfg)
+        self.dropout = nn.Dropout(cfg.hidden_dropout_prob)
+        self.classifier = nn.Linear(cfg.hidden_size, num_classes)
+
+    def forward(self, input_ids, token_type_ids=None, attention_mask=None,
+                labels=None):
+        _, pooled = self.bert(input_ids, token_type_ids, attention_mask)
+        logits = self.classifier(self.dropout(pooled))
+        if labels is None:
+            return logits
+        return logits, F.cross_entropy(logits, labels)
+
+
+class BertForPretraining(nn.Layer):
+    """MLM + NSP heads (reference BertForPretraining)."""
+
+    def __init__(self, cfg: BertConfig):
+        super().__init__()
+        self.bert = BertModel(cfg)
+        self.mlm_dense = nn.Linear(cfg.hidden_size, cfg.hidden_size)
+        self.mlm_norm = nn.LayerNorm(cfg.hidden_size)
+        self.nsp = nn.Linear(cfg.hidden_size, 2)
+
+    def forward(self, input_ids, token_type_ids=None, attention_mask=None,
+                masked_lm_labels=None, next_sentence_labels=None):
+        seq, pooled = self.bert(input_ids, token_type_ids, attention_mask)
+        h = self.mlm_norm(F.gelu(self.mlm_dense(seq), approximate=True))
+        # tied decoder: project onto word embedding matrix
+        w = self.bert.embeddings.word_embeddings.weight
+        if masked_lm_labels is not None and self.bert.cfg.fused_loss:
+            hidden = self.bert.cfg.hidden_size
+            loss = F.fused_linear_cross_entropy(
+                ops.reshape(h, [-1, hidden]), w,
+                ops.reshape(masked_lm_labels, [-1]), transpose_y=True,
+                ignore_index=-100)
+            nsp_logits = self.nsp(pooled)
+            if next_sentence_labels is not None:
+                loss = loss + F.cross_entropy(nsp_logits,
+                                              next_sentence_labels)
+            return None, nsp_logits, loss
+        mlm_logits = ops.matmul(h, w, transpose_y=True)
+        nsp_logits = self.nsp(pooled)
+        if masked_lm_labels is None:
+            return mlm_logits, nsp_logits
+        v = mlm_logits.shape[-1]
+        mlm_loss = F.cross_entropy(
+            ops.reshape(mlm_logits, [-1, v]),
+            ops.reshape(masked_lm_labels, [-1]), ignore_index=-100)
+        loss = mlm_loss
+        if next_sentence_labels is not None:
+            loss = loss + F.cross_entropy(nsp_logits,
+                                          next_sentence_labels)
+        return mlm_logits, nsp_logits, loss

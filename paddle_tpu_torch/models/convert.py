@@ -1,9 +1,12 @@
 """Carry weights from the JAX package's models into the port's.
 
 The input is the JAX model's ``state_dict()`` as numpy arrays (keys are
-the same dotted attribute paths in both packages). Paddle's ``Linear``
-stores its weight as (in, out); ``torch.nn.Linear`` as (out, in), so
-those are transposed. Everything else is copied as it is.
+the same dotted attribute paths in both packages). Into a torch-level
+model (``load_jax_state``): Paddle's ``Linear`` stores its weight as (in,
+out), ``torch.nn.Linear`` as (out, in), so those are transposed, and
+everything else is copied as it is. Into a Paddle-API ``Layer``
+(``load_jax_layer_state``) every key and layout is already the JAX
+package's: it is ``set_state_dict``.
 """
 from __future__ import annotations
 
@@ -41,3 +44,13 @@ def load_jax_state(model: nn.Module, arrays: Dict[str, np.ndarray],
                     f"model wants {tuple(target.shape)}")
             target.copy_(torch.from_numpy(np.ascontiguousarray(value)))
     return model
+
+
+def load_jax_layer_state(layer, arrays: Dict[str, np.ndarray]):
+    """``layer.set_state_dict(arrays)`` for a Paddle-API ``Layer``, raising
+    ``KeyError`` on missing or unexpected keys."""
+    missing, unexpected = layer.set_state_dict(arrays)
+    if missing or unexpected:
+        raise KeyError(f"load_jax_layer_state: missing keys {missing}, "
+                       f"unexpected keys {unexpected}")
+    return layer

@@ -27,7 +27,7 @@ from ..core.dtype import convert_dtype
 from ..core.generator import make_generator, normal_
 from ..core.place import DeviceLike, resolve_device
 from ..nn import functional as F
-from ..nn.layer import LayerNorm, Linear
+from ..nn.layer import TorchLayerNorm, TorchLinear
 from ._remat import remat_block
 
 LN_EPS = 1e-5
@@ -85,8 +85,8 @@ class GPTAttention(nn.Module):
         self.use_flash = cfg.use_flash_attention
         self.dropout = cfg.dropout
         h = cfg.hidden_size
-        self.qkv_proj = Linear(h, 3 * h, device=device, dtype=dtype)
-        self.out_proj = Linear(h, h, device=device, dtype=dtype)
+        self.qkv_proj = TorchLinear(h, 3 * h, device=device, dtype=dtype)
+        self.out_proj = TorchLinear(h, h, device=device, dtype=dtype)
 
     def forward(self, x):
         b, s, h = x.shape
@@ -111,8 +111,8 @@ class GPTMLP(nn.Module):
     def __init__(self, cfg: GPTConfig, device=None, dtype=None):
         super().__init__()
         h, ffn = cfg.hidden_size, cfg.intermediate_size
-        self.fc1 = Linear(h, ffn, device=device, dtype=dtype)
-        self.fc2 = Linear(ffn, h, device=device, dtype=dtype)
+        self.fc1 = TorchLinear(h, ffn, device=device, dtype=dtype)
+        self.fc2 = TorchLinear(ffn, h, device=device, dtype=dtype)
 
     def forward(self, x):
         return self.fc2(TF.gelu(self.fc1(x), approximate="tanh"))
@@ -124,9 +124,9 @@ class GPTBlock(nn.Module):
         super().__init__()
         h = cfg.hidden_size
         self.generator = generator
-        self.ln1 = LayerNorm(h, eps=LN_EPS, device=device, dtype=dtype)
+        self.ln1 = TorchLayerNorm(h, eps=LN_EPS, device=device, dtype=dtype)
         self.attn = GPTAttention(cfg, device, dtype, generator)
-        self.ln2 = LayerNorm(h, eps=LN_EPS, device=device, dtype=dtype)
+        self.ln2 = TorchLayerNorm(h, eps=LN_EPS, device=device, dtype=dtype)
         self.mlp = GPTMLP(cfg, device, dtype)
         self.dropout = cfg.dropout
 
@@ -159,7 +159,7 @@ class GPTModel(nn.Module):
         self.blocks = nn.ModuleList([GPTBlock(cfg, device, dtype,
                                               self.generator)
                                      for _ in range(cfg.num_layers)])
-        self.ln_f = LayerNorm(h, eps=LN_EPS, device=device, dtype=dtype)
+        self.ln_f = TorchLayerNorm(h, eps=LN_EPS, device=device, dtype=dtype)
 
     def forward(self, input_ids):
         s = input_ids.shape[1]

@@ -11,7 +11,7 @@ its rope onto ``fused_rope_proj`` (K7) and each residual add and the norm
 after it onto ``fused_residual_norm`` (K4). ``fused_loss`` computes the
 chunked LM-head loss (``(None, loss)``), against ``lm_head`` or the tied
 embedding; ``recompute`` checkpoints each block (``models/_remat.py``).
-The linears are the port's ``Linear``, so amp casts their inputs.
+The linears are the port's ``TorchLinear``, so amp casts their inputs.
 ``generate`` decodes greedily or by temperature, with a KV cache (a
 prefill, then a Python loop of (B, 1) steps: the JAX package's
 ``lax.scan``) or by full recompute; the paged engine serves the model
@@ -31,7 +31,7 @@ from ..core.dtype import convert_dtype
 from ..core.generator import make_generator, normal_
 from ..core.place import DeviceLike, resolve_device
 from ..nn import functional as F
-from ..nn.layer import Linear, RMSNorm
+from ..nn.layer import TorchLinear, TorchRMSNorm
 from ._remat import remat_block
 
 
@@ -146,10 +146,11 @@ class LlamaAttention(nn.Module):
         self.head_dim = cfg.hidden_size // cfg.num_heads
         h = cfg.hidden_size
         kv = self.num_kv_heads * self.head_dim
-        self.q_proj = Linear(h, h, bias=False, device=device, dtype=dtype)
-        self.k_proj = Linear(h, kv, bias=False, device=device, dtype=dtype)
-        self.v_proj = Linear(h, kv, bias=False, device=device, dtype=dtype)
-        self.o_proj = Linear(h, h, bias=False, device=device, dtype=dtype)
+        kw = dict(bias=False, device=device, dtype=dtype)
+        self.q_proj = TorchLinear(h, h, **kw)
+        self.k_proj = TorchLinear(h, kv, **kw)
+        self.v_proj = TorchLinear(h, kv, **kw)
+        self.o_proj = TorchLinear(h, h, **kw)
 
     def forward(self, x, cache=None, pos: int = 0):
         """Self-attention of x (B, S, hidden) at positions pos..pos+S-1.
@@ -206,11 +207,10 @@ class LlamaMLP(nn.Module):
     def __init__(self, cfg: LlamaConfig, device=None, dtype=None):
         super().__init__()
         h, ffn = cfg.hidden_size, cfg.intermediate_size
-        self.gate_proj = Linear(h, ffn, bias=False, device=device,
-                                dtype=dtype)
-        self.up_proj = Linear(h, ffn, bias=False, device=device, dtype=dtype)
-        self.down_proj = Linear(ffn, h, bias=False, device=device,
-                                dtype=dtype)
+        kw = dict(bias=False, device=device, dtype=dtype)
+        self.gate_proj = TorchLinear(h, ffn, **kw)
+        self.up_proj = TorchLinear(h, ffn, **kw)
+        self.down_proj = TorchLinear(ffn, h, **kw)
 
     def forward(self, x):
         return self.down_proj(F.swiglu(self.gate_proj(x), self.up_proj(x)))
@@ -220,11 +220,10 @@ class LlamaBlock(nn.Module):
     def __init__(self, cfg: LlamaConfig, device=None, dtype=None):
         super().__init__()
         h = cfg.hidden_size
-        self.input_layernorm = RMSNorm(h, epsilon=cfg.rms_eps, device=device,
-                                       dtype=dtype)
+        kw = dict(epsilon=cfg.rms_eps, device=device, dtype=dtype)
+        self.input_layernorm = TorchRMSNorm(h, **kw)
         self.self_attn = LlamaAttention(cfg, device, dtype)
-        self.post_attention_layernorm = RMSNorm(h, epsilon=cfg.rms_eps,
-                                                device=device, dtype=dtype)
+        self.post_attention_layernorm = TorchRMSNorm(h, **kw)
         self.mlp = LlamaMLP(cfg, device, dtype)
 
     def forward(self, x, cache=None, pos: int = 0):
@@ -245,8 +244,8 @@ class LlamaModel(nn.Module):
                                          device=device, dtype=dtype)
         self.layers = nn.ModuleList([LlamaBlock(cfg, device, dtype)
                                      for _ in range(cfg.num_layers)])
-        self.norm = RMSNorm(cfg.hidden_size, epsilon=cfg.rms_eps,
-                            device=device, dtype=dtype)
+        self.norm = TorchRMSNorm(cfg.hidden_size, epsilon=cfg.rms_eps,
+                                 device=device, dtype=dtype)
 
     def forward(self, input_ids):
         x = self.embed_tokens(input_ids)
@@ -269,7 +268,7 @@ class LlamaForCausalLM(nn.Module):
         device = resolve_device(device)
         dtype = convert_dtype(dtype)
         self.model = LlamaModel(cfg, device, dtype)
-        self.lm_head = None if cfg.tie_embeddings else Linear(
+        self.lm_head = None if cfg.tie_embeddings else TorchLinear(
             cfg.hidden_size, cfg.vocab_size, bias=False, device=device,
             dtype=dtype)
         gen = make_generator(seed)

@@ -11,6 +11,11 @@ functionals are on amp's white list and cast q/k/v (and an additive
 mask) for it. The JAX
 package's sequence-length crossover and its measured choice between
 implementations are TPU measurements and have no counterpart here.
+
+On Paddle ``Tensor``s each is one op through ``core.dispatch.call`` over
+the same body (so a CUDA tensor launches the kernels or raises, and only
+a CPU tensor takes the plain versions), with dropout drawn from the
+device's Paddle-API generator; the mask takes no gradient.
 """
 from __future__ import annotations
 
@@ -20,6 +25,9 @@ from typing import Optional
 import torch
 
 from ...amp.state import amp_cast
+from ...core import dispatch
+from ...core.generator import default_generator
+from ...core.tensor import Tensor, as_tensor
 from ...ops.cuda.flash_attention import flash_attention_fwd
 from .common import dropout as _dropout
 
@@ -46,6 +54,13 @@ def _sdpa_plain(q, k, v, bias=None, causal=False, dropout_p=0.0,
     return torch.einsum("bhst,bthd->bshd", probs, v)
 
 
+def _paddle_generator(q: Tensor, generator, drawing: bool):
+    """The generator a Paddle-API call draws its dropout from."""
+    if generator is not None or not drawing:
+        return generator
+    return default_generator(q._data.device)
+
+
 def flash_attention(query, key, value, dropout=0.0, causal=False,
                     return_softmax=False, fixed_seed_offset=None, rng_name="",
                     training=True, name=None,
@@ -53,6 +68,12 @@ def flash_attention(query, key, value, dropout=0.0, causal=False,
     """Returns ``(out, None)``. With dropout active (``dropout > 0`` while
     training) the plain path runs, as in the JAX package, drawing from
     ``generator``; otherwise the flash kernels."""
+    if isinstance(query, Tensor):
+        g = _paddle_generator(query, generator, dropout > 0.0 and training)
+        out = dispatch.call("flash_attention", lambda q, k, v: flash_attention(
+            q, k, v, dropout, causal, training=training, generator=g)[0],
+            [query, key, value])
+        return out, None
     query, key, value = amp_cast("flash_attention", query, key, value)
     if dropout > 0.0 and training:
         out = _sdpa_plain(query, key, value, causal=causal,
@@ -69,6 +90,17 @@ def scaled_dot_product_attention(query, key, value, attn_mask=None,
     """softmax(q·kᵀ/√d)·v over BSHD q/k/v. With no mask and no active
     dropout this is the flash kernels; a mask (additive, or boolean where
     True keeps) or dropout (from ``generator``) takes the plain path."""
+    if isinstance(query, Tensor):
+        g = _paddle_generator(query, generator, dropout_p > 0.0 and training)
+        ins = [query, key, value]
+        if attn_mask is not None:
+            ins.append(as_tensor(attn_mask))
+        return dispatch.call(
+            "scaled_dot_product_attention",
+            lambda q, k, v, *m: scaled_dot_product_attention(
+                q, k, v, m[0] if m else None, dropout_p, is_causal, training,
+                generator=g), ins,
+            differentiable_mask=[True, True, True, False][:len(ins)])
     query, key, value, attn_mask = amp_cast(
         "scaled_dot_product_attention", query, key, value, attn_mask)
     drop = dropout_p if training else 0.0

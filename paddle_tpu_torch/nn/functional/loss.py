@@ -10,24 +10,32 @@ and the three reductions. Soft labels, class weights and
 black list (its logits go to fp32), ``fused_linear_cross_entropy`` on
 the white list (x and the weight go to the amp dtype; the LSE stays
 fp32).
+
+On Paddle ``Tensor``s each is one op through ``core.dispatch.call`` (the
+labels take no gradient) with the same math and the same layouts; on
+``torch.Tensor``s, the torch-level function.
 """
 from __future__ import annotations
-
-from typing import Optional
 
 import torch
 
 from ...amp.state import amp_cast
+from ...core import dispatch
+from ...core.tensor import Tensor, as_tensor
 
 
-def cross_entropy(input: torch.Tensor, label: torch.Tensor, weight=None,
-                  ignore_index: int = -100, reduction: str = "mean",
-                  soft_label: bool = False, axis: int = -1,
-                  use_softmax: bool = True, label_smoothing: float = 0.0,
-                  name=None) -> torch.Tensor:
+def cross_entropy(input, label, weight=None, ignore_index: int = -100,
+                  reduction: str = "mean", soft_label: bool = False,
+                  axis: int = -1, use_softmax: bool = True,
+                  label_smoothing: float = 0.0, name=None):
     """Softmax cross entropy of ``input`` (logits, classes on ``axis``)
     against integer ``label`` (the logits' shape without ``axis``, or
     with a size-1 ``axis``). Returns fp32."""
+    if isinstance(input, Tensor):
+        return dispatch.call("cross_entropy", lambda a, lab: cross_entropy(
+            a, lab, weight, ignore_index, reduction, soft_label, axis,
+            use_softmax, label_smoothing), [input, as_tensor(label)],
+            differentiable_mask=[True, False])
     if soft_label or weight is not None or not use_softmax:
         raise NotImplementedError(
             "later slice: cross_entropy with soft labels, class weights or "
@@ -141,13 +149,11 @@ class _LinearCrossEntropy(torch.autograd.Function):
                 None, None, None, None)
 
 
-def fused_linear_cross_entropy(x: torch.Tensor, weight: torch.Tensor,
-                               label: torch.Tensor,
-                               bias: Optional[torch.Tensor] = None,
+def fused_linear_cross_entropy(x, weight, label, bias=None,
                                transpose_y: bool = False,
                                ignore_index: int = -100,
                                reduction: str = "mean",
-                               chunk_rows: int = 4096) -> torch.Tensor:
+                               chunk_rows: int = 4096):
     """Cross entropy of ``x @ weight (+ bias)`` against hard ``label``
     without the full ``(N, V)`` logits: ``chunk_rows`` rows at a time,
     each chunk's logits recomputed in the backward, so the peak is about
@@ -158,6 +164,16 @@ def fused_linear_cross_entropy(x: torch.Tensor, weight: torch.Tensor,
     the same sums. ``reduction`` "mean" averages over the rows not
     ignored. The matmul runs in the input dtype, the max and LSE in
     fp32; the result is fp32."""
+    if isinstance(x, Tensor):
+        ins = [x, weight, as_tensor(label)] + ([bias] if bias is not None
+                                               else [])
+        return dispatch.call(
+            "fused_linear_cross_entropy",
+            lambda a, w, lab, *b: fused_linear_cross_entropy(
+                a, w, lab, *b, transpose_y=transpose_y,
+                ignore_index=ignore_index, reduction=reduction,
+                chunk_rows=chunk_rows), ins,
+            differentiable_mask=[True, True, False, True])
     if reduction not in ("mean", "sum", "none"):
         raise ValueError(f"fused_linear_cross_entropy: unknown reduction "
                          f"{reduction!r}")

@@ -2,7 +2,12 @@
 ``paddle_tpu/nn/functional/norm.py``): statistics in fp32, the output in
 the input's dtype, as the JAX lowerings compute them. Both are on amp's
 black list: under O1/O2 their inputs go to fp32 first, so they return
-fp32."""
+fp32.
+
+On Paddle ``Tensor``s each is one op through ``core.dispatch.call``
+with the same math; on ``torch.Tensor``s, the torch-level function.
+``batch_norm`` (the Paddle API's only) keeps its running statistics in
+the Paddle Tensors it is handed, as the JAX package's does."""
 from __future__ import annotations
 
 from typing import Optional, Sequence, Union
@@ -11,6 +16,8 @@ import torch
 from torch.nn import functional as TF
 
 from ...amp.state import amp_cast
+from ...core import dispatch
+from ...core.tensor import Tensor
 
 
 def _f32(t: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
@@ -26,15 +33,28 @@ def _affine(y: torch.Tensor, weight: Optional[torch.Tensor],
     return y
 
 
-def layer_norm(x: torch.Tensor, normalized_shape: Union[int, Sequence[int]],
-               weight: Optional[torch.Tensor] = None,
-               bias: Optional[torch.Tensor] = None, epsilon: float = 1e-5,
-               name=None) -> torch.Tensor:
+def _affine_inputs(name, body, x, weight, bias):
+    """One Paddle-API norm op over x and whichever of weight/bias exist."""
+    ins = [x] + [t for t in (weight, bias) if t is not None]
+    has_w, has_b = weight is not None, bias is not None
+
+    def f(a, *wb):
+        w = wb[0] if has_w else None
+        b = wb[has_w] if has_b else None
+        return body(a, w, b)
+    return dispatch.call(name, f, ins)
+
+
+def layer_norm(x, normalized_shape: Union[int, Sequence[int]],
+               weight=None, bias=None, epsilon: float = 1e-5, name=None):
     """(x - mean) / sqrt(var + epsilon) * weight + bias over the trailing
     ``normalized_shape`` dims. Where the weight and bias share x's dtype,
     torch's own layer norm computes it (fp32 statistics and affine, one
     rounding); otherwise x and the parameters go to fp32 and the result
     back to x's dtype."""
+    if isinstance(x, Tensor):
+        return _affine_inputs("layer_norm", lambda a, w, b: layer_norm(
+            a, normalized_shape, w, b, epsilon), x, weight, bias)
     x, weight, bias = amp_cast("layer_norm", x, weight, bias)
     shape = ((normalized_shape,) if isinstance(normalized_shape, int)
              else tuple(normalized_shape))
@@ -44,11 +64,13 @@ def layer_norm(x: torch.Tensor, normalized_shape: Union[int, Sequence[int]],
                          epsilon).to(x.dtype)
 
 
-def rms_norm(x: torch.Tensor, weight: Optional[torch.Tensor] = None,
-             bias: Optional[torch.Tensor] = None, epsilon: float = 1e-6,
-             begin_norm_axis: int = -1, name=None) -> torch.Tensor:
+def rms_norm(x, weight=None, bias=None, epsilon: float = 1e-6,
+             begin_norm_axis: int = -1, name=None):
     """x / sqrt(mean(x^2) + epsilon) * weight + bias over the dims from
     ``begin_norm_axis`` on."""
+    if isinstance(x, Tensor):
+        return _affine_inputs("rms_norm", lambda a, w, b: rms_norm(
+            a, w, b, epsilon, begin_norm_axis), x, weight, bias)
     x, weight, bias = amp_cast("rms_norm", x, weight, bias)
     axis = begin_norm_axis % x.dim()
     dims = tuple(range(axis, x.dim()))
@@ -58,4 +80,27 @@ def rms_norm(x: torch.Tensor, weight: Optional[torch.Tensor] = None,
     return _affine(y, weight, bias).to(x.dtype)
 
 
-__all__ = ["layer_norm", "rms_norm"]
+def batch_norm(x: Tensor, running_mean: Tensor, running_var: Tensor,
+               weight=None, bias=None, training: bool = False,
+               momentum: float = 0.9, epsilon: float = 1e-5,
+               data_format: str = "NCHW", use_global_stats=None, name=None):
+    """Batch norm over the channel axis in fp32 (the output in x's dtype).
+    Training (unless ``use_global_stats``) normalizes by the batch's
+    statistics and updates the running ones in place:
+    running = momentum * running + (1 - momentum) * batch, the variance
+    unbiased."""
+    channel_last = data_format in ("NHWC", "NLC", "NDHWC")
+    use_batch = training and not use_global_stats
+    rm, rv = running_mean._data, running_var._data
+
+    def body(a, w, b):
+        a32 = a.float()
+        if channel_last:
+            a32 = a32.movedim(-1, 1)
+        y = TF.batch_norm(a32, rm, rv, _f32(w), _f32(b), use_batch,
+                          1.0 - momentum, epsilon)
+        return (y.movedim(1, -1) if channel_last else y).to(a.dtype)
+    return _affine_inputs("batch_norm", body, x, weight, bias)
+
+
+__all__ = ["layer_norm", "rms_norm", "batch_norm"]

@@ -1,6 +1,21 @@
-"""Layers of the port: ``torch.nn`` layers routed through the port's
-functionals, and those ``torch.nn`` does not have."""
-from .common import Linear
-from .norm import LayerNorm, RMSNorm
+"""Layers of the port: the Paddle-API ``Layer``s (as in the JAX
+package's ``nn/layer/``) and, in ``torch_modules``, the ``torch.nn``
+modules the torch-level GPT-2 and LLaMA are built from."""
+from .activation import GELU, ReLU, Sigmoid, Silu, Softmax, Tanh
+from .common import Dropout, Embedding, Flatten, Identity, Linear
+from .container import LayerDict, LayerList, ParameterList, Sequential
+from .layers import Layer
+from .loss import CrossEntropyLoss
+from .norm import (BatchNorm, BatchNorm1D, BatchNorm2D, BatchNorm3D,
+                   LayerNorm, RMSNorm)
+from .torch_modules import TorchLayerNorm, TorchLinear, TorchRMSNorm
+from .transformer import (MultiHeadAttention, TransformerEncoder,
+                          TransformerEncoderLayer)
 
-__all__ = ["Linear", "LayerNorm", "RMSNorm"]
+__all__ = ["Layer", "Sequential", "LayerList", "LayerDict", "ParameterList",
+           "Linear", "Embedding", "Dropout", "Identity", "Flatten",
+           "LayerNorm", "RMSNorm", "BatchNorm", "BatchNorm1D", "BatchNorm2D",
+           "BatchNorm3D", "ReLU", "GELU", "Tanh", "Sigmoid", "Silu",
+           "Softmax", "CrossEntropyLoss", "MultiHeadAttention",
+           "TransformerEncoderLayer", "TransformerEncoder", "TorchLinear",
+           "TorchLayerNorm", "TorchRMSNorm"]

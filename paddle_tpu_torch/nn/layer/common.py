@@ -1,15 +1,89 @@
-"""``Linear`` (counterpart of ``Linear`` in ``paddle_tpu/nn/layer/common.py``)."""
+"""Common layers (counterpart of ``paddle_tpu/nn/layer/common.py``):
+``Identity``, ``Linear``, ``Dropout``, ``Embedding`` and ``Flatten``,
+Paddle-API ``Layer``s over the Paddle-API functionals. ``Linear``'s
+weight is (in_features, out_features), as in the JAX package.
+"""
 from __future__ import annotations
 
-from torch import nn
-
+from ... import ops
 from .. import functional as F
+from ..initializer import Normal, XavierNormal
+from .layers import Layer
 
 
-class Linear(nn.Linear):
-    """``torch.nn.Linear`` (its parameters, layout and init) whose forward
-    is the port's ``F.linear``, so that amp casts its inputs and
-    ``to_static`` records it as one ``linear`` op."""
+class Identity(Layer):
+    def forward(self, x):
+        return x
+
+
+class Linear(Layer):
+    """y = xW + b with W (in_features, out_features)
+    (reference: nn/layer/common.py Linear)."""
+
+    def __init__(self, in_features, out_features, weight_attr=None,
+                 bias_attr=None, name=None):
+        super().__init__()
+        self.in_features = in_features
+        self.out_features = out_features
+        self.weight = self.create_parameter(
+            [in_features, out_features], attr=weight_attr,
+            default_initializer=XavierNormal())
+        self.bias = self.create_parameter(
+            [out_features], attr=bias_attr, is_bias=True)
 
     def forward(self, x):
         return F.linear(x, self.weight, self.bias)
+
+    def extra_repr(self):
+        return f"in_features={self.in_features}, out_features={self.out_features}"
+
+
+class Dropout(Layer):
+    """Draws from the device's Paddle-API generator when training."""
+
+    def __init__(self, p=0.5, axis=None, mode="upscale_in_train", name=None):
+        super().__init__()
+        self.p = p
+        self.axis = axis
+        self.mode = mode
+
+    def forward(self, x):
+        return F.dropout(x, p=self.p, axis=self.axis, training=self.training,
+                         mode=self.mode)
+
+    def extra_repr(self):
+        return f"p={self.p}"
+
+
+class Embedding(Layer):
+    def __init__(self, num_embeddings, embedding_dim, padding_idx=None,
+                 sparse=False, weight_attr=None, name=None):
+        super().__init__()
+        self._num_embeddings = num_embeddings
+        self._embedding_dim = embedding_dim
+        self._padding_idx = (None if padding_idx is None else
+                             padding_idx if padding_idx >= 0
+                             else num_embeddings + padding_idx)
+        self.weight = self.create_parameter(
+            [num_embeddings, embedding_dim], attr=weight_attr,
+            default_initializer=Normal(0.0, 1.0))
+        if self._padding_idx is not None:
+            rows = self.weight._data.detach().clone()
+            rows[self._padding_idx] = 0.0
+            self.weight.set_value(rows)
+
+    def forward(self, x):
+        return F.embedding(x, self.weight, padding_idx=self._padding_idx)
+
+    def extra_repr(self):
+        return f"{self._num_embeddings}, {self._embedding_dim}"
+
+
+class Flatten(Layer):
+    def __init__(self, start_axis=1, stop_axis=-1):
+        super().__init__()
+        self.start_axis = start_axis
+        self.stop_axis = stop_axis
+
+    def forward(self, x):
+        return ops.flatten(x, self.start_axis, self.stop_axis)

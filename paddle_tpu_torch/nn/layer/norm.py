@@ -1,34 +1,115 @@
-"""LayerNorm and RMSNorm (counterparts of ``LayerNorm`` and ``RMSNorm`` in
-``paddle_tpu/nn/layer/norm.py``)."""
+"""Norm layers (counterpart of ``paddle_tpu/nn/layer/norm.py``):
+``LayerNorm``, ``RMSNorm`` and the batch norms, Paddle-API ``Layer``s
+over the Paddle-API functionals. The batch norms keep their running
+statistics in the buffers ``_mean`` and ``_variance``. The group,
+instance, local-response and spectral norms are still to port."""
 from __future__ import annotations
 
 import torch
-from torch import nn
 
+from ...core.place import current_device
+from ...core.tensor import Tensor
 from .. import functional as F
+from ..initializer import Constant
+from .layers import Layer
 
 
-class LayerNorm(nn.LayerNorm):
-    """``torch.nn.LayerNorm`` (its parameters and init) whose forward is
-    the port's ``F.layer_norm``, so that amp casts its inputs. A
-    ``torch.nn.LayerNorm``, so O2 ``decorate`` keeps it fp32."""
+class LayerNorm(Layer):
+    def __init__(self, normalized_shape, epsilon=1e-5, weight_attr=None,
+                 bias_attr=None, name=None):
+        super().__init__()
+        if isinstance(normalized_shape, int):
+            normalized_shape = [normalized_shape]
+        self._normalized_shape = list(normalized_shape)
+        self._epsilon = epsilon
+        if weight_attr is not False:
+            self.weight = self.create_parameter(
+                self._normalized_shape, attr=weight_attr,
+                default_initializer=Constant(1.0))
+        else:
+            self.weight = None
+        if bias_attr is not False:
+            self.bias = self.create_parameter(
+                self._normalized_shape, attr=bias_attr, is_bias=True)
+        else:
+            self.bias = None
 
     def forward(self, x):
-        return F.layer_norm(x, self.normalized_shape, self.weight, self.bias,
-                            epsilon=self.eps)
+        return F.layer_norm(x, self._normalized_shape, self.weight, self.bias,
+                            self._epsilon)
+
+    def extra_repr(self):
+        return f"normalized_shape={self._normalized_shape}, epsilon={self._epsilon}"
 
 
-class RMSNorm(nn.Module):
-    """x / rms(x) * weight over the last dim, statistics in fp32; the
-    parameter ``weight`` starts at 1. Not a LayerNorm: O2 ``decorate``
-    casts its weight, as the JAX package's."""
-
-    def __init__(self, hidden_size: int, epsilon: float = 1e-6, device=None,
-                 dtype=None):
+class RMSNorm(Layer):
+    def __init__(self, hidden_size, epsilon=1e-6, weight_attr=None, name=None):
         super().__init__()
         self._epsilon = epsilon
-        self.weight = nn.Parameter(torch.ones(hidden_size, device=device,
-                                              dtype=dtype))
+        self.weight = self.create_parameter(
+            [hidden_size], attr=weight_attr, default_initializer=Constant(1.0))
 
     def forward(self, x):
         return F.rms_norm(x, self.weight, epsilon=self._epsilon)
+
+
+class _BatchNormBase(Layer):
+    def __init__(self, num_features, momentum=0.9, epsilon=1e-5,
+                 weight_attr=None, bias_attr=None, data_format="NCHW",
+                 use_global_stats=None, name=None):
+        super().__init__()
+        self._num_features = num_features
+        self._momentum = momentum
+        self._epsilon = epsilon
+        self._data_format = data_format
+        self._use_global_stats = use_global_stats
+        if weight_attr is not False:
+            self.weight = self.create_parameter(
+                [num_features], attr=weight_attr,
+                default_initializer=Constant(1.0))
+        else:
+            self.weight = None
+        if bias_attr is not False:
+            self.bias = self.create_parameter(
+                [num_features], attr=bias_attr, is_bias=True)
+        else:
+            self.bias = None
+        dev = current_device()
+        self.register_buffer("_mean", Tensor(torch.zeros(num_features,
+                                                         device=dev)))
+        self.register_buffer("_variance", Tensor(torch.ones(num_features,
+                                                            device=dev)))
+
+    def forward(self, x):
+        return F.batch_norm(x, self._mean, self._variance, self.weight,
+                            self.bias, training=self.training,
+                            momentum=self._momentum, epsilon=self._epsilon,
+                            data_format=self._data_format,
+                            use_global_stats=self._use_global_stats)
+
+    def extra_repr(self):
+        return f"num_features={self._num_features}, momentum={self._momentum}"
+
+
+class BatchNorm(_BatchNormBase):
+    pass
+
+
+class BatchNorm1D(_BatchNormBase):
+    def __init__(self, num_features, momentum=0.9, epsilon=1e-5,
+                 weight_attr=None, bias_attr=None, data_format="NCL",
+                 use_global_stats=None, name=None):
+        super().__init__(num_features, momentum, epsilon, weight_attr,
+                         bias_attr, data_format, use_global_stats)
+
+
+class BatchNorm2D(_BatchNormBase):
+    pass
+
+
+class BatchNorm3D(_BatchNormBase):
+    def __init__(self, num_features, momentum=0.9, epsilon=1e-5,
+                 weight_attr=None, bias_attr=None, data_format="NCDHW",
+                 use_global_stats=None, name=None):
+        super().__init__(num_features, momentum, epsilon, weight_attr,
+                         bias_attr, data_format, use_global_stats)

@@ -1,7 +1,9 @@
-"""Nucleus sampling (counterpart of ``nucleus_sample_ids`` in
-``paddle_tpu/ops/search.py``).
+"""Search ops (counterpart of part of ``paddle_tpu/ops/search.py``):
+``argmax``, ``argmin``, ``argsort``, ``sort``, ``topk`` and ``where``,
+each a plain torch body behind ``dispatch.call``, and nucleus sampling.
+The rest of the JAX file is still to port (ROADMAP).
 
-The JAX function draws its uniforms from a key inside; this one takes
+The JAX ``nucleus_sample_ids`` draws its uniforms from a key inside; this one takes
 them as an argument, so a caller chooses where they come from (the
 serving engine's counter-based draw, or JAX's own draw in a test) and
 the same uniforms give the same ids in both packages. The JAX package's
@@ -11,7 +13,74 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["nucleus_sample_ids"]
+from ..core import dispatch
+from ..core.dtype import convert_dtype
+from ..core.tensor import Tensor, as_tensor
+from .registry import register
+
+__all__ = ["nucleus_sample_ids", "argmax", "argmin", "argsort", "sort",
+           "topk", "where"]
+
+
+def _t(x):
+    return x if isinstance(x, Tensor) else as_tensor(x)
+
+
+def _arg(name, tfn, x, axis, keepdim, dtype):
+    d = convert_dtype(dtype)
+
+    def f(a):
+        if axis is None:
+            out = tfn(a.reshape(-1))
+            return (out.reshape((1,) * a.dim()) if keepdim else out).to(d)
+        return tfn(a, dim=axis, keepdim=keepdim).to(d)
+    return dispatch.call(name, f, [_t(x)])
+
+
+@register("argmax", category="search", differentiable=False)
+def argmax(x, axis=None, keepdim=False, dtype="int64", name=None):
+    """Index of the maximum along ``axis`` (of the flattened tensor when
+    None)."""
+    return _arg("argmax", torch.argmax, x, axis, keepdim, dtype)
+
+
+@register("argmin", category="search", differentiable=False)
+def argmin(x, axis=None, keepdim=False, dtype="int64", name=None):
+    return _arg("argmin", torch.argmin, x, axis, keepdim, dtype)
+
+
+@register("argsort", category="search", differentiable=False)
+def argsort(x, axis=-1, descending=False, stable=False, name=None):
+    """Indices that sort along ``axis`` (stable, as the JAX package's)."""
+    return dispatch.call("argsort", lambda a: torch.argsort(
+        a, dim=axis, descending=descending, stable=True), [_t(x)])
+
+
+def sort(x, axis=-1, descending=False, stable=False, name=None):
+    return dispatch.call("sort", lambda a: torch.sort(
+        a, dim=axis, descending=descending, stable=True).values, [_t(x)])
+
+
+def topk(x, k, axis=None, largest=True, sorted=True, name=None):
+    """(values, int64 indices) of the k largest (or smallest) along
+    ``axis`` (the last when None)."""
+    if isinstance(k, Tensor):
+        k = int(k.item())
+    ax = -1 if axis is None else axis
+    v, i = dispatch.call("top_k", lambda a: tuple(torch.topk(
+        a, k, dim=ax, largest=largest, sorted=sorted)), [_t(x)])
+    return v, i
+
+
+@register("where", category="search")
+def where(condition, x=None, y=None, name=None):
+    """x where ``condition`` holds, else y."""
+    if x is None and y is None:
+        raise NotImplementedError(
+            "later slice: where(condition) (nonzero coordinates)")
+    return dispatch.call("where", lambda c, a, b: torch.where(c.bool(), a, b),
+                         [_t(condition), _t(x), _t(y)],
+                         differentiable_mask=[False, True, True])
 
 
 def nucleus_sample_ids(probs: torch.Tensor, p: torch.Tensor,

@@ -22,6 +22,11 @@ Parameters carry names: JAX parameter names are global counters
 the model when it is handed ``model.named_parameters()``, and
 ``param_<i>`` by position otherwise. ``apply_decay_param_fun`` and the
 state-dict keys use these names.
+
+The parameters may be ``torch.Tensor``s (the torch-level models) or
+Paddle-API ``Parameter``s (``layer.parameters()``, as the JAX package's
+optimizers take them); a Parameter is updated through its leaf payload,
+under its own name, with its ``need_clip``.
 """
 from __future__ import annotations
 
@@ -29,6 +34,7 @@ from typing import Dict, Iterable, List, Optional, Tuple, Union
 
 import torch
 
+from ..core.tensor import Tensor
 from .lr import LRScheduler
 
 ParamsArg = Iterable[Union[torch.Tensor, Tuple[str, torch.Tensor]]]
@@ -115,7 +121,12 @@ class Optimizer:
             if isinstance(item, tuple):
                 pname, p = item
             else:
-                pname, p = f"param_{i}", item
+                pname = item.name if isinstance(item, Tensor) else \
+                    f"param_{i}"
+                p = item
+            if isinstance(p, Tensor):
+                p._data.need_clip = getattr(p, "need_clip", True)
+                p = p._data
             self._names.append(pname)
             self._parameter_list.append(p)
         if len(set(self._names)) != len(self._names):

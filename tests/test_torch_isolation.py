@@ -3,14 +3,16 @@
 Every module of ``paddle_tpu_torch`` and ``chip_smoke.py`` is imported in
 a fresh interpreter where ``jax`` and ``paddle_tpu`` cannot be imported.
 Entry points that were not asked for the CPU must raise where CUDA is
-absent, and a CPU call to the flash wrappers, forward or backward,
-launches nothing.
+absent (the Paddle API's too: ``to_tensor``, a ``Layer``, BERT, with no
+``set_device("cpu")``), and a CPU call to the flash wrappers, forward or
+backward, launches nothing.
 """
 import os
 import subprocess
 import sys
 import textwrap
 
+import numpy as np
 import pytest
 import torch
 
@@ -137,3 +139,41 @@ def test_cpu_fused_training_step_launches_nothing():
     assert (FK.fused_residual_norm.launches, FK.fused_bias_act.launches,
             FK.fused_matmul.launches, FK.fused_matmul_rope.launches,
             fa.flash_attention_fwd.launches) == (0, 0, 0, 0, 0)
+
+
+def test_paddle_api_needs_cuda_or_set_device_cpu():
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device is real")
+    from paddle_tpu_torch.models import BertConfig, BertForPretraining
+    assert paddle_tpu_torch.get_device() == "gpu:0"
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        paddle_tpu_torch.to_tensor([1.0, 2.0])
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        paddle_tpu_torch.nn.Linear(4, 3)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        BertForPretraining(BertConfig(vocab_size=64, hidden_size=32,
+                                      num_hidden_layers=1,
+                                      num_attention_heads=2,
+                                      intermediate_size=64))
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        paddle_tpu_torch.set_device("gpu")
+    assert paddle_tpu_torch.get_device() == "gpu:0"
+
+
+def test_cpu_paddle_api_bert_step_launches_nothing():
+    from paddle_tpu_torch.models import BertConfig, BertForPretraining
+    with paddle_tpu_torch.device_guard("cpu"):
+        model = BertForPretraining(BertConfig(
+            vocab_size=64, hidden_size=128, num_hidden_layers=1,
+            num_attention_heads=2, intermediate_size=64,
+            hidden_dropout_prob=0.0, attention_probs_dropout_prob=0.0,
+            fused_loss=True))
+        opt = paddle_tpu_torch.optimizer.AdamW(
+            parameters=model.parameters())
+        ids = paddle_tpu_torch.to_tensor(np.zeros((2, 8), np.int64))
+        model(ids, masked_lm_labels=ids)[2].backward()
+        opt.step()
+    assert all(p._data.device.type == "cpu" for p in model.parameters())
+    assert (fa.flash_attention_fwd.launches,
+            fa.flash_attention_bwd_dq.launches,
+            fa.flash_attention_bwd_dkv.launches) == (0, 0, 0)
