@@ -131,17 +131,43 @@ Phases, in order; any failure exits non-zero and nothing is caught:
              vocab 30592, 12 layers, B=48, S=512, the fused loss, bf16
              weights, fp32 masters, AdamW, O1), 10 timed steps after 2 of
              warm-up, one JSON line like the rungs'.
+* vision  -- image classification in the Paddle API: a tiny fp32
+             ResNet-18 (bench.py's small ResNet size: 10 classes, B=4,
+             64x64) on the card against a CPU twin with the same weights,
+             TF32 off (logits within LOGITS_TOL, each parameter's gradient
+             norm-wise within RESNET_GRAD_TOL, three AdamW steps' losses
+             (at RESNET_PARITY_LR) and the running statistics after them
+             within LOSS_TOL); then
+             bench.py's ResNet-50 rung (_bench_resnet50: B=256, 224x224,
+             1000 classes, fp32 live weights, bench.py's AdamW, O1 bf16,
+             RandomState(i) batches made before timing, 2 warm-up and 10
+             timed steps), one JSON line in the rung format (images/s,
+             MFU from 3 x 4.1 GFLOP an image, vs_baseline against the
+             A100's 2080 images/s, step ms and quartiles, the CUDA-event
+             split, peak memory, the losses, the card), the losses finite
+             and the first timed batch's loss again below its first,
+             peak memory below the card's; then hapi
+             Model.fit on ResNet-50 at full width in fp32: 256 seeded
+             images, batch 64, 2 epochs, shuffled, 2 forked workers,
+             prefetch on, Accuracy(topk=(1, 5)), EarlyStopping and
+             LRScheduler, then evaluate and predict (finite history, the
+             goodput ledger's 8 steps, every batch on the card through
+             the prefetcher, no worker left, predict (256, 1000)), fit's
+             images/s beside the rung's.
 
-The forward, serve, serve_llama, serve_tier, train, fusion, rungs and
-paddle_api phases are the main path (serve_tier launches no kernel: the
-tier is host code over the engine, and its LLaMA runs without flash
-attention, as bench.py's rungs do): every kernel's launch count is set to
+The forward, serve, serve_llama, serve_tier, train, fusion, rungs,
+paddle_api and vision phases are the main path (serve_tier and vision
+launch no kernel: the tier is host code over the engine, and its LLaMA
+runs without flash attention, as bench.py's rungs do; ResNet's
+convolutions and pools are cuDNN's and torch's, as the JAX package's are
+XLA's, not Pallas kernels): every kernel's launch count is set to
 0 just before each of them and read just after it. The last lines are the kernels' JSON summary
 (all seven, with their launches over the main path), the card's name and
 power limit from nvidia-smi, and {"ok": true, "device": {...}}.
 ``--profile`` adds a torch.profiler breakdown of a bf16 forward, a GPT-2
 and a LLaMA engine run, one training step, a fused and an unfused step of
-each fusion path, one step of each rung and one BERT-base step.
+each fusion path, one step of each rung, one BERT-base step and one
+ResNet-50 rung step.
 """
 from __future__ import annotations
 
@@ -160,9 +186,9 @@ import torch
 
 PHASES = ("build", "kernel", "fused_kernel", "forward", "serve",
           "serve_llama", "serve_tier", "train", "fusion", "rungs",
-          "paddle_api")
+          "paddle_api", "vision")
 MAIN_PATH = ("forward", "serve", "serve_llama", "serve_tier", "train",
-             "fusion", "rungs", "paddle_api")
+             "fusion", "rungs", "paddle_api", "vision")
 PATH_SHAPE = dict(b=4, s=1024, h=12, d=64)      # GPT-2 small serving
 TRAIN_SHAPE = dict(b=8, s=1024, h=16, d=64)     # GPT-2 345M training
 LLAMA_ATTN_SHAPE = dict(b=4, s=2048, h=12, d=128)   # LLaMA-770M fusion path
@@ -1040,11 +1066,12 @@ def _serve(model, prompts, n_new):
     return [out[r] for r in rids], wall, eng
 
 
-def _profile(label, fn, groups=None):
+def _profile(label, fn, groups=None, op_groups=None):
     """Run ``fn`` under torch.profiler; print the operators by device time
     and one JSON line with the device-busy share of the wall time and,
     for each of ``groups`` (name -> substrings of kernel names), its
-    share of the device time."""
+    share of the device time; ``op_groups`` (name -> operator names)
+    group the device time of the kernels each operator launched."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -1065,6 +1092,10 @@ def _profile(label, fn, groups=None):
     for group, keys in (groups or {}).items():
         secs = sum(e.self_device_time_total for e in on_device
                    if any(k in e.name.lower() for k in keys)) * 1e-6
+        shares[group] = {"device_s": secs, "share": secs / busy}
+    for group, ops in (op_groups or {}).items():
+        secs = sum(e.self_device_time_total for e in prof.key_averages()
+                   if e.key in ops) * 1e-6
         shares[group] = {"device_s": secs, "share": secs / busy}
     row = {"profile": label, "wall_s": wall, "device_busy_s": busy,
            "device_busy_share": busy / wall, "device_ops": len(on_device),
@@ -2708,6 +2739,381 @@ def phase_paddle_api(state):
     torch.cuda.empty_cache()
 
 
+# bench.py's ResNet-50 rung (_bench_resnet50, :240-285) and its small size
+RESNET_RUNG = dict(b=256, hw=224, classes=1000, steps=10, warmup=2)
+RESNET_TINY = dict(b=4, hw=64, classes=10)
+RESNET_GRAD_TOL = 1e-3           # card vs CPU, each parameter norm-wise
+# the card-vs-CPU AdamW steps' learning rate: at bench.py's 2.5e-4 Adam
+# moves every weight by about lr a step, 1-2% of a conv weight, and batch
+# norm over 16 values a channel amplifies the devices' 1e-5 rounding
+# difference about thirtyfold a step (losses 1e-6, 4e-5, 1.4e-3 apart)
+RESNET_PARITY_LR = 1e-5
+RESNET_FWD_FLOP = 4.1e9          # bench.py:269: a 224x224 image's forward
+A100_IMAGES_PER_S = 2080         # bench.py:276: the A100 reference
+A100_BF16_FLOP_PER_S = 312e12
+FIT_IMAGES, FIT_BATCH, FIT_EPOCHS, FIT_WORKERS = 256, 64, 2, 2
+
+
+def _resnet_batch(paddle, rng, b, hw, classes):
+    return (paddle.to_tensor(rng.randn(b, 3, hw, hw).astype(np.float32)),
+            paddle.to_tensor(rng.randint(0, classes, (b,)).astype(np.int64)))
+
+
+def _resnet_tiny_parity(paddle):
+    """fp32 ResNet-18 (10 classes, B=4, 64x64: bench.py's small ResNet
+    size) on the card against a CPU twin with the same weights, TF32 off:
+    train-mode logits within LOGITS_TOL; every parameter's gradient of
+    one step norm-wise within RESNET_GRAD_TOL; three AdamW steps (at
+    RESNET_PARITY_LR) losses and the running statistics after them within
+    LOSS_TOL."""
+    from paddle_tpu_torch.nn import functional as F
+    from paddle_tpu_torch.vision.models import resnet18
+    t = RESNET_TINY
+    paddle.seed(21)
+    card = resnet18(num_classes=t["classes"])
+    state = {k: v.numpy() for k, v in card.state_dict().items()}
+    with paddle.device_guard("cpu"):
+        twin = resnet18(num_classes=t["classes"])
+        twin.set_state_dict(state)
+    batches = [(np.random.RandomState(60 + i).randn(
+        t["b"], 3, t["hw"], t["hw"]).astype(np.float32),
+        np.random.RandomState(70 + i).randint(0, t["classes"], t["b"]))
+        for i in range(3)]
+    logits, grads, losses, stats = [], [], [], []
+    for model, dev in ((card, "gpu:0"), (twin, "cpu")):
+        with paddle.device_guard(dev):
+            model.train()
+            x, y = (paddle.to_tensor(a) for a in batches[0])
+            with paddle.no_grad():
+                logits.append(model(x).numpy())
+            F.cross_entropy(model(x), y).backward()
+            grads.append([p.grad.numpy().astype(np.float64)
+                          for p in model.parameters()])
+            model.clear_gradients()
+            opt = paddle.optimizer.AdamW(learning_rate=RESNET_PARITY_LR,
+                                         parameters=model.parameters(),
+                                         **ADAMW)
+            run = []
+            for x, y in batches:
+                loss = F.cross_entropy(model(paddle.to_tensor(x)),
+                                       paddle.to_tensor(y))
+                loss.backward()
+                opt.step()
+                opt.clear_grad()
+                run.append(float(loss.item()))
+            losses.append(run)
+            stats.append({k: v.numpy() for k, v in model.named_buffers()})
+    err = float(np.abs(logits[0] - logits[1]).max())
+    grad_err = max(float(np.linalg.norm(g - c) / max(np.linalg.norm(c),
+                                                     1e-30))
+                   for g, c in zip(*grads))
+    loss_err = max(abs(a - c) for a, c in zip(*losses))
+    stat_err = max(float(np.abs(stats[0][k] - stats[1][k]).max())
+                   for k in stats[1])
+    log(f"vision: tiny ResNet-18 fp32 card vs CPU: logits max abs err "
+        f"{err:.3e} (limit {LOGITS_TOL}); gradients norm-wise {grad_err:.3e} "
+        f"(limit {RESNET_GRAD_TOL}); losses {losses[0]} vs {losses[1]}, max "
+        f"err {loss_err:.3e}; running statistics max err {stat_err:.3e} "
+        f"(limit {LOSS_TOL})")
+    if not (err <= LOGITS_TOL and grad_err <= RESNET_GRAD_TOL
+            and loss_err <= LOSS_TOL and stat_err <= LOSS_TOL):
+        raise AssertionError("tiny ResNet-18: the card disagrees with its "
+                             "CPU twin")
+
+
+def _resnet_step(model, opt, x, y, events=None, amp_kw=O1):
+    """One eager step of bench.py's loop: forward and loss under
+    ``amp.auto_cast``, backward, AdamW; no kernel of the port launches."""
+    from paddle_tpu_torch import amp
+    from paddle_tpu_torch.nn import functional as F
+    c0 = _counts()
+    if events:
+        events[0].record()
+    with amp.auto_cast(**amp_kw):
+        loss = F.cross_entropy(model(x), y)
+    if events:
+        events[1].record()
+    loss.backward()
+    if events:
+        events[2].record()
+    opt.step()
+    opt.clear_grad()
+    if events:
+        events[3].record()
+    if _launched(c0, _counts()):
+        raise AssertionError("a ResNet step launched a kernel of the port")
+    return loss
+
+
+def _resnet50_rung(paddle, card, profile):
+    """bench.py's ResNet-50 rung: B=256, 224x224, 1000 classes, fp32 live
+    weights (bf16_weights=False), AdamW (b1 0.9, b2 0.95, eps 1e-8, wd 0.1
+    on every parameter, lr 2.5e-4), O1 bf16; batches from RandomState(i),
+    all made before timing; RESNET_RUNG["warmup"] steps, then
+    RESNET_RUNG["steps"] timed. One JSON line in the rung format. The
+    losses must be finite and the first timed batch's loss, again after
+    the timed steps, below its first."""
+    from paddle_tpu_torch.vision.models import resnet50
+    r = RESNET_RUNG
+    paddle.seed(22)
+    model = resnet50(num_classes=r["classes"])
+    model.train()
+    n_params = sum(p.size for p in model.parameters())
+    opt = paddle.optimizer.AdamW(learning_rate=LR,
+                                 parameters=model.parameters(), **ADAMW)
+    batches = [_resnet_batch(paddle, np.random.RandomState(i), r["b"],
+                             r["hw"], r["classes"])
+               for i in range(r["warmup"] + r["steps"])]
+    for x, y in batches[:r["warmup"]]:
+        _resnet_step(model, opt, x, y)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    walls, split, losses = [], [], []
+    for x, y in batches[r["warmup"]:]:
+        events = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss = _resnet_step(model, opt, x, y, events)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        split.append([events[j].elapsed_time(events[j + 1])
+                      for j in range(3)])
+        losses.append(float(loss.item()))
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    # each step's batch is new, with random labels: the loss learned
+    # shows on the first timed batch again (bench.py's rung itself ends
+    # above its first loss on fresh batches)
+    from paddle_tpu_torch import amp
+    from paddle_tpu_torch.nn import functional as F
+    x0, y0 = batches[r["warmup"]]
+    # batch norm's input elements in a step: each is kept as an fp32
+    # copy for the backward (the port casts it, as the JAX package does)
+    bn_elems = []
+    hooks = [layer.register_forward_pre_hook(
+        lambda layer, inputs: bn_elems.append(inputs[0].size))
+        for layer in model.sublayers()
+        if isinstance(layer, paddle.nn.BatchNorm2D)]
+    with paddle.no_grad(), amp.auto_cast(**O1):
+        again = float(F.cross_entropy(model(x0), y0).item())
+    for h in hooks:
+        h.remove()
+    bn_fp32_gb = 4 * sum(bn_elems) / 1e9
+    q1, median, q3 = statistics.quantiles(walls, n=4)
+    fwd, bwd, upd = (statistics.median(x[j] for x in split)
+                     for j in range(3))
+    images_per_s = r["b"] / median
+    flops_per_image = 3 * RESNET_FWD_FLOP
+    mfu = flops_per_image * images_per_s / BF16_FLOP_PER_S
+    a100_util = A100_IMAGES_PER_S * flops_per_image / A100_BF16_FLOP_PER_S
+    card_gb = torch.cuda.get_device_properties(0).total_memory / 1e9
+    row = {"metric": "resnet50_train_images_per_sec_per_chip",
+           "value": images_per_s, "unit": "images/s",
+           "vs_baseline": mfu / a100_util,
+           "extra": {"rung": f"resnet50 O1 bf16 fp32-weights B{r['b']} "
+                             f"{r['hw']}x{r['hw']}",
+                     "card": card, "params": n_params, "batch": r["b"],
+                     "steps": len(losses), "step_ms": median * 1e3,
+                     "step_ms_q1": q1 * 1e3, "step_ms_q3": q3 * 1e3,
+                     "forward_ms": fwd, "backward_ms": bwd,
+                     "optimizer_ms": upd, "mfu": mfu,
+                     "a100_ref_util": a100_util, "peak_memory_gb": peak,
+                     "card_memory_gb": card_gb,
+                     "bn_fp32_inputs_gb": bn_fp32_gb,
+                     "bn_layers": len(bn_elems), "loss_first": losses[0],
+                     "loss_last": losses[-1], "losses": losses,
+                     "loss_batch0_again": again,
+                     "switches": dict(amp="O1 bfloat16", bf16_weights=False,
+                                      layout="NCHW",
+                                      cudnn_benchmark=torch.backends.cudnn
+                                      .benchmark)}}
+    if profile:
+        x, y = batches[-1]
+        prof = _profile(
+            "resnet50 rung step",
+            lambda: _resnet_step(model, opt, x, y),
+            groups={"layout transposes (kernels)": ("nchwtonhwc",
+                                                     "nhwctonchw")},
+            op_groups={"convolutions (cuDNN)": (
+                           "aten::cudnn_convolution",
+                           "aten::convolution_backward"),
+                       "batch norm": ("aten::cudnn_batch_norm",
+                                      "aten::cudnn_batch_norm_backward"),
+                       "copies (O1 casts)": ("aten::copy_",),
+                       "relu": ("aten::clamp_min",
+                                "aten::threshold_backward"),
+                       "residual adds": ("aten::add", "aten::add_"),
+                       "pools": ("aten::max_pool2d_with_indices",
+                                 "aten::max_pool2d_with_indices_backward",
+                                 "aten::mean",
+                                 "aten::_adaptive_avg_pool2d",
+                                 "aten::_adaptive_avg_pool2d_backward"),
+                       "fc GEMM": ("aten::addmm", "aten::mm"),
+                       "optimizer (foreach)": (
+                           "aten::_foreach_mul_", "aten::_foreach_add_",
+                           "aten::_foreach_addcmul_", "aten::_foreach_div",
+                           "aten::_foreach_sqrt_",
+                           "aten::_foreach_addcdiv_")})
+        row["extra"]["profiled_device_ms"] = prof["device_busy_s"] * 1e3
+        row["extra"]["device_busy_share"] = prof["device_busy_share"]
+    log(json.dumps(row))
+    if not (all(np.isfinite(losses + [again])) and again < losses[0]):
+        raise AssertionError(f"resnet50 rung: losses {losses}, the first "
+                             f"batch again {again}")
+    if not peak < card_gb:
+        raise AssertionError(f"resnet50 rung: peak {peak} GB")
+    del model, opt, batches
+    return images_per_s
+
+
+class _ImageSet:
+    """A numpy-seeded in-memory dataset of 3x224x224 images and labels."""
+
+    def __init__(self, n, hw, classes, seed):
+        rng = np.random.RandomState(seed)
+        self.x = rng.randn(n, 3, hw, hw).astype(np.float32)
+        self.y = rng.randint(0, classes, n).astype(np.int64)
+
+    def __len__(self):
+        return len(self.y)
+
+    def __getitem__(self, i):
+        return self.x[i], self.y[i]
+
+
+def _resnet50_fit(paddle, card, rung_images_per_s):
+    """hapi Model.fit on ResNet-50 at full width, fp32 (as the JAX Model
+    runs it): FIT_IMAGES images, batch FIT_BATCH, FIT_EPOCHS epochs,
+    shuffled, FIT_WORKERS forked workers, prefetch on, Accuracy(topk=(1,
+    5)), EarlyStopping and LRScheduler; then evaluate and predict. Gates:
+    finite history, the goodput ledger's steps, every batch on the card
+    through the prefetcher, no worker left, predict's shape."""
+    import multiprocessing as mp
+
+    from paddle_tpu_torch.io import prefetch
+    from paddle_tpu_torch.observability import goodput, sentinel, trace
+    from paddle_tpu_torch.vision.models import resnet50
+    paddle.set_flags({"FLAGS_prefetch": True})
+    paddle.seed(23)
+    net = resnet50(num_classes=RESNET_RUNG["classes"])
+    sched = paddle.optimizer.lr.StepDecay(LR, step_size=4, gamma=0.5)
+    opt = paddle.optimizer.AdamW(learning_rate=sched,
+                                 parameters=net.parameters(), **ADAMW)
+    model = paddle.Model(net)
+    model.prepare(opt, paddle.nn.CrossEntropyLoss(),
+                  paddle.metric.Accuracy(topk=(1, 5)))
+    data = _ImageSet(FIT_IMAGES, RESNET_RUNG["hw"], RESNET_RUNG["classes"],
+                     seed=24)
+    on_card, step_walls = [], []
+    train_batch = model.train_batch
+
+    def watched(inputs, labels=None, update=True):
+        on_card.append(all(t._data.is_cuda for t in inputs + labels))
+        t0 = time.perf_counter()
+        out = train_batch(inputs, labels, update)    # ends on a host read
+        step_walls.append(time.perf_counter() - t0)
+        return out
+    model.train_batch = watched
+    epoch_walls = []
+
+    class EpochClock(paddle.hapi.Callback):
+        def on_epoch_begin(self, epoch, logs=None):
+            torch.cuda.synchronize()
+            self.t0 = time.perf_counter()
+
+        def on_epoch_end(self, epoch, logs=None):
+            torch.cuda.synchronize()
+            epoch_walls.append(time.perf_counter() - self.t0)
+    goodput.reset_ledger()
+    sentinel.reset()
+    before = prefetch.transfer_counts()
+    trace.clear()
+    trace.activate()             # the producer's io.prefetch spans
+    t0 = time.perf_counter()
+    history = model.fit(data, batch_size=FIT_BATCH, epochs=FIT_EPOCHS,
+                        shuffle=True, num_workers=FIT_WORKERS, verbose=0,
+                        callbacks=[EpochClock(),
+                                   paddle.hapi.EarlyStopping(monitor="loss"),
+                                   paddle.hapi.LRScheduler(by_step=True)])
+    fit_s = time.perf_counter() - t0
+    trace.deactivate()
+    produce = [t1 - t0 for name, _, t0, t1, _, _ in trace.drain()
+               if name == "io.prefetch"]
+    alive = mp.active_children()
+    snap = goodput.ledger().snapshot()
+    goodput.ledger().run_end()
+    after = prefetch.transfer_counts()
+    steps = FIT_EPOCHS * FIT_IMAGES // FIT_BATCH
+    # the same model's train_batch on batches already on the card: the
+    # loader and prefetcher's cost is the difference
+    x, y = (paddle.to_tensor(data.x[:FIT_BATCH]),
+            paddle.to_tensor(data.y[:FIT_BATCH]))
+    train_batch([x], [y])
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    for _ in range(4):
+        train_batch([x], [y])
+    torch.cuda.synchronize()
+    resident_s = (time.perf_counter() - t1) / 4
+    resident_images_per_s = FIT_BATCH / resident_s
+    result = model.evaluate(data, batch_size=FIT_BATCH, verbose=0)
+    preds = model.predict(data, batch_size=FIT_BATCH, stack_outputs=True)
+    row = {"fit": "resnet50 hapi Model.fit fp32 224x224", "card": card,
+           "images": FIT_IMAGES, "batch": FIT_BATCH, "epochs": FIT_EPOCHS,
+           "num_workers": FIT_WORKERS, "history": history,
+           "fit_s": fit_s, "epoch_s": epoch_walls,
+           "fit_images_per_s_epoch2": FIT_IMAGES / epoch_walls[-1],
+           "train_batch_resident_images_per_s": resident_images_per_s,
+           "train_batch_ms_in_fit": [w * 1e3 for w in step_walls],
+           "train_batch_ms_resident": resident_s * 1e3,
+           "producer_ms_a_batch": [p * 1e3 for p in produce],
+           "rung_images_per_s_o1": rung_images_per_s,
+           "goodput_steps": snap["steps"],
+           "goodput_buckets_s": snap["buckets"],
+           "sentinel": sentinel.get().counts(),
+           "prefetched_batches": after["batches"] - before["batches"],
+           "host_to_device_copies": (after["host_to_device"]
+                                     - before["host_to_device"]),
+           "batches_on_card": sum(on_card), "workers_alive": len(alive),
+           "lr_after": sched(), "evaluate": result,
+           "predict_shape": list(preds[0].shape)}
+    log(json.dumps(row, default=float))
+    checks = {
+        "history": len(history) == FIT_EPOCHS and all(
+            np.isfinite(history)),
+        "goodput steps": snap["steps"] == steps,
+        "batches through the prefetcher": (
+            row["prefetched_batches"] == steps and all(on_card)
+            and len(on_card) == steps
+            and row["host_to_device_copies"] == 2 * steps),
+        "no worker alive": not alive,
+        "scheduler stepped": sched.last_epoch == steps,
+        "predict": row["predict_shape"] == [FIT_IMAGES,
+                                            RESNET_RUNG["classes"]],
+        "evaluate": np.isfinite(result["loss"][0]),
+    }
+    failed = [k for k, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError(f"resnet50 fit: {failed}")
+
+
+def phase_vision(state):
+    """Image classification in the Paddle API: a tiny ResNet-18 against
+    its CPU twin, bench.py's ResNet-50 rung, and hapi Model.fit on
+    ResNet-50. No kernel of the port runs here (convolutions and pools
+    are cuDNN's and torch's, as the JAX package's are XLA's)."""
+    import paddle_tpu_torch as paddle
+    card = _card_line()
+    t0 = time.perf_counter()
+    with paddle.device_guard("gpu:0"):
+        _resnet_tiny_parity(paddle)
+        torch.cuda.empty_cache()
+        images_per_s = _resnet50_rung(paddle, card, state.get("profile"))
+        torch.cuda.empty_cache()
+        _resnet50_fit(paddle, card, images_per_s)
+    torch.cuda.empty_cache()
+    log(f"vision: {time.perf_counter() - t0:.1f} s")
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--phases", default=",".join(PHASES),
@@ -2716,7 +3122,8 @@ def main(argv=None) -> int:
                         help="also print torch.profiler breakdowns of a "
                         "bf16 forward, engine run and training step, of a "
                         "fused and an unfused step of each fusion path, "
-                        "of one step of each rung and of a BERT-base step")
+                        "of one step of each rung, of a BERT-base step and "
+                        "of a ResNet-50 rung step")
     args = parser.parse_args(argv)
     phases = [p for p in args.phases.split(",") if p]
     unknown = set(phases) - set(PHASES)

@@ -32,10 +32,17 @@ hessian), ``nn.Layer`` and its layers, and BERT written on them:
 ``paddle.nn.Linear``, ``loss.backward()`` and
 ``paddle.optimizer.AdamW(parameters=layer.parameters())``. Tensors land
 on the card unless ``paddle.set_device("cpu")`` asked for the CPU.
+
+Image classification on that core: the convolutions and pools
+(``nn.Conv2D``, ``nn.MaxPool2D``, ...), ``vision.models`` (the ResNet
+family), ``io`` (datasets, samplers, ``DataLoader``, the
+``DevicePrefetcher``), ``metric``, and ``hapi``'s ``Model.fit`` /
+``evaluate`` / ``predict`` with its callbacks, the goodput ledger and
+the sentinel.
 """
-from . import (amp, autograd, compile, core, distributed, fault, incubate,
-               inference, jit, models, nn, observability, ops, optimizer,
-               serving, tools)
+from . import (amp, autograd, compile, core, distributed, fault, hapi,
+               incubate, inference, io, jit, metric, models, nn,
+               observability, ops, optimizer, serving, tools, vision)
 from .autograd import PyLayer, backward, grad, is_grad_enabled
 from .core import get_flag, resolve_device, set_flags
 from .core.dispatch import (enable_grad, no_grad,
@@ -50,14 +57,16 @@ from .core.tensor import Tensor, is_tensor
 from .nn.parameter import ParamAttr, create_parameter
 from .ops import *  # noqa: F401,F403
 from .ops import __all__ as _ops
+from .hapi import Model
 from .inference import GPTPagedEngine, LlamaPagedEngine, PagedEngine
 from .jit import to_static
 from .models import (GPTConfig, GPTForCausalLM, LlamaConfig, LlamaForCausalLM,
                      gpt2_medium, gpt2_small)
 
 __all__ = ["amp", "autograd", "compile", "core", "distributed", "fault",
-           "incubate", "inference", "jit", "models", "nn", "observability",
-           "ops", "optimizer", "serving", "tools", "resolve_device",
+           "hapi", "incubate", "inference", "io", "jit", "metric", "models",
+           "nn", "observability", "ops", "optimizer", "serving", "tools",
+           "vision", "Model", "resolve_device",
            "Tensor", "is_tensor", "no_grad", "enable_grad",
            "set_grad_enabled", "is_grad_enabled", "backward", "grad",
            "PyLayer", "seed", "get_rng_state", "set_rng_state",

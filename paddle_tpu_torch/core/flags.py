@@ -68,3 +68,12 @@ def on_change(name: str, fn: Callable[[Any], None]) -> None:
 # rewrite matched subgraphs (norm->linear->act, residual+norm, bias+act,
 # rope+projection) onto the fused ops in to_static
 define_flag("enable_fusion", False)
+
+# io/prefetch.py: hapi Model.fit wraps its loader in a DevicePrefetcher
+define_flag("prefetch", True,
+            "Double-buffered device prefetch in hapi.Model.fit: the next "
+            "batch's host fetch and copy to the card run on a background "
+            "thread while the current step computes (io.DevicePrefetcher).")
+define_flag("prefetch_depth", 2,
+            "Batches the DevicePrefetcher keeps in flight ahead of the "
+            "consumer (>=1; 2 = double buffering).")

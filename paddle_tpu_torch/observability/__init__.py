@@ -7,15 +7,19 @@
 - :mod:`.trace`: the span buffer the engine's tick and program spans go
   into while it is active;
 - :mod:`.reqtrace`: per-request lifecycle timelines, exemplars and SLO
-  burn rates (``FLAGS_reqtrace``).
+  burn rates (``FLAGS_reqtrace``);
+- :mod:`.goodput`: the training run's wall clock in goodput and badput
+  buckets (``FLAGS_goodput``);
+- :mod:`.sentinel`: online anomaly detection over step time, loss and
+  the goodput buckets (``FLAGS_sentinel``).
 """
 from __future__ import annotations
 
-from . import metrics, reqtrace, trace
+from . import goodput, metrics, reqtrace, sentinel, trace
 from .metrics import (REGISTRY, Counter, Gauge, Histogram, MetricsRegistry,
                       enabled, render_prometheus)
 
-__all__ = ["metrics", "trace", "reqtrace", "REGISTRY", "MetricsRegistry",
+__all__ = ["metrics", "trace", "reqtrace", "goodput", "sentinel", "REGISTRY", "MetricsRegistry",
            "Counter", "Gauge", "Histogram", "enabled", "render_prometheus",
            "snapshot", "to_prometheus"]
 

@@ -2,7 +2,8 @@
 plain torch body behind ``dispatch.call``. ``max``/``min`` return values
 only, as Paddle's do. An integer or bool sum/prod keeps the JAX
 package's dtype (int32 for bool and int32 input) where torch would widen
-to int64.
+to int64; an integer or bool mean is the float32 mean, as ``jnp.mean``
+gives it.
 """
 from __future__ import annotations
 
@@ -77,7 +78,8 @@ def _prod(a, ax, keep):
 
 _make_reduce("sum", _sum)
 _make_reduce("mean", lambda a, ax, keep: torch.mean(
-    a, dim=_dims(a, ax), keepdim=keep))
+    a if a.is_floating_point() or a.is_complex() else a.float(),
+    dim=_dims(a, ax), keepdim=keep))
 _make_reduce("max", lambda a, ax, keep: torch.amax(
     a, dim=_dims(a, ax), keepdim=keep))
 _make_reduce("min", lambda a, ax, keep: torch.amin(

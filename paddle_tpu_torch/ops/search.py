@@ -63,12 +63,18 @@ def sort(x, axis=-1, descending=False, stable=False, name=None):
 
 def topk(x, k, axis=None, largest=True, sorted=True, name=None):
     """(values, int64 indices) of the k largest (or smallest) along
-    ``axis`` (the last when None)."""
+    ``axis`` (the last when None), as ``lax.top_k`` gives them: always
+    sorted (``sorted`` is accepted and ignored, as in the JAX package),
+    and among equal values the lower index first, for ``largest=False``
+    too. A stable sort of the whole axis, sliced to k."""
     if isinstance(k, Tensor):
         k = int(k.item())
     ax = -1 if axis is None else axis
-    v, i = dispatch.call("top_k", lambda a: tuple(torch.topk(
-        a, k, dim=ax, largest=largest, sorted=sorted)), [_t(x)])
+
+    def f(a):
+        v, i = torch.sort(a, dim=ax, descending=largest, stable=True)
+        return v.narrow(ax, 0, k), i.narrow(ax, 0, k)
+    v, i = dispatch.call("top_k", f, [_t(x)])
     return v, i
 
 

@@ -2,7 +2,8 @@
 
 Host-side state: an epoch (step) counter. The optimizer reads the current
 rate each step; the caller advances the scheduler with ``step()``. The
-semantics are the JAX package's, including two that are easy to miss:
+seventeen schedulers are the JAX package's, with its semantics,
+including two that are easy to miss:
 the constructor takes the first step (epoch 0), and a ``LinearWarmup``
 around another scheduler steps that scheduler from inside ``get_lr``
 once warm-up is over.
@@ -43,6 +44,74 @@ class LRScheduler:
     def set_state_dict(self, state_dict):
         self.__dict__.update(state_dict)
 
+    set_dict = set_state_dict
+    state_keys = state_dict
+
+
+class NoamDecay(LRScheduler):
+    def __init__(self, d_model, warmup_steps, learning_rate=1.0, last_epoch=-1,
+                 verbose=False):
+        self.d_model = d_model
+        self.warmup_steps = warmup_steps
+        super().__init__(learning_rate, last_epoch, verbose)
+
+    def get_lr(self):
+        step = max(self.last_epoch, 1)
+        return (self.base_lr * self.d_model ** -0.5
+                * min(step ** -0.5, step * self.warmup_steps ** -1.5))
+
+
+class PiecewiseDecay(LRScheduler):
+    def __init__(self, boundaries, values, last_epoch=-1, verbose=False):
+        self.boundaries = list(boundaries)
+        self.values = list(values)
+        super().__init__(values[0], last_epoch, verbose)
+
+    def get_lr(self):
+        for i, b in enumerate(self.boundaries):
+            if self.last_epoch < b:
+                return self.values[i]
+        return self.values[len(self.boundaries)]
+
+
+class NaturalExpDecay(LRScheduler):
+    def __init__(self, learning_rate, gamma, last_epoch=-1, verbose=False):
+        self.gamma = gamma
+        super().__init__(learning_rate, last_epoch, verbose)
+
+    def get_lr(self):
+        return self.base_lr * math.exp(-self.gamma * self.last_epoch)
+
+
+class InverseTimeDecay(LRScheduler):
+    def __init__(self, learning_rate, gamma, last_epoch=-1, verbose=False):
+        self.gamma = gamma
+        super().__init__(learning_rate, last_epoch, verbose)
+
+    def get_lr(self):
+        return self.base_lr / (1 + self.gamma * self.last_epoch)
+
+
+class PolynomialDecay(LRScheduler):
+    def __init__(self, learning_rate, decay_steps, end_lr=0.0001, power=1.0,
+                 cycle=False, last_epoch=-1, verbose=False):
+        self.decay_steps = decay_steps
+        self.end_lr = end_lr
+        self.power = power
+        self.cycle = cycle
+        super().__init__(learning_rate, last_epoch, verbose)
+
+    def get_lr(self):
+        step = self.last_epoch
+        decay_steps = self.decay_steps
+        if self.cycle:
+            div = math.ceil(step / decay_steps) if step > 0 else 1
+            decay_steps = decay_steps * max(div, 1)
+        else:
+            step = min(step, decay_steps)
+        return ((self.base_lr - self.end_lr)
+                * (1 - step / decay_steps) ** self.power + self.end_lr)
+
 
 class LinearWarmup(LRScheduler):
     """Linear from ``start_lr`` to ``end_lr`` over ``warmup_steps``, then
@@ -82,6 +151,104 @@ class LinearWarmup(LRScheduler):
             self.lr_sched.set_state_dict(inner)
 
 
+class ExponentialDecay(LRScheduler):
+    def __init__(self, learning_rate, gamma, last_epoch=-1, verbose=False):
+        self.gamma = gamma
+        super().__init__(learning_rate, last_epoch, verbose)
+
+    def get_lr(self):
+        return self.base_lr * self.gamma ** self.last_epoch
+
+
+class MultiStepDecay(LRScheduler):
+    def __init__(self, learning_rate, milestones, gamma=0.1, last_epoch=-1,
+                 verbose=False):
+        self.milestones = list(milestones)
+        self.gamma = gamma
+        super().__init__(learning_rate, last_epoch, verbose)
+
+    def get_lr(self):
+        n = sum(1 for m in self.milestones if self.last_epoch >= m)
+        return self.base_lr * self.gamma ** n
+
+
+class StepDecay(LRScheduler):
+    def __init__(self, learning_rate, step_size, gamma=0.1, last_epoch=-1,
+                 verbose=False):
+        self.step_size = step_size
+        self.gamma = gamma
+        super().__init__(learning_rate, last_epoch, verbose)
+
+    def get_lr(self):
+        return self.base_lr * self.gamma ** (self.last_epoch // self.step_size)
+
+
+class LambdaDecay(LRScheduler):
+    def __init__(self, learning_rate, lr_lambda, last_epoch=-1, verbose=False):
+        self.lr_lambda = lr_lambda
+        super().__init__(learning_rate, last_epoch, verbose)
+
+    def get_lr(self):
+        return self.base_lr * self.lr_lambda(self.last_epoch)
+
+
+class ReduceOnPlateau(LRScheduler):
+    def __init__(self, learning_rate, mode="min", factor=0.1, patience=10,
+                 threshold=1e-4, threshold_mode="rel", cooldown=0, min_lr=0,
+                 epsilon=1e-8, verbose=False):
+        self.mode = mode
+        self.factor = factor
+        self.patience = patience
+        self.threshold = threshold
+        self.threshold_mode = threshold_mode
+        self.cooldown = cooldown
+        self.min_lr = min_lr
+        self.epsilon = epsilon
+        self.best = None
+        self.cooldown_counter = 0
+        self.num_bad_epochs = 0
+        self.base_lr = float(learning_rate)
+        self.last_lr = self.base_lr
+        self.last_epoch = 0
+        self.verbose = verbose
+
+    def get_lr(self):
+        return self.last_lr
+
+    def _is_better(self, cur, best):
+        if self.mode == "min":
+            if self.threshold_mode == "rel":
+                return cur < best - abs(best) * self.threshold
+            return cur < best - self.threshold
+        if self.threshold_mode == "rel":
+            return cur > best + abs(best) * self.threshold
+        return cur > best + self.threshold
+
+    def step(self, metrics=None, epoch=None):
+        if metrics is None:
+            return
+        from ..core.tensor import Tensor
+        if isinstance(metrics, Tensor):
+            metrics = float(metrics.numpy())
+        self.last_epoch += 1
+        if self.best is None or self._is_better(metrics, self.best):
+            self.best = metrics
+            self.num_bad_epochs = 0
+        else:
+            self.num_bad_epochs += 1
+        if self.cooldown_counter > 0:
+            self.cooldown_counter -= 1
+            self.num_bad_epochs = 0
+        if self.num_bad_epochs > self.patience:
+            new_lr = max(self.last_lr * self.factor, self.min_lr)
+            if self.last_lr - new_lr > self.epsilon:
+                self.last_lr = new_lr
+                if self.verbose:
+                    print(f"Epoch {self.last_epoch}: reducing learning rate to {new_lr}")
+            self.cooldown_counter = self.cooldown
+            self.num_bad_epochs = 0
+
+
 class CosineAnnealingDecay(LRScheduler):
     """eta_min + (base - eta_min) * (1 + cos(pi * epoch / T_max)) / 2."""
 
@@ -96,4 +263,145 @@ class CosineAnnealingDecay(LRScheduler):
                 * (1 + math.cos(math.pi * self.last_epoch / self.T_max)) / 2)
 
 
-__all__ = ["LRScheduler", "LinearWarmup", "CosineAnnealingDecay"]
+class MultiplicativeDecay(LRScheduler):
+    def __init__(self, learning_rate, lr_lambda, last_epoch=-1, verbose=False):
+        self.lr_lambda = lr_lambda
+        super().__init__(learning_rate, last_epoch, verbose)
+
+    def get_lr(self):
+        lr = self.base_lr
+        for e in range(1, self.last_epoch + 1):
+            lr *= self.lr_lambda(e)
+        return lr
+
+
+class OneCycleLR(LRScheduler):
+    def __init__(self, max_learning_rate, total_steps, divide_factor=25.0,
+                 end_learning_rate=0.0001, phase_pct=0.3,
+                 anneal_strategy="cos", three_phase=False, last_epoch=-1,
+                 verbose=False):
+        self.max_lr = max_learning_rate
+        self.total_steps = total_steps
+        self.initial_lr = max_learning_rate / divide_factor
+        self.end_lr = end_learning_rate
+        self.phase_pct = phase_pct
+        self.anneal = anneal_strategy
+        self.three_phase = three_phase
+        super().__init__(self.initial_lr, last_epoch, verbose)
+
+    def _interp(self, start, end, pct):
+        if self.anneal == "cos":
+            return end + (start - end) / 2.0 * (math.cos(math.pi * pct) + 1)
+        return (end - start) * pct + start
+
+    def get_lr(self):
+        step = min(self.last_epoch, self.total_steps)
+        up_steps = float(self.phase_pct * self.total_steps) - 1
+        if step <= up_steps or up_steps <= 0:
+            return self._interp(self.initial_lr, self.max_lr,
+                                step / max(up_steps, 1))
+        down = (step - up_steps) / max(self.total_steps - 1 - up_steps, 1)
+        return self._interp(self.max_lr, self.end_lr, min(down, 1.0))
+
+
+class CyclicLR(LRScheduler):
+    def __init__(self, base_learning_rate, max_learning_rate, step_size_up,
+                 step_size_down=None, mode="triangular", exp_gamma=1.0,
+                 scale_fn=None, scale_mode="cycle", last_epoch=-1,
+                 verbose=False):
+        self.max_lr = max_learning_rate
+        self.step_size_up = step_size_up
+        self.step_size_down = step_size_down or step_size_up
+        self.mode = mode
+        self.exp_gamma = exp_gamma
+        self.scale_fn = scale_fn
+        self.scale_mode = scale_mode
+        super().__init__(base_learning_rate, last_epoch, verbose)
+
+    def get_lr(self):
+        total = self.step_size_up + self.step_size_down
+        cycle = math.floor(1 + self.last_epoch / total)
+        x = self.last_epoch - (cycle - 1) * total
+        if x < self.step_size_up:
+            pct = x / self.step_size_up
+        else:
+            pct = 1 - (x - self.step_size_up) / self.step_size_down
+        amp = (self.max_lr - self.base_lr) * pct
+        if self.scale_fn is not None:
+            arg = cycle if self.scale_mode == "cycle" else self.last_epoch
+            return self.base_lr + amp * self.scale_fn(arg)
+        if self.mode == "triangular":
+            return self.base_lr + amp
+        if self.mode == "triangular2":
+            return self.base_lr + amp / (2 ** (cycle - 1))
+        return self.base_lr + amp * (self.exp_gamma ** self.last_epoch)
+
+
+class CosineAnnealingWarmRestarts(LRScheduler):
+    def __init__(self, learning_rate, T_0, T_mult=1, eta_min=0, last_epoch=-1,
+                 verbose=False):
+        self.T_0 = T_0
+        self.T_i = T_0
+        self.T_mult = T_mult
+        self.eta_min = eta_min
+        self.T_cur = last_epoch
+        super().__init__(learning_rate, last_epoch, verbose)
+
+    def get_lr(self):
+        return (self.eta_min + (self.base_lr - self.eta_min)
+                * (1 + math.cos(math.pi * self.T_cur / self.T_i)) / 2)
+
+    def step(self, epoch=None):
+        if epoch is None:
+            epoch = self.last_epoch + 1
+            self.T_cur += 1
+            if self.T_cur >= self.T_i:
+                self.T_cur -= self.T_i
+                self.T_i *= self.T_mult
+        else:
+            if epoch >= self.T_0:
+                if self.T_mult == 1:
+                    self.T_cur = epoch % self.T_0
+                else:
+                    n = int(math.log(epoch / self.T_0 * (self.T_mult - 1) + 1,
+                                     self.T_mult))
+                    self.T_cur = epoch - self.T_0 * (self.T_mult ** n - 1) / (
+                        self.T_mult - 1)
+                    self.T_i = self.T_0 * self.T_mult ** n
+            else:
+                self.T_cur = epoch
+        self.last_epoch = epoch
+        self.last_lr = self.get_lr()
+
+
+class LinearLR(LRScheduler):
+    """Linearly ramp the LR factor from start_factor to end_factor over
+    total_steps (reference python/paddle/optimizer/lr.py LinearLR:2355)."""
+
+    def __init__(self, learning_rate, total_steps, start_factor=1.0 / 3,
+                 end_factor=1.0, last_epoch=-1, verbose=False):
+        if total_steps <= 0:
+            raise ValueError("total_steps must be positive")
+        if not 0 < start_factor <= 1:
+            raise ValueError("start_factor must be in (0, 1]")
+        if not 0 <= end_factor <= 1:
+            raise ValueError("end_factor must be in [0, 1]")
+        self.total_steps = total_steps
+        self.start_factor = start_factor
+        self.end_factor = end_factor
+        super().__init__(learning_rate, last_epoch, verbose)
+
+    def get_lr(self):
+        t = min(max(self.last_epoch, 0), self.total_steps)
+        factor = (self.start_factor
+                  + (self.end_factor - self.start_factor)
+                  * t / self.total_steps)
+        return self.base_lr * factor
+
+
+__all__ = ["LRScheduler", "NoamDecay", "PiecewiseDecay", "NaturalExpDecay",
+           "InverseTimeDecay", "PolynomialDecay", "LinearWarmup",
+           "ExponentialDecay", "MultiStepDecay", "StepDecay", "LambdaDecay",
+           "ReduceOnPlateau", "CosineAnnealingDecay", "MultiplicativeDecay",
+           "OneCycleLR", "CyclicLR", "CosineAnnealingWarmRestarts",
+           "LinearLR"]

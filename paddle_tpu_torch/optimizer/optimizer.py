@@ -1,5 +1,5 @@
 """Optimizers (counterpart of ``paddle_tpu/optimizer/optimizer.py``):
-the ``Optimizer`` base, ``Adam`` and ``AdamW``.
+the ``Optimizer`` base, ``SGD``, ``Adam`` and ``AdamW``.
 
 The JAX package runs every parameter's update in one jitted program; the
 port runs the same fp32 update rule with plain multi-tensor torch ops
@@ -285,6 +285,18 @@ class Optimizer:
                         device=p.device, dtype=torch.float32).clone()
 
 
+class SGD(Optimizer):
+    """w -= lr * (g + weight_decay * w): plain SGD with L2 folded into the
+    gradient, as the JAX package's; no state."""
+
+    def _update(self, ws, gs, states, lr, step, wd_flags):
+        if self._weight_decay:
+            gs = torch._foreach_add(
+                gs, torch._foreach_mul(ws, [self._weight_decay * f
+                                            for f in wd_flags]))
+        torch._foreach_add_(ws, gs, alpha=-lr)
+
+
 class Adam(Optimizer):
     """Adam; ``weight_decay`` is L2 folded into the gradient.
     ``moment_dtype``: None (fp32 moments), ``"bfloat16"`` or ``"int8"``
@@ -413,4 +425,4 @@ class AdamW(Adam):
         self._apply(ws, states, lr, bc1, bc2)
 
 
-__all__ = ["Optimizer", "Adam", "AdamW"]
+__all__ = ["Optimizer", "SGD", "Adam", "AdamW"]

@@ -1,0 +1,170 @@
+"""The ResNet family (counterpart of
+``paddle_tpu/vision/models/resnet.py``): ``BasicBlock``,
+``BottleneckBlock``, ``ResNet`` and ``resnet18`` .. ``resnet152``, the
+JAX package's code on the port's Paddle-API layers. Convolutions and
+pools are torch's (cuDNN on the card), batch norm keeps its running
+statistics in the ``_mean``/``_variance`` buffers, and the layout is
+NCHW at the API surface, as in the JAX package. No pretrained weights
+are bundled: ``pretrained=True`` raises.
+"""
+from __future__ import annotations
+
+from ... import nn
+
+
+class BasicBlock(nn.Layer):
+    expansion = 1
+
+    def __init__(self, inplanes, planes, stride=1, downsample=None,
+                 groups=1, base_width=64, dilation=1, norm_layer=None):
+        super().__init__()
+        norm_layer = norm_layer or nn.BatchNorm2D
+        if groups != 1 or base_width != 64:
+            raise ValueError("BasicBlock only supports groups=1 and "
+                             "base_width=64")
+        self.conv1 = nn.Conv2D(inplanes, planes, 3, padding=1,
+                               stride=stride, bias_attr=False)
+        self.bn1 = norm_layer(planes)
+        self.relu = nn.ReLU()
+        self.conv2 = nn.Conv2D(planes, planes, 3, padding=1,
+                               bias_attr=False)
+        self.bn2 = norm_layer(planes)
+        self.downsample = downsample
+        self.stride = stride
+
+    def forward(self, x):
+        identity = x
+        out = self.relu(self.bn1(self.conv1(x)))
+        out = self.bn2(self.conv2(out))
+        if self.downsample is not None:
+            identity = self.downsample(x)
+        return self.relu(out + identity)
+
+
+class BottleneckBlock(nn.Layer):
+    expansion = 4
+
+    def __init__(self, inplanes, planes, stride=1, downsample=None,
+                 groups=1, base_width=64, dilation=1, norm_layer=None):
+        super().__init__()
+        norm_layer = norm_layer or nn.BatchNorm2D
+        width = int(planes * (base_width / 64.0)) * groups
+        self.conv1 = nn.Conv2D(inplanes, width, 1, bias_attr=False)
+        self.bn1 = norm_layer(width)
+        self.conv2 = nn.Conv2D(width, width, 3, padding=dilation,
+                               stride=stride, groups=groups,
+                               dilation=dilation, bias_attr=False)
+        self.bn2 = norm_layer(width)
+        self.conv3 = nn.Conv2D(width, planes * self.expansion, 1,
+                               bias_attr=False)
+        self.bn3 = norm_layer(planes * self.expansion)
+        self.relu = nn.ReLU()
+        self.downsample = downsample
+        self.stride = stride
+
+    def forward(self, x):
+        identity = x
+        out = self.relu(self.bn1(self.conv1(x)))
+        out = self.relu(self.bn2(self.conv2(out)))
+        out = self.bn3(self.conv3(out))
+        if self.downsample is not None:
+            identity = self.downsample(x)
+        return self.relu(out + identity)
+
+
+class ResNet(nn.Layer):
+    """reference resnet.py ResNet:26. ``depth`` picks the block layout;
+    ``num_classes=0`` drops the classifier head (feature extractor)."""
+
+    _cfgs = {18: (BasicBlock, [2, 2, 2, 2]),
+             34: (BasicBlock, [3, 4, 6, 3]),
+             50: (BottleneckBlock, [3, 4, 6, 3]),
+             101: (BottleneckBlock, [3, 4, 23, 3]),
+             152: (BottleneckBlock, [3, 8, 36, 3])}
+
+    def __init__(self, block=None, depth=50, width=64, num_classes=1000,
+                 with_pool=True, groups=1):
+        super().__init__()
+        if block is None:
+            block, layers = self._cfgs[depth]
+        else:
+            layers = self._cfgs[depth][1]
+        self.groups = groups
+        self.base_width = width
+        self.num_classes = num_classes
+        self.with_pool = with_pool
+        self.inplanes = 64
+        self.dilation = 1
+
+        self.conv1 = nn.Conv2D(3, self.inplanes, 7, stride=2, padding=3,
+                               bias_attr=False)
+        self.bn1 = nn.BatchNorm2D(self.inplanes)
+        self.relu = nn.ReLU()
+        self.maxpool = nn.MaxPool2D(kernel_size=3, stride=2, padding=1)
+        self.layer1 = self._make_layer(block, 64, layers[0])
+        self.layer2 = self._make_layer(block, 128, layers[1], stride=2)
+        self.layer3 = self._make_layer(block, 256, layers[2], stride=2)
+        self.layer4 = self._make_layer(block, 512, layers[3], stride=2)
+        if with_pool:
+            self.avgpool = nn.AdaptiveAvgPool2D((1, 1))
+        if num_classes > 0:
+            self.fc = nn.Linear(512 * block.expansion, num_classes)
+
+    def _make_layer(self, block, planes, blocks, stride=1):
+        downsample = None
+        if stride != 1 or self.inplanes != planes * block.expansion:
+            downsample = nn.Sequential(
+                nn.Conv2D(self.inplanes, planes * block.expansion, 1,
+                          stride=stride, bias_attr=False),
+                nn.BatchNorm2D(planes * block.expansion))
+        layers = [block(self.inplanes, planes, stride, downsample,
+                        self.groups, self.base_width)]
+        self.inplanes = planes * block.expansion
+        for _ in range(1, blocks):
+            layers.append(block(self.inplanes, planes,
+                                groups=self.groups,
+                                base_width=self.base_width))
+        return nn.Sequential(*layers)
+
+    def forward(self, x):
+        x = self.relu(self.bn1(self.conv1(x)))
+        x = self.maxpool(x)
+        x = self.layer1(x)
+        x = self.layer2(x)
+        x = self.layer3(x)
+        x = self.layer4(x)
+        if self.with_pool:
+            x = self.avgpool(x)
+        if self.num_classes > 0:
+            from ... import ops
+            x = ops.flatten(x, 1)
+            x = self.fc(x)
+        return x
+
+
+def _resnet(depth, pretrained=False, **kwargs):
+    if pretrained:
+        raise NotImplementedError(
+            "pretrained weights are not bundled (no model hub egress); "
+            "load a checkpoint with set_state_dict")
+    return ResNet(depth=depth, **kwargs)
+
+
+def resnet18(pretrained=False, **kwargs):
+    return _resnet(18, pretrained, **kwargs)
+
+
+def resnet34(pretrained=False, **kwargs):
+    return _resnet(34, pretrained, **kwargs)
+
+
+def resnet50(pretrained=False, **kwargs):
+    return _resnet(50, pretrained, **kwargs)
+
+
+def resnet101(pretrained=False, **kwargs):
+    return _resnet(101, pretrained, **kwargs)
+
+
+def resnet152(pretrained=False, **kwargs):
+    return _resnet(152, pretrained, **kwargs)

@@ -582,3 +582,61 @@ def test_llama_engine_on_the_card_matches_cpu_tensors(switches):
     assert torch.equal(_request_uniforms(5, rids.cuda(), ngens.cuda(),
                                          97).cpu(),
                        _request_uniforms(5, rids, ngens, 97))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("largest", [True, False])
+def test_topk_ties_on_the_card(largest):
+    """topk on a CUDA tensor: sorted, the lower index first among ties
+    (lax.top_k's order), the same as on the CPU."""
+    _card()
+    import paddle_tpu_torch as paddle
+    x = [[1, 3, 3, 2, 3, 0, 3], [2, 1, 1, 3, 1, 1, 2]]
+    with paddle.device_guard("gpu"):
+        v, i = paddle.topk(paddle.to_tensor(x, dtype="float32"), 3,
+                           largest=largest, sorted=False)
+        assert i._data.is_cuda
+    with paddle.device_guard("cpu"):
+        vc, ic = paddle.topk(paddle.to_tensor(x, dtype="float32"), 3,
+                             largest=largest)
+    assert i.numpy().tolist() == ic.numpy().tolist()
+    assert v.numpy().tolist() == vc.numpy().tolist()
+    expect = [[1, 2, 4], [3, 0, 6]] if largest else [[5, 0, 3], [1, 2, 4]]
+    assert i.numpy().tolist() == expect
+
+
+@pytest.mark.cuda
+def test_conv_pool_and_prefetch_on_the_card():
+    """Conv2D/MaxPool2D/AdaptiveAvgPool2D on CUDA tensors against CPU
+    tensors (TF32 off), and a DevicePrefetcher batch read on the
+    consumer's stream equal to its host batch."""
+    _card()
+    import numpy as np
+
+    import paddle_tpu_torch as paddle
+    torch.backends.cudnn.allow_tf32 = False
+    x = np.random.RandomState(0).randn(2, 3, 17, 15).astype(np.float32)
+    outs = []
+    for dev in ("cpu", "gpu"):
+        with paddle.device_guard(dev):
+            paddle.seed(0)
+            conv = paddle.nn.Conv2D(3, 8, 3, stride=2, padding=[1, 0, 2, 1])
+            if dev == "gpu":
+                conv.set_state_dict(ref_state)
+            else:
+                ref_state = {k: v.numpy() for k, v in
+                             conv.state_dict().items()}
+            y = conv(paddle.to_tensor(x))
+            y = paddle.nn.functional.max_pool2d(y, 3, 2, 1, ceil_mode=True)
+            y = paddle.nn.functional.avg_pool2d(y, 2, 2, ceil_mode=True,
+                                                exclusive=False)
+            outs.append(paddle.nn.functional.adaptive_avg_pool2d(
+                y, [2, 3]).numpy())
+    assert np.abs(outs[0] - outs[1]).max() <= 1e-4
+    with paddle.device_guard("gpu"):
+        batches = [(np.full((64, 64), i, np.float32),) for i in range(6)]
+        pf = paddle.io.DevicePrefetcher(iter(batches), depth=2)
+        for i, (b,) in enumerate(pf):
+            assert b._data.is_cuda
+            assert float(b._data.mean()) == float(i)
+        assert i == 5 and pf.closed

@@ -188,3 +188,58 @@ def test_cast_dtype_promotion():
     outs = [p.to_tensor([1.0, 2.0], dtype="bfloat16") * 2.0
             for p in (jp, tp)]
     assert_same(*outs)
+
+
+TOPK_TIES = {
+    # ROADMAP Queue 3's cases: lax.top_k puts the lower index first
+    "largest": (np.array([1, 3, 3, 2, 3], np.float32), dict(k=3)),
+    "smallest": (np.array([2, 1, 1, 3, 1], np.float32),
+                 dict(k=2, largest=False)),
+    "unsorted_is_sorted": (np.array([1, 0, 2, 5, 7, 7, 5], np.float32),
+                           dict(k=3, sorted=False)),
+    "axis0": (np.array([[1, 2, 2], [3, 2, 0], [3, 1, 2], [0, 2, 2]],
+                       np.float32), dict(k=2, axis=0)),
+    "axis0_smallest": (np.array([[1, 2, 2], [3, 2, 0], [1, 1, 2],
+                                 [0, 2, 0]], np.float32),
+                       dict(k=3, axis=0, largest=False)),
+    "rows_last_axis": (np.array([[4, 4, 4, 1], [0, 5, 5, 5]], np.float32),
+                       dict(k=2)),
+}
+
+
+@pytest.mark.parametrize("case", sorted(TOPK_TIES))
+def test_topk_ties(case):
+    """Values, int64 indices (int32 in JAX's x64-off mode) and the values'
+    gradient on tied inputs (a weighted cotangent, so that it shows which
+    tied element each rank took)."""
+    x, kw = TOPK_TIES[case]
+    check(lambda p, a: list(p.topk(a, **kw)), x)
+
+    def weighted_values(p, a):
+        v, _ = p.topk(a, **kw)
+        w = np.arange(1, v.size + 1, dtype=np.float32).reshape(v.shape)
+        return v * p.to_tensor(w)
+    check(weighted_values, x, grad=True)
+    _, idx = tp.topk(tp.to_tensor(x), **kw)
+    assert idx.dtype == tp.int64
+
+
+@pytest.mark.parametrize("case", ["all", "axis", "keepdim", "bool",
+                                  "method", "int_2d_axis_list"])
+def test_mean_of_integers(case):
+    """An integer or bool mean is the float32 mean, as jnp.mean's."""
+    ints = np.array([[1, 2, 4], [3, 6, 7]])
+    fn, x = {
+        "all": (lambda p, a: p.mean(a), np.array([1, 2])),
+        "axis": (lambda p, a: p.mean(a, axis=1), ints),
+        "keepdim": (lambda p, a: p.mean(a, axis=0, keepdim=True), ints),
+        "bool": (lambda p, a: p.mean(a), np.array([True, False, True])),
+        "method": (lambda p, a: a.mean(), ints),
+        "int_2d_axis_list": (lambda p, a: p.mean(a, axis=[0, 1]),
+                             ints.astype(np.int32)),
+    }[case]
+    check(fn, x)
+    out = fn(tp, tp.to_tensor(x))
+    assert out.dtype == tp.float32
+    if case == "all":
+        assert float(out.numpy()) == 1.5
