@@ -131,6 +131,34 @@ Phases, in order; any failure exits non-zero and nothing is caught:
              vocab 30592, 12 layers, B=48, S=512, the fused loss, bf16
              weights, fp32 masters, AdamW, O1), 10 timed steps after 2 of
              warm-up, one JSON line like the rungs'.
+* checkpoint -- checkpoints and resume: bench.py's BERT-base rung
+             (paddle_api's settings, with a StepDecay scheduler that
+             keeps LR over the phase) trained 8 steps twice from one seed
+             (are the runs bitwise equal?); a third run saves its train
+             state (about 1.5 GB) through CheckpointManager(keep_n=2) at
+             steps 2 and 4 and is cut; a fresh model from another seed
+             auto_resumes it (every parameter, master, moment,
+             @step_count and scheduler field bitwise equal to a host copy
+             of the step-4 state, every moment restored) and retrains
+             steps 5-8 (losses bitwise equal to the uninterrupted run's,
+             or within the two runs' spread when they differ); save and
+             load seconds and GB/s with and without verify, the save's
+             host copy, CRC and write+fsync timed apart; a byte flipped in
+             the newest file (restore falls back to step 2, depth 1, one
+             warning), a truncated copy (CheckpointCorruptError naming
+             the section); the MTTR drill (bench.py's
+             _bench_fault_recovery): a child saves and SIGKILLs itself, a
+             relaunched one auto_resumes, split into process start and
+             imports, CUDA context, model build, and load with
+             verification; then hapi at full width: ResNet-50 Model.fit
+             (vision's fit settings, fp32) with ModelCheckpoint(manager,
+             save_steps=2) and a save_dir, cut after epoch 0, a fresh
+             Model's fit(resume=manager) (step, @step_count, moments and
+             weights equal to the saved ones right after the restore),
+             Model.save/load bitwise, summary's and flops' counts equal
+             to the JAX package's. One JSON line a part, with the card.
+             Written under a tempfile.mkdtemp() directory (its free space
+             printed first, at least three checkpoints), deleted after.
 * vision  -- image classification in the Paddle API: a tiny fp32
              ResNet-18 (bench.py's small ResNet size: 10 classes, B=4,
              64x64) on the card against a CPU twin with the same weights,
@@ -156,7 +184,7 @@ Phases, in order; any failure exits non-zero and nothing is caught:
              images/s beside the rung's.
 
 The forward, serve, serve_llama, serve_tier, train, fusion, rungs,
-paddle_api and vision phases are the main path (serve_tier and vision
+paddle_api, checkpoint and vision phases are the main path (serve_tier and vision
 launch no kernel: the tier is host code over the engine, and its LLaMA
 runs without flash attention, as bench.py's rungs do; ResNet's
 convolutions and pools are cuDNN's and torch's, as the JAX package's are
@@ -175,20 +203,26 @@ import argparse
 import contextlib
 import dataclasses
 import json
+import os
 import re
+import shutil
+import signal
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
+import warnings
+import zlib
 
 import numpy as np
 import torch
 
 PHASES = ("build", "kernel", "fused_kernel", "forward", "serve",
           "serve_llama", "serve_tier", "train", "fusion", "rungs",
-          "paddle_api", "vision")
+          "paddle_api", "checkpoint", "vision")
 MAIN_PATH = ("forward", "serve", "serve_llama", "serve_tier", "train",
-             "fusion", "rungs", "paddle_api", "vision")
+             "fusion", "rungs", "paddle_api", "checkpoint", "vision")
 PATH_SHAPE = dict(b=4, s=1024, h=12, d=64)      # GPT-2 small serving
 TRAIN_SHAPE = dict(b=8, s=1024, h=16, d=64)     # GPT-2 345M training
 LLAMA_ATTN_SHAPE = dict(b=4, s=2048, h=12, d=128)   # LLaMA-770M fusion path
@@ -2739,6 +2773,477 @@ def phase_paddle_api(state):
     torch.cuda.empty_cache()
 
 
+# The checkpoint phase: the BERT-base rung's train state saved at
+# CKPT_SAVES of CKPT_STEPS steps (the run cut after the last save), its
+# scheduler a StepDecay whose first decay lies past the phase, so the
+# rate is the rung's LR and the scheduler's state is in the checkpoint
+CKPT_STEPS = 8
+CKPT_SAVES = (2, 4)
+CKPT_SEEDS = (12, 99)           # the trained runs, the fresh resumed model
+CKPT_CHILD_TIMEOUT = 300
+_MTTR_CHILD = ("import sys, time; t0 = time.time(); "
+               "sys.path.insert(0, sys.argv[1]); import chip_smoke; "
+               "chip_smoke._mttr_child(sys.argv[2], sys.argv[3], t0)")
+
+
+def _ckpt_model(paddle, seed, names=None):
+    """bench.py's BERT-base rung (BERT_BASE, bf16 weights, fp32 masters,
+    AdamW) built from ``seed``, with its StepDecay scheduler. ``names``
+    renames the parameters: the optimizer keys its state by parameter
+    name, so a state saved by another model of this process restores its
+    moments only under that model's names (a new process builds the same
+    names)."""
+    from paddle_tpu_torch.models import BertConfig, BertForPretraining
+    paddle.seed(seed)
+    model = BertForPretraining(BertConfig(**BERT_BASE))
+    model.to(dtype="bfloat16")
+    if names is not None:
+        for p, n in zip(model.parameters(), names):
+            p.name = n
+    sched = paddle.optimizer.lr.StepDecay(LR, step_size=1000, gamma=0.5)
+    opt = paddle.optimizer.AdamW(learning_rate=sched, multi_precision=True,
+                                 parameters=model.parameters(), **ADAMW)
+    return model, opt, sched
+
+
+def _ckpt_steps(paddle, model, opt, sched, batches):
+    """The rung's O1 steps on RandomState(i) batches for i in ``batches``
+    (K1-K3 once a layer a step, _bert_step holds it); the losses."""
+    losses = []
+    b, s = BERT_SHAPE["b"], BERT_SHAPE["s"]
+    for i in batches:
+        ids = paddle.to_tensor(np.random.RandomState(i).randint(
+            0, BERT_BASE["vocab_size"], (b, s)).astype(np.int64))
+        loss = _bert_step(paddle, model, opt, ids, amp_kw=O1)
+        sched.step()
+        losses.append(float(loss.item()))
+    return losses
+
+
+def _ckpt_warm(paddle, model, opt, sched):
+    """The rung's warm-up: BERT_WARMUP steps on RandomState(1000 + i)."""
+    _ckpt_steps(paddle, model, opt, sched,
+                [1000 + i for i in range(BERT_WARMUP)])
+
+
+def _flat_state(model, opt):
+    """A host copy of the train state: every parameter and buffer, every
+    optimizer tensor (moments, masters), @step_count and the scheduler."""
+    out = {f"model.{k}": v._data.detach().cpu().clone()
+           for k, v in model.state_dict().items()}
+    for k, v in opt.state_dict().items():
+        out[f"optimizer.{k}"] = (v.detach().cpu().clone()
+                                 if isinstance(v, torch.Tensor) else v)
+    return out
+
+
+def _unequal(want, got):
+    """Keys of ``want`` whose value in ``got`` is missing or not bit for
+    bit the same (dtype, shape and bytes)."""
+    bad = []
+    for k, v in want.items():
+        w = got.get(k)
+        if isinstance(v, torch.Tensor):
+            same = (isinstance(w, torch.Tensor) and v.dtype == w.dtype
+                    and v.shape == w.shape and torch.equal(
+                        v.reshape(-1).view(torch.uint8),
+                        w.reshape(-1).view(torch.uint8)))
+        else:
+            same = k in got and w == v
+        if not same:
+            bad.append(k)
+    return bad + [k for k in got if k not in want]
+
+
+def _save_split(directory, state):
+    """framework.io.save's three costs, each timed apart on ``state``: the
+    host copy (``_pack``: every tensor to host memory), the two CRC32
+    passes its writer makes over every byte (the region CRC and the
+    whole-blob digest), and the write of those bytes with the fsync."""
+    from paddle_tpu_torch.framework import io as fio
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    segments = []
+    fio._pack({"state": state, "meta": {}}, segments, [])
+    t1 = time.perf_counter()
+    views = [memoryview(np.ascontiguousarray(a).reshape(-1).view(np.uint8))
+             for a, _ in segments]
+    for _ in range(2):
+        for v in views:
+            zlib.crc32(v)
+    t2 = time.perf_counter()
+    raw = os.path.join(directory, "split.raw")
+    with open(raw, "wb") as f:
+        for v in views:
+            f.write(v)
+        f.flush()
+        os.fsync(f.fileno())
+    t3 = time.perf_counter()
+    os.unlink(raw)
+    return {"host_copy_s": t1 - t0, "crc_s": t2 - t1,
+            "write_fsync_s": t3 - t2,
+            "segment_bytes": sum(v.nbytes for v in views)}
+
+
+def _ckpt_bert(paddle, card, directory):
+    """BERT-base's train state at the rung's settings: two uninterrupted
+    runs of CKPT_STEPS steps (do they agree bitwise?), a third saved at
+    CKPT_SAVES and cut, a fresh model from another seed auto_resumed
+    (state bitwise equal to a host copy, every moment restored) and
+    retrained to CKPT_STEPS (losses bitwise equal to the uninterrupted
+    ones, or within their spread when those differ); then the flipped-byte
+    fallback and the truncated file's named error. One JSON line each:
+    save/load, resume, drills."""
+    from paddle_tpu_torch import fault
+    from paddle_tpu_torch.framework import io as fio
+    from paddle_tpu_torch.observability import goodput
+    free = shutil.disk_usage(directory).free
+    log(f"checkpoint: {free} bytes free under {directory}")
+    runs = []
+    for _ in range(2):
+        model, opt, sched = _ckpt_model(paddle, CKPT_SEEDS[0])
+        n_params = sum(p.size for p in model.parameters())
+        # bf16 weights, fp32 masters and two fp32 moments
+        expect = n_params * (2 + 4 + 4 + 4)
+        if free < 3 * expect:
+            raise RuntimeError(f"{free} bytes free, below three "
+                               f"checkpoints of about {expect}")
+        _ckpt_warm(paddle, model, opt, sched)
+        runs.append(_ckpt_steps(paddle, model, opt, sched,
+                                range(CKPT_STEPS)))
+        del model, opt, sched
+        torch.cuda.empty_cache()
+    bitwise_runs = runs[0] == runs[1]
+    spread = max(abs(a - b) for a, b in zip(*runs))
+
+    goodput.reset_ledger()
+    goodput.ledger().run_begin()
+    mgr = fault.CheckpointManager(directory, keep_n=2)
+    model, opt, sched = _ckpt_model(paddle, CKPT_SEEDS[0])
+    names = [p.name for p in model.parameters()]
+    _ckpt_warm(paddle, model, opt, sched)
+    save_s = []
+    for step in range(1, CKPT_SAVES[-1] + 1):
+        _ckpt_steps(paddle, model, opt, sched, [step - 1])
+        if step in CKPT_SAVES:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            path = mgr.save(fault.capture_train_state(model, opt),
+                            step=step, epoch=0,
+                            meta={"step_in_epoch": step - 1})
+            save_s.append(time.perf_counter() - t0)
+    host = _flat_state(model, opt)
+    split = _save_split(directory, fault.capture_train_state(model, opt))
+    nbytes = os.path.getsize(path)
+    del model, opt, sched
+    torch.cuda.empty_cache()
+
+    model, opt, sched = _ckpt_model(paddle, CKPT_SEEDS[1], names)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    meta = fault.auto_resume(fault.CheckpointManager(directory, keep_n=2),
+                             network=model, optimizer=opt)
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    bad = _unequal(host, _flat_state(model, opt))
+    restored = sum(1 for n in names if n in opt._accumulators)
+    # the pooler and NSP head take no gradient from the MLM loss: no state
+    stateful = sum(1 for n in names if f"optimizer.{n}_moment1" in host)
+    resumed = _ckpt_steps(paddle, model, opt, sched,
+                          range(CKPT_SAVES[-1], CKPT_STEPS))
+    del model, opt, sched, host
+    torch.cuda.empty_cache()
+    want = runs[0][CKPT_SAVES[-1]:]
+    resumed_diff = max(abs(a - b) for a, b in zip(resumed, want))
+    loads = {}
+    for verify in (True, False):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loaded = fio.load(path, verify=verify)
+        torch.cuda.synchronize()
+        loads[verify] = time.perf_counter() - t0
+        del loaded
+    torch.cuda.empty_cache()
+    snap = goodput.ledger().snapshot()
+    goodput.ledger().run_end()
+    total = sum(save_s) / len(save_s)
+    log(json.dumps({
+        "checkpoint": "bert_base train state (bf16 weights, fp32 masters, "
+                      "AdamW fp32 moments)", "card": card,
+        "params": n_params, "bytes": nbytes, "saves_s": save_s,
+        "save_gb_per_s": [nbytes / t / 1e9 for t in save_s],
+        "save_split_s": split,
+        "save_split_share": {k: split[k] / total for k in
+                             ("host_copy_s", "crc_s", "write_fsync_s")},
+        "restore_s": restore_s, "restore_gb_per_s": nbytes / restore_s / 1e9,
+        "load_verify_s": loads[True],
+        "load_verify_gb_per_s": nbytes / loads[True] / 1e9,
+        "load_no_verify_s": loads[False],
+        "load_no_verify_gb_per_s": nbytes / loads[False] / 1e9,
+        "goodput_checkpoint_s": snap["buckets"].get("checkpoint"),
+        "goodput_buckets_s": snap["buckets"]}))
+    resume_ok = (resumed == want if bitwise_runs
+                 else resumed_diff <= spread)
+    log(json.dumps({
+        "resume": "bert_base", "card": card, "restored_meta": meta,
+        "state_unequal": bad[:10], "accumulators_restored": restored,
+        "accumulators_saved": stateful, "params": len(names),
+        "uninterrupted_losses": runs,
+        "uninterrupted_bitwise": bitwise_runs,
+        "uninterrupted_max_diff": spread, "resumed_losses": resumed,
+        "resumed_max_diff": resumed_diff,
+        "resumed_bitwise": resumed == want}))
+    if bad or not 0 < restored == stateful or \
+            meta.get("step") != CKPT_SAVES[-1] or not resume_ok:
+        raise AssertionError(f"bert_base resume: unequal {bad[:10]}, "
+                             f"{restored} of {stateful} moments, meta "
+                             f"{meta}, losses {resumed} against {want}")
+
+    # a byte flipped in the middle of the newest checkpoint
+    with open(path, "r+b") as f:
+        f.seek(nbytes // 2)
+        byte = f.read(1)[0]
+        f.seek(nbytes // 2)
+        f.write(bytes([byte ^ 0x40]))
+        f.flush()
+        os.fsync(f.fileno())
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        state, fallback_meta = mgr.restore()
+    del state
+    torch.cuda.empty_cache()
+    warned = [str(w.message) for w in caught
+              if issubclass(w.category, UserWarning)
+              and "skipping" in str(w.message)]
+    # a truncated copy of the other
+    older = mgr.checkpoints()[-1]
+    cut = os.path.join(directory, "truncated.pdckpt")
+    with open(older, "rb") as f, open(cut, "wb") as g:
+        g.write(f.read(os.path.getsize(older) // 2))
+    section = None
+    try:
+        fio.load(cut)
+    except fio.CheckpointCorruptError as e:
+        section = e.section
+    log(json.dumps({
+        "drills": "bert_base checkpoint", "card": card,
+        "flipped_byte_at": nbytes // 2,
+        "fallback_depth": mgr.last_fallback_depth,
+        "fallback_step": fallback_meta.get("step"), "warnings": warned,
+        "truncated_bytes": os.path.getsize(older) // 2,
+        "truncated_section": section}))
+    if mgr.last_fallback_depth != 1 or \
+            fallback_meta.get("step") != CKPT_SAVES[0] or len(warned) != 1 \
+            or section is None:
+        raise AssertionError(f"drills: depth {mgr.last_fallback_depth}, "
+                             f"step {fallback_meta}, {warned}, {section}")
+    for name in os.listdir(directory):
+        os.unlink(os.path.join(directory, name))
+
+
+def _mttr_child(mode, directory, t_start):
+    """One process of the MTTR drill. ``save``: build BERT-base's train
+    state on the card, train one step (the moments exist from then), save
+    it through the manager, print the crash stamp and SIGKILL itself.
+    ``resume``: build the same model from another seed, auto_resume it and
+    print its stamps (wall clock) and the moments it restored."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch import fault
+    t_imports = time.time()
+    torch.zeros(1, device="cuda")
+    torch.cuda.synchronize()
+    t_cuda = time.time()
+    with paddle.device_guard("gpu:0"):
+        seed = CKPT_SEEDS[0] if mode == "save" else CKPT_SEEDS[1]
+        model, opt, sched = _ckpt_model(paddle, seed)
+        torch.cuda.synchronize()
+        t_built = time.time()
+        mgr = fault.CheckpointManager(directory, keep_n=1)
+        if mode == "save":
+            _ckpt_steps(paddle, model, opt, sched, [0])
+            mgr.save(fault.capture_train_state(model, opt), step=1,
+                     epoch=0, meta={"step_in_epoch": 0})
+            print(json.dumps({"crash_at": time.time(),
+                              "accumulators": len(opt._accumulators)}),
+                  flush=True)
+            os.kill(os.getpid(), signal.SIGKILL)
+        meta = fault.auto_resume(mgr, network=model, optimizer=opt)
+        torch.cuda.synchronize()
+        t_restored = time.time()
+        print(json.dumps({
+            "restored_step": meta["step"], "started_at": t_start,
+            "imports_at": t_imports, "cuda_at": t_cuda, "built_at": t_built,
+            "restored_at": t_restored,
+            "accumulators": sum(1 for p in model.parameters()
+                                if p.name in opt._accumulators),
+            "params": len(model.parameters())}), flush=True)
+
+
+def _ckpt_mttr(card, directory):
+    """bench.py's _bench_fault_recovery drill (:2086-2120, _MTTR_CHILD),
+    with chip_smoke.py relaunching the child itself: a child saves
+    BERT-base's state and SIGKILLs itself, a second auto_resumes it. The
+    time from the crash stamp to the restore, split into process start and
+    imports, CUDA context, model build, and load with verification."""
+    repo = os.path.dirname(os.path.abspath(__file__))
+    cmd = [sys.executable, "-c", _MTTR_CHILD, repo]
+    saver = subprocess.run(cmd + ["save", directory], capture_output=True,
+                           text=True, timeout=CKPT_CHILD_TIMEOUT)
+    if saver.returncode != -signal.SIGKILL:
+        raise AssertionError(f"the saving child ended with "
+                             f"{saver.returncode}: {saver.stderr[-2000:]}")
+    stamp = json.loads(saver.stdout.strip().splitlines()[-1])
+    crash = stamp["crash_at"]
+    resumer = subprocess.run(cmd + ["resume", directory], capture_output=True,
+                             text=True, timeout=CKPT_CHILD_TIMEOUT)
+    if resumer.returncode != 0:
+        raise AssertionError(f"the resuming child ended with "
+                             f"{resumer.returncode}: {resumer.stderr[-2000:]}")
+    st = json.loads(resumer.stdout.strip().splitlines()[-1])
+    log(json.dumps({
+        "mttr": "bert_base SIGKILL -> auto_resume", "card": card,
+        "relaunch": "chip_smoke.py relaunches the child itself (bench.py's "
+                    "child runs under the elastic launcher, a later slice)",
+        "mttr_s": st["restored_at"] - crash,
+        "split_s": {"process_start_and_imports": st["imports_at"] - crash,
+                    "cuda_context": st["cuda_at"] - st["imports_at"],
+                    "model_build": st["built_at"] - st["cuda_at"],
+                    "load_and_verify": st["restored_at"] - st["built_at"]},
+        "interpreter_up_s": st["started_at"] - crash,
+        "restored_step": st["restored_step"],
+        "accumulators_restored": st["accumulators"],
+        "accumulators_saved": stamp["accumulators"],
+        "params": st["params"]}))
+    if st["restored_step"] != 1 or \
+            not 0 < st["accumulators"] == stamp["accumulators"]:
+        raise AssertionError(f"mttr: {st}")
+    for name in os.listdir(directory):
+        os.unlink(os.path.join(directory, name))
+
+
+def _ckpt_hapi(paddle, card, directory):
+    """hapi at full width: ResNet-50 Model.fit at the vision phase's fit
+    settings (fp32) with ModelCheckpoint(manager, save_steps=2) and a
+    save_dir, cut after epoch 0; a fresh Model's fit(resume=manager) (its
+    _global_step, the optimizer's _step_count, every moment and the
+    weights right after the restore equal what was saved); Model.save and
+    Model.load bitwise; summary's and flops' counts at 1x3x224x224 equal
+    the JAX package's (RESNET50_PARAMS, RESNET50_FLOPS_224)."""
+    from io import StringIO
+
+    from paddle_tpu_torch.vision.models import resnet50
+    data = _ImageSet(FIT_IMAGES, RESNET_RUNG["hw"], RESNET_RUNG["classes"],
+                     seed=24)
+    mgr = paddle.fault.CheckpointManager(os.path.join(directory, "mgr"),
+                                         keep_n=2)
+
+    def build(seed, names=None):
+        paddle.seed(seed)
+        net = resnet50(num_classes=RESNET_RUNG["classes"])
+        if names is not None:
+            for p, n in zip(net.parameters(), names):
+                p.name = n
+        opt = paddle.optimizer.AdamW(learning_rate=LR,
+                                     parameters=net.parameters(), **ADAMW)
+        model = paddle.Model(net)
+        model.prepare(opt, paddle.nn.CrossEntropyLoss())
+        return model
+
+    class CutAfterEpoch0(paddle.hapi.Callback):
+        def on_epoch_end(self, epoch, logs=None):
+            self.model.stop_training = True
+
+    first = build(31)
+    names = [p.name for p in first.network.parameters()]
+    first.fit(data, batch_size=FIT_BATCH, epochs=FIT_EPOCHS, shuffle=True,
+              num_workers=FIT_WORKERS, verbose=0,
+              save_dir=os.path.join(directory, "fit"),
+              callbacks=[paddle.hapi.ModelCheckpoint(manager=mgr,
+                                                     save_steps=2),
+                         CutAfterEpoch0()])
+    saved = {k: v._data.detach().cpu().clone()
+             for k, v in first.network.state_dict().items()}
+    saved_step, saved_count = first._global_step, first._optimizer._step_count
+    saved_moments = len(first._optimizer._accumulators)
+    del first
+    torch.cuda.empty_cache()
+
+    seen = {}
+
+    class AfterRestore(paddle.hapi.Callback):
+        def on_train_begin(self, logs=None):
+            m = self.model
+            seen.update(
+                global_step=m._global_step,
+                step_count=m._optimizer._step_count,
+                accumulators=len(m._optimizer._accumulators),
+                unequal=_unequal(saved, {
+                    k: v._data.detach().cpu()
+                    for k, v in m.network.state_dict().items()}))
+
+    resumed = build(32, names)
+    history = resumed.fit(data, batch_size=FIT_BATCH, epochs=FIT_EPOCHS,
+                          shuffle=True, num_workers=FIT_WORKERS, verbose=0,
+                          resume=mgr, callbacks=[AfterRestore()])
+    path = os.path.join(directory, "resnet50")
+    resumed.save(path)
+    loaded = build(33, names)
+    loaded.load(path)
+    unequal_load = _unequal(_flat_state(resumed.network, resumed._optimizer),
+                            _flat_state(loaded.network, loaded._optimizer))
+    with contextlib.redirect_stdout(StringIO()):
+        info = paddle.summary(loaded.network, (1, 3, 224, 224))
+        flops = paddle.flops(loaded.network, [1, 3, 224, 224])
+    row = {"hapi": "resnet50 Model.fit(resume=...) fp32", "card": card,
+           "saved_global_step": saved_step, "saved_step_count": saved_count,
+           "restored": seen, "params": len(names), "history": history,
+           "global_step_after": resumed._global_step,
+           "checkpoint_bytes": os.path.getsize(mgr.latest()),
+           "save_load_unequal": unequal_load[:10],
+           "summary_params": info["total_params"], "flops": flops}
+    log(json.dumps(row, default=float))
+    checks = {
+        "restored counters": (seen.get("global_step") == saved_step
+                              == FIT_IMAGES // FIT_BATCH
+                              and seen.get("step_count") == saved_count),
+        "restored weights": seen.get("unequal") == [],
+        "restored moments": seen.get("accumulators") == saved_moments
+        == len(names),
+        "resumed epochs": (len(history) == FIT_EPOCHS - 1
+                           and all(np.isfinite(history))
+                           and resumed._global_step == 2 * saved_step),
+        "save_dir": os.path.exists(os.path.join(directory, "fit",
+                                                "epoch_0.pdparams")),
+        "save/load bitwise": unequal_load == [],
+        "summary": info["total_params"] == RESNET50_PARAMS,
+        "flops": flops == RESNET50_FLOPS_224,
+    }
+    failed = [k for k, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError(f"resnet50 hapi checkpoint: {failed}")
+
+
+def phase_checkpoint(state):
+    """Checkpoints and resume on the card: BERT-base's train state saved,
+    resumed, corrupted and killed; hapi's ResNet-50 fit resumed. Runs K1-K3
+    through the BERT steps; writes under a tempfile.mkdtemp() directory,
+    deleted at the end."""
+    import paddle_tpu_torch as paddle
+    card = _card_line()
+    directory = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    t0 = time.perf_counter()
+    try:
+        with paddle.device_guard("gpu:0"):
+            _ckpt_bert(paddle, card, directory)
+            torch.cuda.empty_cache()
+            _ckpt_mttr(card, directory)
+            _ckpt_hapi(paddle, card, directory)
+    finally:
+        shutil.rmtree(directory, ignore_errors=True)
+        torch.cuda.empty_cache()
+    log(f"checkpoint: {time.perf_counter() - t0:.1f} s")
+
+
 # bench.py's ResNet-50 rung (_bench_resnet50, :240-285) and its small size
 RESNET_RUNG = dict(b=256, hw=224, classes=1000, steps=10, warmup=2)
 RESNET_TINY = dict(b=4, hw=64, classes=10)
@@ -2749,6 +3254,10 @@ RESNET_GRAD_TOL = 1e-3           # card vs CPU, each parameter norm-wise
 # difference about thirtyfold a step (losses 1e-6, 4e-5, 1.4e-3 apart)
 RESNET_PARITY_LR = 1e-5
 RESNET_FWD_FLOP = 4.1e9          # bench.py:269: a 224x224 image's forward
+# the JAX package's summary and flops of ResNet-50 at 1x3x224x224
+# (tests/test_torch_summary_flops.py holds both packages to these)
+RESNET50_PARAMS = 25_557_032
+RESNET50_FLOPS_224 = 4_121_123_328
 A100_IMAGES_PER_S = 2080         # bench.py:276: the A100 reference
 A100_BF16_FLOP_PER_S = 312e12
 FIT_IMAGES, FIT_BATCH, FIT_EPOCHS, FIT_WORKERS = 256, 64, 2, 2

@@ -39,9 +39,17 @@ family), ``io`` (datasets, samplers, ``DataLoader``, the
 ``DevicePrefetcher``), ``metric``, and ``hapi``'s ``Model.fit`` /
 ``evaluate`` / ``predict`` with its callbacks, the goodput ledger and
 the sentinel.
+
+Checkpoints and resume: ``paddle.save``/``paddle.load`` (``framework``:
+the JAX package's v2 files, atomic and verified, which either package
+reads), ``fault.CheckpointManager`` with ``auto_resume``,
+``hapi.ModelCheckpoint``, ``Model.save``/``load``/``summary`` and
+``fit(resume=...)``, ``paddle.summary`` and ``paddle.flops``, and the
+rest of the JAX package's ``optimizer.py`` (``Momentum``, ``Adagrad``,
+``RMSProp``, ``Adadelta``, ``Adamax``, ``Lamb``, ``NAdam``, ``RAdam``).
 """
-from . import (amp, autograd, compile, core, distributed, fault, hapi,
-               incubate, inference, io, jit, metric, models, nn,
+from . import (amp, autograd, compile, core, distributed, fault, framework,
+               hapi, incubate, inference, io, jit, metric, models, nn,
                observability, ops, optimizer, serving, tools, vision)
 from .autograd import PyLayer, backward, grad, is_grad_enabled
 from .core import get_flag, resolve_device, set_flags
@@ -57,14 +65,15 @@ from .core.tensor import Tensor, is_tensor
 from .nn.parameter import ParamAttr, create_parameter
 from .ops import *  # noqa: F401,F403
 from .ops import __all__ as _ops
-from .hapi import Model
+from .framework import load, save
+from .hapi import Model, flops, summary
 from .inference import GPTPagedEngine, LlamaPagedEngine, PagedEngine
 from .jit import to_static
 from .models import (GPTConfig, GPTForCausalLM, LlamaConfig, LlamaForCausalLM,
                      gpt2_medium, gpt2_small)
 
 __all__ = ["amp", "autograd", "compile", "core", "distributed", "fault",
-           "hapi", "incubate", "inference", "io", "jit", "metric", "models",
+           "framework", "save", "load", "summary", "flops", "hapi", "incubate", "inference", "io", "jit", "metric", "models",
            "nn", "observability", "ops", "optimizer", "serving", "tools",
            "vision", "Model", "resolve_device",
            "Tensor", "is_tensor", "no_grad", "enable_grad",

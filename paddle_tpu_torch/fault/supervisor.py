@@ -1,5 +1,5 @@
-"""The training loop's supervisor seam (counterpart of ``get`` and
-``tick`` in ``paddle_tpu/fault/supervisor.py``).
+"""The training loop's supervisor seam (counterpart of ``get``, ``tick``
+and ``register_scaler`` in ``paddle_tpu/fault/supervisor.py``).
 
 ``hapi.Model.fit`` calls ``tick(step)`` once a step; it forwards the tick
 to the process's active supervisor, one dict lookup when none runs. The
@@ -11,9 +11,10 @@ from __future__ import annotations
 
 from typing import Dict, Optional
 
-__all__ = ["get", "tick"]
+__all__ = ["get", "tick", "register_scaler"]
 
 _default: Dict[str, Optional[object]] = {"s": None}
+_scaler_ref: Dict[str, Optional[object]] = {"s": None}
 
 
 def get():
@@ -27,3 +28,9 @@ def tick(step: Optional[int] = None):
     s = _default["s"]
     if s is not None:
         s.beat(step)
+
+
+def register_scaler(scaler):
+    """Hand the remediation engine the run's GradScaler (the hapi fit
+    path registers the one its ModelCheckpoint callback carries)."""
+    _scaler_ref["s"] = scaler

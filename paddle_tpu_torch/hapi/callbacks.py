@@ -2,21 +2,20 @@
 ``paddle_tpu/hapi/callbacks.py``, the JAX package's code): the
 ``Callback`` base with its on_{train,eval}_{begin,end},
 on_epoch_{begin,end} and on_{train,eval}_batch_{begin,end} hooks,
-``CallbackList``, and the built-ins ``EarlyStopping``, ``LRScheduler``
-and ``ReduceLROnPlateau``, driven by ``Model.fit``/``evaluate``.
-``ModelCheckpoint`` waits for the port of ``framework/io.py`` (and
-``EarlyStopping`` saves its best model only when ``fit`` has a
-``save_dir``, which raises until then).
+``CallbackList``, and the built-ins ``ModelCheckpoint``,
+``EarlyStopping``, ``LRScheduler`` and ``ReduceLROnPlateau``, driven by
+``Model.fit``/``evaluate``.
 """
 from __future__ import annotations
 
+import math
 import numbers
 from typing import List, Optional
 
 import numpy as np
 
-__all__ = ["Callback", "CallbackList", "EarlyStopping", "LRScheduler",
-           "ReduceLROnPlateau"]
+__all__ = ["Callback", "CallbackList", "ModelCheckpoint", "EarlyStopping",
+           "LRScheduler", "ReduceLROnPlateau"]
 
 
 def _scalar(logs, key):
@@ -96,6 +95,97 @@ class CallbackList:
                 getattr(c, name)(*args, **kwargs)
 
         return fan_out
+
+
+class ModelCheckpoint(Callback):
+    """Save the parameters every ``save_freq`` epochs and at the end
+    (reference callbacks.py ModelCheckpoint).
+
+    **Manager mode** (fault tolerance): pass ``manager`` (a
+    :class:`paddle_tpu_torch.fault.CheckpointManager`) to save the full
+    train state (model, optimizer, optional GradScaler, epoch and step
+    counters) atomically with rotation, every ``save_freq`` epochs and
+    (with ``save_steps=N``) every N global steps, so
+    ``Model.fit(resume=...)`` restarts step-granularly after preemption.
+    With ``restore_on_nonfinite=True`` a diverged step (non-finite loss)
+    rolls the model and optimizer back to the last verifiable checkpoint
+    instead of training on."""
+
+    def __init__(self, save_freq=1, save_dir=None, manager=None,
+                 save_steps=None, scaler=None,
+                 restore_on_nonfinite=False):
+        super().__init__()
+        self.save_freq = save_freq
+        self.save_dir = save_dir
+        self.manager = manager
+        self.save_steps = save_steps
+        self.scaler = scaler
+        self.restore_on_nonfinite = restore_on_nonfinite
+        self.restored_nonfinite = 0
+        self._epoch = 0
+        self._epoch_began = False
+        if restore_on_nonfinite and manager is None:
+            raise ValueError("restore_on_nonfinite requires manager=")
+        if save_steps is not None and manager is None:
+            raise ValueError("save_steps requires manager=")
+
+    def _save_state(self, epoch, step_in_epoch=None):
+        from ..fault import capture_train_state
+        state = capture_train_state(network=self.model.network,
+                                    optimizer=self.model._optimizer,
+                                    scaler=self.scaler)
+        meta = {"epoch_complete": step_in_epoch is None}
+        if step_in_epoch is not None:
+            meta["step_in_epoch"] = int(step_in_epoch)
+        self.manager.save(state, step=self.model._global_step,
+                          epoch=int(epoch), meta=meta)
+
+    def on_train_begin(self, logs=None):
+        # a reused callback must not carry a previous fit's epoch counter
+        # into this run's on_train_end guard
+        self._epoch = 0
+        self._epoch_began = False
+
+    def on_epoch_begin(self, epoch, logs=None):
+        self._epoch = epoch
+        self._epoch_began = True
+
+    def on_train_batch_end(self, step, logs=None):
+        if self.manager is None:
+            return
+        if self.restore_on_nonfinite:
+            loss = _scalar(logs, "loss")
+            if loss is not None and not math.isfinite(loss):
+                from ..fault import restore_train_state
+                out = self.manager.restore()
+                if out is not None:
+                    restore_train_state(
+                        out[0], network=self.model.network,
+                        optimizer=self.model._optimizer,
+                        scaler=self.scaler)
+                    self.restored_nonfinite += 1
+                return
+        if self.save_steps and \
+                self.model._global_step % self.save_steps == 0:
+            self._save_state(self._epoch, step_in_epoch=step)
+
+    def on_epoch_end(self, epoch, logs=None):
+        if (epoch + 1) % max(self.save_freq, 1) != 0:
+            return
+        if self.manager is not None:
+            self._save_state(epoch)
+        elif self.save_dir:
+            self.model.save(f"{self.save_dir}/{epoch}")
+
+    def on_train_end(self, logs=None):
+        if self.manager is not None:
+            # only if this fit trained: a fully resumed run (start_epoch
+            # == epochs) must not overwrite the newest checkpoint's meta
+            # with a stale epoch counter
+            if self._epoch_began:
+                self._save_state(self._epoch)   # idempotent if epoch-saved
+        elif self.save_dir:
+            self.model.save(f"{self.save_dir}/final")
 
 
 class EarlyStopping(Callback):

@@ -12,10 +12,13 @@ supervisor seam a step at a time; ``evaluate`` and ``predict`` run
 their loaders directly. Batches land on the current device (the card
 unless ``paddle.set_device("cpu")``).
 
-Still to port, and raising ``NotImplementedError`` until then:
-``save``/``load`` (``framework/io.py``), ``summary``
-(``hapi/summary.py``), ``fit(save_dir=...)`` (``framework/io.py``) and
-``fit(resume=...)`` (``fault/auto_resume``).
+``save``/``load`` write and read ``.pdparams``/``.pdopt`` files in the
+JAX package's v2 format (``framework/io.py``), ``fit(save_dir=...)``
+saves every ``save_freq`` epochs, and ``fit(resume=manager)`` restores
+the newest verifiable train state of a ``fault.CheckpointManager`` and
+skips the epochs and steps it had already trained. A world larger than
+one process resumes through the supervisor's consensus rewind, which is
+still to port: it raises ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -40,11 +43,6 @@ def _to_list(x):
     return list(x) if isinstance(x, (list, tuple)) else [x]
 
 
-def _later(what: str, module: str):
-    raise NotImplementedError(
-        f"later slice: {what} waits for the port of {module}")
-
-
 class Model:
     def __init__(self, network, inputs=None, labels=None):
         self.network = network
@@ -54,7 +52,8 @@ class Model:
         self._loss = None
         self._metrics: List = []
         self.stop_training = False
-        #: train batches run so far
+        #: train batches run so far; persisted by manager-mode
+        #: ModelCheckpoint and restored by fit(resume=...)
         self._global_step = 0
         #: optimizer steps skipped on a non-finite loss (this run)
         self._nonfinite_steps = 0
@@ -126,11 +125,13 @@ class Model:
             verbose=2, drop_last=False, shuffle=True, num_workers=0,
             callbacks=None, resume=None):
         """Train for ``epochs`` over ``train_data`` (a Dataset or a
-        DataLoader); returns the epochs' mean train losses."""
-        if resume is not None:
-            _later("fit(resume=...)", "fault/auto_resume")
-        if save_dir:
-            _later("fit(save_dir=...)", "framework/io.py")
+        DataLoader); returns the epochs' mean train losses.
+
+        ``resume``: a :class:`paddle_tpu_torch.fault.CheckpointManager`;
+        restores the model and optimizer (and a GradScaler, when a
+        manager-mode ModelCheckpoint callback carries one) from the newest
+        verifiable checkpoint and fast-forwards the epoch and step
+        counters, falling back past a corrupt newest checkpoint."""
         from ..core import flags as _flags
         from ..io import DataLoader
         from ..io.prefetch import DevicePrefetcher
@@ -146,12 +147,18 @@ class Model:
         cbks.set_params({"epochs": epochs, "batch_size": batch_size,
                          "verbose": verbose, "save_dir": save_dir,
                          "metrics": [m.name() for m in self._metrics]})
+        # begun before the resume, so auto_resume's rewind lands in this run
         _goodput.ledger().run_begin()
+        start_epoch, skip_steps = 0, 0
+        if resume is not None:
+            start_epoch, skip_steps = self._auto_resume(resume,
+                                                        cbks.callbacks,
+                                                        verbose)
         use_prefetch = bool(_flags.get_flag("prefetch"))
         self.stop_training = False
         history = []
         cbks.on_train_begin()
-        for epoch in range(epochs):
+        for epoch in range(start_epoch, epochs):
             cbks.on_epoch_begin(epoch)
             for m in self._metrics:
                 m.reset()
@@ -163,11 +170,12 @@ class Model:
                                         device=loader.device)
                        if use_prefetch else loader)
             try:
-                self._fit_epoch(batches, epoch, losses, cbks, verbose,
-                                log_freq)
+                self._fit_epoch(batches, epoch, start_epoch, skip_steps,
+                                losses, cbks, verbose, log_freq)
             finally:
                 if isinstance(batches, DevicePrefetcher):
                     batches.close()
+            # an epoch the resume skipped whole reports no loss
             epoch_logs = {}
             if losses:
                 epoch_logs = {"loss": float(np.mean(losses))}
@@ -181,13 +189,16 @@ class Model:
                     v = _scalar(eval_res, k)
                     epoch_logs[f"eval_{k}"] = (v if v is not None
                                                else eval_res[k])
+            if save_dir and (epoch + 1) % max(save_freq, 1) == 0:
+                self.save(f"{save_dir}/epoch_{epoch}")
             cbks.on_epoch_end(epoch, epoch_logs)
             if self.stop_training:
                 break
         cbks.on_train_end({"loss": history[-1] if history else None})
         return history
 
-    def _fit_epoch(self, batches, epoch, losses, cbks, verbose, log_freq):
+    def _fit_epoch(self, batches, epoch, start_epoch, skip_steps, losses,
+                   cbks, verbose, log_freq):
         """One epoch's step loop over ``batches`` (a DevicePrefetcher or
         the loader)."""
         from ..fault import supervisor as _fault_sup
@@ -196,6 +207,8 @@ class Model:
         led = _goodput.ledger()
         snt = _sentinel.get()
         for step, batch in enumerate(batches):
+            if epoch == start_epoch and step < skip_steps:
+                continue   # step-granular resume: already trained
             _fault_sup.tick(self._global_step)
             led.step_begin()
             cbks.on_train_batch_begin(step)
@@ -213,6 +226,43 @@ class Model:
                     msg += f" {m.name()}={v}"
                 print(msg)
             cbks.on_train_batch_end(step, {"loss": loss})
+
+    def _auto_resume(self, manager, callbacks, verbose):
+        """Restore train state from ``manager`` and translate its meta
+        into (start_epoch, steps to skip in that epoch). A world of more
+        than one process (the launcher's ``WORLD_SIZE``) would resume
+        through the supervisor's consensus rewind, still to port."""
+        from ..fault import auto_resume
+        from ..fault import supervisor as _fault_sup
+        from ..observability.reqtrace import rank_world
+        scaler = None
+        for c in callbacks:
+            scaler = getattr(c, "scaler", None) or scaler
+        if scaler is not None:
+            _fault_sup.register_scaler(scaler)
+        if rank_world()[1] > 1:
+            raise NotImplementedError(
+                "later slice: fit(resume=...) in a world of more than one "
+                "process waits for the port of supervisor.consensus_resume")
+        meta = auto_resume(manager, network=self.network,
+                           optimizer=self._optimizer, scaler=scaler)
+        if meta is None:
+            return 0, 0
+        self._global_step = int(meta.get("step", 0))
+        epoch = meta.get("epoch")
+        if epoch is None:
+            return 0, 0
+        if meta.get("epoch_complete", True):
+            start_epoch, skip_steps = int(epoch) + 1, 0
+        else:
+            start_epoch = int(epoch)
+            skip_steps = int(meta.get("step_in_epoch", -1)) + 1
+        if verbose:
+            print(f"[resume] restored step {self._global_step} "
+                  f"(epoch {start_epoch}, skipping {skip_steps} "
+                  f"completed steps; fallback depth "
+                  f"{manager.last_fallback_depth})")
+        return start_epoch, skip_steps
 
     def evaluate(self, eval_data, batch_size=1, log_freq=10, verbose=2,
                  num_workers=0, callbacks=None):
@@ -268,13 +318,32 @@ class Model:
 
     # ------------------------------------------------------------ save/load
     def save(self, path, training=True):
-        _later("Model.save", "framework/io.py")
+        """``path.pdparams`` (the network's state) and, when training,
+        ``path.pdopt`` (the optimizer's)."""
+        from ..framework.io import save as _save
+        _save(self.network.state_dict(), path + ".pdparams")
+        if training and self._optimizer is not None and \
+                hasattr(self._optimizer, "state_dict"):
+            _save(self._optimizer.state_dict(), path + ".pdopt")
 
     def load(self, path, skip_mismatch=False, reset_optimizer=False):
-        _later("Model.load", "framework/io.py")
+        """Load ``path.pdparams`` into the network and, unless
+        ``reset_optimizer``, ``path.pdopt`` into the optimizer when it
+        exists (``skip_mismatch`` is accepted and ignored, as in the JAX
+        package: a shape mismatch raises)."""
+        import os
+
+        from ..framework.io import load as _load
+        self.network.set_state_dict(_load(path + ".pdparams"))
+        opt_path = path + ".pdopt"
+        if not reset_optimizer and self._optimizer is not None and \
+                os.path.exists(opt_path) and \
+                hasattr(self._optimizer, "set_state_dict"):
+            self._optimizer.set_state_dict(_load(opt_path))
 
     def parameters(self, *args, **kwargs):
         return self.network.parameters(*args, **kwargs)
 
     def summary(self, input_size=None, dtype=None):
-        _later("Model.summary", "hapi/summary.py")
+        from .summary import summary as _summary
+        return _summary(self.network, input_size, dtypes=dtype)

@@ -1,5 +1,7 @@
 """Optimizers (counterpart of ``paddle_tpu/optimizer/optimizer.py``):
-the ``Optimizer`` base, ``SGD``, ``Adam`` and ``AdamW``.
+the ``Optimizer`` base, ``SGD``, ``Momentum``, ``Adam``, ``AdamW``,
+``Adagrad``, ``RMSProp``, ``Adadelta``, ``Adamax``, ``Lamb``, ``NAdam``
+and ``RAdam``, each with the JAX package's update rule and state names.
 
 The JAX package runs every parameter's update in one jitted program; the
 port runs the same fp32 update rule with plain multi-tensor torch ops
@@ -21,7 +23,9 @@ Parameters carry names: JAX parameter names are global counters
 (``param_4``), so the port names each parameter by its dotted path in
 the model when it is handed ``model.named_parameters()``, and
 ``param_<i>`` by position otherwise. ``apply_decay_param_fun`` and the
-state-dict keys use these names.
+state-dict keys use these names. ``set_state_dict`` skips keys it does
+not find, as the JAX package's does, so a state saved under other names
+restores no moments (only ``@step_count`` and the scheduler).
 
 The parameters may be ``torch.Tensor``s (the torch-level models) or
 Paddle-API ``Parameter``s (``layer.parameters()``, as the JAX package's
@@ -34,7 +38,7 @@ from typing import Dict, Iterable, List, Optional, Tuple, Union
 
 import torch
 
-from ..core.tensor import Tensor
+from ..core.tensor import Tensor, _payload
 from .lr import LRScheduler
 
 ParamsArg = Iterable[Union[torch.Tensor, Tuple[str, torch.Tensor]]]
@@ -117,6 +121,8 @@ class Optimizer:
                              "model.parameters())")
         self._names: List[str] = []
         self._parameter_list: List[torch.Tensor] = []
+        #: name -> the object given for it (a Parameter or a torch.Tensor)
+        self._given: Dict[str, object] = {}
         for i, item in enumerate(parameters):
             if isinstance(item, tuple):
                 pname, p = item
@@ -124,6 +130,7 @@ class Optimizer:
                 pname = item.name if isinstance(item, Tensor) else \
                     f"param_{i}"
                 p = item
+            self._given[pname] = p
             if isinstance(p, Tensor):
                 p._data.need_clip = getattr(p, "need_clip", True)
                 p = p._data
@@ -198,6 +205,16 @@ class Optimizer:
     def _wd_flag(self, name: str) -> float:
         return 1.0
 
+    def _apply_decay(self, ws, gs, wd_flags):
+        """L2 regularization folded into the gradients: g + coeff * w for
+        each parameter, scaled by its flag (new lists; ``gs`` when there
+        is no decay)."""
+        if not self._weight_decay:
+            return gs
+        return torch._foreach_add(
+            gs, torch._foreach_mul(ws, [self._weight_decay * f
+                                        for f in wd_flags]))
+
     # ------------------------------------------------------------------ step
     @torch.no_grad()
     def step(self):
@@ -271,18 +288,20 @@ class Optimizer:
         if "LR_Scheduler" in state_dict and isinstance(self._learning_rate,
                                                        LRScheduler):
             self._learning_rate.set_state_dict(state_dict["LR_Scheduler"])
+
+        def fp32(v, p):             # a copy: the state dict is not kept
+            return torch.as_tensor(_payload(v)).to(
+                device=p.device, dtype=torch.float32).clone()
         for name, p in zip(self._names, self._parameter_list):
-            st = {s: self._state_from_checkpoint(s, torch.as_tensor(
-                      state_dict[f"{name}_{s}"]).to(
-                          device=p.device, dtype=torch.float32).clone(), p)
+            st = {s: self._state_from_checkpoint(
+                      s, fp32(state_dict[f"{name}_{s}"], p), p)
                   for s in self._state_names
                   if f"{name}_{s}" in state_dict}
             if st:
                 self._accumulators[name] = st
             if f"{name}_master" in state_dict:
-                self._master_weights[name] = torch.as_tensor(
-                    state_dict[f"{name}_master"]).to(
-                        device=p.device, dtype=torch.float32).clone()
+                self._master_weights[name] = fp32(
+                    state_dict[f"{name}_master"], p)
 
 
 class SGD(Optimizer):
@@ -290,11 +309,34 @@ class SGD(Optimizer):
     gradient, as the JAX package's; no state."""
 
     def _update(self, ws, gs, states, lr, step, wd_flags):
-        if self._weight_decay:
-            gs = torch._foreach_add(
-                gs, torch._foreach_mul(ws, [self._weight_decay * f
-                                            for f in wd_flags]))
-        torch._foreach_add_(ws, gs, alpha=-lr)
+        torch._foreach_add_(ws, self._apply_decay(ws, gs, wd_flags),
+                            alpha=-lr)
+
+
+class Momentum(Optimizer):
+    """v = momentum * v + g, w -= lr * v (Nesterov: w -= lr * (g +
+    momentum * v)); ``weight_decay`` is L2 folded into g."""
+
+    _state_names = ["velocity"]
+
+    def __init__(self, learning_rate=0.001, momentum=0.9, parameters=None,
+                 use_nesterov=False, weight_decay=None, grad_clip=None,
+                 multi_precision=False, name=None):
+        super().__init__(learning_rate, parameters, weight_decay, grad_clip,
+                         multi_precision, name)
+        self._momentum = momentum
+        self._nesterov = use_nesterov
+
+    def _update(self, ws, gs, states, lr, step, wd_flags):
+        gs = self._apply_decay(ws, gs, wd_flags)
+        vs = states["velocity"]
+        torch._foreach_mul_(vs, self._momentum)
+        torch._foreach_add_(vs, gs)
+        if self._nesterov:
+            torch._foreach_add_(ws, torch._foreach_add(
+                gs, vs, alpha=self._momentum), alpha=-lr)
+        else:
+            torch._foreach_add_(ws, vs, alpha=-lr)
 
 
 class Adam(Optimizer):
@@ -377,19 +419,21 @@ class Adam(Optimizer):
         if self._amsgrad:
             torch._foreach_maximum_(states["moment2_max"], v)
             v = states["moment2_max"]
-        denom = torch._foreach_div(v, bc2)
-        torch._foreach_sqrt_(denom)
-        torch._foreach_add_(denom, self._epsilon)
-        torch._foreach_addcdiv_(ws, states["moment1"], denom, value=-lr / bc1)
+        torch._foreach_addcdiv_(ws, states["moment1"],
+                                self._sqrt_v_hat(v, bc2), value=-lr / bc1)
 
     def _update_fp32(self, ws, gs, states, lr, step, wd_flags):
         """The update on fp32 moments, in place."""
-        if self._weight_decay:     # L2: g + coeff * w, per the flag
-            gs = torch._foreach_add(
-                gs, torch._foreach_mul(ws, [self._weight_decay * f
-                                            for f in wd_flags]))
+        gs = self._apply_decay(ws, gs, wd_flags)
         bc1, bc2 = self._moments(gs, states, step)
         self._apply(ws, states, lr, bc1, bc2)
+
+    def _sqrt_v_hat(self, vs, bc2):
+        """sqrt(v / bc2) + eps for each v of ``vs``, a new list."""
+        denom = torch._foreach_div(vs, bc2)
+        torch._foreach_sqrt_(denom)
+        torch._foreach_add_(denom, self._epsilon)
+        return denom
 
 
 class AdamW(Adam):
@@ -425,4 +469,207 @@ class AdamW(Adam):
         self._apply(ws, states, lr, bc1, bc2)
 
 
-__all__ = ["Optimizer", "SGD", "Adam", "AdamW"]
+class Adagrad(Optimizer):
+    """G += g * g, w -= lr * g / (sqrt(G) + eps); G starts at
+    ``initial_accumulator_value``."""
+
+    _state_names = ["moment"]
+
+    def __init__(self, learning_rate, epsilon=1e-6, parameters=None,
+                 weight_decay=None, grad_clip=None,
+                 initial_accumulator_value=0.0, multi_precision=False,
+                 name=None):
+        super().__init__(learning_rate, parameters, weight_decay, grad_clip,
+                         multi_precision, name)
+        self._epsilon = epsilon
+        self._init_value = initial_accumulator_value
+
+    def _init_state(self, p):
+        return {"moment": torch.full(p.shape, float(self._init_value),
+                                     dtype=torch.float32, device=p.device)}
+
+    def _update(self, ws, gs, states, lr, step, wd_flags):
+        gs = self._apply_decay(ws, gs, wd_flags)
+        moms = states["moment"]
+        torch._foreach_addcmul_(moms, gs, gs)
+        denom = torch._foreach_sqrt(moms)
+        torch._foreach_add_(denom, self._epsilon)
+        torch._foreach_addcdiv_(ws, gs, denom, value=-lr)
+
+
+class RMSProp(Optimizer):
+    """E[g^2] = rho E[g^2] + (1 - rho) g^2 (centered: minus E[g]^2 under
+    the root); mom = momentum * mom + lr * g / sqrt(... + eps);
+    w -= mom."""
+
+    _state_names = ["mean_square", "mean_grad", "momentum"]
+
+    def __init__(self, learning_rate, rho=0.95, epsilon=1e-6, momentum=0.0,
+                 centered=False, parameters=None, weight_decay=None,
+                 grad_clip=None, multi_precision=False, name=None):
+        super().__init__(learning_rate, parameters, weight_decay, grad_clip,
+                         multi_precision, name)
+        self._rho = rho
+        self._epsilon = epsilon
+        self._momentum = momentum
+        self._centered = centered
+
+    def _update(self, ws, gs, states, lr, step, wd_flags):
+        gs = self._apply_decay(ws, gs, wd_flags)
+        rho = self._rho
+        ms, mg, mom = (states["mean_square"], states["mean_grad"],
+                       states["momentum"])
+        torch._foreach_mul_(ms, rho)
+        torch._foreach_addcmul_(ms, gs, gs, value=1 - rho)
+        if self._centered:
+            torch._foreach_mul_(mg, rho)
+            torch._foreach_add_(mg, gs, alpha=1 - rho)
+            denom = torch._foreach_addcmul(ms, mg, mg, value=-1.0)
+            torch._foreach_add_(denom, self._epsilon)
+        else:
+            denom = torch._foreach_add(ms, self._epsilon)
+        torch._foreach_sqrt_(denom)
+        torch._foreach_mul_(mom, self._momentum)
+        torch._foreach_addcdiv_(mom, gs, denom, value=lr)
+        torch._foreach_sub_(ws, mom)
+
+
+class Adadelta(Optimizer):
+    """E[g^2] = rho E[g^2] + (1 - rho) g^2; u = sqrt(E[u^2] + eps) /
+    sqrt(E[g^2] + eps) * g; E[u^2] = rho E[u^2] + (1 - rho) u^2;
+    w -= lr * u."""
+
+    _state_names = ["avg_squared_grad", "avg_squared_update"]
+
+    def __init__(self, learning_rate=0.001, epsilon=1e-6, rho=0.95,
+                 parameters=None, weight_decay=None, grad_clip=None,
+                 multi_precision=False, name=None):
+        super().__init__(learning_rate, parameters, weight_decay, grad_clip,
+                         multi_precision, name)
+        self._epsilon = epsilon
+        self._rho = rho
+
+    def _update(self, ws, gs, states, lr, step, wd_flags):
+        gs = self._apply_decay(ws, gs, wd_flags)
+        rho, eps = self._rho, self._epsilon
+        asg, asu = states["avg_squared_grad"], states["avg_squared_update"]
+        torch._foreach_mul_(asg, rho)
+        torch._foreach_addcmul_(asg, gs, gs, value=1 - rho)
+        upd = torch._foreach_add(asu, eps)
+        torch._foreach_sqrt_(upd)
+        den = torch._foreach_add(asg, eps)
+        torch._foreach_sqrt_(den)
+        torch._foreach_div_(upd, den)
+        torch._foreach_mul_(upd, gs)
+        torch._foreach_mul_(asu, rho)
+        torch._foreach_addcmul_(asu, upd, upd, value=1 - rho)
+        torch._foreach_add_(ws, upd, alpha=-lr)
+
+
+class Adamax(Optimizer):
+    """m = b1 m + (1 - b1) g, u = max(b2 u, |g|),
+    w -= lr / (1 - b1^t) * m / (u + eps)."""
+
+    _state_names = ["moment", "inf_norm"]
+
+    def __init__(self, learning_rate=0.001, beta1=0.9, beta2=0.999,
+                 epsilon=1e-8, parameters=None, weight_decay=None,
+                 grad_clip=None, multi_precision=False, name=None):
+        super().__init__(learning_rate, parameters, weight_decay, grad_clip,
+                         multi_precision, name)
+        self._beta1, self._beta2, self._epsilon = beta1, beta2, epsilon
+
+    def _update(self, ws, gs, states, lr, step, wd_flags):
+        gs = self._apply_decay(ws, gs, wd_flags)
+        b1 = self._beta1
+        ms, us = states["moment"], states["inf_norm"]
+        torch._foreach_mul_(ms, b1)
+        torch._foreach_add_(ms, gs, alpha=1 - b1)
+        torch._foreach_mul_(us, self._beta2)
+        torch._foreach_maximum_(us, torch._foreach_abs(gs))
+        denom = torch._foreach_add(us, self._epsilon)
+        torch._foreach_addcdiv_(ws, ms, denom, value=-lr / (1 - b1 ** step))
+
+
+class Lamb(Optimizer):
+    """Adam's direction plus ``lamb_weight_decay`` * w, scaled by the
+    trust ratio ||w|| / ||r|| of each parameter (1 where either norm is
+    0); ``exclude_from_weight_decay_fn(param)`` turns the decay off for a
+    parameter (it is given the object the optimizer was given)."""
+
+    _state_names = ["moment1", "moment2"]
+
+    def __init__(self, learning_rate=0.001, lamb_weight_decay=0.01,
+                 beta1=0.9, beta2=0.999, epsilon=1e-6, parameters=None,
+                 grad_clip=None, exclude_from_weight_decay_fn=None,
+                 multi_precision=False, name=None):
+        super().__init__(learning_rate, parameters, None, grad_clip,
+                         multi_precision, name)
+        self._lamb_wd = lamb_weight_decay
+        self._beta1, self._beta2, self._epsilon = beta1, beta2, epsilon
+        self._exclude_fn = exclude_from_weight_decay_fn
+
+    def _wd_flag(self, name):
+        if self._exclude_fn is not None and \
+                self._exclude_fn(self._given[name]):
+            return 0.0
+        return 1.0
+
+    def _update(self, ws, gs, states, lr, step, wd_flags):
+        b1, b2 = self._beta1, self._beta2
+        ms, vs = states["moment1"], states["moment2"]
+        torch._foreach_mul_(ms, b1)
+        torch._foreach_add_(ms, gs, alpha=1 - b1)
+        torch._foreach_mul_(vs, b2)
+        torch._foreach_addcmul_(vs, gs, gs, value=1 - b2)
+        denom = torch._foreach_div(vs, 1 - b2 ** step)
+        torch._foreach_sqrt_(denom)
+        torch._foreach_add_(denom, self._epsilon)
+        rs = torch._foreach_div(ms, 1 - b1 ** step)
+        torch._foreach_div_(rs, denom)
+        torch._foreach_add_(rs, torch._foreach_mul(
+            ws, [self._lamb_wd * f for f in wd_flags]))
+        trust = [torch.where((wn > 0) & (rn > 0), wn / rn, 1.0)
+                 for wn, rn in zip(torch._foreach_norm(ws),
+                                   torch._foreach_norm(rs))]
+        torch._foreach_mul_(rs, trust)
+        torch._foreach_add_(ws, rs, alpha=-lr)
+
+
+class NAdam(Adam):
+    """Adam with Nesterov momentum: m_hat = (b1 m + (1 - b1) g) /
+    (1 - b1^(t+1))."""
+
+    def _update_fp32(self, ws, gs, states, lr, step, wd_flags):
+        gs = self._apply_decay(ws, gs, wd_flags)
+        b1 = self._beta1
+        _, bc2 = self._moments(gs, states, step)
+        m_hat = torch._foreach_mul(states["moment1"], b1)
+        torch._foreach_add_(m_hat, gs, alpha=1 - b1)
+        torch._foreach_addcdiv_(ws, m_hat,
+                                self._sqrt_v_hat(states["moment2"], bc2),
+                                value=-lr / (1 - b1 ** (step + 1)))
+
+
+class RAdam(Adam):
+    """Rectified Adam: the adaptive step, scaled by the variance
+    rectification r, once rho_t > 5; the momentum step before."""
+
+    def _update_fp32(self, ws, gs, states, lr, step, wd_flags):
+        gs = self._apply_decay(ws, gs, wd_flags)
+        b2 = self._beta2
+        bc1, bc2 = self._moments(gs, states, step)
+        rho_inf = 2.0 / (1 - b2) - 1
+        rho_t = rho_inf - 2 * step * b2 ** step / (1 - b2 ** step)
+        if rho_t > 5:
+            r = (((rho_t - 4) * (rho_t - 2) * rho_inf)
+                 / ((rho_inf - 4) * (rho_inf - 2) * rho_t)) ** 0.5
+            torch._foreach_addcdiv_(ws, states["moment1"],
+                                    self._sqrt_v_hat(states["moment2"], bc2),
+                                    value=-lr * r / bc1)
+        else:
+            torch._foreach_add_(ws, states["moment1"], alpha=-lr / bc1)
+
+
+__all__ = ["Optimizer", "SGD", "Momentum", "Adam", "AdamW", "Adagrad",
+           "RMSProp", "Adadelta", "Adamax", "Lamb", "NAdam", "RAdam"]

@@ -640,3 +640,64 @@ def test_conv_pool_and_prefetch_on_the_card():
             assert b._data.is_cuda
             assert float(b._data.mean()) == float(i)
         assert i == 5 and pf.closed
+
+
+@pytest.mark.cuda
+def test_save_load_round_trips_cuda_tensors(tmp_path):
+    """framework.io on the card: bf16, fp32 and int8 CUDA tensors (port
+    Tensors and plain torch tensors, inline and >1 MB segments) come back
+    bit for bit, on the card; the bf16 segments, in the layout the JAX
+    package reads, load to the same bits on the CPU."""
+    _card()
+    import paddle_tpu_torch as tp
+    from paddle_tpu_torch.framework import io
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(5)
+    state = {
+        "bf16": torch.randn((3, 5), generator=gen,
+                            device="cuda").to(torch.bfloat16),
+        "bf16_big": torch.randn((1 << 20,), generator=gen,
+                                device="cuda").to(torch.bfloat16),
+        "fp32": tp.Tensor(torch.randn((4, 7), generator=gen,
+                                      device="cuda")),
+        "fp32_big": torch.randn((1 << 19,), generator=gen, device="cuda"),
+        "int8": torch.randint(-128, 128, (33,), generator=gen,
+                              device="cuda", dtype=torch.int8),
+        "nested": {"step": 3, "list": [tp.Tensor(torch.ones(
+            2, device="cuda", dtype=torch.bfloat16))]},
+    }
+    path = str(tmp_path / "card.pdckpt")
+    io.save(state, path)
+
+    def flat(d):
+        out = {}
+        for k, v in d.items():
+            if isinstance(v, dict):
+                out.update({f"{k}.{j}": x for j, x in flat(v).items()})
+            elif isinstance(v, list):
+                out.update({f"{k}[{i}]": x for i, x in enumerate(v)})
+            else:
+                out[k] = v
+        return out
+
+    def payload(t):
+        return t._data if isinstance(t, tp.Tensor) else t
+
+    def bits(t):
+        t = payload(t)
+        return t.view(torch.int16) if t.dtype == torch.bfloat16 else t
+
+    want = flat(state)
+    with tp.device_guard("gpu:0"):
+        got = flat(io.load(path))
+    with tp.device_guard("cpu"):
+        host = flat(io.load(path, verify=False))
+    assert set(got) == set(want) == set(host)
+    for k, v in want.items():
+        if k.endswith("step"):
+            assert got[k] == host[k] == v
+            continue
+        assert got[k]._data.is_cuda and got[k].dtype == payload(v).dtype, k
+        assert torch.equal(bits(got[k]), bits(v)), k
+        assert host[k]._data.device.type == "cpu", k
+        assert torch.equal(bits(host[k]), bits(got[k]).cpu()), k

@@ -106,20 +106,22 @@ def test_fit_evaluate_predict(shuffle):
     np.testing.assert_allclose(pt[0], pj[0], rtol=TOL, atol=TOL)
 
 
-def test_save_load_summary_raise_until_ported():
+def test_save_load_summary_raise_until_ported(tmp_path):
+    """Ported since: save, load, summary, fit(save_dir=...) and
+    fit(resume=...) no longer raise (held against the JAX package in
+    test_torch_hapi_resume.py and test_torch_summary_flops.py)."""
     net = _mlp(tp, [8, 16, 2])
     model = tp.Model(net)
     model.prepare(tp.optimizer.Adam(parameters=net.parameters()),
                   tp.nn.CrossEntropyLoss())
-    for call, module in ((lambda: model.save("x"), "framework/io.py"),
-                         (lambda: model.load("x"), "framework/io.py"),
-                         (lambda: model.summary((1, 8)), "hapi/summary.py"),
-                         (lambda: model.fit(_xor_ds(tp), save_dir="d"),
-                          "framework/io.py"),
-                         (lambda: model.fit(_xor_ds(tp), resume=object()),
-                          "fault/auto_resume")):
-        with pytest.raises(NotImplementedError, match=module):
-            call()
+    model.fit(_xor_ds(tp), batch_size=8, verbose=0,
+              save_dir=str(tmp_path / "d"),
+              resume=tp.fault.CheckpointManager(str(tmp_path / "m")))
+    assert (tmp_path / "d" / "epoch_0.pdparams").exists()
+    model.save(str(tmp_path / "x"))
+    model.load(str(tmp_path / "x"))
+    assert model.summary((1, 8)) == {"total_params": 8 * 16 + 16 + 16 * 2
+                                     + 2, "trainable_params": 178}
 
 
 # ---------------------------------------------------------------- metrics
