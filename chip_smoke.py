@@ -131,6 +131,29 @@ Phases, in order; any failure exits non-zero and nothing is caught:
              vocab 30592, 12 layers, B=48, S=512, the fused loss, bf16
              weights, fp32 masters, AdamW, O1), 10 timed steps after 2 of
              warm-up, one JSON line like the rungs'.
+* paddle_static -- ``to_static`` over Paddle-API Layers (the dispatcher's
+             recorder; a signature's first call records, the next replay):
+             the tiny fp32 BERT fused, a recording step and three replayed
+             AdamW steps on the card against a CPU twin (losses within
+             LOSS_TOL, the pass's stats equal, K4 and K6 launched as the
+             pass predicts); bench.py's fusion block (_bench_fusion) at
+             full size in its Paddle-API spelling (B8 S512 H1024 FF4096,
+             16 heads, fp32 as bench.py builds it): the train leg
+             (to_static(full_graph=True), (out*out).mean() and its
+             backward) fused against unfused, the eager leg unfused
+             against the F.fused_* spelling, in interleaved chunks (the
+             min of the chunk means), bench.py's two parity gates and the
+             rewrites {rope_proj: 2, norm_linear: 1, residual_norm: 1},
+             both ratios printed; bench.py's BERT-base rung (paddle_api's
+             settings) eager, to_static unfused, to_static fused (rewritten
+             {residual_norm: 24, linear_act: 13}; a step launches K4 24,
+             K6 13, K1/K2/K3 12) and fused with recompute=True, one JSON
+             line each and one comparing them (fused against unfused first
+             replayed loss within FUSED_LOSS_TOL, recompute against fused
+             within BF16_TOL); then K4 and K6 at the fused BERT step's
+             shapes against their plain versions and timed (rows under
+             each kernel's "shapes"), with the copy that hands K6 a
+             Paddle (in, out) weight.
 * checkpoint -- checkpoints and resume: bench.py's BERT-base rung
              (paddle_api's settings, with a StepDecay scheduler that
              keeps LR over the phase) trained 8 steps twice from one seed
@@ -184,7 +207,7 @@ Phases, in order; any failure exits non-zero and nothing is caught:
              images/s beside the rung's.
 
 The forward, serve, serve_llama, serve_tier, train, fusion, rungs,
-paddle_api, checkpoint and vision phases are the main path (serve_tier and vision
+paddle_api, paddle_static, checkpoint and vision phases are the main path (serve_tier and vision
 launch no kernel: the tier is host code over the engine, and its LLaMA
 runs without flash attention, as bench.py's rungs do; ResNet's
 convolutions and pools are cuDNN's and torch's, as the JAX package's are
@@ -194,8 +217,8 @@ XLA's, not Pallas kernels): every kernel's launch count is set to
 power limit from nvidia-smi, and {"ok": true, "device": {...}}.
 ``--profile`` adds a torch.profiler breakdown of a bf16 forward, a GPT-2
 and a LLaMA engine run, one training step, a fused and an unfused step of
-each fusion path, one step of each rung, one BERT-base step and one
-ResNet-50 rung step.
+each fusion path, one step of each rung, one BERT-base step (and one of
+each of paddle_static's four BERT-base runs) and one ResNet-50 rung step.
 """
 from __future__ import annotations
 
@@ -220,9 +243,10 @@ import torch
 
 PHASES = ("build", "kernel", "fused_kernel", "forward", "serve",
           "serve_llama", "serve_tier", "train", "fusion", "rungs",
-          "paddle_api", "checkpoint", "vision")
+          "paddle_api", "paddle_static", "checkpoint", "vision")
 MAIN_PATH = ("forward", "serve", "serve_llama", "serve_tier", "train",
-             "fusion", "rungs", "paddle_api", "checkpoint", "vision")
+             "fusion", "rungs", "paddle_api", "paddle_static", "checkpoint",
+             "vision")
 PATH_SHAPE = dict(b=4, s=1024, h=12, d=64)      # GPT-2 small serving
 TRAIN_SHAPE = dict(b=8, s=1024, h=16, d=64)     # GPT-2 345M training
 LLAMA_ATTN_SHAPE = dict(b=4, s=2048, h=12, d=128)   # LLaMA-770M fusion path
@@ -2563,11 +2587,27 @@ def _dispatch_overhead(paddle, card):
     return row
 
 
-def _bert_step(paddle, model, opt, ids, events=None, amp_kw=None):
-    """One eager step: forward (loss), backward, AdamW; returns the loss
-    and the step's launches, which must be one K1, K2 and K3 a layer."""
+def _bert_launches(layers, fused=False, recompute=False, recorded=False):
+    """A BERT step's launches: K1-K3 once a layer; with fusion K4 twice
+    and K6 once a layer and K6 once for the MLM head; recompute reruns
+    each layer's forward in the backward. ``recorded``: to_static's
+    recording step, which runs eagerly."""
+    fused = fused and not recorded
+    want = {"flash_attention_fwd": layers * (2 if recompute else 1),
+            "flash_attention_bwd_dq": layers,
+            "flash_attention_bwd_dkv": layers}
+    if fused:
+        want["fused_residual_norm"] = 2 * layers * (2 if recompute else 1)
+        want["fused_matmul"] = layers * (2 if recompute else 1) + 1
+    return want
+
+
+def _bert_step(paddle, model, opt, ids, events=None, amp_kw=None, want=None):
+    """One step: forward (loss), backward, AdamW; returns the loss. Its
+    launches must be ``want`` (by default one K1, K2 and K3 a layer)."""
     from paddle_tpu_torch import amp
-    layers = model.bert.cfg.num_hidden_layers
+    if want is None:
+        want = _bert_launches(model.bert.cfg.num_hidden_layers)
     c0 = _counts()
     if events:
         events[0].record()
@@ -2583,8 +2623,6 @@ def _bert_step(paddle, model, opt, ids, events=None, amp_kw=None):
     if events:
         events[3].record()
     launched = _launched(c0, _counts())
-    want = {"flash_attention_fwd": layers, "flash_attention_bwd_dq": layers,
-            "flash_attention_bwd_dkv": layers}
     if launched != want:
         raise AssertionError(f"BERT step launched {launched}, wants {want}")
     return loss
@@ -2676,18 +2714,24 @@ def _bert_kernels(state):
     return rows
 
 
-def _bert_base_rung(paddle, card, profile):
+def _bert_base_rung(paddle, card, profile, mode="eager", recompute=False):
     """bench.py's BERT-base rung: bf16-resident weights (every float
     parameter, LayerNorm too), AdamW with fp32 masters, O1 bf16, B=48,
     S=512, the fused loss; BERT_WARMUP steps, then BERT_STEPS timed, each
-    on its own RandomState(i) batch with labels = ids (make_inputs)."""
+    on its own RandomState(i) batch with labels = ids (make_inputs),
+    every step's launches held. ``mode``: "eager", "static" (to_static,
+    fusion off) or "fused" (to_static, fusion on), which records on the
+    first warm-up step. One JSON line; returns it."""
     from paddle_tpu_torch.models import BertConfig, BertForPretraining
-    cfg = BertConfig(**BERT_BASE)
-    b, s = BERT_SHAPE["b"], BERT_SHAPE["s"]
+    cfg = BertConfig(**BERT_BASE, recompute=recompute)
+    b, s, layers = BERT_SHAPE["b"], BERT_SHAPE["s"], cfg.num_hidden_layers
     paddle.seed(12)
     model = BertForPretraining(cfg)
     model.to(dtype="bfloat16")
     n_params = sum(p.size for p in model.parameters())
+    if mode != "eager":
+        paddle.jit.to_static(model, full_graph=True)
+    fused = mode == "fused"
     opt = paddle.optimizer.AdamW(learning_rate=LR, multi_precision=True,
                                  parameters=model.parameters(), **ADAMW)
     batches = [paddle.to_tensor(np.random.RandomState(i).randint(
@@ -2696,60 +2740,76 @@ def _bert_base_rung(paddle, card, profile):
     warm = [paddle.to_tensor(np.random.RandomState(1000 + i).randint(
         0, cfg.vocab_size, (b, s)).astype(np.int64))
         for i in range(BERT_WARMUP)]
-    for ids in warm:
-        _bert_step(paddle, model, opt, ids, amp_kw=O1)
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    c0 = _counts()
-    walls, split, losses = [], [], []
-    for ids in batches:
-        events = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+    paddle.set_flags({"FLAGS_enable_fusion": fused})
+    try:
+        warm_losses = []
+        for k, ids in enumerate(warm):
+            want = _bert_launches(layers, fused, recompute,
+                                  recorded=mode != "eager" and k == 0)
+            warm_losses.append(float(_bert_step(
+                paddle, model, opt, ids, amp_kw=O1, want=want).item()))
         torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        loss = _bert_step(paddle, model, opt, ids, events, amp_kw=O1)
-        torch.cuda.synchronize()
-        walls.append(time.perf_counter() - t0)
-        split.append([events[j].elapsed_time(events[j + 1])
-                      for j in range(3)])
-        losses.append(float(loss.item()))
-    peak = torch.cuda.max_memory_allocated() / 1e9
-    launched = _launched(c0, _counts())
+        torch.cuda.reset_peak_memory_stats()
+        want = _bert_launches(layers, fused, recompute)
+        walls, split, losses = [], [], []
+        for ids in batches:
+            events = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            loss = _bert_step(paddle, model, opt, ids, events, O1, want)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+            split.append([events[j].elapsed_time(events[j + 1])
+                          for j in range(3)])
+            losses.append(float(loss.item()))
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        prof = None
+        if profile:
+            prof = _profile(
+                f"bert_base {mode} step",
+                lambda: _bert_step(paddle, model, opt, batches[0],
+                                   amp_kw=O1, want=want),
+                groups={"K1-K3 attention": ("flash_fwd", "dq_", "dkv_"),
+                        "K4": ("residual_norm",),
+                        "K6": ("gemm_wgmma", "norm_rows"),
+                        "cuBLAS GEMM": ("nvjet", "xmma", "cutlass", "cublas"),
+                        "elementwise and reductions": (
+                            "elementwise", "reduce", "vectorized")})
+    finally:
+        paddle.set_flags({"FLAGS_enable_fusion": False})
     q1, median, q3 = statistics.quantiles(walls, n=4)
     fwd, bwd, upd = (statistics.median(x[j] for x in split)
                      for j in range(3))
     tokens = b * s
-    flops_per_token = 6 * n_params + 12 * cfg.num_hidden_layers \
-        * cfg.hidden_size * s
-    row = {"rung": f"bert_base O1 bf16 fused_loss B{b} S{s}", "card": card,
-           "params": n_params, "steps": len(losses), "step_ms": median * 1e3,
-           "step_ms_q1": q1 * 1e3, "step_ms_q3": q3 * 1e3,
-           "forward_ms": fwd, "backward_ms": bwd, "optimizer_ms": upd,
-           "tokens_per_s": tokens / median,
+    flops_per_token = 6 * n_params + 12 * layers * cfg.hidden_size * s
+    row = {"rung": f"bert_base O1 bf16 fused_loss B{b} S{s} {mode}"
+                   + (" recompute" if recompute else ""),
+           "card": card, "params": n_params, "steps": len(losses),
+           "step_ms": median * 1e3, "step_ms_q1": q1 * 1e3,
+           "step_ms_q3": q3 * 1e3, "forward_ms": fwd, "backward_ms": bwd,
+           "optimizer_ms": upd, "tokens_per_s": tokens / median,
            "mfu": flops_per_token * tokens / median / BF16_FLOP_PER_S,
-           "flops_per_token": flops_per_token, "peak_memory_gb": peak,
+           "peak_memory_gb": peak, "warm_losses": warm_losses,
            "loss_first": losses[0], "loss_last": losses[-1],
-           "losses": losses, "launches": launched,
+           "losses": losses, "launches_a_step": want,
+           "fusion_stats": (model.forward.fusion_stats
+                            if mode != "eager" else None),
            "switches": dict(amp="O1 bfloat16", bf16_weights=True,
                             master_weights="fp32", fused_loss=True,
-                            recompute=False, fusion=False)}
-    if profile:
-        prof = _profile(
-            "bert_base step",
-            lambda: _bert_step(paddle, model, opt, batches[0], amp_kw=O1),
-            groups={"K1-K3 attention": ("flash_fwd", "dq_", "dkv_"),
-                    "cuBLAS GEMM": ("nvjet", "xmma", "cutlass", "cublas"),
-                    "elementwise and reductions": (
-                        "elementwise", "reduce", "vectorized")})
+                            recompute=recompute,
+                            to_static=mode != "eager", fusion=fused)}
+    if prof:
         row["profiled_device_ms"] = prof["device_busy_s"] * 1e3
         row["device_busy_share"] = prof["device_busy_share"]
     log(json.dumps(row))
     if not (all(np.isfinite(losses)) and losses[-1] < losses[0]):
-        raise AssertionError(f"bert_base: losses {losses}")
-    layers = cfg.num_hidden_layers * len(losses)
-    if launched != {"flash_attention_fwd": layers,
-                    "flash_attention_bwd_dq": layers,
-                    "flash_attention_bwd_dkv": layers}:
-        raise AssertionError(f"bert_base launched {launched}")
+        raise AssertionError(f"bert_base {mode}: losses {losses}")
+    if fused and row["fusion_stats"]["rewritten"] != {
+            "residual_norm": 2 * layers, "linear_act": layers + 1}:
+        raise AssertionError(f"bert_base fused: rewritten "
+                             f"{row['fusion_stats']['rewritten']}")
+    del model, opt, batches, warm
+    torch.cuda.empty_cache()
     return row
 
 
@@ -2771,6 +2831,294 @@ def phase_paddle_api(state):
         torch.cuda.empty_cache()
         _bert_base_rung(paddle, card, state.get("profile"))
     torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------- paddle_static
+# bench.py _bench_fusion (:1709-1895) at full size, in its Paddle-API
+# spelling; fp32, as bench.py builds it
+FUSION_BLOCK = dict(b=8, s=512, h=1024, ff=4096, heads=16, iters=20,
+                    chunks=4)
+FUSED_BLOCK = {"rope_proj": 2, "norm_linear": 1, "residual_norm": 1}
+FUSED_BLOCK_LAUNCHES = {"fused_residual_norm": 1, "fused_matmul": 1,
+                        "fused_matmul_rope": 2}
+BLOCK_PARITY = 1e-3         # bench.py's two gates, relative
+
+
+def _static_bert_tiny(paddle):
+    """(a) The tiny fp32 BERT under to_static with fusion on the card
+    against its CPU twin: a recording step, then three replayed AdamW
+    steps' losses within LOSS_TOL; the pass's stats equal; the card's
+    replays launch K4 and K6 as the pass predicts."""
+    from paddle_tpu_torch.models import BertConfig, BertForPretraining
+    b, s, layers = 2, 128, BERT_TINY["num_hidden_layers"]
+    paddle.seed(11)
+    card = BertForPretraining(BertConfig(**BERT_TINY, fused_loss=True))
+    state = {k: v.numpy() for k, v in card.state_dict().items()}
+    with paddle.device_guard("cpu"):
+        twin = BertForPretraining(BertConfig(**BERT_TINY, fused_loss=True))
+        twin.set_state_dict(state)
+    batches = [np.random.RandomState(50 + i).randint(
+        0, BERT_TINY["vocab_size"], (b, s)) for i in range(4)]
+    losses, stats = [], []
+    paddle.set_flags({"FLAGS_enable_fusion": True})
+    for model, dev in ((card, None), (twin, "cpu")):
+        guard = (paddle.device_guard(dev) if dev
+                 else contextlib.nullcontext())
+        with guard:
+            paddle.jit.to_static(model, full_graph=True)
+            opt = paddle.optimizer.AdamW(learning_rate=LR,
+                                         parameters=model.parameters(),
+                                         **ADAMW)
+            run = []
+            for k, ids in enumerate(batches):
+                t = paddle.to_tensor(ids)
+                if dev:
+                    loss = model(t, masked_lm_labels=t)[2]
+                    loss.backward()
+                    opt.step()
+                    opt.clear_grad()
+                else:
+                    loss = _bert_step(paddle, model, opt, t,
+                                      want=_bert_launches(
+                                          layers, fused=True,
+                                          recorded=k == 0))
+                run.append(float(loss.item()))
+            losses.append(run[1:])
+            stats.append(model.forward.fusion_stats)
+    paddle.set_flags({"FLAGS_enable_fusion": False})
+    loss_err = max(abs(a - c) for a, c in zip(*losses))
+    want = {"residual_norm": 2 * layers, "linear_act": layers + 1}
+    log(f"paddle_static: tiny BERT fp32 fused replays card vs CPU: losses "
+        f"{losses[0]} vs {losses[1]}, max err {loss_err:.3e} (limit "
+        f"{LOSS_TOL}); rewritten {stats[0]['rewritten']} and "
+        f"{stats[1]['rewritten']}")
+    if not (loss_err <= LOSS_TOL and stats[0] == stats[1]
+            and stats[0]["rewritten"] == want):
+        raise AssertionError("tiny BERT under to_static: the card disagrees "
+                             "with its CPU twin")
+
+
+def _static_fusion_block(paddle, card):
+    """(b) bench.py's fusion block at full size in the Paddle API: the
+    train leg (to_static(full_graph=True), (out*out).mean() and its
+    backward) fused against unfused, the eager leg unfused against the
+    F.fused_* spelling; interleaved chunks, the min of the chunk means;
+    bench.py's two parity gates and the pass's rewrites."""
+    from paddle_tpu_torch import nn, ops
+    from paddle_tpu_torch.models import llama
+    F = paddle.nn.functional
+    fb = FUSION_BLOCK
+    b, s, h, ff, heads = fb["b"], fb["s"], fb["h"], fb["ff"], fb["heads"]
+    hd = h // heads
+    paddle.seed(0)
+    q_proj, k_proj = nn.Linear(h, h), nn.Linear(h, h)
+    ln2 = nn.LayerNorm(h)
+    fc1, fc2 = nn.Linear(h, ff), nn.Linear(ff, h)
+    params = [p for m in (q_proj, k_proj, ln2, fc1, fc2)
+              for p in m.parameters()]
+    rng = np.random.RandomState(0)
+    xs = [paddle.to_tensor((rng.randn(b, s, h) * 0.5).astype(np.float32))
+          for _ in range(3)]
+
+    def block(xt):
+        hn = F.rms_norm(xt)
+        q = llama.rotary_embedding(ops.reshape(q_proj(hn), [b, s, heads, hd]))
+        k = llama.rotary_embedding(ops.reshape(k_proj(hn), [b, s, heads, hd]))
+        out = fc2(F.gelu(fc1(ln2(xt))))
+        y = F.rms_norm(xt + out)
+        return y + ops.reshape(q, [b, s, h]) + ops.reshape(k, [b, s, h])
+
+    def eager_fused(xt):
+        hn = F.rms_norm(xt)
+        q = F.fused_rope_proj(hn, q_proj.weight, q_proj.bias, num_heads=heads)
+        k = F.fused_rope_proj(hn, k_proj.weight, k_proj.bias, num_heads=heads)
+        out = fc2(F.fused_norm_linear(
+            xt, fc1.weight, fc1.bias, ln2.weight, ln2.bias,
+            activation="gelu", norm_type="layer_norm"))
+        y, _ = F.fused_residual_norm(xt, out, norm_type="rms_norm",
+                                     epsilon=1e-6)
+        return y + ops.reshape(q, [b, s, h]) + ops.reshape(k, [b, s, h])
+
+    sf = paddle.jit.to_static(block, full_graph=True)
+
+    def train(x):
+        out = sf(x)
+        loss = (out * out).mean()
+        loss.backward()
+        for p in params:
+            p.clear_gradient()
+        return loss
+
+    first = {}
+    try:
+        for fused in (False, True):
+            paddle.set_flags({"FLAGS_enable_fusion": fused})
+            train(xs[0])                                  # records
+            c0 = _counts()
+            first[fused] = float(train(xs[0]).item())     # replays
+            launched = _launched(c0, _counts())
+            want = FUSED_BLOCK_LAUNCHES if fused else {}
+            if launched != want:
+                raise AssertionError(f"fusion block train step "
+                                     f"(fused={fused}) launched {launched}")
+        patterns = dict(sf.fusion_stats["rewritten"])
+
+        def chunk(fn, flag):
+            if flag is not None:
+                paddle.set_flags({"FLAGS_enable_fusion": flag})
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for i in range(fb["iters"]):
+                fn(xs[i % len(xs)])
+            torch.cuda.synchronize()
+            return (time.perf_counter() - t0) / fb["iters"]
+        t_u, t_f = [], []
+        for _ in range(fb["chunks"]):
+            t_u.append(chunk(train, False))
+            t_f.append(chunk(train, True))
+    finally:
+        paddle.set_flags({"FLAGS_enable_fusion": False})
+    e_out_u = block(xs[0]).numpy()
+    c0 = _counts()
+    e_out_f = eager_fused(xs[0]).numpy()
+    if _launched(c0, _counts()) != FUSED_BLOCK_LAUNCHES:
+        raise AssertionError(f"the F.fused_* spelling launched "
+                             f"{_launched(c0, _counts())}")
+    e_u, e_f = [], []
+    for _ in range(fb["chunks"]):
+        e_u.append(chunk(block, None))
+        e_f.append(chunk(eager_fused, None))
+    dt_u, dt_f, e_dt_u, e_dt_f = min(t_u), min(t_f), min(e_u), min(e_f)
+    loss_parity = abs(first[False] - first[True]) <= BLOCK_PARITY * max(
+        abs(first[False]), 1.0)
+    scale = max(float(np.abs(e_out_u).max()), 1e-6)
+    eager_err = float(np.abs(e_out_u - e_out_f).max())
+    row = {"fusion_block": f"B{b} S{s} H{h} FF{ff} heads{heads} fp32",
+           "card": card, "patterns": patterns,
+           "train_unfused_step_ms": dt_u * 1e3,
+           "train_fused_step_ms": dt_f * 1e3, "train_ratio": dt_u / dt_f,
+           "train_loss_unfused": first[False],
+           "train_loss_fused": first[True], "loss_parity": loss_parity,
+           "eager_unfused_step_ms": e_dt_u * 1e3,
+           "eager_fused_step_ms": e_dt_f * 1e3, "eager_ratio": e_dt_u / e_dt_f,
+           "eager_max_abs_err": eager_err, "eager_scale": scale,
+           "eager_parity": eager_err <= BLOCK_PARITY * scale,
+           "chunk_means_ms": {"train_unfused": [t * 1e3 for t in t_u],
+                              "train_fused": [t * 1e3 for t in t_f],
+                              "eager_unfused": [t * 1e3 for t in e_u],
+                              "eager_fused": [t * 1e3 for t in e_f]}}
+    log(json.dumps(row))
+    if not (row["loss_parity"] and row["eager_parity"]
+            and patterns == FUSED_BLOCK):
+        raise AssertionError("fusion block: a parity gate failed or the "
+                             f"pass rewrote {patterns}")
+    return row
+
+
+def _bert_fused_kernels(state):
+    """K4 and K6 at the shapes the fused BERT-base step gives them (K4:
+    the fp32 residual stream, 24576 x 768, LayerNorm; K6: the bf16 FFN
+    up-projection with gelu and the MLM head's projection with
+    gelu_tanh), each against its plain version and timed beside its
+    bound, its plain version and a PyTorch yardstick; and the copy that
+    hands K6 a Paddle (in, out) weight as (out, in) rows. The rows go
+    under each kernel's "shapes" in the kernels line."""
+    import paddle_tpu_torch.ops.cuda.fused_ops as fk
+    TF = torch.nn.functional
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(99)
+    rows, d, ffn = BERT_SHAPE["b"] * BERT_SHAPE["s"], 768, 3072
+
+    def r(*shape, dtype=torch.bfloat16, scale=1.0):
+        return randn(shape, torch.float32, gen).mul_(scale).to(dtype)
+    f32 = torch.float32
+    x, res = r(rows, d, dtype=f32), r(rows, d, dtype=f32)
+    w, bias = 1 + r(d, dtype=f32, scale=0.1), r(d, dtype=f32, scale=0.1)
+    err = _fused_check("fused_residual_norm", f"bert {rows}x{d} ln", f32,
+                       fk.fused_residual_norm(x, res, w, bias),
+                       fk.fused_residual_norm_plain(x, res, w, bias))
+    out = {"fused_residual_norm": [dict(_time_fused(
+        "fused_residual_norm", f"{rows}x{d} fp32 layer_norm (BERT-base)",
+        lambda: fk.fused_residual_norm(x, res, w, bias),
+        lambda: fk.fused_residual_norm_plain(x, res, w, bias),
+        lambda: TF.layer_norm(x + res, (d,), w, bias, 1e-5),
+        "x + res, then F.layer_norm (two calls)",
+        4 * rows * d * 4 + 2 * d * 4, 9.0 * rows * d, FP32_FLOP_PER_S),
+        max_abs_err=err)]}
+    del x, res
+    xm = r(rows, d)
+    out["fused_matmul"] = []
+    for n, act in ((ffn, "gelu"), (d, "gelu_tanh")):
+        wm, bm = r(n, d, scale=d ** -0.5), r(n, scale=0.1)
+        err = _fused_check("fused_matmul", f"bert {rows}x{d}->{n} {act}",
+                           torch.bfloat16, fk.fused_matmul(xm, wm, bm, act=act),
+                           fk.fused_matmul_plain(xm, wm, bm, act=act))
+        out["fused_matmul"].append(dict(_time_fused(
+            "fused_matmul", f"{rows}x{d}->{n} bf16 bias {act} (BERT-base)",
+            lambda: fk.fused_matmul(xm, wm, bm, act=act),
+            lambda: fk.fused_matmul_plain(xm, wm, bm, act=act),
+            lambda: TF.gelu(torch.addmm(bm, xm, wm.t()),
+                            approximate="tanh" if act == "gelu_tanh"
+                            else "none"),
+            "torch.addmm, then F.gelu (two calls)",
+            (rows * d + n * d + rows * n + n) * 2, 2.0 * rows * n * d),
+            max_abs_err=err))
+        paddle_w = wm.t().contiguous()          # a Paddle (in, out) weight
+        copy_ms, _, _ = time_ms(lambda: paddle_w.t().contiguous(),
+                                reps=KERNEL_REPS, queued=True)
+        moved = 2 * n * d * 2
+        log(json.dumps({"weight_copy": f"({d}, {n}) bf16 -> ({n}, {d})",
+                        "ms": copy_ms, "bound_ms": moved / HBM_BYTES_PER_S
+                        * 1e3, "bound_by": "bytes",
+                        "kernel_ms": out["fused_matmul"][-1]["ms"]}))
+    for name, found in out.items():
+        k = state.setdefault("kernels", {}).setdefault(name, {})
+        k.setdefault("shapes", [dict(k)] if k else []).extend(found)
+
+
+def phase_paddle_static(state):
+    """to_static over Paddle-API Layers: the tiny BERT card against CPU,
+    bench.py's fusion block at full size, the BERT-base rung eager,
+    to_static unfused and fused, and fused with recompute; then K4 and K6
+    at the fused BERT step's shapes."""
+    import paddle_tpu_torch as paddle
+    card = _card_line()
+    t0 = time.perf_counter()
+    with paddle.device_guard("gpu:0"):
+        _static_bert_tiny(paddle)
+        _static_fusion_block(paddle, card)
+        torch.cuda.empty_cache()
+        profile = state.get("profile")
+        runs = {mode: _bert_base_rung(paddle, card, profile, mode)
+                for mode in ("eager", "static", "fused")}
+        rc = _bert_base_rung(paddle, card, profile, "fused", recompute=True)
+        step1 = {m: r["warm_losses"][1] for m, r in runs.items()}
+        log(json.dumps({"bert_base_three_ways": {
+            m: {"step_ms": r["step_ms"], "step_ms_q1": r["step_ms_q1"],
+                "step_ms_q3": r["step_ms_q3"], "forward_ms": r["forward_ms"],
+                "backward_ms": r["backward_ms"],
+                "optimizer_ms": r["optimizer_ms"],
+                "tokens_per_s": r["tokens_per_s"], "mfu": r["mfu"],
+                "peak_memory_gb": r["peak_memory_gb"]}
+            for m, r in dict(runs, fused_recompute=rc).items()},
+            "first_replayed_step_loss": dict(step1,
+                                             fused_recompute=rc[
+                                                 "warm_losses"][1]),
+            "card": card}))
+        if not abs(step1["fused"] - step1["static"]) <= FUSED_LOSS_TOL:
+            raise AssertionError(f"bert_base: fused first replayed loss "
+                                 f"{step1['fused']} against unfused "
+                                 f"{step1['static']}")
+        if not abs(rc["warm_losses"][1] - step1["fused"]) <= BF16_TOL:
+            raise AssertionError(f"bert_base: fused recompute first loss "
+                                 f"{rc['warm_losses'][1]} against "
+                                 f"{step1['fused']}")
+        counts = _counts()
+        _bert_fused_kernels(state)
+        for name, n in counts.items():
+            _wrapper(name).launches = n
+    torch.cuda.empty_cache()
+    log(f"paddle_static: phase took {time.perf_counter() - t0:.1f} s")
 
 
 # The checkpoint phase: the BERT-base rung's train state saved at
@@ -3646,6 +3994,7 @@ def main(argv=None) -> int:
     log(f"torch {torch.__version__} cuda {torch.version.cuda} on "
         f"{torch.cuda.get_device_name(0)}")
     state = {"profile": args.profile}
+    t_start = time.perf_counter()
     launches = dict.fromkeys(KERNELS, 0)     # over the main path
     for phase in PHASES:
         if phase not in phases:
@@ -3659,6 +4008,7 @@ def main(argv=None) -> int:
         if main_path:                          # ... and is read as it ends
             for name, n in _counts().items():
                 launches[name] += n
+    log(f"chip_smoke: the run took {time.perf_counter() - t_start:.1f} s")
     if phases != list(PHASES):
         return 0
     never = [name for name, n in launches.items() if n == 0]

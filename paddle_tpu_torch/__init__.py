@@ -50,7 +50,7 @@ rest of the JAX package's ``optimizer.py`` (``Momentum``, ``Adagrad``,
 """
 from . import (amp, autograd, compile, core, distributed, fault, framework,
                hapi, incubate, inference, io, jit, metric, models, nn,
-               observability, ops, optimizer, serving, tools, vision)
+               observability, ops, optimizer, serving, static, tools, vision)
 from .autograd import PyLayer, backward, grad, is_grad_enabled
 from .core import get_flag, resolve_device, set_flags
 from .core.dispatch import (enable_grad, no_grad,
@@ -74,7 +74,7 @@ from .models import (GPTConfig, GPTForCausalLM, LlamaConfig, LlamaForCausalLM,
 
 __all__ = ["amp", "autograd", "compile", "core", "distributed", "fault",
            "framework", "save", "load", "summary", "flops", "hapi", "incubate", "inference", "io", "jit", "metric", "models",
-           "nn", "observability", "ops", "optimizer", "serving", "tools",
+           "nn", "observability", "ops", "optimizer", "serving", "static", "tools",
            "vision", "Model", "resolve_device",
            "Tensor", "is_tensor", "no_grad", "enable_grad",
            "set_grad_enabled", "is_grad_enabled", "backward", "grad",

@@ -16,7 +16,7 @@ from typing import List, Optional, Sequence
 
 import torch
 
-from ..core.tensor import Tensor, as_tensor
+from ..core.tensor import Tensor, as_tensor, graph_break
 
 
 def _seed(t: Tensor, g) -> Optional[torch.Tensor]:
@@ -35,6 +35,7 @@ def run_backward(tensors: Sequence[Tensor], grad_tensors=None,
     one-element output when None). With ``inputs``, return their
     gradients (None where unused) and leave ``.grad`` alone; otherwise
     accumulate into the leaves' ``.grad``."""
+    graph_break("a backward")
     if grad_tensors is None:
         grad_tensors = [None] * len(tensors)
     outs, seeds = [], []

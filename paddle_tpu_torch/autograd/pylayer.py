@@ -13,7 +13,7 @@ from typing import Any, List
 
 import torch
 
-from ..core.tensor import Tensor
+from ..core.tensor import Tensor, graph_break
 
 
 class PyLayerContext:
@@ -94,6 +94,7 @@ class PyLayer:
 
     @classmethod
     def apply(cls, *args, **kwargs):
+        graph_break("PyLayer.apply()")
         pos = [i for i, a in enumerate(args) if isinstance(a, Tensor)]
         call = _Call(cls, PyLayerContext(), args, kwargs, pos)
         outs = _Function.apply(call, *[args[i]._data for i in pos])

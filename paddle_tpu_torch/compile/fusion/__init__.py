@@ -4,9 +4,17 @@ the framework-neutral core).
 
 ``fuse_steps`` matches chains in any op list whose records carry
 ``name/fn/in_ids/out_ids/attrs/in_shapes/out_shapes`` and plans their
-rewrite onto the fused ops of ``nn/functional/fused.py``.
-``compile/fusion/fx.py`` is the adapter that feeds it a ``torch.fx``
-graph and rewrites the graph from the plan; ``jit.to_static`` runs it.
+rewrite onto the fused ops of ``nn/functional/fused.py``. Two adapters
+feed it, and ``jit.to_static`` runs both:
+
+* ``compile/fusion/fx.py``: a ``torch.fx`` graph of a ``torch.nn.Module``
+  or a function on ``torch.Tensor``s, rewritten from the plan;
+* ``rewrite_program`` / ``rewrite_traced`` here: the op stream the
+  dispatcher's recorder took from a Paddle-API callable
+  (``jit/program.py``). The plan replaces the program's steps, so a
+  replay runs the fused program only; the JAX package's ``apply`` runs
+  the unfused chain and then the fused one, and leaves XLA to drop the
+  dead values, which eager torch would compute.
 
 Patterns:
 
@@ -23,8 +31,9 @@ Patterns:
 Rejection rule: an *interior* value (consumed by the fused op and not
 re-emitted as one of its outputs) that is externally visible (returned, or
 read by any step outside the chain) rejects the match, and so does an
-input that is produced after the chain's first step. The JAX package's
-Prometheus counters are not carried over; ``stats`` counts the same.
+input that is produced after the chain's first step (each counted in
+``paddle_tpu_fusion_{matched,rewritten,rejected}_total{pattern=}``, the
+JAX package's counters, and in ``stats``).
 
 Everything is gated by ``FLAGS_enable_fusion`` (default off).
 """
@@ -34,9 +43,10 @@ from dataclasses import dataclass, field
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 from ...core import flags
+from ...observability import metrics as _metrics
 
 __all__ = ["enabled", "fingerprint", "fuse_steps", "FusedStep", "PATTERNS",
-           "FUSION_VERSION"]
+           "FUSION_VERSION", "rewrite_program", "rewrite_traced"]
 
 #: bump when the pattern set or a fused rewrite's semantics change
 FUSION_VERSION = 1
@@ -46,6 +56,20 @@ PATTERNS = ("norm_linear", "linear_act", "residual_norm", "bias_act",
 
 _NORM_OPS = ("layer_norm", "rms_norm")
 _ACT_OPS = ("gelu", "silu", "relu")
+
+_m_matched = _metrics.counter(
+    "paddle_tpu_fusion_matched_total",
+    "Fusion-pattern candidates that matched structurally (rewritten + "
+    "rejected).", labelnames=("pattern",))
+_m_rewritten = _metrics.counter(
+    "paddle_tpu_fusion_rewritten_total",
+    "Fusion-pattern candidates rewritten onto fused ops.",
+    labelnames=("pattern",))
+_m_rejected = _metrics.counter(
+    "paddle_tpu_fusion_rejected_total",
+    "Fusion-pattern candidates rejected (interior value externally "
+    "visible, multi-consumer interior, or producer-order hazard).",
+    labelnames=("pattern",))
 
 
 def enabled() -> bool:
@@ -382,6 +406,9 @@ def fuse_steps(steps: Sequence, external_ids) -> Tuple[list, dict]:
                     stats["matched"].get(pattern, 0) + 1
                 stats["rejected"][pattern] = \
                     stats["rejected"].get(pattern, 0) + 1
+                if _metrics.enabled():
+                    _m_matched.inc(pattern=pattern)
+                    _m_rejected.inc(pattern=pattern)
                 continue
             if res is None:
                 continue
@@ -391,6 +418,9 @@ def fuse_steps(steps: Sequence, external_ids) -> Tuple[list, dict]:
             stats["matched"][pattern] = stats["matched"].get(pattern, 0) + 1
             stats["rewritten"][pattern] = \
                 stats["rewritten"].get(pattern, 0) + 1
+            if _metrics.enabled():
+                _m_matched.inc(pattern=pattern)
+                _m_rewritten.inc(pattern=pattern)
             consumed.update(idxs)
             fused.amp = getattr(g.steps[i], "amp", None)
             fused.loc = getattr(g.steps[i], "loc", "") or ""
@@ -405,3 +435,42 @@ def fuse_steps(steps: Sequence, external_ids) -> Tuple[list, dict]:
     stats["ops_after"] = len(plan)
     stats["patterns"] = dict(stats["rewritten"])
     return plan, stats
+
+
+# --------------------------------------------------------------------------
+# to_static over Paddle-API callables: the op stream the dispatcher's
+# recorder took (jit/program.py)
+# --------------------------------------------------------------------------
+def rewrite_program(program) -> dict:
+    """Run the pass over a recorded ``Program`` and each of its regions
+    apart (no chain crosses a region's edge); the plan replaces the
+    steps. The returned outputs are the external values. Returns the
+    stats, summed over the regions."""
+    plan, stats = fuse_steps(program.steps, set(program.out_ids))
+    if stats["rewritten"]:
+        program.steps = plan
+        program.plan()
+    for region in program.regions():
+        more = rewrite_program(region.program)
+        for key, value in more.items():
+            if isinstance(value, dict):
+                for name, n in value.items():
+                    stats[key][name] = stats[key].get(name, 0) + n
+            else:
+                stats[key] += value
+    return stats
+
+
+def rewrite_traced(call, tensors, strict: bool = True):
+    """Record ``call()`` (the Paddle-API ops it dispatches, its Tensor
+    arguments ``tensors`` binding the program's inputs) and, with the
+    flag on, rewrite the program. Returns ``(out, program, stats,
+    recorder)``: ``out`` is the recorded call's eager result, ``program``
+    None where a graph break ended the recording (``recorder.broken``),
+    ``stats`` None with the flag off."""
+    from ...jit.program import record
+    out, program, rec = record(call, (), {}, tensors, strict)
+    stats = None
+    if program is not None and enabled():
+        stats = rewrite_program(program)
+    return out, program, stats, rec

@@ -23,18 +23,26 @@ The JAX dispatcher's other parts have no counterpart here:
   exist because JAX eager dispatch is slow; torch runs an op directly
   and records its backward as it goes;
 * the SOT ``LazyArray`` path (lazy capture of eager ops into segments):
-  the port's ``to_static`` traces with ``torch.fx`` instead;
+  the port's ``to_static`` records a whole call through the recorder
+  taps below, and a graph break runs that signature eagerly;
 * the branch trace (``enter_branch_trace``): it waits for the port of
   ``static/nn`` control flow;
-* the recorder and export hooks: they wait for ``static.Program`` and
-  ONNX export;
+* the export hooks: they wait for ONNX export;
 * the op-cost accumulator (``FLAGS_perf_op_cost``): it waits for
   ``observability/perf``.
+
+The recorder taps (``register_recorder_hook``, per thread) are
+``jit.to_static``'s: a hook gets ``(op_name, fn, tensor_inputs,
+out_tensors, attrs)``, where ``fn`` replays the op on new payloads
+(``call`` runs it again with the same amp cast): the lowering with its
+attrs bound and the inputs that ``differentiable_mask`` excludes
+detached. ``quiet_scope`` silences every tap for the ops inside it.
 """
 from __future__ import annotations
 
 import functools
 import inspect
+import threading
 import time
 from typing import Callable, Dict, List, Optional, Sequence
 
@@ -124,6 +132,42 @@ class set_grad_enabled_ctx:
 # ----------------------------------------------------------------- hooks
 _op_hooks: List[Callable] = []
 _hook_adapters: Dict[Callable, List[Callable]] = {}
+# program capture is per thread: a capture on thread A must not record
+# the ops that thread B dispatches
+_tls = threading.local()
+
+
+def _recorder_hooks() -> List[Callable]:
+    hooks = getattr(_tls, "recorders", None)
+    if hooks is None:
+        hooks = _tls.recorders = []
+    return hooks
+
+
+def register_recorder_hook(fn):
+    """Register ``fn(op_name, fn, tensor_inputs, out_tensors, attrs)`` for
+    this thread's ops."""
+    _recorder_hooks().append(fn)
+
+
+def unregister_recorder_hook(fn):
+    hooks = _recorder_hooks()
+    if fn in hooks:
+        hooks.remove(fn)
+
+
+class quiet_scope:
+    """Silence the side channels (op and recorder taps, metrics, trace,
+    the NaN/Inf scan) for the ops dispatched inside the block."""
+
+    def __enter__(self):
+        self._prev = getattr(_tls, "quiet", False)
+        _tls.quiet = True
+        return self
+
+    def __exit__(self, *exc):
+        _tls.quiet = self._prev
+        return False
 
 
 def register_op_hook(fn):
@@ -171,6 +215,21 @@ def _check_nan_inf(op_name: str, outs: Sequence[torch.Tensor]) -> None:
             print(f"[paddle_tpu][nan_inf] {msg}")
 
 
+def _replayable(fn: Callable, attrs: dict,
+                mask: Optional[Sequence[bool]]) -> Callable:
+    """``fn`` as ``call`` ran it, for a recorder: attrs bound, the inputs
+    that ``mask`` excludes detached."""
+    if not attrs and mask is None:
+        return fn
+
+    def bound(*arrays):
+        if mask is not None:
+            arrays = [a.detach() if not keep and isinstance(a, torch.Tensor)
+                      else a for a, keep in zip(arrays, mask)]
+        return fn(*arrays, **attrs)
+    return bound
+
+
 # -------------------------------------------------------------- dispatch
 def call(op_name: str, fn: Callable, tensor_inputs: Sequence[Tensor],
          attrs: Optional[dict] = None, multi_output: bool = False,
@@ -181,7 +240,9 @@ def call(op_name: str, fn: Callable, tensor_inputs: Sequence[Tensor],
     or a list of Tensors when ``fn`` returns a tuple or list (what
     ``fn`` returns decides; ``multi_output`` is the JAX signature's)."""
     attrs = attrs or {}
-    timed = bool(_op_hooks) or _metrics.enabled() or _trace.active()
+    quiet = getattr(_tls, "quiet", False)
+    timed = (bool(_op_hooks) or _metrics.enabled() or _trace.active()) \
+        and not quiet
     t0 = _perf_counter() if timed else 0.0
 
     arrays = amp_cast(op_name, *[t._data for t in tensor_inputs])
@@ -194,8 +255,13 @@ def call(op_name: str, fn: Callable, tensor_inputs: Sequence[Tensor],
     out_list = [outs] if single else list(outs)
     out_tensors = [Tensor(o) for o in out_list]
 
-    if _hot["check_nan_inf"]:
+    if _hot["check_nan_inf"] and not quiet:
         _check_nan_inf(op_name, out_list)
+    recorders = getattr(_tls, "recorders", None)
+    if recorders and not quiet:
+        bound = _replayable(fn, attrs, differentiable_mask)
+        for hook in list(recorders):
+            hook(op_name, bound, tensor_inputs, out_tensors, attrs)
     if timed:
         dur = _perf_counter() - t0
         if _metrics.enabled():

@@ -18,10 +18,20 @@ payload a value. ``set_value`` on a tensor that requires grad (a
 parameter) copies into the payload instead, so that an optimizer holding
 it sees the new value. The arithmetic and method surface is attached by
 ``paddle_tpu_torch.ops`` at import, as in the JAX package.
+
+While ``jit.to_static`` records a program (``capture_scope``), what the
+recording cannot replay is a graph break (``GraphBreak``, the
+counterpart of JAX's ``TracerBoolConversionError`` family): a host read
+(``numpy``, ``item``, ``tolist``, ``bool``/``float``/``int``, ``cpu``)
+and a change of payload of a tensor the program did not make
+(``set_value``, ``copy_``, ``_swap_payload``, ``detach_``). The
+capture decides whether the break raises (``full_graph=True``) or
+marks the signature eager and lets the call go on.
 """
 from __future__ import annotations
 
 import itertools
+import threading
 from typing import Optional
 
 import numpy as np
@@ -31,6 +41,45 @@ from . import dtype as dtypes
 from .place import current_device, place_of
 
 _name_counter = itertools.count()
+
+
+class GraphBreak(RuntimeError):
+    """What ``to_static`` records cannot hold: a host read of a traced
+    value, or a change of state outside the dispatcher."""
+
+
+_capture = threading.local()
+
+
+def active_capture():
+    """The capture recording on this thread (``jit/program.Recorder``),
+    or None."""
+    return getattr(_capture, "recorder", None)
+
+
+class capture_scope:
+    """Make ``recorder`` this thread's capture for the block (it is told
+    of every graph break through ``recorder.graph_break(reason)``)."""
+
+    def __init__(self, recorder):
+        self._recorder = recorder
+
+    def __enter__(self):
+        self._prev = active_capture()
+        _capture.recorder = self._recorder
+        return self._recorder
+
+    def __exit__(self, *exc):
+        _capture.recorder = self._prev
+        return False
+
+
+def graph_break(what: str) -> None:
+    """Report ``what`` to the capture on this thread, if any: it raises
+    ``GraphBreak`` or ends the recording."""
+    rec = active_capture()
+    if rec is not None:
+        rec.graph_break(f"{what} while to_static records a program")
 
 
 def _differentiable(d: torch.Tensor) -> bool:
@@ -44,6 +93,9 @@ class Tensor:
                  stop_gradient: Optional[bool] = None,
                  name: Optional[str] = None, persistable: bool = False):
         self._data = data
+        rec = getattr(_capture, "recorder", None)
+        if rec is not None:             # a temporary of a recorded call
+            rec.note_new(self)
         self._int_stop_gradient = True
         self._grad_wrap: Optional["Tensor"] = None
         self.persistable = persistable
@@ -147,11 +199,13 @@ class Tensor:
                  retain_graph=retain_graph)
 
     def detach(self) -> "Tensor":
+        rec = active_capture()
+        if rec is not None:                 # one op of the program
+            return rec.detach(self)
         return Tensor(self._data.detach(), name=self.name + ".detach")
 
     def detach_(self):
-        self._data = self._data.detach()
-        return self
+        return self._swap_payload(self._data.detach())
 
     def stop_gradient_(self, val: bool = True):
         self.stop_gradient = val
@@ -160,6 +214,7 @@ class Tensor:
     # ------------------------------------------------------------- host reads
     def numpy(self) -> np.ndarray:
         """A host copy; bf16 comes back as float32 (numpy has no bf16)."""
+        graph_break("Tensor.numpy()")
         d = self._data.detach()
         if d.dtype == torch.bfloat16:
             d = d.float()
@@ -170,21 +225,26 @@ class Tensor:
         return arr.astype(dtype) if dtype is not None else arr
 
     def item(self, *args):
+        graph_break("Tensor.item()")
         if args:
             return self.numpy().item(*args)
         return self._data.item()
 
     def tolist(self):
+        graph_break("Tensor.tolist()")
         return self._data.tolist()
 
     def __float__(self):
-        return float(self.item())
+        graph_break("float(Tensor)")
+        return float(self._data.item())
 
     def __int__(self):
-        return int(self.item())
+        graph_break("int(Tensor)")
+        return int(self._data.item())
 
     def __bool__(self):
-        return bool(self.item())
+        graph_break("bool(Tensor)")
+        return bool(self._data.item())
 
     def __len__(self):
         if self.ndim == 0:
@@ -193,6 +253,10 @@ class Tensor:
 
     def __repr__(self):
         grad_info = "" if self.stop_gradient else ", stop_gradient=False"
+        if active_capture() is not None:      # no host read while recording
+            return (f"Tensor(shape={self.shape}, "
+                    f"dtype={dtypes.dtype_name(self.dtype)}, "
+                    f"place={self.place}{grad_info}, recorded)")
         data_str = np.array2string(self.numpy(), precision=6, separator=", ")
         return (f"Tensor(shape={self.shape}, "
                 f"dtype={dtypes.dtype_name(self.dtype)}, place={self.place}"
@@ -204,6 +268,8 @@ class Tensor:
         of a tensor that requires grad (a parameter keeps its identity for
         its optimizer), else a new payload."""
         d = self._data
+        if active_capture() is not None:
+            graph_break("Tensor.set_value()")
         v = _payload(value)
         if not isinstance(v, torch.Tensor):
             v = torch.as_tensor(np.array(value))
@@ -221,11 +287,15 @@ class Tensor:
         return self.set_value(other)
 
     def _swap_payload(self, new_data: torch.Tensor):
+        rec = active_capture()
+        if rec is not None:
+            rec.note_swap(self, new_data)
         self._data = new_data
         return self
 
     # ------------------------------------------------------------ placement
     def cpu(self):
+        graph_break("Tensor.cpu()")
         return Tensor(self._data.cpu())
 
     def pin_memory(self):

@@ -15,6 +15,12 @@ What the replay must see again, the forward snapshots:
   stood before the replay, so it ends where it would without recompute;
 * the amp state (``amp.auto_cast``), since the backward usually runs
   after the ``auto_cast`` block has closed.
+
+Over Paddle ``Tensor``s and ``Layer``s (any Tensor argument) the
+checkpoint holds the arguments' payloads, the segment runs on fresh
+Tensors over them, and the generators it snapshots are the Paddle API's
+(``core.generator.default_generator`` of the arguments' devices), from
+which the Paddle-API dropout draws: the rerun draws the same masks.
 """
 from __future__ import annotations
 
@@ -25,7 +31,8 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from ....amp.state import amp_state, amp_state_as
-from ....core.generator import get_rng_state, set_rng_state
+from ....core.generator import default_generator, get_rng_state, set_rng_state
+from ....core.tensor import Tensor
 
 
 def _discover_generators(function) -> List[torch.Generator]:
@@ -58,9 +65,11 @@ def recompute(function, *args, **kwargs):
     generators = kwargs.pop("generators", None)
     kwargs.pop("use_reentrant", None)
     kwargs.pop("params", None)
-    gens = [] if not preserve else list(
-        _discover_generators(function) if generators is None
-        else generators)
+    paddle = any(isinstance(a, Tensor) for a in args)
+    if generators is None:
+        generators = (_paddle_generators(args) if paddle
+                      else _discover_generators(function))
+    gens = list(generators) if preserve else []
     forward_state: list = []
 
     def run(*inputs):
@@ -76,8 +85,35 @@ def recompute(function, *args, **kwargs):
         finally:
             set_rng_state(gens, after)
 
-    return checkpoint(run, *args, use_reentrant=False,
-                      preserve_rng_state=preserve)
+    if not paddle:
+        return checkpoint(run, *args, use_reentrant=False,
+                          preserve_rng_state=preserve)
+    slots = [i for i, a in enumerate(args) if isinstance(a, Tensor)]
+    shape: list = []
+
+    def run_payloads(*payloads):
+        full = list(args)
+        for i, p in zip(slots, payloads):
+            full[i] = Tensor(p)
+        out = run(*full)
+        single = isinstance(out, Tensor)
+        outs = [out] if single else list(out)
+        shape[:] = [single, [isinstance(o, Tensor) for o in outs],
+                    [None if isinstance(o, Tensor) else o for o in outs]]
+        return tuple(o._data for o in outs if isinstance(o, Tensor))
+
+    got = iter(checkpoint(run_payloads, *[args[i]._data for i in slots],
+                          use_reentrant=False, preserve_rng_state=preserve))
+    single, is_tensor, others = shape
+    outs = [Tensor(next(got)) if t else o for t, o in zip(is_tensor, others)]
+    return outs[0] if single else tuple(outs)
+
+
+def _paddle_generators(args) -> List[torch.Generator]:
+    """The Paddle-API generators of the devices of ``args``' Tensors."""
+    devices = {str(a._data.device): a._data.device for a in args
+               if isinstance(a, Tensor)}
+    return [default_generator(d) for d in devices.values()]
 
 
 def recompute_sequential(ctx: dict, functions, *args, **kwargs):

@@ -10,7 +10,10 @@ yields host batches and the prefetcher copies them to the card on its
 side stream), and feeds the goodput ledger, the sentinel and the
 supervisor seam a step at a time; ``evaluate`` and ``predict`` run
 their loaders directly. Batches land on the current device (the card
-unless ``paddle.set_device("cpu")``).
+unless ``paddle.set_device("cpu")``). A network wrapped with
+``jit.to_static`` before the ``Model`` is built runs its recorded
+programs, as in the JAX package; training and evaluation are two
+signatures (the network's ``training`` flags are part of the key).
 
 ``save``/``load`` write and read ``.pdparams``/``.pdopt`` files in the
 JAX package's v2 format (``framework/io.py``), ``fit(save_dir=...)``

@@ -7,8 +7,8 @@ embeddings. Written entirely in Paddle-API layers and ops, so its
 ``state_dict`` is the JAX model's, key for key and layout for layout.
 With no attention mask and no attention dropout, each encoder layer's
 attention is the flash kernels (K1 forward, K2/K3 backward) on the
-card, non-causal. ``recompute=True`` raises until ``Layer``s get a
-counterpart of ``models/_remat.remat_block`` (ROADMAP).
+card, non-causal. ``recompute=True`` checkpoints each encoder layer
+(``models/_remat.remat_block``), as the JAX model does.
 """
 from __future__ import annotations
 
@@ -103,9 +103,15 @@ class BertModel(nn.Layer):
                             [attention_mask.shape[0], 1, 1, -1])
             attention_mask = (1.0 - m.astype("float32")) * -1e4
         if self.cfg.recompute:
-            raise NotImplementedError(
-                "later slice: recompute of Paddle-API Layers")
-        seq = self.encoder(x, src_mask=attention_mask)
+            from ._remat import remat_block
+            seq = x
+            for mod in self.encoder.layers:
+                if attention_mask is None:
+                    seq = remat_block(mod, seq)
+                else:
+                    seq = remat_block(mod, seq, attention_mask)
+        else:
+            seq = self.encoder(x, src_mask=attention_mask)
         return seq, self.pooler(seq)
 
 

@@ -27,9 +27,11 @@ from typing import Optional, Union
 import torch
 from torch import nn
 
+from ..core import dispatch
 from ..core.dtype import convert_dtype
 from ..core.generator import make_generator, normal_
 from ..core.place import DeviceLike, resolve_device
+from ..core.tensor import Tensor
 from ..nn import functional as F
 from ..nn.layer import TorchLinear, TorchRMSNorm
 from ._remat import remat_block
@@ -128,12 +130,23 @@ def rope_rotate(a: torch.Tensor, theta: float,
                      dim=-1).to(a.dtype)
 
 
-def rotary_embedding(x: torch.Tensor, theta: float = 10000.0,
-                     pos_offset: Union[int, torch.Tensor] = 0
-                     ) -> torch.Tensor:
+def rotary_embedding(x, theta: float = 10000.0, pos_offset=0):
     """RoPE on (B, S, H, D). ``pos_offset`` is a Python int or a per-batch
     (B,) tensor; only an int offset lets the fusion pass fold the rope into
-    the projection before it."""
+    the projection before it. On a Paddle ``Tensor`` it is op
+    ``rotary_embedding``, whose attrs ``theta``/``pos_offset`` (an int
+    offset only, as in the JAX package) the fusion pass matches on; a
+    Tensor offset is an input of the op."""
+    if isinstance(x, Tensor):
+        if isinstance(pos_offset, Tensor):
+            return dispatch.call("rotary_embedding", lambda a, off: (
+                rope_rotate(a, theta, off)), [x, pos_offset],
+                differentiable_mask=[True, False])
+        attrs = None
+        if isinstance(pos_offset, int) and not isinstance(pos_offset, bool):
+            attrs = {"theta": float(theta), "pos_offset": int(pos_offset)}
+        return dispatch.call("rotary_embedding", lambda a, **_: rope_rotate(
+            a, theta, pos_offset), [x], attrs=attrs)
     return rope_rotate(x, theta, pos_offset)
 
 

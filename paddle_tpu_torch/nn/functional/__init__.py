@@ -7,11 +7,13 @@ The Paddle-API entries (``linear``, ``dropout``, ``embedding``, ``gelu``,
 ``relu``, ``silu``, ``tanh``, ``sigmoid``, ``softmax``, ``layer_norm``,
 ``rms_norm``, ``batch_norm``, ``cross_entropy``,
 ``fused_linear_cross_entropy``, ``scaled_dot_product_attention``,
-``flash_attention``, ``matmul``) take Paddle ``Tensor``s through the op
-dispatcher, and the same functions take ``torch.Tensor``s as the
-torch-level functionals of the port's models and fusion pass; each
-module's docstring says where a layout differs (only ``linear``'s
-weight)."""
+``flash_attention``, ``matmul``, and the fused ops ``fused_bias_act``,
+``fused_residual_norm``, ``fused_norm_linear``, ``fused_rope_proj``)
+take Paddle ``Tensor``s through the op dispatcher, and the same
+functions take ``torch.Tensor``s as the torch-level functionals of the
+port's models and fusion pass; each module's docstring says where a
+layout differs (the weights of ``linear``, ``fused_norm_linear`` and
+``fused_rope_proj``)."""
 from .activation import gelu, relu, sigmoid, silu, softmax, swiglu, tanh
 from .common import dropout, embedding, linear, matmul
 from .conv import (conv1d, conv1d_transpose, conv2d, conv2d_transpose,

@@ -21,7 +21,8 @@ from ...core.tensor import Tensor
 def gelu(x, approximate: bool = False, name=None):
     """Exact (erf) gelu, or the tanh approximation with ``approximate``."""
     if isinstance(x, Tensor):
-        return dispatch.call("gelu", lambda a: gelu(a, approximate), [x])
+        return dispatch.call("gelu", lambda a, **_: gelu(a, approximate),
+                             [x], attrs={"approximate": bool(approximate)})
     return TF.gelu(x, approximate="tanh" if approximate else "none")
 
 

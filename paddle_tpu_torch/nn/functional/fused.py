@@ -11,11 +11,21 @@ Each op has two implementations of one function:
 Gradients: the forward runs the kernel and saves its inputs; the backward
 rebuilds the composite under ``torch.enable_grad()`` and differentiates it
 (the JAX package's ``_with_composite_vjp``). The backward launches none of
-K4-K7. The JAX package's dtype rule stays: a residual or bias of another
-dtype than x takes the composite, whose output type follows PyTorch's
-promotion, so it is a different function, not a fallback. Weights are in
-torch's ``nn.Linear`` layout, (out_features, in_features), as
-``torch.nn.functional.linear`` takes them.
+K4-K7. A bias of another dtype than x takes the composite, whose output
+type follows PyTorch's promotion, so it is a different function, not a
+fallback. A residual of another floating dtype than x goes with x to
+their promoted dtype, where K4 computes the composite's function (the
+sum is exact in it); the JAX package takes the composite there. On
+torch.Tensors the weights are in torch's ``nn.Linear`` layout,
+(out_features, in_features), as ``torch.nn.functional.linear`` takes
+them.
+
+On Paddle ``Tensor``s each op is one op through ``core.dispatch.call``
+under the JAX package's name and signature (registered in
+``ops.registry``, category ``fusion``), with Paddle's (in, out) weight:
+the lowering hands the kernel the transposed weight, copied to the
+(out, in) rows K6 and K7 read. ``to_static``'s op-stream fusion rewrites
+Paddle-API programs onto these.
 """
 from __future__ import annotations
 
@@ -25,7 +35,10 @@ from typing import Dict, Optional, Sequence, Tuple
 import torch
 
 from ...amp.state import amp_cast
+from ...core import dispatch
+from ...core.tensor import Tensor, as_tensor
 from ...ops.cuda import fused_ops as FK
+from ...ops.registry import register
 
 __all__ = ["fused_bias_act", "fused_residual_norm", "fused_norm_linear",
            "fused_rope_proj", "FUSED_OPS", "ACTIVATIONS", "FusedCall"]
@@ -89,6 +102,13 @@ class _FusedFunction(torch.autograd.Function):
                                     for need in needs)
 
 
+def _tensors(*xs):
+    """The Paddle Tensors of ``xs`` (other data made Tensors), Nones
+    dropped."""
+    return [x if isinstance(x, Tensor) else as_tensor(x)
+            for x in xs if x is not None]
+
+
 # ------------------------------------------------------------ bias + act
 def _bias_act_composite(x, b, activation):
     return FK.act_apply(x + b, activation)
@@ -100,10 +120,13 @@ def _bias_act_kernel(x, b, activation):
                              act=activation).reshape(x.shape)
 
 
-def fused_bias_act(x: torch.Tensor, bias: torch.Tensor,
-                   activation: str = "gelu", name=None) -> torch.Tensor:
+@register("fused_bias_act", "fusion")
+def fused_bias_act(x, bias, activation: str = "gelu", name=None):
     """act(x + bias) as one op (K5); ``activation``: gelu | gelu_tanh |
     silu | relu. ``bias`` is (D,) for x (..., D)."""
+    if isinstance(x, Tensor):
+        return dispatch.call("fused_bias_act", lambda a, b: fused_bias_act(
+            a, b, activation), _tensors(x, bias))
     if bias.dtype != x.dtype:
         return _bias_act_composite(x, bias, activation)
     return _FusedFunction.apply(
@@ -130,18 +153,30 @@ def _residual_norm_kernel(x, res, w, b, norm_type, epsilon):
     return y.reshape(x.shape), s.reshape(x.shape)
 
 
-def fused_residual_norm(x: torch.Tensor, residual: torch.Tensor,
-                        weight: Optional[torch.Tensor] = None,
-                        bias: Optional[torch.Tensor] = None,
+@register("fused_residual_norm", "fusion")
+def fused_residual_norm(x, residual, weight=None, bias=None,
                         norm_type: str = "layer_norm", epsilon: float = 1e-5,
-                        name=None) -> Tuple[torch.Tensor, torch.Tensor]:
+                        name=None):
     """(norm(x + residual), x + residual) as one op (K4). The sum is a real
     output, so the residual stream flows on without a recompute. The
     kernel normalizes the fp32 sum; the unfused chain normalizes the sum
-    rounded to x's type, which differs by about one rounding in bf16."""
+    rounded to x's type, which differs by about one rounding in bf16.
+    Floating x and residual of two dtypes both go to the promoted one."""
+    if isinstance(x, Tensor):
+        has_w, has_b = weight is not None, bias is not None
+
+        def f(a, r, *wb):
+            return fused_residual_norm(
+                a, r, wb[0] if has_w else None, wb[has_w] if has_b else None,
+                norm_type, epsilon)
+        return dispatch.call("fused_residual_norm", f,
+                             _tensors(x, residual, weight, bias))
     if residual.dtype != x.dtype:
-        return _residual_norm_composite(x, residual, weight, bias, norm_type,
-                                        epsilon)
+        if not (x.is_floating_point() and residual.is_floating_point()):
+            return _residual_norm_composite(x, residual, weight, bias,
+                                            norm_type, epsilon)
+        dt = torch.promote_types(x.dtype, residual.dtype)
+        x, residual = x.to(dt), residual.to(dt)
     attrs = dict(norm_type=norm_type, epsilon=epsilon)
     return _FusedFunction.apply(
         functools.partial(_residual_norm_kernel, **attrs),
@@ -164,22 +199,32 @@ def _norm_linear_composite(x, w, b, nw, nb, norm_type, epsilon, activation):
 def _norm_linear_kernel(x, w, b, nw, nb, norm_type, epsilon, activation):
     k, n = x.shape[-1], w.shape[0]
     dt = x.dtype
-    y = FK.fused_matmul(x.reshape(-1, k), w.to(dt), _cast(b, dt),
+    y = FK.fused_matmul(x.reshape(-1, k), w.to(dt).contiguous(), _cast(b, dt),
                         _cast(nw, dt), _cast(nb, dt), norm_kind=norm_type,
                         act=activation, eps=epsilon)
     return y.reshape(*x.shape[:-1], n)
 
 
-def fused_norm_linear(x: torch.Tensor, weight: torch.Tensor,
-                      bias: Optional[torch.Tensor] = None,
-                      norm_weight: Optional[torch.Tensor] = None,
-                      norm_bias: Optional[torch.Tensor] = None,
+@register("fused_norm_linear", "fusion")
+def fused_norm_linear(x, weight, bias=None, norm_weight=None, norm_bias=None,
                       activation: str = "", norm_type: str = "layer_norm",
-                      epsilon: float = 1e-5, name=None) -> torch.Tensor:
+                      epsilon: float = 1e-5, name=None):
     """act(norm(x) W^T + b) as one op (K6). ``weight`` is (N, K), torch's
-    ``nn.Linear`` layout; ``norm_type=''`` skips the norm and
-    ``activation=''`` the activation. The normalized rows are rounded to
-    x's type before the product."""
+    ``nn.Linear`` layout, on torch.Tensors and (K, N), Paddle's, on Paddle
+    Tensors; ``norm_type=''`` skips the norm and ``activation=''`` the
+    activation. The normalized rows are rounded to x's type before the
+    product."""
+    if isinstance(x, Tensor):
+        flags = (bias is not None, norm_weight is not None,
+                 norm_bias is not None)
+
+        def f(a, w, *rest):
+            it = iter(rest)
+            b, nw, nb = (next(it) if on else None for on in flags)
+            return fused_norm_linear(a, w.t(), b, nw, nb, activation,
+                                     norm_type, epsilon)
+        return dispatch.call("fused_norm_linear", f, _tensors(
+            x, weight, bias, norm_weight, norm_bias))
     x, weight, bias, norm_weight, norm_bias = amp_cast(
         "fused_norm_linear", x, weight, bias, norm_weight, norm_bias)
     attrs = dict(norm_type=norm_type, epsilon=epsilon, activation=activation)
@@ -202,21 +247,26 @@ def _rope_proj_composite(x, w, b, num_heads, theta, pos_offset):
 def _rope_proj_kernel(x, w, b, num_heads, theta, pos_offset):
     bt, s, k = x.shape
     n = w.shape[0]
-    y = FK.fused_matmul_rope(x.reshape(bt * s, k), w.to(x.dtype),
+    y = FK.fused_matmul_rope(x.reshape(bt * s, k), w.to(x.dtype).contiguous(),
                              _cast(b, x.dtype), seq=s,
                              head_dim=n // num_heads, theta=theta,
                              pos_offset=pos_offset)
     return y.view(bt, s, num_heads, n // num_heads)
 
 
-def fused_rope_proj(x: torch.Tensor, weight: torch.Tensor,
-                    bias: Optional[torch.Tensor] = None, num_heads: int = 1,
-                    theta: float = 10000.0, pos_offset: int = 0,
-                    name=None) -> torch.Tensor:
+@register("fused_rope_proj", "fusion")
+def fused_rope_proj(x, weight, bias=None, num_heads: int = 1,
+                    theta: float = 10000.0, pos_offset: int = 0, name=None):
     """rope(reshape(x W^T + b, heads)) as one op (K7): x (B, S, K),
-    ``weight`` (H*D, K) in torch's ``nn.Linear`` layout -> (B, S, H, D),
-    rotary-rotated. ``pos_offset`` must be a Python int (a per-slot offset
-    stays on the unfused path)."""
+    ``weight`` (H*D, K) in torch's ``nn.Linear`` layout (on Paddle
+    Tensors (K, H*D), Paddle's) -> (B, S, H, D), rotary-rotated.
+    ``pos_offset`` must be a Python int (a per-slot offset stays on the
+    unfused path)."""
+    if isinstance(x, Tensor):
+        return dispatch.call("fused_rope_proj", lambda a, w, *b: (
+            fused_rope_proj(a, w.t(), *b, num_heads=num_heads, theta=theta,
+                            pos_offset=pos_offset)),
+            _tensors(x, weight, bias))
     if x.dim() != 3:
         raise ValueError(f"fused_rope_proj: x must be (B, S, K), got "
                          f"{tuple(x.shape)}")

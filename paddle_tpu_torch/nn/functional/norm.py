@@ -7,7 +7,11 @@ fp32.
 On Paddle ``Tensor``s each is one op through ``core.dispatch.call``
 with the same math; on ``torch.Tensor``s, the torch-level function.
 ``batch_norm`` (the Paddle API's only) keeps its running statistics in
-the Paddle Tensors it is handed, as the JAX package's does."""
+the Paddle Tensors it is handed, as the JAX package's does: they are
+inputs of its op, updated in place, so a program ``to_static`` replays
+reads and updates the buffers' payloads of the call, not the ones it
+recorded. The norms' attrs (``epsilon``, ``norm_ndim``, ``has_w``,
+``has_b``) are the JAX package's, which the fusion pass matches on."""
 from __future__ import annotations
 
 from typing import Optional, Sequence, Union
@@ -33,16 +37,20 @@ def _affine(y: torch.Tensor, weight: Optional[torch.Tensor],
     return y
 
 
-def _affine_inputs(name, body, x, weight, bias):
-    """One Paddle-API norm op over x and whichever of weight/bias exist."""
-    ins = [x] + [t for t in (weight, bias) if t is not None]
+def _affine_inputs(name, body, x, weight, bias, attrs=None, extra=()):
+    """One Paddle-API norm op over x, whichever of weight/bias exist and
+    the tensors ``extra`` (no gradient); ``body(a, w, b, *extra)``.
+    ``attrs`` ride the record (the lowering ignores them)."""
+    ins = [x] + [t for t in (weight, bias) if t is not None] + list(extra)
     has_w, has_b = weight is not None, bias is not None
+    n = 1 + has_w + has_b
 
-    def f(a, *wb):
-        w = wb[0] if has_w else None
-        b = wb[has_w] if has_b else None
-        return body(a, w, b)
-    return dispatch.call(name, f, ins)
+    def f(a, *rest, **_attrs):
+        w = rest[0] if has_w else None
+        b = rest[has_w] if has_b else None
+        return body(a, w, b, *rest[n - 1:])
+    mask = [True] * n + [False] * len(extra) if extra else None
+    return dispatch.call(name, f, ins, attrs=attrs, differentiable_mask=mask)
 
 
 def layer_norm(x, normalized_shape: Union[int, Sequence[int]],
@@ -53,8 +61,12 @@ def layer_norm(x, normalized_shape: Union[int, Sequence[int]],
     rounding); otherwise x and the parameters go to fp32 and the result
     back to x's dtype."""
     if isinstance(x, Tensor):
+        ndim = 1 if isinstance(normalized_shape, int) \
+            else len(normalized_shape)
         return _affine_inputs("layer_norm", lambda a, w, b: layer_norm(
-            a, normalized_shape, w, b, epsilon), x, weight, bias)
+            a, normalized_shape, w, b, epsilon), x, weight, bias,
+            {"epsilon": epsilon, "norm_ndim": ndim,
+             "has_w": weight is not None, "has_b": bias is not None})
     x, weight, bias = amp_cast("layer_norm", x, weight, bias)
     shape = ((normalized_shape,) if isinstance(normalized_shape, int)
              else tuple(normalized_shape))
@@ -70,7 +82,10 @@ def rms_norm(x, weight=None, bias=None, epsilon: float = 1e-6,
     ``begin_norm_axis`` on."""
     if isinstance(x, Tensor):
         return _affine_inputs("rms_norm", lambda a, w, b: rms_norm(
-            a, w, b, epsilon, begin_norm_axis), x, weight, bias)
+            a, w, b, epsilon, begin_norm_axis), x, weight, bias,
+            {"epsilon": epsilon, "norm_ndim": x.ndim - begin_norm_axis
+             % max(x.ndim, 1), "has_w": weight is not None,
+             "has_b": bias is not None})
     x, weight, bias = amp_cast("rms_norm", x, weight, bias)
     axis = begin_norm_axis % x.dim()
     dims = tuple(range(axis, x.dim()))
@@ -91,16 +106,16 @@ def batch_norm(x: Tensor, running_mean: Tensor, running_var: Tensor,
     unbiased."""
     channel_last = data_format in ("NHWC", "NLC", "NDHWC")
     use_batch = training and not use_global_stats
-    rm, rv = running_mean._data, running_var._data
 
-    def body(a, w, b):
+    def body(a, w, b, rm, rv):
         a32 = a.float()
         if channel_last:
             a32 = a32.movedim(-1, 1)
         y = TF.batch_norm(a32, rm, rv, _f32(w), _f32(b), use_batch,
                           1.0 - momentum, epsilon)
         return (y.movedim(1, -1) if channel_last else y).to(a.dtype)
-    return _affine_inputs("batch_norm", body, x, weight, bias)
+    return _affine_inputs("batch_norm", body, x, weight, bias,
+                          extra=(running_mean, running_var))
 
 
 __all__ = ["layer_norm", "rms_norm", "batch_norm"]

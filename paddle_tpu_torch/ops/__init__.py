@@ -83,16 +83,46 @@ def _positive_steps(a: torch.Tensor, idx):
     return a.flip(flips), tuple(items)
 
 
+def _index_inputs(idx):
+    """(the Tensors in an index expression, the expression with each of
+    them replaced by its position among them): the Tensors are inputs of
+    the op, so a program ``to_static`` replays indexes by the call's."""
+    items = idx if isinstance(idx, tuple) else (idx,)
+    tensors = [i for i in items if isinstance(i, Tensor)]
+    slots = iter(range(len(tensors)))
+    shape = tuple(_Slot(next(slots)) if isinstance(i, Tensor) else i
+                  for i in items)
+    return tensors, (shape if isinstance(idx, tuple) else shape[0])
+
+
+class _Slot:
+    __slots__ = ("k",)
+
+    def __init__(self, k):
+        self.k = k
+
+
+def _fill_slots(shape, payloads, device):
+    items = shape if isinstance(shape, tuple) else (shape,)
+    filled = tuple(payloads[i.k] if isinstance(i, _Slot) else i
+                   for i in items)
+    return _norm_index(filled if isinstance(shape, tuple) else filled[0],
+                       device)
+
+
 def _getitem(self, idx):
     """``t[idx]``: ints, slices (negative steps too), ellipsis, None,
     integer and boolean tensors (a boolean mask selects a 1-D result), as
-    one ``getitem`` op."""
-    nidx = _norm_index(idx, self._data.device)
+    one ``getitem`` op (index Tensors are its inputs, with no
+    gradient)."""
+    tensors, shape = _index_inputs(idx)
 
-    def f(a):
-        a, i = _positive_steps(a, nidx)
+    def f(a, *index):
+        a, i = _positive_steps(a, _fill_slots(shape, index, a.device))
         return a[i]
-    return dispatch.call("getitem", f, [self])
+    return dispatch.call("getitem", f, [self] + tensors,
+                         differentiable_mask=[True] + [False] * len(tensors)
+                         if tensors else None)
 
 
 register("getitem", category="indexing")(_getitem)
@@ -101,15 +131,17 @@ register("getitem", category="indexing")(_getitem)
 def _setitem(self, idx, value):
     """``t[idx] = value``: the written copy becomes t's payload (the JAX
     package's ``.at[idx].set``), differentiable in both."""
-    nidx = _norm_index(idx, self._data.device)
+    tensors, shape = _index_inputs(idx)
     vt = value if isinstance(value, Tensor) else as_tensor(
         value, device=self._data.device)
 
-    def f(a, v):
+    def f(a, v, *index):
         out = a.clone()
-        out[nidx] = v.to(a.dtype)
+        out[_fill_slots(shape, index, a.device)] = v.to(a.dtype)
         return out
-    out = dispatch.call("setitem", f, [self, vt])
+    out = dispatch.call("setitem", f, [self, vt] + tensors,
+                        differentiable_mask=[True, True]
+                        + [False] * len(tensors) if tensors else None)
     self._swap_payload(out._data)
     return self
 

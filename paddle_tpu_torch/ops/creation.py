@@ -2,7 +2,9 @@
 ``paddle_tpu/ops/creation.py``). New tensors land on the current device
 (``core.place.current_device``); random ops draw from that device's
 Paddle-API generator (``core.generator.default_generator``), never from
-torch's global RNG.
+torch's global RNG. A random op draws outside the dispatcher, so under
+``to_static``'s capture it is a graph break: a replay would repeat the
+recorded draw.
 """
 from __future__ import annotations
 
@@ -13,7 +15,7 @@ from ..core import dispatch
 from ..core.dtype import convert_dtype, default_float_dtype
 from ..core.generator import default_generator
 from ..core.place import current_device
-from ..core.tensor import Tensor, as_tensor
+from ..core.tensor import Tensor, as_tensor, graph_break
 from .registry import register
 
 __all__ = [
@@ -141,6 +143,7 @@ def triu(x, diagonal=0, name=None):
 def uniform(shape, dtype="float32", min=-1.0, max=1.0, seed=0, name=None):
     """U[min, max) from the device's generator (or from ``seed`` when it
     is not 0)."""
+    graph_break("paddle.uniform")
     dev = current_device()
     g = (default_generator(dev) if seed == 0 else
          torch.Generator(device=dev).manual_seed(int(seed)))
@@ -155,6 +158,7 @@ def rand(shape, dtype=None, name=None):
 @register("gaussian", category="random", differentiable=False)
 def normal(mean=0.0, std=1.0, shape=None, name=None):
     """N(mean, std); Tensor mean/std broadcast, as in the JAX package."""
+    graph_break("paddle.normal")
     dev = current_device()
     g = default_generator(dev)
     if isinstance(mean, Tensor) or isinstance(std, Tensor):
@@ -168,6 +172,7 @@ def normal(mean=0.0, std=1.0, shape=None, name=None):
 
 
 def randn(shape, dtype=None, name=None):
+    graph_break("paddle.randn")
     dev = current_device()
     return Tensor(torch.randn(_shape(shape), dtype=_float(dtype),
                               generator=default_generator(dev), device=dev))
@@ -181,6 +186,7 @@ def standard_normal(shape, dtype=None, name=None):
 def randint(low=0, high=None, shape=(1,), dtype="int64", name=None):
     if high is None:
         low, high = 0, low
+    graph_break("paddle.randint")
     dev = current_device()
     return Tensor(torch.randint(low, high, _shape(shape),
                                 dtype=convert_dtype(dtype),
@@ -188,6 +194,7 @@ def randint(low=0, high=None, shape=(1,), dtype="int64", name=None):
 
 
 def randperm(n, dtype="int64", name=None):
+    graph_break("paddle.randperm")
     dev = current_device()
     return Tensor(torch.randperm(n, dtype=convert_dtype(dtype),
                                  generator=default_generator(dev),

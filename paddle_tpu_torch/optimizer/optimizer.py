@@ -38,7 +38,7 @@ from typing import Dict, Iterable, List, Optional, Tuple, Union
 
 import torch
 
-from ..core.tensor import Tensor, _payload
+from ..core.tensor import Tensor, _payload, graph_break
 from .lr import LRScheduler
 
 ParamsArg = Iterable[Union[torch.Tensor, Tuple[str, torch.Tensor]]]
@@ -218,6 +218,7 @@ class Optimizer:
     # ------------------------------------------------------------------ step
     @torch.no_grad()
     def step(self):
+        graph_break("Optimizer.step()")
         live = [(n, p) for n, p in zip(self._names, self._parameter_list)
                 if p.requires_grad and p.grad is not None]
         if not live:
@@ -251,6 +252,7 @@ class Optimizer:
                 p.copy_(work)
 
     def clear_grad(self, set_to_zero: bool = False):
+        graph_break("Optimizer.clear_grad()")
         for p in self._parameter_list:
             if set_to_zero and p.grad is not None:
                 p.grad.zero_()

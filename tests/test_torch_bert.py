@@ -149,9 +149,27 @@ def test_sequence_classification_with_attention_mask():
 
 
 def test_recompute_waits_for_layer_remat():
+    """Ported since: ``recompute=True`` no longer raises; each encoder
+    layer runs under ``remat_block``, with the sequence output and every
+    gradient of the model without recompute (the JAX package's recompute
+    is held in test_torch_to_static_bert.py)."""
+    tp.seed(0)
     tm = tbert.BertModel(tbert.BertConfig(**TINY, recompute=True))
-    with pytest.raises(NotImplementedError):
-        tm(tp.to_tensor(_ids()))
+    plain = tbert.BertModel(tbert.BertConfig(**TINY))
+    plain.set_state_dict(tm.state_dict())
+    ids = tp.to_tensor(_ids())
+    seqs = []
+    for model in (tm, plain):
+        seq, pooled = model(ids)
+        (seq.sum() + pooled.sum()).backward()
+        seqs.append(seq.numpy())
+    np.testing.assert_array_equal(seqs[0], seqs[1])
+    for (name, a), b in zip(tm.named_parameters(), plain.parameters()):
+        if a.grad is None or b.grad is None:    # token types: unused
+            assert a.grad is None and b.grad is None, name
+            continue
+        np.testing.assert_allclose(a.grad.numpy(), b.grad.numpy(),
+                                   rtol=1e-6, atol=1e-7, err_msg=name)
 
 
 # ------------------------------------------- K1-K3 plain at BERT's shape

@@ -470,6 +470,108 @@ def test_fused_functionals_launch_forward_and_recompute_backward():
     assert (w.grad - wr.grad).abs().max().item() <= 1e-4
 
 
+# ------------------------------------------- the Paddle-API fused ops
+def _paddle(t):
+    import paddle_tpu_torch as paddle
+    return paddle.to_tensor(t)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+def test_paddle_api_fused_ops_launch_their_kernels(dtype):
+    """``F.fused_*`` on Paddle Tensors (through the dispatcher, Paddle's
+    (in, out) weights) launch K4, K6 and K7 once each and match the plain
+    versions within the FUSED_* limits; a residual of another dtype goes
+    with x to their promoted dtype and launches K4 there."""
+    _card()
+    gen = _gen(21)
+    rows, d, n = 256, 128, 192
+    x, res = _rand((2, 128, d), dtype, gen), _rand((2, 128, d), dtype, gen)
+    w, b = 1 + _rand((d,), dtype, gen, 0.1), _rand((d,), dtype, gen, 0.1)
+    counts = (FK.fused_residual_norm.launches, FK.fused_matmul.launches,
+              FK.fused_matmul_rope.launches)
+    y, summed = F.fused_residual_norm(_paddle(x), _paddle(res), _paddle(w),
+                                      _paddle(b))
+    want_y, want_s = FK.fused_residual_norm_plain(
+        x.reshape(rows, d), res.reshape(rows, d), w, b)
+    assert _fused_ok(y._data.reshape(rows, d), want_y, dtype)
+    assert _fused_ok(summed._data.reshape(rows, d), want_s, dtype)
+    wl = _rand((d, n), dtype, gen, d ** -0.5)          # Paddle's (in, out)
+    bl = _rand((n,), dtype, gen, 0.1)
+    out = F.fused_norm_linear(_paddle(x), _paddle(wl), _paddle(bl),
+                              activation="gelu", norm_type="")
+    assert _fused_ok(out._data.reshape(rows, n), FK.fused_matmul_plain(
+        x.reshape(rows, d), wl.t().contiguous(), bl, act="gelu"), dtype)
+    wr = _rand((d, 2 * 64), dtype, gen, d ** -0.5)
+    rot = F.fused_rope_proj(_paddle(x), _paddle(wr), num_heads=2,
+                            pos_offset=3)
+    assert _fused_ok(rot._data.reshape(rows, 2 * 64),
+                     FK.fused_matmul_rope_plain(
+                         x.reshape(rows, d), wr.t().contiguous(), seq=128,
+                         head_dim=64, pos_offset=3), dtype)
+    torch.cuda.synchronize()
+    assert (FK.fused_residual_norm.launches, FK.fused_matmul.launches,
+            FK.fused_matmul_rope.launches) == tuple(c + 1 for c in counts)
+    if dtype == torch.float32:
+        return
+    before = FK.fused_residual_norm.launches
+    y32, s32 = F.fused_residual_norm(_paddle(x.float()), _paddle(res),
+                                     _paddle(w), _paddle(b))
+    torch.cuda.synchronize()
+    assert FK.fused_residual_norm.launches == before + 1
+    assert y32.dtype == s32.dtype == torch.float32
+    want_y, want_s = FK.fused_residual_norm_plain(
+        x.float().reshape(rows, d), res.float().reshape(rows, d), w.float(),
+        b.float())
+    assert _fused_ok(y32._data.reshape(rows, d), want_y, torch.float32)
+    assert _fused_ok(s32._data.reshape(rows, d), want_s, torch.float32)
+
+
+@pytest.mark.cuda
+def test_paddle_static_program_launches_the_fused_kernels():
+    """bench.py's fusion block (small) in the Paddle API under to_static
+    with fusion, fp32: the replay launches K4 once, K6 once and K7 twice,
+    and equals the unfused eager block within FUSED_FP32_TOL."""
+    import numpy as np
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch import nn, ops
+    from paddle_tpu_torch.models import llama
+    _card()
+    b, s, h, ff, heads = 2, 64, 256, 512, 4
+    with paddle.device_guard("gpu:0"):
+        paddle.seed(0)
+        q_proj, k_proj = nn.Linear(h, h), nn.Linear(h, h)
+        ln2, fc1, fc2 = nn.LayerNorm(h), nn.Linear(h, ff), nn.Linear(ff, h)
+
+        def block(xt):
+            hn = F.rms_norm(xt)
+            q = llama.rotary_embedding(ops.reshape(q_proj(hn),
+                                                   [b, s, heads, h // heads]))
+            k = llama.rotary_embedding(ops.reshape(k_proj(hn),
+                                                   [b, s, heads, h // heads]))
+            y = F.rms_norm(xt + fc2(F.gelu(fc1(ln2(xt)))))
+            return y + ops.reshape(q, [b, s, h]) + ops.reshape(k, [b, s, h])
+        rng = np.random.RandomState(0)
+        xs = [paddle.to_tensor(rng.randn(b, s, h).astype(np.float32) * 0.5)
+              for _ in range(2)]
+        sf = paddle.jit.to_static(block, full_graph=True)
+        paddle.set_flags({"FLAGS_enable_fusion": True})
+        try:
+            sf(xs[0])                                   # records
+            counts = (FK.fused_residual_norm.launches,
+                      FK.fused_matmul.launches, FK.fused_matmul_rope.launches)
+            got = sf(xs[1])
+            torch.cuda.synchronize()
+        finally:
+            paddle.set_flags({"FLAGS_enable_fusion": False})
+        assert (FK.fused_residual_norm.launches, FK.fused_matmul.launches,
+                FK.fused_matmul_rope.launches) == (counts[0] + 1,
+                                                   counts[1] + 1,
+                                                   counts[2] + 2)
+        want = block(xs[1])
+        assert (got._data - want._data).abs().max().item() <= FUSED_FP32_TOL
+
+
 # ---------------------------------------------- amp, fused loss, recompute
 @pytest.mark.cuda
 @pytest.mark.parametrize("level,dtype", [("O1", "bfloat16"),

@@ -24,6 +24,7 @@ from paddle_tpu.core.tensor import Tensor
 from paddle_tpu.nn import functional as JF
 from paddle_tpu.ops.pallas import fused_ops as JK
 from paddle_tpu_torch.nn import functional as F
+from paddle_tpu_torch.nn.functional.fused import _residual_norm_composite
 from paddle_tpu_torch.ops.cuda import fused_ops as FK
 
 TOL = 1e-5
@@ -265,9 +266,11 @@ def test_fused_rope_proj_and_grads(pos_offset):
 
 
 def test_mixed_dtypes_take_the_composite():
-    """A bias or residual of another dtype promotes, as the unfused add
-    does; the kernel computes in x's dtype, so that is a different
-    function and the composite runs."""
+    """A bias of another dtype promotes, as the unfused add does; the
+    kernel computes in x's dtype, so that is a different function and the
+    composite runs. A residual of another dtype goes with x to their
+    promoted dtype, where K4 (here its plain version) computes the
+    composite's function."""
     x = torch.randn(4, 64, dtype=torch.bfloat16)
     b = torch.randn(64)
     y = F.fused_bias_act(x, b, activation="relu")
@@ -275,6 +278,10 @@ def test_mixed_dtypes_take_the_composite():
     torch.testing.assert_close(y, torch.relu(x + b))
     n, s = F.fused_residual_norm(x, b.expand(4, 64), norm_type="rms_norm")
     assert n.dtype == s.dtype == torch.float32
+    want_n, want_s = _residual_norm_composite(x, b.expand(4, 64), None, None,
+                                              "rms_norm", 1e-5)
+    torch.testing.assert_close(s, want_s, rtol=0, atol=0)
+    torch.testing.assert_close(n, want_n, rtol=1e-5, atol=1e-6)
 
 
 def test_fused_rope_proj_rejects_a_tensor_offset():
