@@ -205,9 +205,39 @@ Phases, in order; any failure exits non-zero and nothing is caught:
              goodput ledger's 8 steps, every batch on the card through
              the prefetcher, no worker left, predict (256, 1000)), fit's
              images/s beside the rung's.
+* deploy  -- deployment: a BERT-base sequence classifier at bench.py's
+             _bench_bert widths (vocab 30522, 12 layers, 12 heads of 64,
+             FF 3072, 512 positions, 2 classes; seeded weights, eval, no
+             dropout) saved with jit.save (InputSpec([-1, -1], "int64")
+             for ids and token types) in fp32 and in bf16, and in fp32
+             from a CPU twin with the same weights; each artifact served
+             through inference.Config / create_predictor at (B, S) in
+             {1, 8, 48} x {128, 512}: exactly 12 K1 launches a run and
+             none of K2/K3; K1 against its plain version at that
+             attention shape in fp32 and bf16 (FP32_TOL, BF16_TOL); the
+             logits within FP32_TOL (bf16: BF16_TOL) of the eager model
+             (a check of the export: both launch the same K1), then timed
+             in five interleaved rounds (Predictor.run p50 of 20 with its
+             host copies, the TranslatedLayer on device tensors, the
+             eager forward under no_grad, each with its quartiles;
+             sequences/s; resident and peak memory); the fp32 artifact under disable_gpu() against the
+             card (LOGITS_TOL, B1 S128); the CPU-saved artifact on the
+             card (K1 12 a run, FP32_TOL of the card-saved one); a fresh
+             process (relaunched as the checkpoint phase relaunches its
+             child) that loads through paddle_tpu_torch.inference alone,
+             its logits within FP32_TOL and its seconds split; PTQ of
+             BERT-base saved, reloaded and run (FP32_TOL of the quantized
+             eager model, .pdparams under 0.45x of fp32's, argmax
+             agreement with fp32); onnx.export of ResNet-50 (224x224,
+             B=1, fp32) from card tensors, the bundled numpy runtime
+             within LOGITS_TOL of the card. Save and load seconds split
+             (export and write; state and program). One JSON line a part,
+             with the card. Written under a tempfile.mkdtemp() directory,
+             deleted after.
 
 The forward, serve, serve_llama, serve_tier, train, fusion, rungs,
-paddle_api, paddle_static, checkpoint and vision phases are the main path (serve_tier and vision
+paddle_api, paddle_static, checkpoint, vision and deploy phases are the
+main path (serve_tier and vision
 launch no kernel: the tier is host code over the engine, and its LLaMA
 runs without flash attention, as bench.py's rungs do; ResNet's
 convolutions and pools are cuDNN's and torch's, as the JAX package's are
@@ -218,7 +248,8 @@ power limit from nvidia-smi, and {"ok": true, "device": {...}}.
 ``--profile`` adds a torch.profiler breakdown of a bf16 forward, a GPT-2
 and a LLaMA engine run, one training step, a fused and an unfused step of
 each fusion path, one step of each rung, one BERT-base step (and one of
-each of paddle_static's four BERT-base runs) and one ResNet-50 rung step.
+each of paddle_static's four BERT-base runs), one ResNet-50 rung step and
+one Predictor.run of each deployed BERT-base at B48 S512.
 """
 from __future__ import annotations
 
@@ -243,10 +274,10 @@ import torch
 
 PHASES = ("build", "kernel", "fused_kernel", "forward", "serve",
           "serve_llama", "serve_tier", "train", "fusion", "rungs",
-          "paddle_api", "paddle_static", "checkpoint", "vision")
+          "paddle_api", "paddle_static", "checkpoint", "vision", "deploy")
 MAIN_PATH = ("forward", "serve", "serve_llama", "serve_tier", "train",
              "fusion", "rungs", "paddle_api", "paddle_static", "checkpoint",
-             "vision")
+             "vision", "deploy")
 PATH_SHAPE = dict(b=4, s=1024, h=12, d=64)      # GPT-2 small serving
 TRAIN_SHAPE = dict(b=8, s=1024, h=16, d=64)     # GPT-2 345M training
 LLAMA_ATTN_SHAPE = dict(b=4, s=2048, h=12, d=128)   # LLaMA-770M fusion path
@@ -528,7 +559,9 @@ def _time_fwd(fa, gen, shape, causal=True):
     def run():
         return fa.flash_attention_fwd(q, k, v, causal=causal)
     ms, q1, q3 = time_ms(run, reps=KERNEL_REPS, queued=True)
+    counted = fa.flash_attention_fwd.launches   # host timing: not counted
     host = host_ms(run)
+    fa.flash_attention_fwd.launches = counted
     plain_ms, _, _ = time_ms(
         lambda: fa.flash_attention_fwd_plain(q, k, v, causal=causal), iters=5,
         queued=True)
@@ -542,11 +575,13 @@ def _time_fwd(fa, gen, shape, causal=True):
     label = f"B{b} S{s} H{h} d{d} bf16 {_mode(causal)}"
     log(json.dumps({"kernel": "flash_attention_fwd", "shape": label,
                     "kernel_ms": ms, "kernel_ms_q1": q1, "kernel_ms_q3": q3,
-                    "host_ms_a_call": host, "bound_ms": bound_ms, "bound_by": bound_by,
+                    "host_ms_a_call": host,
+                    "bound_ms": bound_ms, "bound_by": bound_by,
                     "library_ms": library_ms, "plain_ms": plain_ms,
                     "bytes": moved, "flops": flops}))
     return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                bound_by=bound_by, library_ms=library_ms, shape=label)
+                bound_by=bound_by, library_ms=library_ms, shape=label,
+                host_ms=host)
 
 
 def _bwd_errors(got, ref):
@@ -3971,6 +4006,397 @@ def phase_vision(state):
     log(f"vision: {time.perf_counter() - t0:.1f} s")
 
 
+# ----------------------------------------------------------------- deploy
+# bench.py _bench_bert's widths (BERT-base; the unpadded vocabulary, as a
+# two-class sequence classifier has no MLM head to pad for), served from
+# its jit.save artifact
+DEPLOY_BERT = dict(vocab_size=30522, hidden_size=768, num_hidden_layers=12,
+                   num_attention_heads=12, intermediate_size=3072,
+                   max_position_embeddings=512, hidden_dropout_prob=0.0,
+                   attention_probs_dropout_prob=0.0)
+DEPLOY_SHAPES = ((1, 128), (1, 512), (8, 128), (8, 512), (48, 128),
+                 (48, 512))
+DEPLOY_CHECK = (8, 128)     # the fresh process's, the twin's and PTQ's batch
+DEPLOY_RUNS = 20
+DEPLOY_ROUNDS = 5           # the timed legs take turns, DEPLOY_RUNS each
+DEPLOY_CHILD_TIMEOUT = 300
+PTQ_BYTES = 0.45            # tests/test_round5.py:406
+ONNX_HW = 224
+_DEPLOY_CHILD = ("import sys, time; t0 = time.time(); "
+                 "sys.path.insert(0, sys.argv[1]); import chip_smoke; "
+                 "chip_smoke._deploy_child(sys.argv[2], sys.argv[3], "
+                 "sys.argv[4], t0)")
+
+
+def _deploy_inputs(b, s):
+    rng = np.random.RandomState(b * 1000 + s)
+    return (rng.randint(0, DEPLOY_BERT["vocab_size"], (b, s)).astype(
+        np.int64), rng.randint(0, 2, (b, s)).astype(np.int64))
+
+
+def _predict(pred, ids, tt):
+    """One ``Predictor.run`` on host arrays: (logits, its launches)."""
+    names = pred.get_input_names()
+    pred.get_input_handle(names[0]).copy_from_cpu(ids)
+    pred.get_input_handle(names[1]).copy_from_cpu(tt)
+    before = _counts()
+    pred.run()
+    launched = _launched(before, _counts())
+    return pred.get_output_handle("output_0").copy_to_cpu(), launched
+
+
+def _hold_k1(label, launched, layers):
+    if launched != {"flash_attention_fwd": layers}:
+        raise AssertionError(f"deploy {label}: launched {launched}, want "
+                             f"flash_attention_fwd {layers} and no other")
+
+
+def _uncounted(fn):
+    """``fn()`` with the launch counts restored after it: a comparison
+    with the eager model, not the served path."""
+    counts = _counts()
+    try:
+        return fn()
+    finally:
+        for name, n in counts.items():
+            _wrapper(name).launches = n
+
+
+def _legs_ms(legs, uncounted=(), runs=DEPLOY_RUNS, rounds=DEPLOY_ROUNDS,
+             warmup=2):
+    """Host time of each ``legs[name]()`` followed by a synchronize, in
+    ms: the legs take turns in ``rounds`` rounds (the host's speed
+    drifts), ``runs`` calls each in all. Returns {name: (p50, q1, q3)}.
+    The launches of the legs named in ``uncounted`` are not counted."""
+    times = {name: [] for name in legs}
+    for r in range(rounds):
+        for name, fn in legs.items():
+            counts = _counts() if name in uncounted else None
+            for i in range(warmup if r == 0 else 0):
+                fn()
+            torch.cuda.synchronize()
+            for _ in range(runs // rounds):
+                t0 = time.perf_counter()
+                fn()
+                torch.cuda.synchronize()
+                times[name].append((time.perf_counter() - t0) * 1e3)
+            if counts is not None:
+                for k, n in counts.items():
+                    _wrapper(k).launches = n
+    out = {}
+    for name, ts in times.items():
+        q1, p50, q3 = statistics.quantiles(ts, n=4)
+        out[name] = (p50, q1, q3)
+    return out
+
+
+def _deploy_k1_plain(fa, gen, b, s, dtype):
+    """K1 against its plain version at the served attention (B, S, 12
+    heads of 64, non-causal, q/k/v views of one projection) in
+    ``dtype``: (max abs error of out, of lse); not counted."""
+    h = DEPLOY_BERT["num_attention_heads"]
+    d = DEPLOY_BERT["hidden_size"] // h
+    err, lse_err, _ = _uncounted(lambda: _kernel_case(
+        fa, b, s, s, h, d, False, True, dtype, gen))
+    return err, lse_err
+
+
+def _deploy_child(prefix, inputs, out, t_start):
+    """The fresh process of the deploy phase: it imports the port's
+    inference module alone, loads the artifact on the card through
+    ``Config``/``create_predictor`` (it never builds the model class),
+    runs it once on the saved inputs, writes the logits and prints its
+    stamps and launches."""
+    from paddle_tpu_torch import inference
+    from paddle_tpu_torch.ops.cuda import flash_attention as fa
+    t_imports = time.time()
+    pred = inference.create_predictor(inference.Config(prefix))
+    torch.cuda.synchronize()
+    t_loaded = time.time()
+    data = np.load(inputs)
+    names = pred.get_input_names()
+    pred.get_input_handle(names[0]).copy_from_cpu(data["ids"])
+    pred.get_input_handle(names[1]).copy_from_cpu(data["tt"])
+    pred.run()
+    t_ran = time.time()
+    np.save(out, pred.get_output_handle("output_0").copy_to_cpu())
+    print(json.dumps({"started_at": t_start, "imports_at": t_imports,
+                      "loaded_at": t_loaded, "ran_at": t_ran,
+                      "k1_launches": fa.flash_attention_fwd.launches}),
+          flush=True)
+
+
+def _deploy_fresh_process(card, prefix, directory, ids, tt, want):
+    """A child process serves the fp32 artifact (relaunched as the
+    checkpoint phase relaunches its child); its logits against the
+    parent's."""
+    repo = os.path.dirname(os.path.abspath(__file__))
+    inputs = os.path.join(directory, "inputs.npz")
+    out = os.path.join(directory, "child_logits.npy")
+    np.savez(inputs, ids=ids, tt=tt)
+    t0 = time.time()
+    child = subprocess.run([sys.executable, "-c", _DEPLOY_CHILD, repo,
+                            prefix, inputs, out], capture_output=True,
+                           text=True, timeout=DEPLOY_CHILD_TIMEOUT)
+    if child.returncode != 0:
+        raise AssertionError(f"the serving child ended with "
+                             f"{child.returncode}: {child.stderr[-2000:]}")
+    st = json.loads(child.stdout.strip().splitlines()[-1])
+    diff = float(np.abs(np.load(out) - want).max())
+    row = {"deploy": "fresh process: inference.Config -> create_predictor "
+                     "-> run", "card": card,
+           "batch": list(ids.shape), "max_abs_diff_to_parent": diff,
+           "k1_launches": st["k1_launches"],
+           "seconds": {"interpreter_up": st["started_at"] - t0,
+                       "imports": st["imports_at"] - st["started_at"],
+                       "load": st["loaded_at"] - st["imports_at"],
+                       "first_run": st["ran_at"] - st["loaded_at"],
+                       "total": st["ran_at"] - t0}}
+    log(json.dumps(row))
+    if not (diff <= FP32_TOL and st["k1_launches"] ==
+            DEPLOY_BERT["num_hidden_layers"]):
+        raise AssertionError(f"deploy fresh process: {row}")
+
+
+def _deploy_serve(paddle, card, prefixes, models, profile):
+    """Each artifact through ``Config``/``create_predictor`` at every
+    (B, S): K1 once a layer and nothing else; K1 against its plain version
+    at that attention shape and dtype (FP32_TOL/BF16_TOL: the served
+    model and the eager one launch the same K1, so the logits against
+    the eager model check the export, not the kernel); then timed in
+    turns (the predictor with its host copies, the ``TranslatedLayer`` on
+    device tensors, the eager forward). Returns the fp32 artifact's
+    logits by shape."""
+    import paddle_tpu_torch.ops.cuda.flash_attention as fa
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(2718)
+    layers = DEPLOY_BERT["num_hidden_layers"]
+    preds, load_s = {}, {}
+    for tag in ("fp32", "bf16"):
+        t0 = time.perf_counter()
+        preds[tag] = paddle.inference.create_predictor(
+            paddle.inference.Config(prefixes[tag]))
+        torch.cuda.synchronize()
+        load_s[tag] = dict(total=time.perf_counter() - t0,
+                           **paddle.jit.load.seconds)
+    log(json.dumps({"deploy": "load", "card": card, "seconds": load_s}))
+    logits = {}
+    for b, s in DEPLOY_SHAPES:
+        ids, tt = _deploy_inputs(b, s)
+        ids_d, tt_d = (torch.from_numpy(a).cuda() for a in (ids, tt))
+        for tag, tol in (("fp32", FP32_TOL), ("bf16", BF16_TOL)):
+            pred, model = preds[tag], models[tag]
+            k1_err, k1_lse_err = _deploy_k1_plain(
+                fa, gen, b, s, torch.float32 if tag == "fp32"
+                else torch.bfloat16)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            resident = torch.cuda.memory_allocated() / 1e9
+            got, launched = _predict(pred, ids, tt)
+            peak = torch.cuda.max_memory_allocated() / 1e9
+            _hold_k1(f"{tag} B{b} S{s}", launched, layers)
+
+            def eager():
+                return model(paddle.Tensor(ids_d), paddle.Tensor(tt_d))
+            want = _uncounted(lambda: eager().numpy())
+            err = float(np.abs(got - want).max())
+            if tag == "fp32":
+                logits[(b, s)] = got
+            layer = pred._layer
+            legs = _legs_ms({"predictor_run": pred.run,
+                             "translated_layer": lambda: layer(ids_d, tt_d),
+                             "eager_no_grad": eager},
+                            uncounted=("eager_no_grad",))
+            row = {"deploy": f"bert_base {tag} B{b} S{s}", "card": card,
+                   "k1_max_abs_err_to_plain": k1_err,
+                   "k1_lse_max_abs_err_to_plain": k1_lse_err,
+                   "max_abs_err_to_eager": err, "tolerance": tol,
+                   "launches_a_run": launched,
+                   **{f"{name}_p50_ms": t[0] for name, t in legs.items()},
+                   **{f"{name}_q1_q3_ms": t[1:] for name, t in legs.items()},
+                   "sequences_per_s": b / legs["predictor_run"][0] * 1e3,
+                   "resident_gb": resident, "peak_gb": peak}
+            if profile and (b, s) == (48, 512):
+                prof = _profile(f"deploy {tag} B{b} S{s} Predictor.run",
+                                pred.run,
+                                groups={"K1": ("flash_fwd",),
+                                        "cuBLAS GEMM": ("nvjet", "xmma",
+                                                        "cutlass", "cublas"),
+                                        "elementwise and reductions": (
+                                            "elementwise", "reduce",
+                                            "vectorized")})
+                row["device_busy_share"] = prof["device_busy_share"]
+                row["k1_device_share"] = prof["groups"]["K1"]["share"]
+            log(json.dumps(row))
+            if not (k1_err <= tol and k1_lse_err <= tol):
+                raise AssertionError(
+                    f"deploy {tag} B{b} S{s}: K1 disagrees with its plain "
+                    f"version: out {k1_err}, lse {k1_lse_err} (tolerance "
+                    f"{tol})")
+            if not err <= tol:
+                raise AssertionError(f"deploy {tag} B{b} S{s}: logits "
+                                     f"{err} from the eager model's")
+        del ids_d, tt_d
+    return logits
+
+
+def _deploy_twins(paddle, card, prefixes, logits):
+    """The fp32 card artifact under ``disable_gpu()`` against the card,
+    and the artifact the CPU twin saved, served on the card."""
+    layers = DEPLOY_BERT["num_hidden_layers"]
+    ids, tt = _deploy_inputs(1, 128)
+    cfg = paddle.inference.Config(prefixes["fp32"])
+    cfg.disable_gpu()
+    host, launched = _predict(paddle.inference.create_predictor(cfg), ids,
+                              tt)
+    host_err = float(np.abs(host - logits[(1, 128)]).max())
+    twin = paddle.inference.create_predictor(
+        paddle.inference.Config(prefixes["cpu_twin"]))
+    b, s = DEPLOY_CHECK
+    ids, tt = _deploy_inputs(b, s)
+    got, twin_launched = _predict(twin, ids, tt)
+    twin_err = float(np.abs(got - logits[(b, s)]).max())
+    row = {"deploy": "twins", "card": card,
+           "card_artifact_on_cpu_B1_S128": {"max_abs_diff": host_err,
+                                            "launched": launched},
+           f"cpu_saved_artifact_on_card_B{b}_S{s}": {
+               "max_abs_diff": twin_err, "launched": twin_launched}}
+    log(json.dumps(row))
+    _hold_k1("the CPU-saved artifact", twin_launched, layers)
+    if not (host_err <= LOGITS_TOL and launched == {}
+            and twin_err <= FP32_TOL):
+        raise AssertionError(f"deploy twins: {row}")
+
+
+def _deploy_ptq(paddle, card, model, prefix, fp32_prefix, logits, spec):
+    """PTQ of BERT-base, saved, reloaded through the predictor and run:
+    logits against the quantized eager model, the .pdparams bytes against
+    fp32's, argmax agreement with the fp32 artifact on the batch."""
+    qmodel = paddle.quantization.PTQ().quantize(model)
+    paddle.jit.save(qmodel, prefix, input_spec=spec)
+    pred = paddle.inference.create_predictor(paddle.inference.Config(prefix))
+    b, s = DEPLOY_CHECK
+    ids, tt = _deploy_inputs(b, s)
+    got, launched = _predict(pred, ids, tt)
+    ids_d, tt_d = (paddle.Tensor(torch.from_numpy(a).cuda())
+                   for a in (ids, tt))
+    want = _uncounted(lambda: qmodel(ids_d, tt_d).numpy())
+    err = float(np.abs(got - want).max())
+    q_bytes = os.path.getsize(prefix + ".pdparams")
+    fp_bytes = os.path.getsize(fp32_prefix + ".pdparams")
+    agree = float((got.argmax(-1) == logits[(b, s)].argmax(-1)).mean())
+    row = {"deploy": f"ptq int8 weight-only B{b} S{s}", "card": card,
+           "max_abs_err_to_quantized_eager": err,
+           "pdparams_bytes": q_bytes, "fp32_pdparams_bytes": fp_bytes,
+           "bytes_ratio": q_bytes / fp_bytes,
+           "argmax_agreement_with_fp32": agree,
+           "max_abs_diff_to_fp32": float(np.abs(
+               got - logits[(b, s)]).max()), "launched": launched}
+    log(json.dumps(row))
+    _hold_k1("ptq", launched, DEPLOY_BERT["num_hidden_layers"])
+    if not (err <= FP32_TOL and q_bytes < PTQ_BYTES * fp_bytes):
+        raise AssertionError(f"deploy ptq: {row}")
+    del qmodel, pred
+
+
+def _deploy_onnx(paddle, card, directory):
+    """onnx.export of ResNet-50 (224x224, B=1, fp32) from card tensors;
+    the bundled numpy runtime against the card model."""
+    paddle.seed(5)
+    model = paddle.vision.models.resnet50()
+    model.eval()
+    x = np.random.RandomState(7).randn(1, 3, ONNX_HW, ONNX_HW).astype(
+        np.float32)
+    xt = paddle.to_tensor(x)
+    t0 = time.perf_counter()
+    path = paddle.onnx.export(model, os.path.join(directory, "resnet50"),
+                              input_spec=[xt])
+    export_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    got = paddle.onnx.run(path, {"x0": x})[0]
+    run_s = time.perf_counter() - t0
+    want = model(xt).numpy()
+    err = float(np.abs(got - want).max())
+    row = {"deploy": f"onnx resnet50 B1 {ONNX_HW}x{ONNX_HW} fp32",
+           "card": card, "export_s": export_s,
+           "file_bytes": os.path.getsize(path), "numpy_runtime_s": run_s,
+           "max_abs_err_to_card": err, "logits_max_abs": float(
+               np.abs(want).max())}
+    log(json.dumps(row))
+    if not err <= LOGITS_TOL:
+        raise AssertionError(f"deploy onnx: {row}")
+    os.unlink(path)
+
+
+def phase_deploy(state):
+    """BERT-base served from its jit.save artifacts through the inference
+    Predictor (fp32, bf16, saved on the CPU, in a fresh process,
+    quantized), and ResNet-50 through onnx.export. Runs K1 once a layer
+    a Predictor.run; writes under a tempfile.mkdtemp() directory, deleted
+    at the end."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.models.bert import (BertConfig,
+                                              BertForSequenceClassification)
+    from paddle_tpu_torch.static import InputSpec
+    card = _card_line()
+    directory = tempfile.mkdtemp(prefix="chip_smoke_deploy_")
+    t0 = time.perf_counter()
+    cfg = BertConfig(**DEPLOY_BERT)
+    spec = [InputSpec([-1, -1], "int64"), InputSpec([-1, -1], "int64")]
+    prefixes = {tag: os.path.join(directory, tag)
+                for tag in ("fp32", "bf16", "cpu_twin", "ptq")}
+    try:
+        with paddle.device_guard("gpu:0"), paddle.no_grad():
+            paddle.seed(21)
+            models = {"fp32": BertForSequenceClassification(cfg)}
+            host_state = {k: v._data.detach().cpu()
+                          for k, v in models["fp32"].state_dict().items()}
+            models["bf16"] = BertForSequenceClassification(cfg)
+            models["bf16"].set_state_dict(host_state)
+            models["bf16"].to(dtype="bfloat16")
+            saves = {}
+            for tag in ("fp32", "bf16"):
+                models[tag].eval()
+                t_save = time.perf_counter()
+                paddle.jit.save(models[tag], prefixes[tag], input_spec=spec)
+                saves[tag] = dict(total=time.perf_counter() - t_save,
+                                  **paddle.jit.save.seconds)
+            with paddle.device_guard("cpu"):
+                twin = BertForSequenceClassification(cfg)
+                twin.set_state_dict(host_state)
+                t_save = time.perf_counter()
+                paddle.jit.save(twin, prefixes["cpu_twin"], input_spec=spec)
+                saves["cpu_twin"] = dict(total=time.perf_counter() - t_save,
+                                         **paddle.jit.save.seconds)
+                del twin
+            log(json.dumps({"deploy": "save", "card": card,
+                            "seconds": saves, "pdmodel_bytes": {
+                                tag: os.path.getsize(prefixes[tag]
+                                                     + ".pdmodel")
+                                for tag in saves},
+                            "pdparams_bytes": {
+                                tag: os.path.getsize(prefixes[tag]
+                                                     + ".pdparams")
+                                for tag in saves}}))
+            logits = _deploy_serve(paddle, card, prefixes, models,
+                                   state.get("profile"))
+            _deploy_twins(paddle, card, prefixes, logits)
+            b, s = DEPLOY_CHECK
+            ids, tt = _deploy_inputs(b, s)
+            _deploy_fresh_process(card, prefixes["fp32"], directory, ids, tt,
+                                  logits[(b, s)])
+            del models["bf16"]
+            _deploy_ptq(paddle, card, models["fp32"], prefixes["ptq"],
+                        prefixes["fp32"], logits, spec)
+            del models
+            torch.cuda.empty_cache()
+            _deploy_onnx(paddle, card, directory)
+    finally:
+        shutil.rmtree(directory, ignore_errors=True)
+        torch.cuda.empty_cache()
+    log(f"deploy: {time.perf_counter() - t0:.1f} s")
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--phases", default=",".join(PHASES),
@@ -3979,8 +4405,9 @@ def main(argv=None) -> int:
                         help="also print torch.profiler breakdowns of a "
                         "bf16 forward, engine run and training step, of a "
                         "fused and an unfused step of each fusion path, "
-                        "of one step of each rung, of a BERT-base step and "
-                        "of a ResNet-50 rung step")
+                        "of one step of each rung, of a BERT-base step, "
+                        "of a ResNet-50 rung step and of a deployed "
+                        "BERT-base's Predictor.run")
     args = parser.parse_args(argv)
     phases = [p for p in args.phases.split(",") if p]
     unknown = set(phases) - set(PHASES)

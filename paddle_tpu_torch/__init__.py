@@ -47,10 +47,18 @@ reads), ``fault.CheckpointManager`` with ``auto_resume``,
 ``fit(resume=...)``, ``paddle.summary`` and ``paddle.flops``, and the
 rest of the JAX package's ``optimizer.py`` (``Momentum``, ``Adagrad``,
 ``RMSProp``, ``Adadelta``, ``Adamax``, ``Lamb``, ``NAdam``, ``RAdam``).
+
+Deployment: ``jit.save``/``jit.load`` (a ``torch.export`` program that
+holds the K1 attention op as a node, beside its ``.pdparams``) and
+``jit.TranslatedLayer``, ``TracedLayer.save_inference_model``, the
+handle-style ``inference.Config``/``create_predictor``, int8
+``quantization`` (``PTQ``, ``QAT``, weight-only and LLM.int8 linears)
+and ``onnx.export`` with its bundled numpy evaluator.
 """
 from . import (amp, autograd, compile, core, distributed, fault, framework,
                hapi, incubate, inference, io, jit, metric, models, nn,
-               observability, ops, optimizer, serving, static, tools, vision)
+               observability, onnx, ops, optimizer, quantization, serving,
+               static, tools, vision)
 from .autograd import PyLayer, backward, grad, is_grad_enabled
 from .core import get_flag, resolve_device, set_flags
 from .core.dispatch import (enable_grad, no_grad,
@@ -74,7 +82,8 @@ from .models import (GPTConfig, GPTForCausalLM, LlamaConfig, LlamaForCausalLM,
 
 __all__ = ["amp", "autograd", "compile", "core", "distributed", "fault",
            "framework", "save", "load", "summary", "flops", "hapi", "incubate", "inference", "io", "jit", "metric", "models",
-           "nn", "observability", "ops", "optimizer", "serving", "static", "tools",
+           "nn", "observability", "onnx", "ops", "optimizer", "quantization",
+           "serving", "static", "tools",
            "vision", "Model", "resolve_device",
            "Tensor", "is_tensor", "no_grad", "enable_grad",
            "set_grad_enabled", "is_grad_enabled", "backward", "grad",

@@ -27,7 +27,6 @@ The JAX dispatcher's other parts have no counterpart here:
   taps below, and a graph break runs that signature eagerly;
 * the branch trace (``enter_branch_trace``): it waits for the port of
   ``static/nn`` control flow;
-* the export hooks: they wait for ONNX export;
 * the op-cost accumulator (``FLAGS_perf_op_cost``): it waits for
   ``observability/perf``.
 
@@ -36,7 +35,12 @@ The recorder taps (``register_recorder_hook``, per thread) are
 out_tensors, attrs)``, where ``fn`` replays the op on new payloads
 (``call`` runs it again with the same amp cast): the lowering with its
 attrs bound and the inputs that ``differentiable_mask`` excludes
-detached. ``quiet_scope`` silences every tap for the ops inside it.
+detached. The export hooks (``register_export_hook``) are ONNX
+export's: a hook gets ``(op_name, tensor_inputs, out_tensors, attrs)``
+with the op's semantic parameters (``export_attrs()``: stride, padding,
+axis, ...) merged into its attrs; an op builds them only while a hook
+is registered. ``quiet_scope`` silences every tap
+for the ops inside it.
 """
 from __future__ import annotations
 
@@ -50,7 +54,7 @@ import torch
 
 from ..amp.state import amp_cast
 from . import flags
-from .tensor import Tensor
+from .tensor import GraphBreak, Tensor, exporting
 from ..observability import metrics as _metrics
 from ..observability import trace as _trace
 
@@ -170,6 +174,23 @@ class quiet_scope:
         return False
 
 
+_export_hooks: List[Callable] = []
+
+
+def register_export_hook(fn):
+    """Register ``fn(op_name, tensor_inputs, out_tensors, export_attrs)``
+    (ONNX export's tracer): the op's semantic parameters merged into its
+    attrs."""
+    _export_hooks.append(fn)
+
+
+def unregister_export_hook(fn):
+    try:
+        _export_hooks.remove(fn)
+    except ValueError:
+        pass
+
+
 def register_op_hook(fn):
     """Register a per-op tap called as ``fn(op_name, inputs, outputs,
     attrs, duration_s)``. Legacy 4-positional hooks are adapted so older
@@ -205,6 +226,10 @@ def unregister_op_hook(fn):
 
 
 def _check_nan_inf(op_name: str, outs: Sequence[torch.Tensor]) -> None:
+    if exporting():
+        raise GraphBreak(f"the FLAGS_check_nan_inf scan of op '{op_name}' "
+                         f"reads its output on the host while jit.save "
+                         f"exports a program")
     for o in outs:
         if not (o.is_floating_point() or o.is_complex()):
             continue
@@ -233,14 +258,23 @@ def _replayable(fn: Callable, attrs: dict,
 # -------------------------------------------------------------- dispatch
 def call(op_name: str, fn: Callable, tensor_inputs: Sequence[Tensor],
          attrs: Optional[dict] = None, multi_output: bool = False,
-         differentiable_mask: Optional[Sequence[bool]] = None):
+         differentiable_mask: Optional[Sequence[bool]] = None,
+         export_attrs: Optional[Callable[[], dict]] = None):
     """Run one op: ``fn(*payloads, **attrs)`` over the torch payloads of
     ``tensor_inputs`` (cast for amp; an input whose
     ``differentiable_mask`` entry is False is detached). Returns a Tensor,
     or a list of Tensors when ``fn`` returns a tuple or list (what
-    ``fn`` returns decides; ``multi_output`` is the JAX signature's)."""
+    ``fn`` returns decides; ``multi_output`` is the JAX signature's).
+    ``export_attrs()`` gives the op's semantic parameters, for the export
+    hooks only: it is called, before the body, only when one is
+    registered."""
     attrs = attrs or {}
     quiet = getattr(_tls, "quiet", False)
+    exported = None
+    if _export_hooks and not quiet:
+        exported = dict(attrs)
+        if export_attrs is not None:
+            exported.update(export_attrs())
     timed = (bool(_op_hooks) or _metrics.enabled() or _trace.active()) \
         and not quiet
     t0 = _perf_counter() if timed else 0.0
@@ -273,4 +307,7 @@ def call(op_name: str, fn: Callable, tensor_inputs: Sequence[Tensor],
             hook(op_name, tensor_inputs, out_tensors, attrs, dur)
         if th0:
             _m_hook_overhead.observe(_perf_counter() - th0)
+    if exported is not None:
+        for hook in list(_export_hooks):
+            hook(op_name, tensor_inputs, out_tensors, exported)
     return out_tensors[0] if single else out_tensors

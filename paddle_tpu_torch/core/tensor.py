@@ -26,7 +26,8 @@ counterpart of JAX's ``TracerBoolConversionError`` family): a host read
 and a change of payload of a tensor the program did not make
 (``set_value``, ``copy_``, ``_swap_payload``, ``detach_``). The
 capture decides whether the break raises (``full_graph=True``) or
-marks the signature eager and lets the call go on.
+marks the signature eager and lets the call go on. While ``jit.save``
+exports a program (``export_scope``), a host read raises.
 """
 from __future__ import annotations
 
@@ -74,9 +75,33 @@ class capture_scope:
         return False
 
 
+def exporting() -> bool:
+    """Whether ``jit.save`` is exporting a program on this thread."""
+    return getattr(_capture, "exporting", False)
+
+
+class export_scope:
+    """Mark the block as ``jit.save``'s ``torch.export`` trace: a host
+    read of a traced value raises ``GraphBreak`` naming the read, as a
+    JAX export raises on a concretization."""
+
+    def __enter__(self):
+        self._prev = exporting()
+        _capture.exporting = True
+        return self
+
+    def __exit__(self, *exc):
+        _capture.exporting = self._prev
+        return False
+
+
 def graph_break(what: str) -> None:
     """Report ``what`` to the capture on this thread, if any: it raises
-    ``GraphBreak`` or ends the recording."""
+    ``GraphBreak`` or ends the recording. Under ``export_scope`` it
+    raises."""
+    if exporting():
+        raise GraphBreak(f"{what} while jit.save exports a program: a "
+                         f"saved program cannot read a value on the host")
     rec = active_capture()
     if rec is not None:
         rec.graph_break(f"{what} while to_static records a program")
@@ -253,7 +278,7 @@ class Tensor:
 
     def __repr__(self):
         grad_info = "" if self.stop_gradient else ", stop_gradient=False"
-        if active_capture() is not None:      # no host read while recording
+        if active_capture() is not None or exporting():   # no host read
             return (f"Tensor(shape={self.shape}, "
                     f"dtype={dtypes.dtype_name(self.dtype)}, "
                     f"place={self.place}{grad_info}, recorded)")

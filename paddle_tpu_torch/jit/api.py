@@ -1,4 +1,5 @@
-"""``to_static`` (counterpart of ``paddle_tpu/jit/api.py``).
+"""``to_static`` and ``save``/``load`` (counterpart of
+``paddle_tpu/jit/api.py``).
 
 The JAX package traces a function into one XLA program per input
 signature. The port captures in one of two ways, chosen by the callable
@@ -42,11 +43,20 @@ compile_total{kind}`` (initial, retrace), ``_compile_seconds{kind}``,
 new_structure), the ``to_static_compile:<name>`` span, the goodput
 ledger's ``compile`` bucket and the sentinel's compile feed. On the
 op-stream path a signature's compile is its recording call.
+
+``save`` exports a Paddle-API program with ``torch.export`` (the JAX
+package exports StableHLO with ``jax.export``): parameters and buffers
+are one dict input, as in the JAX ``pure``, and a -1 in an
+``InputSpec`` is a dynamic dim. ``load`` gives a ``TranslatedLayer``
+that runs the program on one device without the model class. The
+persistent compile cache and ``precompile`` are a later slice.
 """
 from __future__ import annotations
 
 import functools
 import inspect
+import os
+import pickle
 import time
 import warnings
 from typing import Callable, Dict, Optional
@@ -58,6 +68,7 @@ from torch import nn
 from ..amp.state import amp_state
 from ..compile import fusion
 from ..compile.fusion.fx import trace_program
+from ..core import flags
 from ..core.tensor import Tensor, active_capture, as_tensor
 from ..observability import goodput as _goodput
 from ..observability import metrics as _metrics
@@ -66,7 +77,8 @@ from ..observability import trace as _trace
 from .program import flatten
 
 __all__ = ["StaticFunction", "to_static", "not_to_static", "ignore_module",
-           "in_capture_mode"]
+           "in_capture_mode", "save", "load", "TranslatedLayer",
+           "ArtifactVersionError"]
 
 _m_compile = _metrics.counter(
     "paddle_tpu_to_static_compile_total",
@@ -353,3 +365,308 @@ def not_to_static(fn):
 def ignore_module(modules):
     """Accepted for the JAX package's API; has no effect (as there)."""
     return None
+
+
+# ------------------------------------------------------------- jit.save
+flags.define_flag("compile_cache", False,
+                  "The persistent compile cache; the port's is a later "
+                  "slice, so a TranslatedLayer raises while it is set.")
+
+#: the ``format`` key of a ``.pdmodel`` this package writes
+ARTIFACT_FORMAT = "paddle_tpu_torch.jit/1"
+#: example sizes of the -1 axes of an ``InputSpec`` (axis i takes the
+#: i-th): at least 2 (export specializes sizes 0 and 1) and unlike the
+#: static sizes models have, so that no axis is equated by accident
+_EXAMPLE_SIZES = (5, 7, 11, 13, 17, 19, 23, 29)
+
+
+class ArtifactVersionError(RuntimeError):
+    """A ``jit.save`` artifact this runtime cannot load: another format
+    (a JAX ``paddle_tpu.jit`` artifact), or a program that fails to
+    deserialize under another torch version. Re-export it with
+    ``jit.save`` on the current toolchain."""
+
+
+def _unwrap(out):
+    if isinstance(out, Tensor):
+        return out._data
+    if isinstance(out, (list, tuple)):
+        return type(out)(_unwrap(o) for o in out)
+    if isinstance(out, dict):
+        return {k: _unwrap(v) for k, v in out.items()}
+    return out
+
+
+def _wrap(out):
+    if isinstance(out, torch.Tensor):
+        return Tensor(out)
+    if isinstance(out, (list, tuple)):
+        return type(out)(_wrap(o) for o in out)
+    if isinstance(out, dict):
+        return {k: _wrap(v) for k, v in out.items()}
+    return out
+
+
+def _example_inputs(input_spec, device):
+    """InputSpec / Tensor / ndarray entries -> (example tensors on
+    ``device``, their ``dynamic_shapes``). A -1 at axis i becomes the
+    ``torch.export.Dim`` ``d<i>``, one symbol shared by every input, so
+    that inputs with dynamic batch dims stay broadcast-compatible (the
+    JAX package's symbolic scope)."""
+    from ..core.dtype import convert_dtype
+
+    dims: Dict[int, object] = {}
+    examples, dynamic = [], []
+    for spec in input_spec:
+        if isinstance(spec, Tensor):
+            examples.append(spec._data.detach().to(device))
+            dynamic.append(None)
+            continue
+        if isinstance(spec, (np.ndarray, torch.Tensor)):
+            examples.append(torch.as_tensor(spec).to(device))
+            dynamic.append(None)
+            continue
+        shape = tuple(-1 if s is None else int(s) for s in spec.shape)
+        marks = {}
+        for i, s in enumerate(shape):
+            if s == -1:
+                if i not in dims:
+                    dims[i] = torch.export.Dim(f"d{i}", min=1)
+                marks[i] = dims[i]
+        size = tuple(_EXAMPLE_SIZES[i % len(_EXAMPLE_SIZES)] if s == -1
+                     else s for i, s in enumerate(shape))
+        examples.append(torch.zeros(size, dtype=convert_dtype(spec.dtype),
+                                    device=device))
+        dynamic.append(marks or None)
+    return examples, dynamic
+
+
+class _Program(torch.nn.Module):
+    """``fn`` as a pure function of (parameters and buffers, inputs), for
+    ``torch.export``: the state's payloads are swapped into the Layer's
+    Tensors for the trace and restored after it (the JAX ``pure``)."""
+
+    def __init__(self, fn, named):
+        super().__init__()
+        self._target = fn
+        self._named = named
+
+    def forward(self, params, inputs):
+        originals = []
+        for k, t in self._named.items():
+            originals.append((t, t._data))
+            if k in params:
+                t._data = params[k]
+        try:
+            return _unwrap(self._target(*[Tensor(x) for x in inputs]))
+        finally:
+            for t, d in originals:
+                t._data = d
+
+
+def save(layer, path, input_spec=None, **configs):
+    """Export the program of ``layer`` (a Paddle-API ``Layer``, a function
+    on Paddle Tensors, or a ``StaticFunction``, whose ``input_spec`` is
+    the default) with ``torch.export`` and write the artifact: ``path +
+    ".pdmodel"`` (the program and its calling convention, a pickle of
+    builtins only) and ``path + ".pdparams"`` (the state dict, the v2
+    checkpoint file). ``jit.load`` runs it without the model class.
+
+    The trace runs under ``torch.no_grad()`` on detached payloads, with
+    the layer in eval mode, so attention is the K1 op
+    (``paddle_tpu_torch::flash_attention_fwd``), which the program holds
+    as a node; a -1 in an ``InputSpec`` is a dynamic dim. A host read of
+    a traced value (``.item()``, ``.numpy()``, the ``FLAGS_check_nan_inf``
+    scan) raises ``GraphBreak`` naming it."""
+    import io
+
+    from ..core.place import current_device
+    from ..core.tensor import export_scope
+    from ..framework.io import save as _save
+
+    if isinstance(layer, nn.Module):
+        raise TypeError(
+            "jit.save takes Paddle-API Layers and functions on Paddle "
+            "Tensors; the torch-level models wait for their rebase on "
+            "nn.Layer")
+    fn = layer.forward if hasattr(layer, "forward") else layer
+    if isinstance(fn, StaticFunction):
+        if input_spec is None:
+            input_spec = fn._input_spec
+        fn = fn._fn
+    if input_spec is None:
+        raise ValueError(
+            "jit.save needs input_spec (list of InputSpec / example "
+            "tensors) to trace the program")
+
+    state = layer.state_dict() if hasattr(layer, "state_dict") else {}
+    named = {}
+    if hasattr(layer, "named_parameters"):
+        named.update(dict(layer.named_parameters()))
+    if hasattr(layer, "named_buffers"):
+        named.update(dict(layer.named_buffers()))
+    params = {k: v._data.detach() for k, v in state.items()}
+    device = next(iter(params.values())).device if params \
+        else current_device()
+
+    was_training = getattr(layer, "training", False)
+    if hasattr(layer, "eval"):
+        layer.eval()
+    t0 = time.perf_counter()
+    try:
+        examples, dynamic = _example_inputs(list(input_spec), device)
+        with torch.no_grad(), export_scope():
+            exported = torch.export.export(
+                _Program(fn, named), (params, examples),
+                dynamic_shapes=({k: None for k in params}, dynamic),
+                strict=False)
+    finally:
+        if was_training and hasattr(layer, "train"):
+            layer.train()
+
+    t1 = time.perf_counter()
+    # the example inputs hold the whole state: keep it in .pdparams alone
+    exported.example_inputs = None
+    buf = io.BytesIO()
+    torch.export.save(exported, buf)
+    d = os.path.dirname(str(path))
+    if d:
+        os.makedirs(d, exist_ok=True)
+    with open(str(path) + ".pdmodel", "wb") as f:
+        pickle.dump({"format": ARTIFACT_FORMAT,
+                     "n_inputs": len(examples),
+                     "program": buf.getvalue(),
+                     "torch_version": str(torch.__version__),
+                     "platform": device.type}, f)
+    _save(state, str(path) + ".pdparams")
+    save.seconds = {"export": t1 - t0, "write": time.perf_counter() - t1}
+
+
+#: the last ``save``'s seconds: the trace ("export") and the files
+save.seconds = {}
+
+
+class TranslatedLayer:
+    """A loaded program, callable without the original model class
+    (reference: python/paddle/jit/translated_layer.py TranslatedLayer):
+    the exported program on one device with the state it reads."""
+
+    def __init__(self, exported, state, n_inputs: int = 1,
+                 device: Optional[torch.device] = None):
+        self._exported = exported
+        self._module = exported.module()
+        self._state = dict(state)
+        self.n_inputs = n_inputs
+        self.device = device
+        self.training = False
+
+    def _payloads(self):
+        return {k: (v._data if isinstance(v, Tensor) else v)
+                for k, v in self._state.items()}
+
+    def __call__(self, *inputs):
+        if flags.get_flag("compile_cache"):
+            raise NotImplementedError(
+                "later slice: the persistent compile cache "
+                "(FLAGS_compile_cache) for TranslatedLayer")
+        arrays = [i._data if isinstance(i, Tensor) else
+                  torch.as_tensor(i, device=self.device) for i in inputs]
+        with torch.no_grad():
+            out = self._module(self._payloads(), arrays)
+        return _wrap(out)
+
+    forward = __call__
+
+    def precompile(self, input_spec):
+        raise NotImplementedError(
+            "later slice: TranslatedLayer.precompile waits for the "
+            "persistent compile cache and AOT")
+
+    def state_dict(self):
+        return dict(self._state)
+
+    def set_state_dict(self, state):
+        for k, v in state.items():
+            if k in self._state:
+                old = self._state[k]
+                d = v._data if isinstance(v, Tensor) else torch.as_tensor(v)
+                self._state[k] = Tensor(d.to(device=old._data.device,
+                                             dtype=old._data.dtype))
+
+    def eval(self):
+        self.training = False
+        return self
+
+    def train(self):
+        raise RuntimeError(
+            "TranslatedLayer holds an inference program; retraining "
+            "requires the original model class (reference parity)")
+
+
+def load(path, device=None, **configs):
+    """Load a ``jit.save`` artifact as a ``TranslatedLayer`` on ``device``
+    (default: the current device, ``set_device``), the program moved
+    there, so that an artifact saved on the CPU launches the kernels on
+    the card; with no ``.pdmodel`` the state dict alone. A foreign
+    artifact, or one that fails to deserialize under another torch
+    version, raises ``ArtifactVersionError``."""
+    import io
+
+    from torch.export.passes import move_to_device_pass
+
+    from ..core.place import current_device, device_guard, resolve_device
+    from ..framework.io import load as _load
+    from ..ops.cuda import flash_attention as _k1   # noqa: F401 (the op)
+
+    path = str(path)
+    dev = current_device() if device is None else resolve_device(device)
+    t0 = time.perf_counter()
+    with device_guard("cpu" if dev.type == "cpu" else f"gpu:{dev.index}"):
+        state = _load(path + ".pdparams")
+    t1 = time.perf_counter()
+    model_file = path + ".pdmodel"
+    if not os.path.exists(model_file):
+        return state
+    with open(model_file, "rb") as f:
+        blob = _BuiltinsUnpickler(f).load()
+    fmt = str(blob.get("format", "")) if isinstance(blob, dict) else ""
+    if not fmt.startswith("paddle_tpu_torch.jit/"):
+        raise ArtifactVersionError(
+            f"{model_file!r} is not a paddle_tpu_torch.jit artifact "
+            f"(format={fmt!r}) — re-export it with this package's "
+            f"jit.save")
+    try:
+        exported = torch.export.load(io.BytesIO(blob["program"]))
+    except Exception as e:
+        saved = blob.get("torch_version")
+        if saved != str(torch.__version__):
+            raise ArtifactVersionError(
+                f"cannot load {model_file!r}: the program was exported "
+                f"with torch {saved} on {blob.get('platform', '?')}, this "
+                f"runtime is torch {torch.__version__}. Re-export the "
+                f"artifact with jit.save on the current toolchain.") from e
+        raise
+    exported = move_to_device_pass(exported, str(dev))
+    layer = TranslatedLayer(exported, state,
+                            n_inputs=int(blob.get("n_inputs", 1)), device=dev)
+    load.seconds = {"state": t1 - t0, "program": time.perf_counter() - t1}
+    return layer
+
+
+#: the last ``load``'s seconds: the state dict and the program
+load.seconds = {}
+
+
+_BUILTINS = frozenset({"bytearray", "bytes", "str", "int", "float",
+                       "bool", "complex", "dict", "list", "tuple", "set",
+                       "frozenset"})
+
+
+class _BuiltinsUnpickler(pickle.Unpickler):
+    """A ``.pdmodel`` holds builtins only: refuse any other class."""
+
+    def find_class(self, module, name):
+        if module == "builtins" and name in _BUILTINS:
+            return super().find_class(module, name)
+        raise pickle.UnpicklingError(
+            f"a .pdmodel holds builtins only, found {module}.{name}")

@@ -54,7 +54,7 @@ def softmax(x, axis: int = -1, dtype=None, name=None):
     """softmax over ``axis``; ``dtype`` casts the input first."""
     if isinstance(x, Tensor):
         return dispatch.call("softmax", lambda a: softmax(a, axis, dtype),
-                             [x])
+                             [x], export_attrs=lambda: {"axis": axis})
     (x,) = amp_cast("softmax", x)
     if dtype is not None:
         x = x.to(convert_dtype(dtype))

@@ -119,21 +119,27 @@ def _conv_body(a, w, b, stride, padding, dilation, groups, nd,
     return y.movedim(1, -1) if channel_last else y
 
 
-def _run(op_name, body, x, weight, bias):
+def _run(op_name, body, x, weight, bias, export_attrs=None):
     """``body(x, weight, bias)`` on torch.Tensors (after ``amp_cast``), or
-    one dispatched op on Paddle Tensors."""
+    one dispatched op on Paddle Tensors (``export_attrs()`` goes to the
+    export hooks)."""
     if isinstance(x, torch.Tensor):
         return body(*amp_cast(op_name, x, weight, bias))
     ins = [_t(x), _t(weight)] + ([] if bias is None else [_t(bias)])
     return dispatch.call(op_name, lambda a, w, *b: body(
-        a, w, b[0] if b else None), ins)
+        a, w, b[0] if b else None), ins, export_attrs=export_attrs)
 
 
 def _conv_nd(x, weight, bias, stride, padding, dilation, groups, nd,
              channel_last, op_name):
+    def export():
+        return {"stride": _ntuple(stride, nd),
+                "padding": _resolve_padding(padding, nd),
+                "dilation": _ntuple(dilation, nd), "groups": groups,
+                "channel_last": channel_last}
     return _run(op_name, lambda a, w, b: _conv_body(
         a, w, b, stride, padding, dilation, groups, nd, channel_last),
-        x, weight, bias)
+        x, weight, bias, export)
 
 
 def conv1d(x, weight, bias=None, stride=1, padding=0, dilation=1, groups=1,

@@ -16,6 +16,7 @@ from __future__ import annotations
 
 from typing import Optional, Sequence, Union
 
+import numpy as np
 import torch
 from torch.nn import functional as TF
 
@@ -37,10 +38,12 @@ def _affine(y: torch.Tensor, weight: Optional[torch.Tensor],
     return y
 
 
-def _affine_inputs(name, body, x, weight, bias, attrs=None, extra=()):
+def _affine_inputs(name, body, x, weight, bias, attrs=None, extra=(),
+                   export_attrs=None):
     """One Paddle-API norm op over x, whichever of weight/bias exist and
     the tensors ``extra`` (no gradient); ``body(a, w, b, *extra)``.
-    ``attrs`` ride the record (the lowering ignores them)."""
+    ``attrs`` ride the record (the lowering ignores them);
+    ``export_attrs()`` goes to the export hooks."""
     ins = [x] + [t for t in (weight, bias) if t is not None] + list(extra)
     has_w, has_b = weight is not None, bias is not None
     n = 1 + has_w + has_b
@@ -50,7 +53,8 @@ def _affine_inputs(name, body, x, weight, bias, attrs=None, extra=()):
         b = rest[has_w] if has_b else None
         return body(a, w, b, *rest[n - 1:])
     mask = [True] * n + [False] * len(extra) if extra else None
-    return dispatch.call(name, f, ins, attrs=attrs, differentiable_mask=mask)
+    return dispatch.call(name, f, ins, attrs=attrs, differentiable_mask=mask,
+                         export_attrs=export_attrs)
 
 
 def layer_norm(x, normalized_shape: Union[int, Sequence[int]],
@@ -114,8 +118,14 @@ def batch_norm(x: Tensor, running_mean: Tensor, running_var: Tensor,
         y = TF.batch_norm(a32, rm, rv, _f32(w), _f32(b), use_batch,
                           1.0 - momentum, epsilon)
         return (y.movedim(1, -1) if channel_last else y).to(a.dtype)
+    def export():                   # host copies, for an ONNX export only
+        return {"epsilon": epsilon, "ch_axis": -1 if channel_last else 1,
+                "has_w": weight is not None, "has_b": bias is not None,
+                "mean": running_mean.numpy().astype(np.float32),
+                "var": running_var.numpy().astype(np.float32)}
     return _affine_inputs("batch_norm", body, x, weight, bias,
-                          extra=(running_mean, running_var))
+                          extra=(running_mean, running_var),
+                          export_attrs=export)
 
 
 __all__ = ["layer_norm", "rms_norm", "batch_norm"]

@@ -59,14 +59,14 @@ def _t(x):
     return x if isinstance(x, Tensor) else as_tensor(x)
 
 
-def _run(op_name, body, x, differentiable=True):
+def _run(op_name, body, x, differentiable=True, export_attrs=None):
     """``body`` on a torch.Tensor, or one dispatched op on a Paddle
-    Tensor."""
+    Tensor (``export_attrs()`` goes to the export hooks)."""
     if isinstance(x, torch.Tensor):
         return body(x)
     return dispatch.call(op_name, body, [_t(x)],
                          differentiable_mask=None if differentiable
-                         else [False])
+                         else [False], export_attrs=export_attrs)
 
 
 def _window_pads(spatial, ksize, stride, padding, nd, ceil_mode
@@ -137,9 +137,14 @@ def _pool_nd(x, kernel_size, stride, padding, nd, channel_last, mode,
              exclusive=True, ceil_mode=False, op_name="pool"):
     ksize = _ntuple(kernel_size, nd)
     stride = _ntuple(stride if stride is not None else ksize, nd)
+    def export():
+        return {"kernel_size": ksize, "stride": stride,
+                "padding": _resolve_padding(padding, nd), "mode": mode,
+                "exclusive": exclusive, "ceil_mode": ceil_mode,
+                "channel_last": channel_last}
     return _run(op_name, lambda a: _pool_body(
         a, ksize, stride, padding, nd, channel_last, mode, exclusive,
-        ceil_mode), x)
+        ceil_mode), x, export_attrs=export)
 
 
 def avg_pool1d(x, kernel_size, stride=None, padding=0, exclusive=True,
@@ -247,7 +252,9 @@ def _adaptive_pool_nd(x, output_size, nd, channel_last, mode, op_name):
                       for i, o in enumerate(out))
         y = _ADAPTIVE[(mode, nd)](a, osize)
         return y.movedim(1, -1) if channel_last else y
-    return _run(op_name, f, x)
+    return _run(op_name, f, x, export_attrs=lambda: {
+        "output_size": output_size, "mode": mode,
+        "channel_last": channel_last})
 
 
 def adaptive_avg_pool1d(x, output_size, name=None):

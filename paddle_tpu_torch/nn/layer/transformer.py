@@ -37,7 +37,7 @@ class MultiHeadAttention(Layer):
     """q/k/v/out projections over [B, S, E] (reference:
     nn/layer/transformer.py MultiHeadAttention). Self-attention runs one
     (E, 3E) projection, the three weights concatenated, as the JAX
-    package does."""
+    package does, while the three are plain ``Linear``s."""
 
     def __init__(self, embed_dim, num_heads, dropout=0.0, kdim=None,
                  vdim=None, need_weights=False, weight_attr=None,
@@ -56,6 +56,15 @@ class MultiHeadAttention(Layer):
         self.v_proj = Linear(self.vdim, embed_dim, weight_attr, bias_attr)
         self.out_proj = Linear(embed_dim, embed_dim, weight_attr, bias_attr)
 
+    def _plain_projections(self) -> bool:
+        """Whether q/k/v are plain ``Linear``s, whose weights the
+        self-attention path concatenates: a quantized projection
+        (``QuantedLinear``) or one whose forward QAT replaced runs as
+        its own layer."""
+        return all(isinstance(p, Linear)
+                   and not getattr(p, "_qat_wrapped", False)
+                   for p in (self.q_proj, self.k_proj, self.v_proj))
+
     def _reshape_heads(self, x):
         b, s = x.shape[0], x.shape[1]
         return ops.reshape(x, [b, s, self.num_heads, self.head_dim])
@@ -69,7 +78,8 @@ class MultiHeadAttention(Layer):
         value = key if value is None else value
         if (key is query and value is query
                 and self.kdim == self.embed_dim
-                and self.vdim == self.embed_dim):
+                and self.vdim == self.embed_dim
+                and self._plain_projections()):
             w = ops.concat([self.q_proj.weight, self.k_proj.weight,
                             self.v_proj.weight], axis=1)
             b = None

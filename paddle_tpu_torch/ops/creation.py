@@ -16,6 +16,7 @@ from ..core.dtype import convert_dtype, default_float_dtype
 from ..core.generator import default_generator
 from ..core.place import current_device
 from ..core.tensor import Tensor, as_tensor, graph_break
+from .manipulation import _int
 from .registry import register
 
 __all__ = [
@@ -40,9 +41,9 @@ def to_tensor(data, dtype=None, place=None, stop_gradient=True):
 def _shape(shape):
     if isinstance(shape, Tensor):
         return tuple(int(s) for s in shape.tolist())
-    if isinstance(shape, (int, np.integer)):
-        return (int(shape),)
-    return tuple(int(s) for s in shape)
+    if isinstance(shape, (int, np.integer, torch.SymInt)):
+        return (_int(shape),)
+    return tuple(_int(s) for s in shape)
 
 
 def _float(dtype):
@@ -109,7 +110,8 @@ def arange(start=0, end=None, step=1, dtype=None, name=None):
         start, end = 0, start
     d = convert_dtype(dtype)
     if d is None:
-        d = (torch.int64 if all(isinstance(v, (int, np.integer))
+        d = (torch.int64 if all(isinstance(v, (int, np.integer,
+                                               torch.SymInt))
                                 for v in (start, end, step))
              else default_float_dtype())
     return Tensor(torch.arange(start, end, step, dtype=d,

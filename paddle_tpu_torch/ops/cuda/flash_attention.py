@@ -4,7 +4,10 @@ plain PyTorch versions and the autograd Function around them.
 Counterpart of ``paddle_tpu/ops/pallas/flash_attention.py``:
 
 * K1 ``flash_attention_fwd`` -> ``csrc/flash_attention_fwd.cu``
-  (the TPU's ``_fwd_kernel``);
+  (the TPU's ``_fwd_kernel``), reached through one ``torch.library``
+  op, ``paddle_tpu_torch::flash_attention_fwd``, so that a graph that
+  ``torch.export`` captures (``jit.save``) holds K1 as a node and not
+  the plain version's einsums;
 * K2 ``flash_attention_bwd_dq`` and K3 ``flash_attention_bwd_dkv`` ->
   ``csrc/flash_attention_bwd.cu`` (the TPU's ``_dq_kernel`` and
   ``_dkv_kernel``);
@@ -187,10 +190,25 @@ def _sizes(q, k):
     return b, h, s_q, k.shape[1], d, _DTYPE_CODE[q.dtype]
 
 
-def _fwd(q, k, v, causal, scale):
-    """K1 outside autograd; its launches count on ``flash_attention_fwd``."""
-    if not (q.is_cuda or k.is_cuda or v.is_cuda):
-        return flash_attention_fwd_plain(q, k, v, causal=causal, scale=scale)
+# K1 as one op that an exported graph holds as a node. It is declared
+# with the low-level ``torch.library.Library`` (a CPU and a CUDA kernel
+# and a fake one): ``torch.library.custom_op``'s Python wrapper added
+# more host time a call than this declaration does (PERF.md, Findings).
+# It has no autograd kernel: a call that trains goes through
+# ``FlashAttentionFunction``, whose forward runs it without grad.
+_LIB = torch.library.Library("paddle_tpu_torch", "DEF")
+_LIB.define("flash_attention_fwd(Tensor q, Tensor k, Tensor v, bool causal, "
+            "float scale) -> (Tensor, Tensor)")
+
+
+def _fwd_cpu(q, k, v, causal, scale):
+    """The op on CPU tensors: the plain version."""
+    return flash_attention_fwd_plain(q, k, v, causal=causal, scale=scale)
+
+
+def _fwd_cuda(q, k, v, causal, scale):
+    """The op on CUDA tensors: the launch, or a raise; it counts on
+    ``flash_attention_fwd.launches``."""
     name = "flash_attention_fwd"
     _check(name, q, k, v)
     b, s_q, h, d = q.shape
@@ -202,6 +220,26 @@ def _fwd(q, k, v, causal, scale):
             *v.stride()[:3], *_sizes(q, k), float(scale), int(bool(causal)))
     flash_attention_fwd.launches += 1
     return out, lse
+
+
+def _fwd_fake(q, k, v, causal, scale):
+    """The shapes ``torch.export`` traces with (no storage to launch on)."""
+    b, s_q, h, d = q.shape
+    return (q.new_empty((b, s_q, h, d)),
+            q.new_empty((b, h, s_q), dtype=torch.float32))
+
+
+_LIB.impl("flash_attention_fwd", _fwd_cpu, "CPU")
+_LIB.impl("flash_attention_fwd", _fwd_cuda, "CUDA")
+torch.library.register_fake("paddle_tpu_torch::flash_attention_fwd",
+                            _fwd_fake, lib=_LIB)
+_fwd_op = torch.ops.paddle_tpu_torch.flash_attention_fwd.default
+
+
+def _fwd(q, k, v, causal, scale):
+    """K1 outside autograd: the ``paddle_tpu_torch::flash_attention_fwd``
+    op (its launches count on ``flash_attention_fwd``)."""
+    return _fwd_op(q, k, v, bool(causal), float(scale))
 
 
 def flash_attention_bwd_dq(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

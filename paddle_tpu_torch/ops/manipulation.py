@@ -31,11 +31,18 @@ def _t(x):
     return x if isinstance(x, Tensor) else as_tensor(x)
 
 
+def _int(v):
+    """A size as an int; a symbolic size (``torch.export``) passes as it
+    is, so an exported program keeps its dynamic dims."""
+    if isinstance(v, Tensor):
+        return int(v.item())
+    return v if isinstance(v, torch.SymInt) else int(v)
+
+
 def _ints(seq):
     if isinstance(seq, Tensor):
         return tuple(int(v) for v in seq.tolist())
-    return tuple(int(v.item()) if isinstance(v, Tensor) else int(v)
-                 for v in seq)
+    return tuple(_int(v) for v in seq)
 
 
 def _swap(x: Tensor, out: Tensor) -> Tensor:
@@ -77,7 +84,9 @@ def flatten(x, start_axis=0, stop_axis=-1, name=None):
         if a.dim() == 0:
             return a.reshape(1)
         return a.flatten(s, e)
-    return dispatch.call("flatten", f, [xt])
+    return dispatch.call("flatten", f, [xt],
+                         export_attrs=lambda: {"start_axis": s,
+                                               "stop_axis": e})
 
 
 @register("squeeze", category="manipulation")

@@ -1,0 +1,29 @@
+"""LeNet (counterpart of ``paddle_tpu/vision/models/small_nets.py``;
+reference: python/paddle/vision/models/lenet.py). The JAX module's
+AlexNet, SqueezeNet and ShuffleNetV2 are still to port."""
+from __future__ import annotations
+
+from ... import nn
+
+
+class LeNet(nn.Layer):
+    """Reference lenet.py LeNet (the vision-zoo variant)."""
+
+    def __init__(self, num_classes=10):
+        super().__init__()
+        self.num_classes = num_classes
+        self.features = nn.Sequential(
+            nn.Conv2D(1, 6, 3, stride=1, padding=1), nn.ReLU(),
+            nn.MaxPool2D(2, 2),
+            nn.Conv2D(6, 16, 5, stride=1, padding=0), nn.ReLU(),
+            nn.MaxPool2D(2, 2))
+        if num_classes > 0:
+            self.fc = nn.Sequential(
+                nn.Linear(400, 120), nn.Linear(120, 84),
+                nn.Linear(84, num_classes))
+
+    def forward(self, x):
+        x = self.features(x)
+        if self.num_classes > 0:
+            x = self.fc(x.reshape([x.shape[0], -1]))
+        return x

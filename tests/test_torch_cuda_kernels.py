@@ -803,3 +803,87 @@ def test_save_load_round_trips_cuda_tensors(tmp_path):
         assert torch.equal(bits(got[k]), bits(v)), k
         assert host[k]._data.device.type == "cpu", k
         assert torch.equal(bits(host[k]), bits(got[k]).cpu()), k
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+def test_k1_op_equals_the_direct_launch(dtype):
+    """``paddle_tpu_torch::flash_attention_fwd`` on CUDA tensors is the
+    launch itself (bit for bit), counted once."""
+    _card()
+    from paddle_tpu_torch.ops.cuda import flash_attention as fa
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(11)
+    q, k, v = (torch.randn((2, 200, 4, 64), generator=gen, device="cuda")
+               .to(dtype) for _ in range(3))
+    before = flash_attention_fwd.launches
+    out, lse = torch.ops.paddle_tpu_torch.flash_attention_fwd(
+        q, k, v, True, 0.125)
+    torch.cuda.synchronize()
+    assert flash_attention_fwd.launches == before + 1
+    ref, ref_lse = fa._fwd_cuda(q, k, v, True, 0.125)
+    assert torch.equal(out, ref) and torch.equal(lse, ref_lse)
+
+
+@pytest.mark.cuda
+def test_k1_op_raises_where_the_kernel_does_not_run():
+    """The op has no plain fallback on the card: head_dim 32 raises and
+    launches nothing."""
+    _card()
+    x = torch.randn((1, 8, 2, 32), device="cuda")
+    before = flash_attention_fwd.launches
+    with pytest.raises(ValueError, match="head_dim"):
+        torch.ops.paddle_tpu_torch.flash_attention_fwd(x, x, x, False, 0.1)
+    assert flash_attention_fwd.launches == before
+
+
+@pytest.mark.cuda
+def test_translated_layer_launches_k1(tmp_path):
+    """A tiny BERT saved on the CPU, loaded on the card, launches K1 once a
+    layer and gives the CPU model's logits; the same model saved on the
+    card and loaded under ``set_device("cpu")`` runs on the CPU."""
+    _card()
+    import numpy as np
+
+    import paddle_tpu_torch as tp
+    from paddle_tpu_torch.models import bert
+    from paddle_tpu_torch.static import InputSpec
+    cfg = bert.BertConfig(vocab_size=100, hidden_size=128,
+                          num_hidden_layers=2, num_attention_heads=2,
+                          intermediate_size=256, max_position_embeddings=64,
+                          hidden_dropout_prob=0.0,
+                          attention_probs_dropout_prob=0.0)
+    rng = np.random.RandomState(0)
+    ids = rng.randint(0, 100, (3, 40)).astype(np.int64)
+    tt = rng.randint(0, 2, (3, 40)).astype(np.int64)
+    spec = [InputSpec([-1, -1], "int64")] * 2
+    with tp.device_guard("cpu"):
+        tp.seed(0)
+        cpu_model = bert.BertForSequenceClassification(cfg)
+        cpu_model.eval()
+        want = cpu_model(tp.to_tensor(ids, dtype="int64"),
+                         tp.to_tensor(tt, dtype="int64")).numpy()
+        tp.jit.save(cpu_model, str(tmp_path / "cpu"), input_spec=spec)
+        state = {k: v.numpy() for k, v in cpu_model.state_dict().items()}
+    with tp.device_guard("gpu:0"):
+        loaded = tp.jit.load(str(tmp_path / "cpu"))
+        before = (flash_attention_fwd.launches,
+                  flash_attention_bwd_dq.launches)
+        got = loaded(tp.to_tensor(ids, dtype="int64"),
+                     tp.to_tensor(tt, dtype="int64"))
+        torch.cuda.synchronize()
+        assert got._data.is_cuda
+        assert (flash_attention_fwd.launches,
+                flash_attention_bwd_dq.launches) == (before[0] + 2,
+                                                     before[1])
+        assert np.abs(got.numpy() - want).max() <= 1e-3
+        card_model = bert.BertForSequenceClassification(cfg)
+        card_model.set_state_dict(state)
+        tp.jit.save(card_model, str(tmp_path / "card"), input_spec=spec)
+    with tp.device_guard("cpu"):
+        before = flash_attention_fwd.launches
+        host = tp.jit.load(str(tmp_path / "card"))(
+            tp.to_tensor(ids, dtype="int64"), tp.to_tensor(tt, dtype="int64"))
+        assert host._data.device.type == "cpu"
+        assert flash_attention_fwd.launches == before
+        assert np.abs(host.numpy() - want).max() <= 1e-5

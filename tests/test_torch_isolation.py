@@ -50,6 +50,7 @@ _IMPORT_ALL = textwrap.dedent("""
                     and m.split(".")[0] in ("jax", "jaxlib", "paddle_tpu",
                                             "ml_dtypes"))
     assert not leaked, leaked
+    print(" ".join(names))
     print(len(names))
 """)
 
@@ -66,9 +67,16 @@ def test_imports_without_jax_or_paddle_tpu():
     # the serving tier's observability, fault, watchdog, router, stream
     # and tools modules, and the checkpoint slice's framework (io,
     # random), fault (retry, checkpoint_manager) and hapi (summary,
-    # dynamic_flops) modules, and the capture slice's jit (program,
-    # traced_layer) and static modules
-    assert int(proc.stdout.split()[-1]) >= 117
+    # dynamic_flops) modules, the capture slice's jit (program,
+    # traced_layer) and static modules, and the deployment slice's
+    # quantization, onnx (proto, runtime) and vision.models.small_nets
+    lines = proc.stdout.split()
+    assert int(lines[-1]) >= 121
+    for name in ("paddle_tpu_torch.quantization", "paddle_tpu_torch.onnx",
+                 "paddle_tpu_torch.onnx.proto",
+                 "paddle_tpu_torch.onnx.runtime",
+                 "paddle_tpu_torch.vision.models.small_nets"):
+        assert name in lines, name
 
 
 def test_no_silent_cpu_without_cuda():
@@ -184,3 +192,33 @@ def test_cpu_paddle_api_bert_step_launches_nothing():
     assert (fa.flash_attention_fwd.launches,
             fa.flash_attention_bwd_dq.launches,
             fa.flash_attention_bwd_dkv.launches) == (0, 0, 0)
+
+
+def test_a_saved_program_needs_cuda_or_set_device_cpu(tmp_path):
+    """``jit.load`` moves the program and its state to the current device,
+    so without a card an artifact refuses to load (and the predictor to
+    start) unless the caller asked for the CPU; under
+    ``set_device("cpu")`` it runs there and launches nothing. (An
+    artifact exported on the card, loaded on the CPU:
+    ``test_torch_cuda_kernels.py::test_translated_layer_launches_k1``.)"""
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device is real")
+    from paddle_tpu_torch.static import InputSpec
+    with paddle_tpu_torch.device_guard("cpu"):
+        net = paddle_tpu_torch.nn.Linear(8, 4)
+        path = str(tmp_path / "lin")
+        paddle_tpu_torch.jit.save(net, path, input_spec=[InputSpec([-1, 8])])
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        paddle_tpu_torch.jit.load(path)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        paddle_tpu_torch.inference.create_predictor(
+            paddle_tpu_torch.inference.Config(path))
+    with paddle_tpu_torch.device_guard("cpu"):
+        loaded = paddle_tpu_torch.jit.load(path)
+        x = np.ones((3, 8), np.float32)
+        out = loaded(paddle_tpu_torch.to_tensor(x))
+        assert out._data.device.type == "cpu"
+        np.testing.assert_allclose(out.numpy(),
+                                   net(paddle_tpu_torch.to_tensor(x)).numpy(),
+                                   atol=1e-6)
+    assert fa.flash_attention_fwd.launches == 0

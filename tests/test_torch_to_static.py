@@ -510,7 +510,7 @@ def test_hapi_fit_over_a_to_static_network():
     assert nets[1].forward._programs
 
 
-def test_traced_layer():
+def test_traced_layer(tmp_path):
     net = _mlp(tp, MLP)
     rng = np.random.RandomState(3)
     x, x2 = (tp.to_tensor(rng.randn(4, 8).astype(np.float32))
@@ -518,5 +518,8 @@ def test_traced_layer():
     out, traced = tp.jit.TracedLayer.trace(net, [x])
     np.testing.assert_array_equal(out.numpy(), net(x).numpy())
     np.testing.assert_array_equal(traced([x2]).numpy(), net(x2).numpy())
-    with pytest.raises(NotImplementedError, match="jit.save"):
-        traced.save_inference_model("unused")
+    path = traced.save_inference_model(str(tmp_path / "traced"))
+    np.testing.assert_allclose(tp.jit.load(path)(x2).numpy(),
+                               net(x2).numpy(), atol=1e-6)
+    with pytest.raises(NotImplementedError, match="feed"):
+        traced.save_inference_model(str(tmp_path / "feed"), feed=[0])
