@@ -235,9 +235,42 @@ Phases, in order; any failure exits non-zero and nothing is caught:
              with the card. Written under a tempfile.mkdtemp() directory,
              deleted after.
 
+* distributed -- paddle_tpu_torch.distributed on NCCL: prints ``nvidia-smi
+             topo -m``, the NCCL version and the card, builds the flash
+             kernels once, then runs one rank a card
+             (torch.cuda.device_count()) through the port's launcher
+             (python -m paddle_tpu_torch.distributed.launch; each rank is
+             this script with --dist-rank). Each rank: every collective
+             on the world and on each axis group of a dp x mp mesh (mp 2
+             on an even world), fp32 and bf16 on integer-valued data,
+             exactly equal to the host's result; all_reduce's bus
+             bandwidth at 256 MB; K1-K3 on its own card against their
+             plain versions at GPT-2 345M's attention under dp2 x mp2
+             (B4 S1024 H8 d64, bf16, q/k/v views), at the padded head
+             dims 32 and 96 (fp32, bf16) and at the tiny GPT's shapes of
+             the parity run below (S16 d16, its batch rows and heads a
+             rank, fp32 causal views), then timed at the TP shape
+             beside bound and SDPA. Then the main path: the tiny fp32
+             GPT of the JAX TestDistBase (d=16, padded) trained 6 AdamW
+             steps at dp N, dp N/2 x mp 2 and dp N/2 x sharding 2, the
+             mean loss over the ranks within 2e-4 of every rank's own
+             one-card run of the same batch and weights; GPT-2 345M
+             (bf16 weights, fp32 masters, O1, S1024) alone on each card
+             at B8, at dp N with B8 a card (DataParallel's reducer) and
+             at dp N/2 x mp 2 at a global batch of 8 (bench.py
+             _bench_spmd_auto's fleet leg), 2 + 10 steps: one JSON line
+             each (step ms and quartiles, global tokens/s, MFU a card,
+             peak GB, launches, reducer buckets, scaling efficiency
+             against N times the one-card rate). On one card the world is
+             1 and the strategies that need more cards are named. Every
+             step of the ranks launches K1 once a layer forward and K2
+             and K3 once a layer backward; their launches are the
+             phase's. Gloo never runs here; a failed rank fails the
+             phase.
+
 The forward, serve, serve_llama, serve_tier, train, fusion, rungs,
-paddle_api, paddle_static, checkpoint, vision and deploy phases are the
-main path (serve_tier and vision
+paddle_api, paddle_static, checkpoint, vision, deploy and distributed
+phases are the main path (serve_tier and vision
 launch no kernel: the tier is host code over the engine, and its LLaMA
 runs without flash attention, as bench.py's rungs do; ResNet's
 convolutions and pools are cuDNN's and torch's, as the JAX package's are
@@ -248,8 +281,9 @@ power limit from nvidia-smi, and {"ok": true, "device": {...}}.
 ``--profile`` adds a torch.profiler breakdown of a bf16 forward, a GPT-2
 and a LLaMA engine run, one training step, a fused and an unfused step of
 each fusion path, one step of each rung, one BERT-base step (and one of
-each of paddle_static's four BERT-base runs), one ResNet-50 rung step and
-one Predictor.run of each deployed BERT-base at B48 S512.
+each of paddle_static's four BERT-base runs), one ResNet-50 rung step,
+one Predictor.run of each deployed BERT-base at B48 S512 and, on rank 0,
+one GPT-2 345M step of each distributed run (alone, dp, dp x mp).
 """
 from __future__ import annotations
 
@@ -274,10 +308,11 @@ import torch
 
 PHASES = ("build", "kernel", "fused_kernel", "forward", "serve",
           "serve_llama", "serve_tier", "train", "fusion", "rungs",
-          "paddle_api", "paddle_static", "checkpoint", "vision", "deploy")
+          "paddle_api", "paddle_static", "checkpoint", "vision", "deploy",
+          "distributed")
 MAIN_PATH = ("forward", "serve", "serve_llama", "serve_tier", "train",
              "fusion", "rungs", "paddle_api", "paddle_static", "checkpoint",
-             "vision", "deploy")
+             "vision", "deploy", "distributed")
 PATH_SHAPE = dict(b=4, s=1024, h=12, d=64)      # GPT-2 small serving
 TRAIN_SHAPE = dict(b=8, s=1024, h=16, d=64)     # GPT-2 345M training
 LLAMA_ATTN_SHAPE = dict(b=4, s=2048, h=12, d=128)   # LLaMA-770M fusion path
@@ -4397,6 +4432,511 @@ def phase_deploy(state):
     log(f"deploy: {time.perf_counter() - t0:.1f} s")
 
 
+# ------------------------------------------------------------ distributed
+# the tiny GPT of the JAX package's TestDistBase (tests/dist_train_worker.py)
+DIST_TINY = dict(vocab_size=128, hidden_size=32, num_layers=2, num_heads=2,
+                 max_seq_len=16)
+DIST_TINY_BATCH = 8
+DIST_PARITY_STEPS = 6
+DIST_PARITY_TOL = 2e-4      # tests/test_multiproc_train.py:128-132
+DIST_PARITY_LR = 1e-2
+# GPT-2 345M's attention on a rank of dp2 x mp2 at a global batch of 8
+DIST_TP_SHAPE = dict(b=4, s=1024, h=8, d=64)
+DIST_PADDED = ((2, 300, 4, 32), (2, 300, 4, 96))    # (B, S, H, d)
+DIST_BATCH = 8              # bench.py's rung batch, a card for dp
+DIST_STEPS = 10             # timed, after DIST_WARMUP
+DIST_WARMUP = 2
+BUS_BW_BYTES = 256 * 2 ** 20
+BUS_BW_ITERS = 20
+DIST_TIMEOUT = 840
+_FLASH = ("flash_attention_fwd", "flash_attention_bwd_dq",
+          "flash_attention_bwd_dkv")
+
+
+def _dist_mesh(n):
+    """(dp, mp) of the collectives' mesh on ``n`` ranks."""
+    mp = 2 if n % 2 == 0 else 1
+    return n // mp, mp
+
+
+def _dist_data(rank, rows, dtype):
+    """Rank ``rank``'s integer-valued tensor (rows, 3) on its card."""
+    base = torch.arange(rows * 3, dtype=torch.float32).reshape(rows, 3)
+    return (torch.remainder(base, 7) - 3 + rank).to(dtype).cuda()
+
+
+def _dist_expected(name, members, i, rows, dtype):
+    """What group rank ``i`` of ``members`` (global ranks, group order)
+    must hold after collective ``name``, on the host."""
+    xs = [_dist_data(m, rows, dtype).cpu() for m in members]
+    n = len(members)
+    chunk = lambda t, j: t.chunk(n, 0)[j]
+    stack = torch.stack(xs).float()
+    table = {
+        "all_reduce.sum": lambda: stack.sum(0),
+        "all_reduce.max": lambda: stack.amax(0),
+        "all_reduce.min": lambda: stack.amin(0),
+        "all_reduce.prod": lambda: stack.prod(0),
+        "all_reduce.avg": lambda: stack.sum(0) / n,
+        "all_gather": lambda: stack,
+        "reduce_scatter": lambda: chunk(stack.sum(0), i),
+        "broadcast": lambda: xs[-1],
+        "reduce": lambda: stack.sum(0),
+        "scatter": lambda: chunk(xs[0], i),
+        "alltoall": lambda: torch.cat([chunk(x, i) for x in xs]),
+        "ring": lambda: xs[(i - 1) % n],
+    }
+    return table[name]().to(dtype)
+
+
+def _dist_collectives(dist, mesh, rank):
+    """Every collective on the world and on each axis group, fp32 and
+    bf16 on integer-valued data: each rank's result exactly equal to the
+    host's; returns the count of checks."""
+    groups = {"world": dist.get_default_group()}
+    for axis in mesh.axis_names:
+        groups[axis] = mesh.group((axis,))
+    checks, bad = 0, []
+    for dtype in (torch.float32, torch.bfloat16):
+        for gname, g in groups.items():
+            n, i, members = g.nranks, g.rank, g.ranks
+            rows = 4 * n
+            x = _dist_data(rank, rows, dtype)
+            got = {}
+            for op in ("sum", "max", "min", "prod", "avg"):
+                t = x.clone()
+                dist.all_reduce(t, op=op, group=g)
+                got[f"all_reduce.{op}"] = t
+            parts = []
+            dist.all_gather(parts, x, group=g)
+            got["all_gather"] = torch.stack(parts)
+            got["reduce_scatter"] = dist.reduce_scatter(None, x.clone(),
+                                                        group=g)
+            t = x.clone()
+            dist.broadcast(t, src=members[-1], group=g)
+            got["broadcast"] = t
+            t = x.clone()
+            dist.reduce(t, dst=members[0], group=g)
+            if i == 0:
+                got["reduce"] = t
+            t = torch.empty_like(x.chunk(n, 0)[0])
+            dist.scatter(t, list(x.chunk(n, 0)) if i == 0 else None,
+                         src=members[0], group=g)
+            got["scatter"] = t
+            outs = []
+            dist.alltoall(outs, [c.contiguous() for c in x.chunk(n, 0)],
+                          group=g)
+            got["alltoall"] = torch.cat(outs)
+            single = dist.alltoall_single(None, x.clone(), group=g)
+            if n > 1:
+                recv = torch.empty_like(x)
+                for task in dist.batch_isend_irecv([
+                        dist.P2POp(dist.isend, x, members[(i + 1) % n], g),
+                        dist.P2POp(dist.irecv, recv, members[(i - 1) % n],
+                                   g)]):
+                    task.wait()
+                got["ring"] = recv
+                if gname != "world":
+                    shifted = dist.shift_along_axis(x, gname, 1, mesh)
+                    if not torch.equal(shifted.cpu(), recv.cpu()):
+                        bad.append(f"{gname} shift {dtype}")
+            if not torch.equal(single.cpu(), got["alltoall"].cpu()):
+                bad.append(f"{gname} alltoall_single {dtype}")
+            objs = []
+            dist.all_gather_object(objs, (rank, i), group=g)
+            if objs != [(m, k) for k, m in enumerate(members)]:
+                bad.append(f"{gname} all_gather_object {objs}")
+            olist = [rank]
+            dist.broadcast_object_list(olist, src=members[0], group=g)
+            if olist != [members[0]]:
+                bad.append(f"{gname} broadcast_object_list {olist}")
+            dist.barrier(g)
+            for name, t in got.items():
+                want = _dist_expected(name, members, i, rows, dtype)
+                checks += 1
+                if not torch.equal(t.cpu(), want):
+                    bad.append(f"{gname} {name} {dtype}: max diff "
+                               f"{(t.cpu().float() - want.float()).abs().max()}")
+    if bad:
+        raise AssertionError(f"rank {rank}: collectives disagree: {bad}")
+    return checks
+
+
+def _dist_bus_bandwidth(dist, n):
+    """all_reduce of BUS_BW_BYTES fp32 over the world: (median ms,
+    algorithm GB/s, bus GB/s) by CUDA events; bus = alg * 2(n-1)/n."""
+    x = torch.ones(BUS_BW_BYTES // 4, device="cuda")
+    ms, q1, q3 = time_ms(lambda: dist.all_reduce(x), iters=BUS_BW_ITERS,
+                         warmup=5)
+    alg = BUS_BW_BYTES / (ms / 1e3) / 1e9
+    return {"bytes": BUS_BW_BYTES, "ms": ms, "ms_q1": q1, "ms_q3": q3,
+            "algbw_gb_s": alg,
+            "busbw_gb_s": alg * 2 * (n - 1) / n if n > 1 else None}
+
+
+def _dist_tiny_shapes(n):
+    """(B, S, H, d) of every attention the parity run gives K1-K3 on
+    ``n`` ranks: the one-card run's, and each strategy's (its rows of the
+    batch, its heads)."""
+    t = DIST_TINY
+    d = t["hidden_size"] // t["num_heads"]
+    shapes = {(DIST_TINY_BATCH, t["max_seq_len"], t["num_heads"], d)}
+    for hybrid in _dist_strategies(n)[0].values():
+        shards = hybrid.get("dp_degree", 1) * hybrid.get("sharding_degree", 1)
+        shapes.add((DIST_TINY_BATCH // shards, t["max_seq_len"],
+                    t["num_heads"] // hybrid.get("mp_degree", 1), d))
+    return sorted(shapes)
+
+
+def _dist_kernels(rank, n):
+    """K1-K3 on this rank's card, held against their plain versions at the
+    TP shape (bf16, q/k/v views of one projection), at the padded head
+    dims (fp32 and bf16) and at the tiny GPT's shapes of the parity run
+    on ``n`` ranks (d=16, fp32, causal, views); then timed at the TP
+    shape. Not counted."""
+    import paddle_tpu_torch.ops.cuda.flash_attention as fa
+    counts = _counts()
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(4242 + rank)
+    t = DIST_TP_SHAPE
+    cases = [(t["b"], t["s"], t["h"], t["d"], torch.bfloat16, True)]
+    cases += [(*shape, dtype, False) for shape in DIST_PADDED
+              for dtype in (torch.float32, torch.bfloat16)]
+    cases += [(*shape, torch.float32, True) for shape in _dist_tiny_shapes(n)]
+    held = []
+    for b, s, h, d, dtype, strided in cases:
+        fwd_tol = FP32_TOL if dtype == torch.float32 else BF16_TOL
+        err, lse_err, _ = _kernel_case(fa, b, s, s, h, d, True, strided,
+                                       dtype, gen)
+        q, k, v, do = _bwd_inputs(b, s, s, h, d, dtype, gen, strided)
+        errs, blind = _bwd_case(fa, q, k, v, do, True)
+        bwd = [e[0] if dtype == torch.float32 else e[1] for e in errs]
+        label = f"B{b} S{s} H{h} d{d} {str(dtype)[6:]}"
+        held.append({"shape": label, "k1_err": err, "k1_lse_err": lse_err,
+                     "k2_k3_err": max(bwd)})
+        if not (err <= fwd_tol and lse_err <= fwd_tol
+                and max(bwd) <= BWD_LIMITS[dtype]):
+            raise AssertionError(f"rank {rank}: K1-K3 disagree with their "
+                                 f"plain versions at {label}: {held[-1]}")
+    timed = {"flash_attention_fwd": _time_fwd(fa, gen, t)}
+    timed.update(_time_bwd(fa, gen, t))
+    for name, n in counts.items():
+        _wrapper(name).launches = n
+    return held, timed
+
+
+def _dist_strategies(n):
+    """name -> hybrid_configs of the strategies this world runs, and the
+    names of those it needs more cards for."""
+    out = {f"dp{n}": {"dp_degree": n}}
+    if n >= 2 and n % 2 == 0:
+        out[f"dp{n // 2}_mp2"] = {"dp_degree": n // 2, "mp_degree": 2}
+        out[f"dp{n // 2}_sharding2"] = {"dp_degree": n // 2,
+                                        "sharding_degree": 2}
+    need = [name for name in ("dp_mp2", "dp_sharding2") if n < 2]
+    return out, need
+
+
+def _dist_fleet(fleet, hybrid):
+    strategy = fleet.DistributedStrategy()
+    strategy.hybrid_configs = hybrid
+    fleet.init(is_collective=True, strategy=strategy)
+    return fleet.get_hybrid_communicate_group()
+
+
+def _data_shard(hcg):
+    """(index, count) of this rank's share of the global batch: its
+    coordinate over the axes that see different data (dp, sharding)."""
+    ns = hcg.get_sharding_parallel_world_size()
+    return (hcg.get_data_parallel_rank() * ns
+            + hcg.get_sharding_parallel_rank(),
+            hcg.get_data_parallel_world_size() * ns)
+
+
+def _dist_parity(dist, fleet, n):
+    """The tiny fp32 GPT (d=16: K1-K3 on zero-padded copies) trained
+    DIST_PARITY_STEPS AdamW steps on one card (every rank alone, the
+    whole batch) and under each strategy (this rank's rows), from the
+    same seeded weights: the mean loss over the ranks within
+    DIST_PARITY_TOL of the card's, every step launching K1-K3 once a
+    layer."""
+    from paddle_tpu_torch.models import GPTConfig, GPTForCausalLM
+    from paddle_tpu_torch.optimizer import AdamW
+    batch = torch.from_numpy(np.random.RandomState(0).randint(
+        0, DIST_TINY["vocab_size"], (DIST_TINY_BATCH,
+                                     DIST_TINY["max_seq_len"]))).cuda()
+    want = _flash_launches(DIST_TINY["num_layers"])
+
+    def run(model, opt, ids):
+        return [float(_train_step(model, opt, ids, *want))
+                for _ in range(DIST_PARITY_STEPS)]
+    single = GPTForCausalLM(GPTConfig(**DIST_TINY), device="cuda", seed=9)
+    ref = run(single, AdamW(learning_rate=DIST_PARITY_LR,
+                            parameters=single.named_parameters()), batch)
+    strategies, need = _dist_strategies(n)
+    rows = {}
+    for name, hybrid in strategies.items():
+        hcg = _dist_fleet(fleet, hybrid)
+        model = GPTForCausalLM(GPTConfig(
+            mp_degree=hcg.get_model_parallel_world_size(), **DIST_TINY),
+            device="cuda", seed=9)
+        model = fleet.distributed_model(model)
+        opt = fleet.distributed_optimizer(AdamW(
+            learning_rate=DIST_PARITY_LR,
+            parameters=model.named_parameters()))
+        index, shards = _data_shard(hcg)
+        per = DIST_TINY_BATCH // shards
+        losses = run(model, opt, batch[index * per:(index + 1) * per])
+        every = []
+        dist.all_gather_object(every, losses)
+        mean = np.mean(every, axis=0)
+        diff = float(np.abs(mean - np.asarray(ref)).max())
+        rows[name] = {"max_abs_diff_to_one_card": diff,
+                      "losses_mean_over_ranks": mean.tolist()}
+        if not diff <= DIST_PARITY_TOL:
+            raise AssertionError(f"parity {name}: {mean} against one card's "
+                                 f"{ref} (max diff {diff})")
+    return {"one_card_losses": ref, "strategies": rows,
+            "need_more_cards": need, "tolerance": DIST_PARITY_TOL}
+
+
+def _dist_rung(dist, fleet, label, hybrid, batch_a_rank, card,
+               profile=False):
+    """GPT-2 345M (bf16 weights, fp32 masters, bench.py's AdamW, O1) for
+    DIST_WARMUP + DIST_STEPS steps on this rank's batch, under ``hybrid``
+    (None: alone on this card, no fleet). Returns this rank's row and
+    its launches. With ``profile`` every rank takes one more step, rank
+    0 under torch.profiler (the row gets its device-busy share and its
+    device time by group)."""
+    from paddle_tpu_torch.models import GPTForCausalLM, gpt2_medium
+    s = TRAIN_SHAPE["s"]
+    mp = 1 if hybrid is None else hybrid.get("mp_degree", 1)
+    hcg = None if hybrid is None else _dist_fleet(fleet, hybrid)
+    cfg = gpt2_medium(mp_degree=mp)
+    model = GPTForCausalLM(cfg, device="cuda", dtype="bfloat16",
+                           seed=5).train()
+    opt = _rung_adamw(model)
+    flops_per_token = model.flops_per_token()
+    if hcg is not None:
+        model = fleet.distributed_model(model)
+        opt = fleet.distributed_optimizer(opt)
+        index, _ = _data_shard(hcg)
+    else:
+        index = 0
+    batches = _rung_batches(cfg.vocab_size, batch_a_rank, s, 100 + 2 * index)
+    fwd, bwd = _flash_launches(cfg.num_layers)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    c0 = _counts()
+    walls, losses = [], []
+    for k in range(DIST_WARMUP + DIST_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss = _train_step(model, opt, batches[k % 2], fwd, bwd, amp_kw=O1)
+        torch.cuda.synchronize()
+        if k >= DIST_WARMUP:
+            walls.append(time.perf_counter() - t0)
+        losses.append(float(loss.detach()))
+    launched = _launched(c0, _counts())
+    prof = None
+    if profile:
+        step = lambda: _train_step(model, opt, batches[0], fwd, bwd,
+                                   amp_kw=O1)
+        if torch.distributed.get_rank() == 0:
+            prof = _profile(f"{label} step", step, groups={
+                "K1-K3 attention": ("flash_fwd", "dq_", "dkv_"),
+                "NCCL": ("nccl",),
+                "cuBLAS GEMM": ("nvjet", "xmma", "cutlass", "cublas",
+                                "gemm"),
+                "elementwise and reductions": ("elementwise", "reduce",
+                                               "vectorized")})
+        else:
+            step()
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"{label}: losses {losses}")
+    q1, median, q3 = statistics.quantiles(walls, n=4)
+    world = 1 if hcg is None else dist.get_world_size()
+    shards = 1 if hcg is None else _data_shard(hcg)[1]
+    tokens = batch_a_rank * s * shards          # the global batch
+    row = {"distributed": label, "card": card, "world": world,
+           "hybrid": hybrid, "global_batch": batch_a_rank * shards,
+           "seq": s, "step_ms": median * 1e3, "step_ms_q1": q1 * 1e3,
+           "step_ms_q3": q3 * 1e3, "tokens_per_s": tokens / median,
+           "mfu_a_card": flops_per_token * tokens / median / world
+           / BF16_FLOP_PER_S,
+           "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "launches_over_steps": launched,
+           "reducer_buckets": getattr(model, "bucket_count", None),
+           "loss_first": losses[0], "loss_last": losses[-1]}
+    if prof is not None:
+        row["profiled_step"] = {k: prof[k] for k in (
+            "wall_s", "device_busy_s", "device_busy_share",
+            "host_kernel_launches", "groups")}
+    del model, opt, batches
+    torch.cuda.empty_cache()
+    return row, launched
+
+
+def _dist_rank(outdir, profile=False):
+    """One rank of the distributed phase (run by the port's launcher)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    import paddle_tpu_torch.distributed as dist
+    from paddle_tpu_torch.distributed import fleet
+    dist.init_parallel_env()
+    rank, n = dist.get_rank(), dist.get_world_size()
+    backend = torch.distributed.get_backend()
+    if backend != "nccl" or n != int(os.environ["WORLD_SIZE"]):
+        raise AssertionError(f"rank {rank}: backend {backend}, world {n}")
+    card = _card_line()
+    out = {"rank": rank, "world": n, "device": torch.cuda.current_device(),
+           "device_name": torch.cuda.get_device_name()}
+    dp, mp = _dist_mesh(n)
+    mesh = dist.build_mesh({"dp": dp, "mp": mp})
+    t0 = time.perf_counter()
+    out["collective_checks"] = _dist_collectives(dist, mesh, rank)
+    out["collectives_s"] = time.perf_counter() - t0
+    out["bus_bandwidth"] = _dist_bus_bandwidth(dist, n)
+    out["kernels_held"], out["kernels_timed"] = _dist_kernels(rank, n)
+    dist.barrier()
+    # the main path: every launch from here on counts
+    for name in KERNELS:
+        _wrapper(name).launches = 0
+    t0 = time.perf_counter()
+    out["parity"] = _dist_parity(dist, fleet, n)
+    out["parity_s"] = time.perf_counter() - t0
+    rungs = {}
+    if n > 1:
+        rungs["one_card"], _ = _dist_rung(dist, fleet, "gpt2_medium one "
+                                          "card", None, DIST_BATCH, card,
+                                          profile)
+    rungs["dp"], _ = _dist_rung(dist, fleet, f"gpt2_medium dp{n}",
+                                {"dp_degree": n}, DIST_BATCH, card, profile)
+    if n >= 2 and n % 2 == 0:
+        rungs["dp_mp"], _ = _dist_rung(
+            dist, fleet, f"gpt2_medium dp{n // 2} x mp2 (bench.py "
+            f"_bench_spmd_auto's fleet leg)",
+            {"dp_degree": n // 2, "mp_degree": 2}, DIST_BATCH // (n // 2),
+            card, profile)
+    out["rungs"] = rungs
+    out["launches"] = _counts()
+    with open(os.path.join(outdir, f"rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def _free_port():
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def phase_distributed(state):
+    """paddle_tpu_torch.distributed on NCCL: every card a rank through the
+    port's launcher (module docstring). The ranks' K1-K3 launches over
+    their main path are added to the main path's."""
+    from paddle_tpu_torch.ops.cuda import _build
+    t_phase = time.perf_counter()
+    n = torch.cuda.device_count()
+    topo = subprocess.run(["nvidia-smi", "topo", "-m"], capture_output=True,
+                          text=True, timeout=60)
+    log("distributed: nvidia-smi topo -m\n"
+        + (topo.stdout + topo.stderr).rstrip())
+    peers = [[i == j or torch.cuda.can_device_access_peer(i, j)
+              for j in range(n)] for i in range(n)]
+    log(f"distributed: peer access (torch.cuda.can_device_access_peer) "
+        f"{peers}")
+    card = _card_line()
+    nccl = ".".join(str(v) for v in torch.cuda.nccl.version())
+    log(f"distributed: {n} card(s), NCCL {nccl}, {card}")
+    # build once here, before the ranks start (they find the libraries)
+    _build.build_all(["flash_attention_fwd", "flash_attention_bwd"])
+    outdir = tempfile.mkdtemp(prefix="chip_smoke_distributed_")
+    logdir = os.path.join(outdir, "log")
+    try:
+        cmd = [sys.executable, "-m", "paddle_tpu_torch.distributed.launch",
+               "--nproc_per_node", str(n), "--master",
+               f"127.0.0.1:{_free_port()}", "--log_dir", logdir,
+               "--abort_grace", "30", os.path.abspath(__file__),
+               "--dist-rank", outdir] + (["--profile"] if
+                                         state.get("profile") else [])
+        proc = subprocess.run(cmd, cwd=os.path.dirname(
+            os.path.abspath(__file__)), capture_output=True, text=True,
+            timeout=DIST_TIMEOUT)
+        if state.get("profile"):
+            with open(os.path.join(logdir, "workerlog.0")) as f:
+                log("--- rank 0's log (its profiles)\n" + "\n".join(
+                    line for line in f.read().splitlines()
+                    if not line.startswith("{")))
+        if proc.returncode != 0:
+            for name in sorted(os.listdir(logdir)):
+                with open(os.path.join(logdir, name)) as f:
+                    log(f"--- {name} (last 3000 characters)\n"
+                        + f.read()[-3000:])
+            raise AssertionError(f"distributed: the launch ended with "
+                                 f"{proc.returncode}: {proc.stderr[-2000:]}")
+        ranks = []
+        for r in range(n):
+            with open(os.path.join(outdir, f"rank{r}.json")) as f:
+                ranks.append(json.load(f))
+    finally:
+        shutil.rmtree(outdir, ignore_errors=True)
+    devices = sorted(r["device"] for r in ranks)
+    if devices != list(range(n)):
+        raise AssertionError(f"distributed: ranks on cards {devices}")
+    r0 = ranks[0]
+    log(json.dumps({"distributed": "collectives", "card": card, "world": n,
+                    "nccl": nccl, "mesh": dict(zip(("dp", "mp"),
+                                                   _dist_mesh(n))),
+                    "checks_a_rank": [r["collective_checks"] for r in ranks],
+                    "exact": True, "dtypes": ["float32", "bfloat16"],
+                    "seconds_rank0": r0["collectives_s"]}))
+    log(json.dumps({"distributed": "all_reduce bus bandwidth", "card": card,
+                    "world": n, **r0["bus_bandwidth"]}))
+    log(json.dumps({"distributed": "K1-K3 at the TP shape, the padded "
+                    "head dims and the parity run's shapes, every rank's "
+                    "card, against their plain versions",
+                    "card": card,
+                    "held": {f"rank{r['rank']} cuda:{r['device']}":
+                             r["kernels_held"] for r in ranks}}))
+    for name in _FLASH:
+        row = dict(r0["kernels_timed"][name], kernel=name, card=card,
+                   ms_every_rank=[r["kernels_timed"][name]["ms"]
+                                  for r in ranks])
+        log(json.dumps({"distributed": "kernel at the TP shape", **row}))
+    log(json.dumps({"distributed": "parity", "card": card, "world": n,
+                    **r0["parity"], "seconds": r0["parity_s"]}))
+    one = r0["rungs"].get("one_card")
+    for key in ("dp", "dp_mp"):
+        if key not in r0["rungs"]:
+            log(json.dumps({"distributed": f"gpt2_medium {key}",
+                            "skipped": f"needs an even world of 2 or more "
+                                       f"cards, this one has {n}"}))
+            continue
+        row = dict(r0["rungs"][key])
+        row["peak_memory_gb_every_rank"] = [r["rungs"][key]["peak_memory_gb"]
+                                            for r in ranks]
+        if one is not None:
+            row["one_card_tokens_per_s"] = one["tokens_per_s"]
+            row["one_card_step_ms"] = one["step_ms"]
+            row["scaling_efficiency"] = row["tokens_per_s"] / (
+                n * one["tokens_per_s"])
+        else:
+            row["scaling_efficiency"] = None
+            row["scaling_efficiency_note"] = "a world of one card"
+        log(json.dumps(row))
+    totals = {name: sum(r["launches"][name] for r in ranks)
+              for name in KERNELS}
+    missing = [name for name in _FLASH if totals[name] == 0]
+    if missing:
+        raise AssertionError(f"distributed: the ranks never launched "
+                             f"{missing}")
+    state["child_launches"] = totals
+    log(f"distributed: {time.perf_counter() - t_phase:.1f} s")
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--phases", default=",".join(PHASES),
@@ -4406,9 +4946,15 @@ def main(argv=None) -> int:
                         "bf16 forward, engine run and training step, of a "
                         "fused and an unfused step of each fusion path, "
                         "of one step of each rung, of a BERT-base step, "
-                        "of a ResNet-50 rung step and of a deployed "
-                        "BERT-base's Predictor.run")
+                        "of a ResNet-50 rung step, of a deployed "
+                        "BERT-base's Predictor.run and of a GPT-2 345M "
+                        "step of each distributed run (rank 0)")
+    parser.add_argument("--dist-rank", metavar="OUTDIR",
+                        help=argparse.SUPPRESS)     # a rank of distributed
     args = parser.parse_args(argv)
+    if args.dist_rank:
+        _dist_rank(args.dist_rank, args.profile)
+        return 0
     phases = [p for p in args.phases.split(",") if p]
     unknown = set(phases) - set(PHASES)
     if unknown:
@@ -4434,6 +4980,9 @@ def main(argv=None) -> int:
         globals()[f"phase_{phase}"](state)
         if main_path:                          # ... and is read as it ends
             for name, n in _counts().items():
+                launches[name] += n
+            # the distributed phase's ranks: their own main path's counts
+            for name, n in state.pop("child_launches", {}).items():
                 launches[name] += n
     log(f"chip_smoke: the run took {time.perf_counter() - t_start:.1f} s")
     if phases != list(PHASES):

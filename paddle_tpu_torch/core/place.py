@@ -7,7 +7,10 @@ card is an error, never a silent move to the CPU.
 
 ``set_device``/``get_device`` hold the Paddle API's process-wide device
 (``set_device("cpu")`` is how a caller asks the Paddle-API entry points
-for the CPU); with none set, ``current_device()`` is ``cuda:0``.
+for the CPU); with none set, ``current_device()`` is torch's current
+card: ``cuda:0``, or after ``distributed.init_parallel_env`` (which calls
+``torch.cuda.set_device``) the card of this rank (``LOCAL_RANK``), which
+``None``, ``"cuda"`` and ``"gpu"`` resolve to as well.
 """
 from __future__ import annotations
 
@@ -20,15 +23,15 @@ DeviceLike = Optional[Union[str, int, torch.device]]
 
 
 def resolve_device(device: DeviceLike = None) -> torch.device:
-    """``None`` -> ``cuda:0``; ``"cuda"`` or ``"gpu"`` -> ``cuda:0``;
-    ``"cpu"`` -> CPU.
+    """``None``, ``"cuda"`` or ``"gpu"`` -> torch's current card
+    (``torch.cuda.current_device()``); ``"cpu"`` -> CPU.
 
     Raises ``RuntimeError`` when a CUDA device is asked for (explicitly or
     by default) and CUDA is not available.
     """
     if isinstance(device, str) and device.startswith("gpu"):
         device = "cuda" + device[3:]
-    dev = torch.device("cuda", 0) if device is None else torch.device(device)
+    dev = torch.device("cuda") if device is None else torch.device(device)
     if dev.type == "cpu":
         return dev
     if dev.type != "cuda":
@@ -36,7 +39,8 @@ def resolve_device(device: DeviceLike = None) -> torch.device:
     if not torch.cuda.is_available():
         raise RuntimeError(
             "CUDA is not available: pass device='cpu' to run on the CPU")
-    return torch.device("cuda", 0 if dev.index is None else dev.index)
+    return torch.device("cuda", torch.cuda.current_device()
+                        if dev.index is None else dev.index)
 
 
 class Place:
@@ -83,8 +87,11 @@ def set_device(device: str) -> Place:
 
 def get_device() -> str:
     """``"cpu"`` or ``"gpu:i"``: the device ``set_device`` chose, else
-    ``"gpu:0"``."""
-    return _current if _current is not None else "gpu:0"
+    torch's current card's (``"gpu:0"`` where there is no card)."""
+    if _current is not None:
+        return _current
+    return (f"gpu:{torch.cuda.current_device()}"
+            if torch.cuda.is_available() else "gpu:0")
 
 
 @contextlib.contextmanager

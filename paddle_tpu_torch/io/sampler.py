@@ -4,8 +4,8 @@ JAX package's do, so a test that seeds ``np.random`` gets the same order
 from both packages; given a ``generator`` (a ``np.random.Generator`` or
 ``RandomState``) they draw from it instead.
 ``DistributedBatchSampler`` reads its rank and world size from the
-launcher's environment (``distributed.get_rank``) unless they are
-passed."""
+process group once it is initialized, else from the launcher's
+environment (``distributed.get_rank``), unless they are passed."""
 from __future__ import annotations
 
 import math

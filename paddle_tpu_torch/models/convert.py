@@ -4,13 +4,17 @@ The input is the JAX model's ``state_dict()`` as numpy arrays (keys are
 the same dotted attribute paths in both packages). Into a torch-level
 model (``load_jax_state``): Paddle's ``Linear`` stores its weight as (in,
 out), ``torch.nn.Linear`` as (out, in), so those are transposed, and
-everything else is copied as it is. Into a Paddle-API ``Layer``
-(``load_jax_layer_state``) every key and layout is already the JAX
-package's: it is ``set_state_dict``.
+everything else is copied as it is. A tensor-parallel model (the
+``distributed.fleet.mpu`` twins: the JAX model's arrays are the full,
+logical ones) takes this rank's part of each split parameter, as the
+layer's ``mp_splits`` cuts it: a fused q/k/v projection by thirds first,
+so that rank r gets the q, k and v columns of its heads. Into a
+Paddle-API ``Layer`` (``load_jax_layer_state``) every key and layout is
+already the JAX package's: it is ``set_state_dict``.
 """
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Optional
 
 import numpy as np
 import torch
@@ -18,13 +22,27 @@ from torch import nn
 
 
 def load_jax_state(model: nn.Module, arrays: Dict[str, np.ndarray],
-                   strict: bool = True) -> nn.Module:
+                   strict: bool = True, mp_rank: Optional[int] = None,
+                   mp_degree: Optional[int] = None) -> nn.Module:
     """Copy ``arrays`` into ``model``'s parameters and buffers in place,
     in the model's dtype and device. With ``strict``, raise ``KeyError``
     on missing or unexpected keys; a shape mismatch always raises
-    ``ValueError``."""
+    ``ValueError``. A tensor-parallel model takes rank ``mp_rank``'s part
+    of ``mp_degree`` (default: its layers' own rank and degree) of each
+    split parameter."""
+    from ..distributed.fleet.mpu.mp_layers import (
+        TorchColumnParallelLinear, TorchRowParallelLinear, _TorchParallel,
+        shard)
     linear_weights = {f"{name}.weight" for name, mod in model.named_modules()
-                      if isinstance(mod, nn.Linear)}
+                      if isinstance(mod, (nn.Linear, TorchColumnParallelLinear,
+                                          TorchRowParallelLinear))}
+    splits = {}
+    for name, mod in model.named_modules():
+        if isinstance(mod, _TorchParallel):
+            rank = mod.mp_rank if mp_rank is None else mp_rank
+            degree = mod.mp_degree if mp_degree is None else mp_degree
+            for pname, (dim, groups) in mod.mp_splits().items():
+                splits[f"{name}.{pname}"] = (dim, rank, degree, groups)
     own = model.state_dict()
     missing = sorted(set(own) - set(arrays))
     unexpected = sorted(set(arrays) - set(own))
@@ -38,6 +56,9 @@ def load_jax_state(model: nn.Module, arrays: Dict[str, np.ndarray],
             value = np.asarray(arrays[key])
             if key in linear_weights:
                 value = value.T
+            if key in splits:
+                dim, rank, degree, groups = splits[key]
+                value = shard(value, dim, rank, degree, groups)
             if tuple(value.shape) != tuple(target.shape):
                 raise ValueError(
                     f"load_jax_state: {key} has shape {value.shape}, the "

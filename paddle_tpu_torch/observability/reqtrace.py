@@ -589,9 +589,13 @@ class SloTracker:
 # Persistence (exit dump + watchdog hang path)
 # ---------------------------------------------------------------------------
 def rank_world() -> Tuple[int, int]:
-    """(rank, world) from the launcher's environment (``RANK`` /
-    ``WORLD_SIZE``, or Paddle's ``PADDLE_TRAINER_ID`` /
-    ``PADDLE_TRAINERS_NUM``); (0, 1) outside a launcher."""
+    """(rank, world) of the process group once it is initialized, else
+    from the launcher's environment (``RANK`` / ``WORLD_SIZE``, or
+    Paddle's ``PADDLE_TRAINER_ID`` / ``PADDLE_TRAINERS_NUM``); (0, 1)
+    outside a launcher."""
+    import torch.distributed as dist
+    if dist.is_available() and dist.is_initialized():
+        return dist.get_rank(), dist.get_world_size()
     rank = os.environ.get("RANK") or os.environ.get("PADDLE_TRAINER_ID")
     world = (os.environ.get("WORLD_SIZE")
              or os.environ.get("PADDLE_TRAINERS_NUM"))

@@ -18,8 +18,12 @@ Counterpart of ``paddle_tpu/ops/pallas/flash_attention.py``:
 
 Each wrapper takes BSHD tensors through their strides. On CPU tensors it
 runs the plain version; on CUDA tensors it launches its kernel or raises,
-and adds one to its ``.launches`` per launch. The sources' header
-comments give each kernel's bound and design.
+and adds one to its ``.launches`` per launch. The kernels take head dims
+64 and 128; a smaller one is padded with zeros up to the next of them (as
+the Pallas wrapper pads d up to its lane width), with the scale of the true
+d, and the outputs and gradients are sliced back: zero columns add nothing
+to q k^T, to dO v^T or to rowsum(dO * O). A head dim above 128 raises. The
+sources' header comments give each kernel's bound and design.
 """
 from __future__ import annotations
 
@@ -136,15 +140,25 @@ def _check(name, q, k, v, do=None):
             do is not None and do.shape != q.shape):
         raise ValueError(f"{name}: shapes "
                          f"{[tuple(x.shape) for _, x in tensors]} disagree")
-    if d not in HEAD_DIMS:
-        raise ValueError(f"{name}: head_dim {d} not in {HEAD_DIMS}")
+    if d > HEAD_DIMS[-1]:
+        raise ValueError(f"{name}: head_dim {d} above {HEAD_DIMS[-1]}")
     if s_q == 0 or k.shape[1] == 0 or b * h > 65535:
         raise ValueError(f"{name}: unsupported sizes B*H={b * h}, "
                          f"Sq={s_q}, Sk={k.shape[1]}")
     for tag, x in tensors:
-        if not _rows_aligned(x):
+        if d in HEAD_DIMS and not _rows_aligned(x):     # else padded copies
             raise ValueError(f"{name}: {tag} needs a contiguous head dim and "
                              f"16-byte aligned rows (strides {x.stride()})")
+
+
+def _pad(*xs):
+    """Each (B, S, H, d) input zero-padded on d up to the next kernel head
+    dim (unchanged when d is one)."""
+    d = xs[0].shape[-1]
+    extra = next(p for p in HEAD_DIMS if d <= p) - d
+    if not extra:
+        return xs
+    return tuple(torch.nn.functional.pad(x, (0, extra)) for x in xs)
 
 
 def _rows_aligned(x: torch.Tensor) -> bool:
@@ -211,15 +225,17 @@ def _fwd_cuda(q, k, v, causal, scale):
     ``flash_attention_fwd.launches``."""
     name = "flash_attention_fwd"
     _check(name, q, k, v)
-    b, s_q, h, d = q.shape
-    out = torch.empty((b, s_q, h, d), dtype=q.dtype, device=q.device)
+    d = q.shape[-1]
+    q, k, v = _pad(q, k, v)
+    b, s_q, h, d_k = q.shape
+    out = torch.empty((b, s_q, h, d_k), dtype=q.dtype, device=q.device)
     lse = torch.empty((b, h, s_q), dtype=torch.float32, device=q.device)
     _launch(name, _function("flash_attention_fwd", name, 5, 9), q,
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             lse.data_ptr(), *q.stride()[:3], *k.stride()[:3],
             *v.stride()[:3], *_sizes(q, k), float(scale), int(bool(causal)))
     flash_attention_fwd.launches += 1
-    return out, lse
+    return (out if d == d_k else out[..., :d].contiguous()), lse
 
 
 def _fwd_fake(q, k, v, causal, scale):
@@ -259,6 +275,8 @@ def flash_attention_bwd_dq(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     name = "flash_attention_bwd_dq"
     _check(name, q, k, v, do)
     _check_rows(name, q, lse, delta)
+    d = q.shape[-1]
+    q, k, v, do = _pad(q, k, v, do)
     dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     _launch(name, _function("flash_attention_bwd", name, 7, 12), q,
             q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
@@ -266,7 +284,7 @@ def flash_attention_bwd_dq(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
             *do.stride()[:3], *_sizes(q, k), float(scale), int(bool(causal)))
     flash_attention_bwd_dq.launches += 1
-    return dq
+    return dq if d == q.shape[-1] else dq[..., :d].contiguous()
 
 
 def flash_attention_bwd_dkv(q: torch.Tensor, k: torch.Tensor,
@@ -287,6 +305,8 @@ def flash_attention_bwd_dkv(q: torch.Tensor, k: torch.Tensor,
     name = "flash_attention_bwd_dkv"
     _check(name, q, k, v, do)
     _check_rows(name, q, lse, delta)
+    d = q.shape[-1]
+    q, k, v, do = _pad(q, k, v, do)
     dk = torch.empty(k.shape, dtype=k.dtype, device=k.device)
     dv = torch.empty(v.shape, dtype=v.dtype, device=v.device)
     _launch(name, _function("flash_attention_bwd", name, 8, 12), q,
@@ -295,6 +315,8 @@ def flash_attention_bwd_dkv(q: torch.Tensor, k: torch.Tensor,
             *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
             *do.stride()[:3], *_sizes(q, k), float(scale), int(bool(causal)))
     flash_attention_bwd_dkv.launches += 1
+    if d != k.shape[-1]:
+        dk, dv = dk[..., :d].contiguous(), dv[..., :d].contiguous()
     return dk, dv
 
 
@@ -338,7 +360,7 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     When grad is enabled and an input requires it, the call goes through
     ``FlashAttentionFunction`` (K1 now, K2 and K3 on backward); otherwise
     it is K1 alone. CPU tensors run the plain versions; CUDA tensors
-    launch the kernels (d in {64, 128}, fp32/bf16/fp16) or raise."""
+    launch the kernels (d up to 128, fp32/bf16/fp16) or raise."""
     if scale is None:
         scale = 1.0 / math.sqrt(q.shape[-1])
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad

@@ -85,7 +85,7 @@ def test_flash_attention_fwd_reads_strided_qkv_views(s, d, dtype):
 @pytest.mark.cuda
 def test_flash_attention_fwd_rejects_what_it_does_not_take():
     _card()
-    x = torch.randn((1, 8, 2, 32), device="cuda")
+    x = torch.randn((1, 8, 2, 160), device="cuda")
     with pytest.raises(ValueError, match="head_dim"):
         flash_attention_fwd(x, x, x)
     y = torch.randn((1, 8, 2, 64), device="cuda", requires_grad=True)
@@ -100,6 +100,37 @@ def test_flash_attention_fwd_rejects_what_it_does_not_take():
     assert y.grad is not None and bool(torch.isfinite(y.grad).all())
     with pytest.raises(ValueError, match="CPU or all on a CUDA"):
         flash_attention_fwd(y.detach(), y.detach().cpu(), y.detach())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", sorted(TOLERANCES, key=str))
+@pytest.mark.parametrize("d", [32, 96, 16])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_attention_pads_smaller_head_dims(d, causal, dtype):
+    """A head dim below 64 or between 64 and 128 runs at the next kernel
+    head dim on zero-padded copies, with the true d's scale: K1, K2 and
+    K3 each launch once and equal their plain versions at d."""
+    _card()
+    q, k, v, do = _bwd_inputs(2, 130, 130, 4, d, dtype, seed=d)
+    before = (flash_attention_fwd.launches, flash_attention_bwd_dq.launches,
+              flash_attention_bwd_dkv.launches)
+    out, lse = flash_attention_fwd(q, k, v, causal=causal)
+    delta = flash_attention_bwd_delta(out, do)
+    dq = flash_attention_bwd_dq(q, k, v, do, lse, delta, causal=causal)
+    dk, dv = flash_attention_bwd_dkv(q, k, v, do, lse, delta, causal=causal)
+    torch.cuda.synchronize()
+    assert (flash_attention_fwd.launches, flash_attention_bwd_dq.launches,
+            flash_attention_bwd_dkv.launches) == tuple(c + 1 for c in before)
+    ref, ref_lse = flash_attention_fwd_plain(q, k, v, causal=causal)
+    assert out.shape == q.shape and dq.shape == q.shape
+    assert dk.shape == k.shape and dv.shape == v.shape
+    assert (out.float() - ref.float()).abs().max().item() <= TOLERANCES[dtype]
+    assert (lse - ref_lse).abs().max().item() <= TOLERANCES[dtype]
+    want = flash_attention_bwd_plain(q.float(), k.float(), v.float(),
+                                     ref.float(), ref_lse, do.float(),
+                                     causal=causal)
+    for got, ref_grad in zip((dq, dk, dv), want):
+        assert _bwd_error(got, ref_grad, dtype) <= BWD_TOLERANCES[dtype]
 
 
 def _bwd_inputs(b, s_q, s_k, h, d, dtype, seed):
@@ -827,10 +858,10 @@ def test_k1_op_equals_the_direct_launch(dtype):
 
 @pytest.mark.cuda
 def test_k1_op_raises_where_the_kernel_does_not_run():
-    """The op has no plain fallback on the card: head_dim 32 raises and
-    launches nothing."""
+    """The op has no plain fallback on the card: head_dim 160 (above the
+    kernels' 128) raises and launches nothing."""
     _card()
-    x = torch.randn((1, 8, 2, 32), device="cuda")
+    x = torch.randn((1, 8, 2, 160), device="cuda")
     before = flash_attention_fwd.launches
     with pytest.raises(ValueError, match="head_dim"):
         torch.ops.paddle_tpu_torch.flash_attention_fwd(x, x, x, False, 0.1)

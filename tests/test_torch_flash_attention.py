@@ -118,3 +118,31 @@ def test_sdpa_with_mask_matches_jax(mask_kind):
                         torch.from_numpy(v),
                         bias=torch.from_numpy(j_bias))
     np.testing.assert_allclose(plain.numpy(), ref, atol=ATOL, rtol=RTOL)
+
+
+@pytest.mark.parametrize("d", [32, 96])
+def test_jax_flash_attention_answers_at_padded_head_dims(d):
+    """The JAX public ``flash_attention_fwd`` (the Pallas kernel,
+    interpreted) pads d up to its lane width and answers at d = 32 and
+    96, forward and backward, so the port's wrappers take those head dims
+    too (padded on the card up to 64 or 128); on CPU tensors they run the
+    plain versions at d."""
+    import jax
+    q, k, v = _qkv(1, 64, 64, 2, d, seed=5)
+    do = np.random.RandomState(6).randn(*q.shape).astype(np.float32)
+
+    def j_loss(q, k, v):
+        out = jfa.flash_attention_fwd(q, k, v, causal=True)
+        return (out * jnp.asarray(do)).sum(), out
+    (_, j_out), j_grads = jax.value_and_grad(j_loss, argnums=(0, 1, 2),
+                                             has_aux=True)(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+    tq, tk, tv = (torch.from_numpy(a).requires_grad_() for a in (q, k, v))
+    out, _ = flash_attention_fwd(tq, tk, tv, causal=True)
+    (out * torch.from_numpy(do)).sum().backward()
+    assert j_out.shape == out.shape == (1, 64, 2, d)
+    np.testing.assert_allclose(out.detach().numpy(), np.asarray(j_out),
+                               atol=ATOL, rtol=RTOL)
+    for got, want in zip((tq.grad, tk.grad, tv.grad), j_grads):
+        np.testing.assert_allclose(got.numpy(), np.asarray(want),
+                                   atol=1e-4, rtol=1e-4)

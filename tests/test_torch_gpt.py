@@ -104,12 +104,18 @@ def test_configs_and_later_slices():
     assert gpt2_small().intermediate_size == 3072
     m = gpt2_medium()
     assert (m.hidden_size, m.num_layers, m.num_heads) == (1024, 24, 16)
-    for kw in (dict(mp_degree=2), dict(sequence_parallel=True),
-               dict(context_parallel="ring")):
+    for kw in (dict(sequence_parallel=True), dict(context_parallel="ring"),
+               dict(mp_degree=2, fused_loss=True)):
         with pytest.raises(NotImplementedError, match="later slice"):
             GPTConfig(**kw)
     cfg = GPTConfig(recompute=True, fused_loss=True)
     assert cfg.recompute and cfg.fused_loss
+    # tensor parallel since the distributed slice: the config builds, the
+    # model needs fleet's mp group of that size
+    tp = GPTConfig(mp_degree=2, **TINY)
+    assert tp.mp_degree == 2
+    with pytest.raises(RuntimeError, match="fleet.init"):
+        GPTForCausalLM(tp, device="cpu")
 
 
 def test_seeded_init_is_reproducible():

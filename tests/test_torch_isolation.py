@@ -68,15 +68,72 @@ def test_imports_without_jax_or_paddle_tpu():
     # and tools modules, and the checkpoint slice's framework (io,
     # random), fault (retry, checkpoint_manager) and hapi (summary,
     # dynamic_flops) modules, the capture slice's jit (program,
-    # traced_layer) and static modules, and the deployment slice's
-    # quantization, onnx (proto, runtime) and vision.models.small_nets
+    # traced_layer) and static modules, the deployment slice's
+    # quantization, onnx (proto, runtime) and vision.models.small_nets,
+    # and the distributed slice's groups, collectives, mesh, parallel,
+    # launcher and fleet modules
     lines = proc.stdout.split()
-    assert int(lines[-1]) >= 121
+    assert int(lines[-1]) >= 145
     for name in ("paddle_tpu_torch.quantization", "paddle_tpu_torch.onnx",
                  "paddle_tpu_torch.onnx.proto",
                  "paddle_tpu_torch.onnx.runtime",
-                 "paddle_tpu_torch.vision.models.small_nets"):
+                 "paddle_tpu_torch.vision.models.small_nets",
+                 "paddle_tpu_torch.distributed.communication.group",
+                 "paddle_tpu_torch.distributed.communication.collective",
+                 "paddle_tpu_torch.distributed.mesh",
+                 "paddle_tpu_torch.distributed.parallel",
+                 "paddle_tpu_torch.distributed.launch.main",
+                 "paddle_tpu_torch.distributed.launch.__main__",
+                 "paddle_tpu_torch.distributed.fleet.fleet_base",
+                 "paddle_tpu_torch.distributed.fleet.base.topology",
+                 "paddle_tpu_torch.distributed.fleet.base."
+                 "distributed_strategy",
+                 "paddle_tpu_torch.distributed.fleet.mpu.mp_layers",
+                 "paddle_tpu_torch.distributed.fleet.mpu.mp_ops",
+                 "paddle_tpu_torch.distributed.fleet.mpu.random",
+                 "paddle_tpu_torch.distributed.fleet.meta_parallel."
+                 "parallel_wrappers",
+                 "paddle_tpu_torch.distributed.fleet.utils."
+                 "hybrid_parallel_util",
+                 "paddle_tpu_torch.distributed.fleet.meta_optimizers."
+                 "hybrid_parallel_optimizer",
+                 "paddle_tpu_torch.distributed.fleet.meta_optimizers."
+                 "dygraph_sharding_optimizer"):
         assert name in lines, name
+
+
+_LAUNCH_NO_JAX = textwrap.dedent("""
+    import runpy, sys
+    sys.modules["jax"] = None
+    sys.modules["paddle_tpu"] = None
+    sys.argv = ["launch"] + sys.argv[1:]
+    runpy.run_module("paddle_tpu_torch.distributed.launch",
+                     run_name="__main__")
+""")
+
+
+def test_the_launcher_runs_without_jax(tmp_path):
+    """``python -m paddle_tpu_torch.distributed.launch`` with jax and
+    paddle_tpu unimportable: two ranks of a script that checks its
+    environment, and neither of them imports jax either."""
+    script = tmp_path / "rank.py"
+    script.write_text(textwrap.dedent("""
+        import os, sys
+        sys.modules["jax"] = None
+        sys.modules["paddle_tpu"] = None
+        import paddle_tpu_torch.distributed as dist
+        assert dist.get_world_size() == 2, os.environ["WORLD_SIZE"]
+        assert os.environ["PADDLE_TRAINER_ID"] == os.environ["RANK"]
+        print("rank", dist.get_rank(), "of", dist.get_world_size())
+    """))
+    env = dict(os.environ, PYTHONPATH=REPO)
+    proc = subprocess.run(
+        [sys.executable, "-c", _LAUNCH_NO_JAX, "--nproc_per_node", "2",
+         "--master", "127.0.0.1:29123", str(script)], cwd=REPO, env=env,
+        capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert sorted(proc.stdout.split("\n")[:2]) == ["rank 0 of 2",
+                                                   "rank 1 of 2"]
 
 
 def test_no_silent_cpu_without_cuda():
