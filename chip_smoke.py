@@ -308,11 +308,11 @@ import torch
 
 PHASES = ("build", "kernel", "fused_kernel", "forward", "serve",
           "serve_llama", "serve_tier", "train", "fusion", "rungs",
-          "paddle_api", "paddle_static", "checkpoint", "vision", "deploy",
-          "distributed")
+          "paddle_api", "paddle_static", "checkpoint", "vision",
+          "vision_zoo", "deploy", "distributed")
 MAIN_PATH = ("forward", "serve", "serve_llama", "serve_tier", "train",
              "fusion", "rungs", "paddle_api", "paddle_static", "checkpoint",
-             "vision", "deploy", "distributed")
+             "vision", "vision_zoo", "deploy", "distributed")
 PATH_SHAPE = dict(b=4, s=1024, h=12, d=64)      # GPT-2 small serving
 TRAIN_SHAPE = dict(b=8, s=1024, h=16, d=64)     # GPT-2 345M training
 LLAMA_ATTN_SHAPE = dict(b=4, s=2048, h=12, d=128)   # LLaMA-770M fusion path
@@ -4039,6 +4039,457 @@ def phase_vision(state):
         _resnet50_fit(paddle, card, images_per_s)
     torch.cuda.empty_cache()
     log(f"vision: {time.perf_counter() - t0:.1f} s")
+
+
+# ------------------------------------------------------------- vision_zoo
+# the rest of paddle.vision at published widths: every new constructor of
+# the zoo (1000 classes, scale 1.0), 224x224 (InceptionV3 299x299), B2
+ZOO_CTORS = (
+    ("vgg11", {}), ("vgg11", {"batch_norm": True}), ("vgg13", {}),
+    ("vgg13", {"batch_norm": True}), ("vgg16", {}),
+    ("vgg16", {"batch_norm": True}), ("vgg19", {}),
+    ("vgg19", {"batch_norm": True}), ("mobilenet_v1", {}),
+    ("mobilenet_v2", {}), ("mobilenet_v3_small", {}),
+    ("mobilenet_v3_large", {}), ("alexnet", {}), ("squeezenet1_0", {}),
+    ("squeezenet1_1", {}), ("shufflenet_v2_x0_25", {}),
+    ("shufflenet_v2_x0_33", {}), ("shufflenet_v2_x0_5", {}),
+    ("shufflenet_v2_x1_0", {}), ("shufflenet_v2_x1_5", {}),
+    ("shufflenet_v2_x2_0", {}), ("shufflenet_v2_swish", {}),
+    ("densenet121", {}), ("densenet161", {}), ("densenet169", {}),
+    ("densenet201", {}), ("densenet264", {}), ("googlenet", {}),
+    ("inception_v3", {}))
+ZOO_TRAIN = ("mobilenet_v2", "mobilenet_v3_large", "googlenet")
+ZOO_B = 2
+# a batch-norm bias that feeds a convolution and another train-mode batch
+# norm has a zero gradient in exact arithmetic: its rounding noise is held
+# against this share of the largest gradient's norm, not its own
+ZOO_GRAD_FLOOR = 1e-3
+# the train steps' gradients, card vs CPU, each parameter norm-wise: at B2
+# the last blocks' batch norms normalize 98 values a channel, and fp32
+# itself is far from exact there. An fp32 CPU step is up to 1.1e-2
+# (MobileNetV2), 1.1e-4 (MobileNetV3-Large) and 2.8e-2 (GoogLeNet) from a
+# float64 step on the same weights (tests/torch_zoo_float64.py); the card
+# carries the same rounding, so two fp32 devices may differ by twice that
+ZOO_GRAD_TOL = 1e-1
+# the main path: MobileNetV2 trained through hapi Model.fit over a
+# DatasetFolder of .npy images, Paddle's ImageNet recipe (Momentum 0.9,
+# L2Decay(4e-5), cosine decay) at a batch of 256, amp O1 bf16
+MBV2_FIT = dict(images=1280, hw=256, crop=224, classes=10, batch=256,
+                workers=4, epochs=2, lr=0.1, weight_decay=4e-5)
+MBV2_MEAN = [123.675, 116.28, 103.53]
+MBV2_STD = [58.395, 57.12, 57.375]
+MBV2_FWD_FLOP = 0.60e9      # 300M multiply-adds an image at 224x224
+MBV2_BARE_STEPS = 8
+# detection ops at Faster R-CNN / YOLOv3 sizes: a (2, 256, 200, 336)
+# stride-4 level of an 800x1344 image and 1000 RoIs, 2000 proposals for
+# NMS, a 64x64 DCN layer, a 19x19 YOLOv3 head
+DET_LEVEL = (2, 256, 200, 336)
+DET_IMAGE = (800, 1344)
+DET_ROIS = 1000
+DET_NMS = 2000
+DET_DCN = (2, 256, 64, 64)
+YOLO_ANCHORS = [10, 13, 16, 30, 33, 23, 30, 61, 62, 45, 59, 119, 116, 90,
+                156, 198, 373, 326]
+
+
+def _zoo_heads(out):
+    return list(out) if isinstance(out, (tuple, list)) else [out]
+
+
+def _zoo_no_dropout(model):
+    for layer in model.sublayers():
+        if type(layer).__name__ == "Dropout":
+            layer.p = 0.0
+
+
+def _zoo_pair(paddle, name, kw, seed):
+    """A zoo model on the card and its CPU twin with the same weights."""
+    from paddle_tpu_torch.vision import models
+    paddle.seed(seed)
+    card = getattr(models, name)(num_classes=1000, **kw)
+    state = {k: v.numpy() for k, v in card.state_dict().items()}
+    with paddle.device_guard("cpu"):
+        twin = getattr(models, name)(num_classes=1000, **kw)
+        twin.set_state_dict(state)
+    return card, twin
+
+
+def _zoo_rel(a, b):
+    """max |a - b| over the larger of 1 and max |b|."""
+    return float(np.abs(a - b).max()) / max(1.0, float(np.abs(b).max()))
+
+
+def _zoo_parity(paddle):
+    """Every new constructor's eval forward on the card against its CPU
+    twin (max error over max(1, |logits|) within LOGITS_TOL); for
+    ZOO_TRAIN also one train-mode step (dropout off on both sides): the
+    loss within LOSS_TOL and each gradient norm-wise within ZOO_GRAD_TOL
+    of the larger of its norm and ZOO_GRAD_FLOOR of the largest."""
+    from paddle_tpu_torch.nn import functional as F
+    worst = {}
+    for i, (name, kw) in enumerate(ZOO_CTORS):
+        label = name + ("_bn" if kw.get("batch_norm") else "")
+        card, twin = _zoo_pair(paddle, name, kw, 31 + i)
+        hw = 299 if name == "inception_v3" else 224
+        x = np.random.RandomState(40 + i).randn(ZOO_B, 3, hw, hw).astype(
+            np.float32)
+        outs = []
+        for model, dev in ((card, "gpu:0"), (twin, "cpu")):
+            with paddle.device_guard(dev), paddle.no_grad():
+                model.eval()
+                outs.append([h.numpy() for h in
+                             _zoo_heads(model(paddle.to_tensor(x)))])
+        err = max(_zoo_rel(a, b) for a, b in zip(*outs))
+        worst[label] = err
+        if not (err <= LOGITS_TOL and all(
+                np.isfinite(h).all() and h.shape == (ZOO_B, 1000)
+                for h in outs[0])):
+            raise AssertionError(f"vision_zoo {label}: eval logits card vs "
+                                 f"CPU {err:.3e}")
+        if name in ZOO_TRAIN:
+            y = np.random.RandomState(50 + i).randint(0, 1000, ZOO_B)
+            got = []
+            for model, dev in ((card, "gpu:0"), (twin, "cpu")):
+                _zoo_no_dropout(model)
+                with paddle.device_guard(dev):
+                    model.train()
+                    heads = _zoo_heads(model(paddle.to_tensor(x)))
+                    lab = paddle.to_tensor(y)
+                    loss = F.cross_entropy(heads[0], lab)
+                    for aux in heads[1:]:
+                        loss = loss + 0.3 * F.cross_entropy(aux, lab)
+                    loss.backward()
+                    got.append((float(loss.item()),
+                                [p.grad.numpy().astype(np.float64)
+                                 for p in model.parameters()]))
+            (l_card, g_card), (l_cpu, g_cpu) = got
+            largest = max(np.linalg.norm(g) for g in g_cpu)
+            errs = sorted(
+                (float(np.linalg.norm(a - b)
+                       / max(np.linalg.norm(b), ZOO_GRAD_FLOOR * largest)),
+                 pname)
+                for (pname, _), a, b in zip(twin.named_parameters(), g_card,
+                                            g_cpu))
+            grad_err = errs[-1][0]
+            log(f"vision_zoo: {label} train step card vs CPU: loss "
+                f"{l_card:.6f} vs {l_cpu:.6f}, gradients {grad_err:.3e} "
+                f"(limits {LOSS_TOL}, {ZOO_GRAD_TOL}); worst "
+                f"{errs[-3:][::-1]}")
+            if not (abs(l_card - l_cpu) <= LOSS_TOL
+                    and grad_err <= ZOO_GRAD_TOL):
+                raise AssertionError(f"vision_zoo {label}: the train step "
+                                     f"disagrees with the CPU twin")
+        del card, twin
+        torch.cuda.empty_cache()
+    log(json.dumps({"vision_zoo_eval_parity": worst,
+                    "limit": LOGITS_TOL}))
+
+
+def _npy_folder(root, f):
+    """f["images"] seeded uint8 HWC images as .npy files in
+    f["classes"] class folders."""
+    rng = np.random.RandomState(60)
+    for i in range(f["images"]):
+        d = os.path.join(root, f"class_{i % f['classes']:02d}")
+        os.makedirs(d, exist_ok=True)
+        np.save(os.path.join(d, f"{i:05d}.npy"), rng.randint(
+            0, 256, (f["hw"], f["hw"], 3), dtype=np.uint8))
+
+
+def _mbv2_fit(paddle, card):
+    """The main path: MobileNetV2 (scale 1.0, 1000 classes) trained by
+    hapi Model.fit over a DatasetFolder of MBV2_FIT["images"] .npy
+    images through RandomCrop, RandomHorizontalFlip, Normalize (HWC) and
+    Transpose, B256 with forked workers and the prefetcher, Momentum with
+    L2Decay under CosineAnnealingDecay, amp O1 bf16; then evaluate and
+    predict, and a bare train_batch loop on one resident batch. Gates:
+    finite history, every batch on the card, no worker left, predict's
+    shape."""
+    import multiprocessing as mp
+
+    from paddle_tpu_torch import amp
+    from paddle_tpu_torch.io import prefetch
+    from paddle_tpu_torch.regularizer import L2Decay
+    from paddle_tpu_torch.vision import datasets, transforms as T
+    from paddle_tpu_torch.vision.models import mobilenet_v2
+    f = MBV2_FIT
+    root = tempfile.mkdtemp(prefix="vision_zoo_")
+    try:
+        t0 = time.perf_counter()
+        _npy_folder(root, f)
+        write_s = time.perf_counter() - t0
+        tr = T.Compose([T.RandomCrop(f["crop"]), T.RandomHorizontalFlip(),
+                        T.Normalize(mean=MBV2_MEAN, std=MBV2_STD,
+                                    data_format="HWC"), T.Transpose()])
+        data = datasets.DatasetFolder(root, loader=np.load,
+                                      extensions=(".npy",), transform=tr)
+        paddle.set_flags({"FLAGS_prefetch": True})
+        paddle.seed(61)
+        net = mobilenet_v2(num_classes=1000)
+        steps = f["epochs"] * -(-f["images"] // f["batch"])
+        sched = paddle.optimizer.lr.CosineAnnealingDecay(f["lr"],
+                                                         T_max=steps)
+        opt = paddle.optimizer.Momentum(
+            learning_rate=sched, momentum=0.9,
+            parameters=net.parameters(),
+            weight_decay=L2Decay(f["weight_decay"]))
+        model = paddle.Model(net)
+        model.prepare(opt, paddle.nn.CrossEntropyLoss())
+        on_card, walls, device_ms = [], [], []
+        train_batch = model.train_batch
+
+        def watched(inputs, labels=None, update=True):
+            on_card.append(all(t._data.is_cuda for t in inputs + labels))
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            t1 = time.perf_counter()
+            ev[0].record()
+            out = train_batch(inputs, labels, update)   # ends on a host read
+            ev[1].record()
+            walls.append(time.perf_counter() - t1)
+            ev[1].synchronize()
+            device_ms.append(ev[0].elapsed_time(ev[1]))
+            return out
+        model.train_batch = watched
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        before = prefetch.transfer_counts()
+        t0 = time.perf_counter()
+        with amp.auto_cast(**O1):
+            history = model.fit(data, batch_size=f["batch"],
+                                epochs=f["epochs"], shuffle=True,
+                                num_workers=f["workers"], verbose=0,
+                                callbacks=[paddle.hapi.LRScheduler(
+                                    by_step=True)])
+        torch.cuda.synchronize()
+        fit_s = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        alive = mp.active_children()
+        after = prefetch.transfer_counts()
+        # the bare loop: train_batch on one batch already on the card
+        x = np.stack([data[i][0] for i in range(f["batch"])])
+        y = np.asarray([data[i][1] for i in range(f["batch"])])
+        xb, yb = paddle.to_tensor(x), paddle.to_tensor(y)
+        bare, bare_dev = [], []
+        with amp.auto_cast(**O1):
+            train_batch([xb], [yb])
+            for _ in range(MBV2_BARE_STEPS):
+                ev = [torch.cuda.Event(enable_timing=True)
+                      for _ in range(2)]
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+                ev[0].record()
+                train_batch([xb], [yb])
+                ev[1].record()
+                torch.cuda.synchronize()
+                bare.append(time.perf_counter() - t1)
+                bare_dev.append(ev[0].elapsed_time(ev[1]))
+            result = model.evaluate(data, batch_size=f["batch"], verbose=0)
+            preds = model.predict(data, batch_size=f["batch"],
+                                  stack_outputs=True)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    step_ms = statistics.median(bare) * 1e3
+    bare_ips = f["batch"] / statistics.median(bare)
+    fit_ips = f["images"] * f["epochs"] / fit_s
+    row = {"vision_zoo_fit": "mobilenet_v2 scale 1.0 hapi Model.fit amp "
+                             "O1 bf16 Momentum L2Decay cosine",
+           "card": card, "images": f["images"], "batch": f["batch"],
+           "epochs": f["epochs"], "num_workers": f["workers"],
+           "write_s": write_s, "history": history, "fit_s": fit_s,
+           "fit_images_per_s": fit_ips,
+           "train_batch_ms_in_fit": [w * 1e3 for w in walls],
+           "train_batch_device_ms_in_fit": device_ms,
+           "bare_train_batch_images_per_s": bare_ips,
+           "bare_step_ms": step_ms,
+           "bare_step_ms_all": [w * 1e3 for w in bare],
+           "bare_step_device_ms": statistics.median(bare_dev),
+           "mfu": 3 * MBV2_FWD_FLOP * bare_ips / BF16_FLOP_PER_S,
+           "mfu_fit": 3 * MBV2_FWD_FLOP * fit_ips / BF16_FLOP_PER_S,
+           "peak_memory_gb": peak, "lr_after": sched(),
+           "prefetched_batches": after["batches"] - before["batches"],
+           "batches_on_card": sum(on_card), "workers_alive": len(alive),
+           "evaluate": result, "predict_shape": list(preds[0].shape)}
+    log(json.dumps(row, default=float))
+    checks = {
+        "history": len(history) == f["epochs"] and all(
+            np.isfinite(history)),
+        "every batch on the card": (all(on_card) and len(on_card) == steps
+                                    and row["prefetched_batches"] == steps),
+        "no worker alive": not alive,
+        "predict": row["predict_shape"] == [f["images"], 1000],
+        "evaluate": np.isfinite(result["loss"][0]),
+    }
+    failed = [k for k, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError(f"vision_zoo fit: {failed}")
+
+
+def _det_boxes(rng, n, image, lo, hi):
+    """n xyxy boxes inside ``image`` (h, w), sides in [lo, hi)."""
+    h, w = image
+    wh = lo + rng.rand(n, 2) * (hi - lo)
+    xy = rng.rand(n, 2) * (np.array([w, h]) - wh)
+    return np.concatenate([xy, xy + wh], 1).astype(np.float32)
+
+
+def _det_case(paddle, label, fn, arrays, diff, rows, compare_ints=False):
+    """fn(*tensors) on the card and on the CPU from the same arrays:
+    outputs within FP32_TOL (relative to max(1, |ref|)), and for the
+    inputs flagged in ``diff`` the gradients of sum(out * w) norm-wise
+    within FP32_TOL; the card's ms (time_ms: the time a caller waits)."""
+    res = []
+    for dev in ("gpu:0", "cpu"):
+        with paddle.device_guard(dev):
+            ts = [paddle.to_tensor(a, stop_gradient=not d)
+                  for a, d in zip(arrays, diff)]
+            outs = _zoo_heads(fn(*ts))
+            if any(diff):
+                loss = None
+                for k, o in enumerate(outs):
+                    w = paddle.to_tensor(np.random.RandomState(70 + k).randn(
+                        *o.shape).astype(np.float32))
+                    term = (o * w).sum()
+                    loss = term if loss is None else loss + term
+                loss.backward()
+            res.append(([o.numpy() for o in outs],
+                        [t.grad.numpy().astype(np.float64)
+                         for t, d in zip(ts, diff) if d]))
+    (o_card, g_card), (o_cpu, g_cpu) = res
+    err = 0.0
+    for a, b in zip(o_card, o_cpu):
+        if a.shape != b.shape:
+            raise AssertionError(f"vision_zoo {label}: shapes {a.shape} "
+                                 f"vs {b.shape}")
+        if np.issubdtype(b.dtype, np.integer) or compare_ints:
+            if not np.array_equal(a, b):
+                raise AssertionError(f"vision_zoo {label}: indices differ")
+        else:
+            err = max(err, _zoo_rel(a, b))
+    grad_err = max([float(np.linalg.norm(a - b) / max(np.linalg.norm(b),
+                                                      1e-30))
+                    for a, b in zip(g_card, g_cpu)], default=0.0)
+    with paddle.device_guard("gpu:0"):
+        ts = [paddle.to_tensor(a) for a in arrays]
+        ms = time_ms(lambda: fn(*ts), iters=10, warmup=2)
+    rows.append({"op": label, "ms": ms[0], "ms_q1": ms[1], "ms_q3": ms[2],
+                 "max_rel_err": err, "grad_norm_err": grad_err,
+                 "out_shapes": [list(a.shape) for a in o_card]})
+    if not (err <= FP32_TOL and grad_err <= FP32_TOL):
+        raise AssertionError(f"vision_zoo {label}: card vs CPU {err:.3e}, "
+                             f"gradients {grad_err:.3e}")
+
+
+def _det_ops(paddle, card):
+    """The detection ops on the card against the same call on the CPU, at
+    Faster R-CNN / YOLOv3 sizes; one JSON line of their card ms."""
+    from paddle_tpu_torch.vision import ops as V
+    rng = np.random.RandomState(80)
+    rows = []
+    feat = rng.randn(*DET_LEVEL).astype(np.float32)
+    rois = _det_boxes(rng, DET_ROIS, DET_IMAGE, 16, 112)
+    num = np.array([DET_ROIS // 2, DET_ROIS - DET_ROIS // 2])
+    _det_case(paddle, "roi_align 7x7 sr2 (2,256,200,336) x1000",
+              lambda x, b: V.roi_align(x, b, num, 7, spatial_scale=0.25,
+                                       sampling_ratio=2),
+              [feat, rois], [True, False], rows)
+    _det_case(paddle, "roi_pool 7x7 (2,256,200,336) x1000",
+              lambda x, b: V.roi_pool(x, b, num, 7, spatial_scale=0.25),
+              [feat, rois], [True, False], rows)
+    del feat
+    boxes = _det_boxes(rng, DET_NMS, DET_IMAGE, 16, 200)
+    scores = (rng.permutation(DET_NMS).astype(np.float32) + 1) / DET_NMS
+    _det_case(paddle, f"nms {DET_NMS} boxes at 0.7",
+              lambda b, s: V.nms(b, 0.7, s), [boxes, scores],
+              [False, False], rows, compare_ints=True)
+    n, c, h, w = DET_DCN
+    dcn = [rng.randn(n, c, h, w).astype(np.float32),
+           (2.0 * rng.randn(n, 18, h, w)).astype(np.float32),
+           (rng.randn(c, c, 3, 3) / np.sqrt(9 * c)).astype(np.float32),
+           rng.rand(n, 9, h, w).astype(np.float32),
+           rng.randn(c).astype(np.float32)]
+    _det_case(paddle, "deform_conv2d v2 3x3 (2,256,64,64)",
+              lambda x, o, wt, m, b: V.deform_conv2d(x, o, wt, bias=b,
+                                                     padding=1, mask=m),
+              dcn, [True] * 5, rows)
+    head = (0.5 * rng.randn(2, 255, 19, 19)).astype(np.float32)
+    img = np.array([[608, 608], [608, 608]], np.int32)
+    _det_case(paddle, "yolo_box (2,255,19,19)",
+              lambda x: V.yolo_box(x, paddle.to_tensor(img),
+                                   YOLO_ANCHORS[12:], 80, 0.01, 32),
+              [head], [True], rows)
+    gt = np.zeros((2, 50, 4), np.float32)
+    gt[:, :20, :2] = rng.rand(2, 20, 2) * 0.8 + 0.1
+    gt[:, :20, 2:] = rng.rand(2, 20, 2) * 0.5 + 0.05
+    gl = rng.randint(0, 80, (2, 50))
+    _det_case(paddle, "yolo_loss (2,255,19,19) 20 boxes an image",
+              lambda x: V.yolo_loss(x, paddle.to_tensor(gt),
+                                    paddle.to_tensor(gl), YOLO_ANCHORS,
+                                    [6, 7, 8], 80, 0.7, 32),
+              [head], [True], rows)
+    a, fh, fw = 15, 50, 84              # the stride-16 RPN level
+    sc = rng.rand(2, a, fh, fw).astype(np.float32)
+    deltas = (0.1 * rng.randn(2, 4 * a, fh, fw)).astype(np.float32)
+    cy, cx = np.meshgrid(np.arange(fh) * 16 + 8, np.arange(fw) * 16 + 8,
+                         indexing="ij")
+    anchors = np.stack([np.stack([cx - s * r / 2, cy - s / r / 2,
+                                  cx + s * r / 2, cy + s / r / 2], -1)
+                        for s in (32, 64, 128, 256, 512)
+                        for r in (0.7, 1.0, 1.4)], 2).astype(np.float32)
+    var = np.ones_like(anchors)
+    ims = np.array([DET_IMAGE, DET_IMAGE], np.float32)
+    _det_case(paddle, "generate_proposals 6000 -> 1000 at 0.7",
+              lambda s, d, an, v: V.generate_proposals(
+                  s, d, paddle.to_tensor(ims), an, v, pre_nms_top_n=6000,
+                  post_nms_top_n=1000, nms_thresh=0.7, min_size=0.0),
+              [sc, deltas, anchors, var], [False] * 4, rows)
+    prior = _det_boxes(rng, DET_ROIS, DET_IMAGE, 16, 256)
+    target = (0.2 * rng.randn(DET_ROIS, 81, 4)).astype(np.float32)
+    pvar = np.tile(np.array([[0.1, 0.1, 0.2, 0.2]], np.float32),
+                   (DET_ROIS, 1))
+    _det_case(paddle, "box_coder decode 1000 x 81",
+              lambda pb, v, t: V.box_coder(pb, v, t, "decode_center_size",
+                                           box_normalized=False),
+              [prior, pvar, target], [False] * 3, rows)
+    _det_case(paddle, "box_coder encode 100 x 1000",
+              lambda pb, t: V.box_coder(pb, None, t, "encode_center_size"),
+              [prior, prior[:100] + 3.0], [False] * 2, rows)
+    _det_case(paddle, "prior_box SSD 38x38 on 300x300",
+              lambda x, im: V.prior_box(x, im, [30.0], [60.0], (2.0,),
+                                        flip=True, clip=True),
+              [np.zeros((1, 512, 38, 38), np.float32),
+               np.zeros((1, 3, 300, 300), np.float32)], [False] * 2, rows)
+    log(json.dumps({"vision_ops": rows, "card": card}, default=float))
+
+
+def phase_vision_zoo(state):
+    """The rest of paddle.vision: every new zoo constructor at its
+    published width on the card against its CPU twin (three of them
+    through a train step), the main path (MobileNetV2 trained by hapi
+    Model.fit over a DatasetFolder with transforms, forked workers and
+    the prefetcher), and the detection ops against their CPU results. No
+    kernel of the port runs here (convolutions are cuDNN's; the JAX
+    package's zoo and ops are XLA and jnp)."""
+    import paddle_tpu_torch as paddle
+    card = _card_line()
+    try:
+        import PIL
+        pil = f"PIL {PIL.__version__} importable"
+    except ImportError:
+        pil = "PIL not importable"
+    log(f"vision_zoo: {pil} (no phase needs it)")
+    t0 = time.perf_counter()
+    with paddle.device_guard("gpu:0"):
+        _zoo_parity(paddle)
+        torch.cuda.empty_cache()
+        t1 = time.perf_counter()
+        _mbv2_fit(paddle, card)
+        torch.cuda.empty_cache()
+        t2 = time.perf_counter()
+        _det_ops(paddle, card)
+    torch.cuda.empty_cache()
+    log(f"vision_zoo: {time.perf_counter() - t0:.1f} s (zoo parity "
+        f"{t1 - t0:.1f} s, fit {t2 - t1:.1f} s, detection ops "
+        f"{time.perf_counter() - t2:.1f} s)")
 
 
 # ----------------------------------------------------------------- deploy

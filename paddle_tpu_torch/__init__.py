@@ -57,8 +57,8 @@ and ``onnx.export`` with its bundled numpy evaluator.
 """
 from . import (amp, autograd, compile, core, distributed, fault, framework,
                hapi, incubate, inference, io, jit, metric, models, nn,
-               observability, onnx, ops, optimizer, quantization, serving,
-               static, tools, vision)
+               observability, onnx, ops, optimizer, quantization, regularizer,
+               serving, static, tools, vision)
 from .autograd import PyLayer, backward, grad, is_grad_enabled
 from .core import get_flag, resolve_device, set_flags
 from .core.dispatch import (enable_grad, no_grad,
@@ -83,6 +83,7 @@ from .models import (GPTConfig, GPTForCausalLM, LlamaConfig, LlamaForCausalLM,
 __all__ = ["amp", "autograd", "compile", "core", "distributed", "fault",
            "framework", "save", "load", "summary", "flops", "hapi", "incubate", "inference", "io", "jit", "metric", "models",
            "nn", "observability", "onnx", "ops", "optimizer", "quantization",
+           "regularizer",
            "serving", "static", "tools",
            "vision", "Model", "resolve_device",
            "Tensor", "is_tensor", "no_grad", "enable_grad",

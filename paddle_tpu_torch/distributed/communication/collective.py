@@ -28,6 +28,7 @@ on gloo a synchronous call's time includes the transfer.
 from __future__ import annotations
 
 import time as _time
+import weakref
 from typing import List, Optional
 
 import torch
@@ -74,6 +75,8 @@ class Task:
         self._works = [w for w in works if w is not None]
         self._finish = finish
         self._done = False
+        if self._works:
+            _outstanding.add(self)
 
     def wait(self, timeout=None):
         if not self._done:
@@ -82,10 +85,23 @@ class Task:
             if self._finish is not None:
                 self._finish()
             self._done = True
+            self._works = []       # a finished work holds its communicator
+            _outstanding.discard(self)
         return True
 
     def is_completed(self) -> bool:
         return self._done or all(w.is_completed() for w in self._works)
+
+
+#: issued tasks not waited on yet (``wait_outstanding``)
+_outstanding: "weakref.WeakSet[Task]" = weakref.WeakSet()
+
+
+def wait_outstanding():
+    """Wait on every issued task still alive and not waited on (the exit
+    hook's first step, ``parallel._exit_hook``)."""
+    for task in list(_outstanding):
+        task.wait()
 
 
 def _group(group: Optional[Group], what: str) -> Group:

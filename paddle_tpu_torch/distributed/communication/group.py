@@ -17,6 +17,7 @@ collectives are local.
 from __future__ import annotations
 
 import itertools
+import weakref
 from typing import List, Optional, Sequence
 
 import torch.distributed as dist
@@ -32,6 +33,7 @@ class Group:
         self.name = name or f"group_{gid}"
         me = dist.get_rank() if dist.is_initialized() else 0
         self.rank = self.ranks.index(me) if me in self.ranks else -1
+        _live.add(self)
 
     @property
     def nranks(self) -> int:
@@ -61,6 +63,10 @@ class Group:
 
 _group_counter = itertools.count(1)
 _groups: dict = {}
+#: every Group alive, members or not: destroying the world unbinds each
+#: from its process group, so that no Group a caller still holds keeps a
+#: communicator (and its threads) alive past the teardown
+_live: "weakref.WeakSet[Group]" = weakref.WeakSet()
 
 
 def _require_init(what: str):
@@ -135,12 +141,18 @@ def is_initialized() -> bool:
 
 def destroy_process_group(group: Optional[Group] = None):
     """Destroy ``group``'s communicator, or with no group every group,
-    the world, the mesh and the hybrid topology."""
+    the world, the mesh and the hybrid topology; every ``Group`` is
+    unbound from its process group, so that the communicators' threads
+    end when the process groups are collected. A no-op once the world is
+    gone."""
     if group is not None:
         if group.pg not in (None, dist.group.WORLD):
             dist.destroy_process_group(group.pg)
+            group.pg = None
         _groups.pop(group.id, None)
         return
+    for g in list(_live):
+        g.pg = None
     _groups.clear()
     from .. import mesh as mesh_mod
     from ..fleet.base import topology

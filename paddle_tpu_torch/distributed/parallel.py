@@ -31,8 +31,10 @@ global batch every process holds (noted in ROADMAP Queue 3).
 """
 from __future__ import annotations
 
+import atexit
 import contextlib
 import datetime
+import gc
 import os
 from typing import List, Optional
 
@@ -104,6 +106,32 @@ def _master():
     return host, port
 
 
+_exit_hook_registered = False
+
+
+def _exit_hook():
+    """At interpreter exit, while the interpreter is still whole: wait on
+    the collectives issued and not waited on, then destroy every group,
+    the world, the mesh and the hybrid topology, and collect the process
+    groups so that their threads are joined now. Without it the process
+    groups outlived the interpreter, their threads still running when
+    the C++ runtime tore down, and a loaded gloo rank could end with
+    "terminate called without an active exception" (SIGABRT) after its
+    work was done. A no-op when the world is gone already (a caller's own
+    ``destroy_process_group``)."""
+    if not dist.is_initialized():
+        return
+    from .communication import collective as C
+    from .communication.group import destroy_process_group
+    try:
+        C.wait_outstanding()
+    finally:
+        destroy_process_group()
+        # the process groups unbound above are freed here, and their
+        # worker and transport threads joined, while the interpreter runs
+        gc.collect()
+
+
 def init_parallel_env(timeout: Optional[float] = None) -> ParallelEnv:
     """Join the world (reference parallel.py:945). The rank and world size
     come from the launcher's environment (``RANK``/``WORLD_SIZE``, else
@@ -112,7 +140,9 @@ def init_parallel_env(timeout: Optional[float] = None) -> ParallelEnv:
     ``PADDLE_MASTER``). On the cards: ``torch.cuda.set_device(local_rank)``
     and NCCL bound to that card, whose index becomes the default device.
     gloo only after ``set_device("cpu")``; without CUDA and without that,
-    it raises. A second call returns the environment."""
+    it raises. A second call returns the environment. The first
+    registers an exit hook that waits on the collectives still in flight
+    and destroys the groups (``_exit_hook``)."""
     if dist.is_initialized():
         return ParallelEnv()
     rank = _env_int("RANK", "PADDLE_TRAINER_ID")
@@ -146,6 +176,10 @@ def init_parallel_env(timeout: Optional[float] = None) -> ParallelEnv:
         torch.cuda.set_device(local)
         dist.init_process_group("nccl", rank=rank, world_size=world,
                                 device_id=torch.device("cuda", local), **kw)
+    global _exit_hook_registered
+    if not _exit_hook_registered:
+        atexit.register(_exit_hook)
+        _exit_hook_registered = True
     return ParallelEnv()
 
 

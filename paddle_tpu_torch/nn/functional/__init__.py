@@ -3,8 +3,9 @@
 loss, norms, activations, the four fused ops of the fusion pass, and
 the convolutions and pools.
 
-The Paddle-API entries (``linear``, ``dropout``, ``embedding``, ``gelu``,
-``relu``, ``silu``, ``tanh``, ``sigmoid``, ``softmax``, ``layer_norm``,
+The Paddle-API entries (``linear``, ``dropout``, ``embedding``,
+``channel_shuffle``, ``gelu``, ``relu``, ``relu6``, ``silu`` (``swish``),
+``hardswish``, ``hardsigmoid``, ``tanh``, ``sigmoid``, ``softmax``, ``layer_norm``,
 ``rms_norm``, ``batch_norm``, ``cross_entropy``,
 ``fused_linear_cross_entropy``, ``scaled_dot_product_attention``,
 ``flash_attention``, ``matmul``, and the fused ops ``fused_bias_act``,
@@ -14,8 +15,9 @@ functions take ``torch.Tensor``s as the torch-level functionals of the
 port's models and fusion pass; each module's docstring says where a
 layout differs (the weights of ``linear``, ``fused_norm_linear`` and
 ``fused_rope_proj``)."""
-from .activation import gelu, relu, sigmoid, silu, softmax, swiglu, tanh
-from .common import dropout, embedding, linear, matmul
+from .activation import (gelu, hardsigmoid, hardswish, relu, relu6, sigmoid,
+                         silu, softmax, swiglu, swish, tanh)
+from .common import channel_shuffle, dropout, embedding, linear, matmul
 from .conv import (conv1d, conv1d_transpose, conv2d, conv2d_transpose,
                    conv3d, conv3d_transpose)
 from .flash_attention import flash_attention, scaled_dot_product_attention
@@ -31,7 +33,8 @@ __all__ = ["linear", "matmul", "flash_attention",
            "scaled_dot_product_attention", "block_multihead_attention",
            "dropout", "embedding", "cross_entropy",
            "fused_linear_cross_entropy", "layer_norm", "rms_norm",
-           "batch_norm", "gelu", "silu", "relu", "tanh", "sigmoid", "softmax",
+           "batch_norm", "gelu", "silu", "relu", "relu6", "swish", "hardswish",
+           "hardsigmoid", "tanh", "sigmoid", "softmax", "channel_shuffle",
            "swiglu", "fused_bias_act", "fused_residual_norm",
            "fused_norm_linear", "fused_rope_proj", "FUSED_OPS", "ACTIVATIONS",
            "conv1d", "conv2d", "conv3d", "conv1d_transpose",

@@ -7,6 +7,7 @@ On a Paddle ``Tensor`` each is one op through ``core.dispatch.call``
 it is the torch-level function."""
 from __future__ import annotations
 
+import sys
 from typing import Optional
 
 import torch
@@ -16,6 +17,7 @@ from ...amp.state import amp_cast
 from ...core import dispatch
 from ...core.dtype import convert_dtype
 from ...core.tensor import Tensor
+from ...ops.registry import register_module
 
 
 def gelu(x, approximate: bool = False, name=None):
@@ -36,6 +38,32 @@ def relu(x, name=None):
     if isinstance(x, Tensor):
         return dispatch.call("relu", TF.relu, [x])
     return TF.relu(x)
+
+
+def relu6(x, name=None):
+    """min(max(x, 0), 6)."""
+    if isinstance(x, Tensor):
+        return dispatch.call("relu6", relu6, [x])
+    return torch.clamp(x, 0, 6)
+
+
+#: the JAX package's alias: swish is silu, one op under silu's name
+swish = silu
+
+
+def hardswish(x, name=None):
+    """x * relu6(x + 3) / 6."""
+    if isinstance(x, Tensor):
+        return dispatch.call("hardswish", hardswish, [x])
+    return x * torch.clamp(x + 3, 0, 6) / 6
+
+
+def hardsigmoid(x, slope: float = 1.0 / 6, offset: float = 0.5, name=None):
+    """clip(slope * x + offset, 0, 1)."""
+    if isinstance(x, Tensor):
+        return dispatch.call("hardsigmoid",
+                             lambda a: hardsigmoid(a, slope, offset), [x])
+    return torch.clamp(slope * x + offset, 0, 1)
 
 
 def tanh(x, name=None):
@@ -70,4 +98,7 @@ def swiglu(x: torch.Tensor, y: Optional[torch.Tensor] = None,
     return TF.silu(x) * y
 
 
-__all__ = ["gelu", "silu", "relu", "tanh", "sigmoid", "softmax", "swiglu"]
+__all__ = ["gelu", "silu", "relu", "relu6", "swish", "hardswish",
+           "hardsigmoid", "tanh", "sigmoid", "softmax", "swiglu"]
+
+register_module(sys.modules[__name__], "activation", skip=("sigmoid", "tanh"))

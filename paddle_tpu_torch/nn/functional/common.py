@@ -20,6 +20,7 @@ Neither draws from torch's global RNG.
 """
 from __future__ import annotations
 
+import sys
 from typing import Optional, Sequence, Union
 
 import torch
@@ -30,6 +31,7 @@ from ...core import dispatch
 from ...core.generator import default_generator
 from ...core.tensor import Tensor, as_tensor
 from ...ops.linalg import matmul as _paddle_matmul, matmul_body
+from ...ops.registry import register_module
 
 
 def _tensors(*xs):
@@ -122,4 +124,22 @@ def embedding(x, weight, padding_idx: Optional[int] = None, sparse=False,
     return out
 
 
-__all__ = ["linear", "matmul", "dropout", "embedding"]
+def channel_shuffle(x, groups: int, data_format: str = "NCHW", name=None):
+    """Interleave ``groups`` channel groups, as ShuffleNet does: (N, g,
+    C/g, H, W) -> (N, C/g, g, H, W)."""
+    if isinstance(x, Tensor):
+        return dispatch.call("channel_shuffle", lambda a: channel_shuffle(
+            a, groups, data_format), [x])
+    if data_format == "NHWC":
+        x = x.permute(0, 3, 1, 2)
+    n, c, h, w = x.shape
+    y = x.reshape(n, groups, c // groups, h, w).transpose(1, 2).reshape(
+        n, c, h, w)
+    if data_format == "NHWC":
+        y = y.permute(0, 2, 3, 1)
+    return y
+
+
+__all__ = ["linear", "matmul", "dropout", "embedding", "channel_shuffle"]
+
+register_module(sys.modules[__name__], "nn_common")

@@ -5,8 +5,8 @@
 Hard labels with softmax, as the JAX package's streaming formulation
 computes them: nll = lse - logits[label] with the max taken out in the
 input dtype and the sums in fp32, ``ignore_index``, ``label_smoothing``
-and the three reductions. Soft labels, class weights and
-``use_softmax=False`` are a later slice. ``cross_entropy`` is on amp's
+and the three reductions; soft labels, class weights and
+``use_softmax=False`` through an fp32 log-probability, as there. ``cross_entropy`` is on amp's
 black list (its logits go to fp32), ``fused_linear_cross_entropy`` on
 the white list (x and the weight go to the amp dtype; the LSE stays
 fp32).
@@ -28,50 +28,99 @@ def cross_entropy(input, label, weight=None, ignore_index: int = -100,
                   reduction: str = "mean", soft_label: bool = False,
                   axis: int = -1, use_softmax: bool = True,
                   label_smoothing: float = 0.0, name=None):
-    """Softmax cross entropy of ``input`` (logits, classes on ``axis``)
-    against integer ``label`` (the logits' shape without ``axis``, or
-    with a size-1 ``axis``). Returns fp32."""
+    """Cross entropy of ``input`` (classes on ``axis``) against ``label``.
+
+    Hard labels are integers (the input's shape without ``axis``, or with
+    a size-1 ``axis``); soft labels are class distributions of the
+    input's shape (``soft_label=True``, or a float label of that shape).
+    ``input`` holds logits, or probabilities with ``use_softmax=False``
+    (then log(clip(p, 1e-15, 1))). ``weight`` (one a class) scales each
+    hard label's loss, and "mean" divides by the weights' sum over the
+    labels not ignored; a soft label's loss is scaled by its expected
+    weight. Returns fp32."""
     if isinstance(input, Tensor):
-        return dispatch.call("cross_entropy", lambda a, lab: cross_entropy(
-            a, lab, weight, ignore_index, reduction, soft_label, axis,
-            use_softmax, label_smoothing), [input, as_tensor(label)],
-            differentiable_mask=[True, False])
-    if soft_label or weight is not None or not use_softmax:
-        raise NotImplementedError(
-            "later slice: cross_entropy with soft labels, class weights or "
-            "use_softmax=False")
+        inputs = [input, as_tensor(label)]
+        if weight is not None:
+            inputs.append(as_tensor(weight))
+        return dispatch.call(
+            "cross_entropy", lambda a, lab, *w: cross_entropy(
+                a, lab, w[0] if w else None, ignore_index, reduction,
+                soft_label, axis, use_softmax, label_smoothing),
+            inputs, differentiable_mask=[True, bool(soft_label)]
+            + [False] * (weight is not None))
     if reduction not in ("mean", "sum", "none"):
         raise ValueError(f"cross_entropy: unknown reduction {reduction!r}")
-    if label.is_floating_point():
-        raise NotImplementedError("later slice: soft (float) labels")
     (input,) = amp_cast("cross_entropy", input)
     ax = axis % input.dim()
+    c = input.shape[ax]
+    hard = not (soft_label or (label.dim() == input.dim()
+                               and label.shape[ax] == c
+                               and label.is_floating_point()))
+    if use_softmax and hard:
+        # the max leaves autograd (the JAX package's stop_gradient); the
+        # shift runs in the input dtype, the sums in fp32
+        m = input.detach().amax(dim=ax, keepdim=True)
+        shifted = (input - m).float()
+        lse = torch.log(torch.exp(shifted).sum(dim=ax)) \
+            + m.squeeze(ax).float()
+        lab, valid, safe = _hard_labels(label, input, ax, ignore_index)
+        picked = input.gather(ax, safe.unsqueeze(ax)).squeeze(ax).float()
+        nll = lse - picked
+        if label_smoothing > 0:
+            smooth = lse - input.float().mean(dim=ax)
+            nll = (1 - label_smoothing) * nll + label_smoothing * smooth
+        return _hard_label_reduce(nll, valid, reduction, weight, safe)
+    if use_softmax:
+        logp = torch.log_softmax(input.float(), dim=ax)
+    else:
+        logp = torch.log(torch.clamp(input.float(), 1e-15, 1.0))
+    if not hard:
+        soft = label.float()
+        if label_smoothing > 0:
+            soft = soft * (1 - label_smoothing) + label_smoothing / c
+        loss = -(soft * logp).sum(dim=ax)
+        if weight is not None:
+            shape = [1] * input.dim()
+            shape[ax] = c
+            loss = loss * (soft * weight.float().reshape(shape)).sum(dim=ax)
+        if reduction == "mean":
+            return loss.mean()
+        return loss.sum() if reduction == "sum" else loss
+    lab, valid, safe = _hard_labels(label, input, ax, ignore_index)
+    nll = -logp.gather(ax, safe.unsqueeze(ax)).squeeze(ax)
+    if label_smoothing > 0:
+        nll = (1 - label_smoothing) * nll \
+            + label_smoothing * -logp.mean(dim=ax)
+    return _hard_label_reduce(nll, valid, reduction, weight, safe)
+
+
+def _hard_labels(label, input, ax, ignore_index):
+    """(labels without a size-1 class axis, the mask of those not
+    ignored, the labels with the ignored ones at class 0)."""
     lab = label.long()
     if lab.dim() == input.dim() and lab.shape[ax] == 1:
         lab = lab.squeeze(ax)
-    # the max leaves autograd (the JAX package's stop_gradient); the shift
-    # runs in the input dtype, the sums in fp32
-    m = input.detach().amax(dim=ax, keepdim=True)
-    shifted = (input - m).float()
-    lse = torch.log(torch.exp(shifted).sum(dim=ax)) + m.squeeze(ax).float()
     valid = lab != ignore_index
-    safe = torch.where(valid, lab, torch.zeros_like(lab))
-    picked = input.gather(ax, safe.unsqueeze(ax)).squeeze(ax).float()
-    nll = lse - picked
-    if label_smoothing > 0:
-        smooth = lse - input.float().mean(dim=ax)
-        nll = (1 - label_smoothing) * nll + label_smoothing * smooth
-    return _hard_label_reduce(nll, valid, reduction)
+    return lab, valid, torch.where(valid, lab, torch.zeros_like(lab))
 
 
 def _hard_label_reduce(nll: torch.Tensor, valid: torch.Tensor,
-                       reduction: str) -> torch.Tensor:
-    """The ignore_index epilogue: ignored positions give 0, and "mean"
-    divides by the number of the others (at least 1)."""
-    nll = torch.where(valid, nll, torch.zeros((), dtype=nll.dtype,
-                                              device=nll.device))
-    if reduction == "mean":
-        return nll.sum() / valid.sum().clamp_min(1)
+                       reduction: str, weight=None,
+                       safe=None) -> torch.Tensor:
+    """The ignore_index and class-weight epilogue: ignored positions give
+    0; "mean" divides by the number of the others (at least 1), or with
+    ``weight`` by their weights' sum (at least 1e-12)."""
+    zero = torch.zeros((), dtype=nll.dtype, device=nll.device)
+    if weight is not None:
+        wv = weight.float()[safe]
+        nll = torch.where(valid, nll * wv, zero)
+        if reduction == "mean":
+            return nll.sum() / torch.where(valid, wv, zero).sum().clamp_min(
+                1e-12)
+    else:
+        nll = torch.where(valid, nll, zero)
+        if reduction == "mean":
+            return nll.sum() / valid.sum().clamp_min(1)
     if reduction == "sum":
         return nll.sum()
     return nll

@@ -1,7 +1,8 @@
 """Layers of the port: the Paddle-API ``Layer``s (as in the JAX
 package's ``nn/layer/``) and, in ``torch_modules``, the ``torch.nn``
 modules the torch-level GPT-2 and LLaMA are built from."""
-from .activation import GELU, ReLU, Sigmoid, Silu, Softmax, Tanh
+from .activation import (GELU, Hardsigmoid, Hardswish, ReLU, ReLU6, Sigmoid,
+                         Silu, Softmax, Swish, Tanh)
 from .common import Dropout, Embedding, Flatten, Identity, Linear
 from .conv import (Conv1D, Conv1DTranspose, Conv2D, Conv2DTranspose, Conv3D,
                    Conv3DTranspose)
@@ -21,7 +22,8 @@ from .transformer import (MultiHeadAttention, TransformerEncoder,
 __all__ = ["Layer", "Sequential", "LayerList", "LayerDict", "ParameterList",
            "Linear", "Embedding", "Dropout", "Identity", "Flatten",
            "LayerNorm", "RMSNorm", "BatchNorm", "BatchNorm1D", "BatchNorm2D",
-           "BatchNorm3D", "ReLU", "GELU", "Tanh", "Sigmoid", "Silu",
+           "BatchNorm3D", "ReLU", "ReLU6", "Swish", "Hardswish", "Hardsigmoid",
+           "GELU", "Tanh", "Sigmoid", "Silu",
            "Softmax", "CrossEntropyLoss", "MultiHeadAttention",
            "TransformerEncoderLayer", "TransformerEncoder", "TorchLinear",
            "TorchLayerNorm", "TorchRMSNorm", "Conv1D", "Conv2D", "Conv3D",

@@ -11,6 +11,26 @@ class ReLU(Layer):
         return F.relu(x)
 
 
+class ReLU6(Layer):
+    def forward(self, x):
+        return F.relu6(x)
+
+
+class Swish(Layer):
+    def forward(self, x):
+        return F.swish(x)
+
+
+class Hardswish(Layer):
+    def forward(self, x):
+        return F.hardswish(x)
+
+
+class Hardsigmoid(Layer):
+    def forward(self, x):
+        return F.hardsigmoid(x)
+
+
 class Sigmoid(Layer):
     def forward(self, x):
         return F.sigmoid(x)

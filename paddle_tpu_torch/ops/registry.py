@@ -34,12 +34,12 @@ def register(name: str, category: str = "misc", differentiable: bool = True):
     return deco
 
 
-def register_module(module, category: str):
+def register_module(module, category: str, skip=()):
     """Register every public function of an op module (``__all__``) that
-    no decorator registered."""
+    no decorator registered, but those in ``skip``."""
     for n in getattr(module, "__all__", ()):
         fn = getattr(module, n, None)
-        if n in OPS or not callable(fn) or isinstance(fn, type):
+        if n in OPS or n in skip or not callable(fn) or isinstance(fn, type):
             continue
         OPS[n] = OpDef(name=n, category=category, lowering=fn,
                        doc=(fn.__doc__ or ""))

@@ -139,6 +139,7 @@ class Optimizer:
         if len(set(self._names)) != len(self._names):
             raise ValueError("parameter names must be unique")
         self._learning_rate = learning_rate
+        self.regularization = weight_decay
         self._weight_decay = self._coeff(weight_decay)
         self._grad_clip = grad_clip
         self._multi_precision = multi_precision
@@ -148,13 +149,25 @@ class Optimizer:
 
     @staticmethod
     def _coeff(wd) -> float:
+        """The coefficient of ``weight_decay``: a float, or a regularizer
+        (``L1Decay``/``L2Decay``) object's."""
         if wd is None:
             return 0.0
-        if isinstance(wd, (int, float)):
-            return float(wd)
-        raise NotImplementedError(
-            f"later slice: weight_decay of type {type(wd).__name__} (the "
-            f"port takes a float coefficient)")
+        if hasattr(wd, "_coeff"):
+            return float(wd._coeff)
+        if hasattr(wd, "coeff"):
+            return float(wd.coeff)
+        return float(wd)
+
+    def _regularizer(self, name: str):
+        """The ``ParamAttr(regularizer=...)`` of parameter ``name``, if any."""
+        return getattr(self._given[name], "regularizer", None)
+
+    def _lr_mult(self, name: str) -> float:
+        """Parameter ``name``'s learning-rate multiplier: its
+        ``ParamAttr(learning_rate=...)``."""
+        attr = getattr(self._given[name], "optimize_attr", None) or {}
+        return float(attr.get("learning_rate", 1.0))
 
     # -------------------------------------------------------------------- lr
     def get_lr(self) -> float:
@@ -203,17 +216,34 @@ class Optimizer:
         raise NotImplementedError
 
     def _wd_flag(self, name: str) -> float:
-        return 1.0
+        """The optimizer-level decay's gate: 0 for a parameter with its own
+        ``ParamAttr`` regularizer, which takes priority."""
+        return 0.0 if self._regularizer(name) is not None else 1.0
 
     def _apply_decay(self, ws, gs, wd_flags):
-        """L2 regularization folded into the gradients: g + coeff * w for
-        each parameter, scaled by its flag (new lists; ``gs`` when there
-        is no decay)."""
+        """The optimizer-level regularization folded into the gradients,
+        scaled by each parameter's flag: g + coeff * w (a float or
+        ``L2Decay``), g + coeff * sign(w) (``L1Decay``). New lists; ``gs``
+        when there is no decay."""
         if not self._weight_decay:
             return gs
+        from ..regularizer import L1Decay
+        fold = ([torch.sign(w) for w in ws]
+                if isinstance(self.regularization, L1Decay) else ws)
         return torch._foreach_add(
-            gs, torch._foreach_mul(ws, [self._weight_decay * f
-                                        for f in wd_flags]))
+            gs, torch._foreach_mul(fold, [self._weight_decay * f
+                                          for f in wd_flags]))
+
+    def _fold_regularizer(self, name: str, p: torch.Tensor,
+                          g: torch.Tensor) -> torch.Tensor:
+        """g plus parameter ``name``'s own regularizer (computed on the
+        parameter as it is stored, as the JAX package folds it), fp32."""
+        reg = self._regularizer(name)
+        if reg is None:
+            return g.float()
+        from ..regularizer import L1Decay
+        fold = torch.sign(p) if isinstance(reg, L1Decay) else p
+        return (g + self._coeff(reg) * fold.to(g.dtype)).float()
 
     # ------------------------------------------------------------------ step
     @torch.no_grad()
@@ -228,28 +258,38 @@ class Optimizer:
             params_grads = self._grad_clip(params_grads)
         self._step_count += 1
         lr = float(self.get_lr())
-        for group in _groups(zip(live, params_grads),
+        for whole in _groups(zip(live, params_grads),
                              lambda item: item[0][1].numel()):
-            names = [name for (name, _), _ in group]
-            works, grads, back = [], [], []
-            for (name, p), (_, g) in group:
-                self._ensure_state(name, p)
-                work = self._master_weights.get(name)
-                if work is None:
-                    work = p if p.dtype == torch.float32 else p.float()
-                if work is not p:
-                    back.append((p, work))
-                works.append(work)
-                grads.append(g.float())
-            states = {s: [self._accumulators[n][s] for n in names]
-                      for s in self._state_names}
-            self._update(works, grads, states, lr, self._step_count,
-                         [self._wd_flag(n) for n in names])
-            for s, values in states.items():
-                for name, v in zip(names, values):
-                    self._accumulators[name][s] = v
-            for p, work in back:
-                p.copy_(work)
+            # one update a learning-rate multiplier (ParamAttr's, AdamW's
+            # lr_ratio), in the parameters' order
+            by_mult: Dict[float, list] = {}
+            for item in whole:
+                by_mult.setdefault(self._lr_mult(item[0][0]), []).append(
+                    item)
+            for mult, group in by_mult.items():
+                self._step_group(group, lr * mult)
+
+    def _step_group(self, group, lr: float):
+        names = [name for (name, _), _ in group]
+        works, grads, back = [], [], []
+        for (name, p), (_, g) in group:
+            self._ensure_state(name, p)
+            work = self._master_weights.get(name)
+            if work is None:
+                work = p if p.dtype == torch.float32 else p.float()
+            if work is not p:
+                back.append((p, work))
+            works.append(work)
+            grads.append(self._fold_regularizer(name, p, g))
+        states = {s: [self._accumulators[n][s] for n in names]
+                  for s in self._state_names}
+        self._update(works, grads, states, lr, self._step_count,
+                     [self._wd_flag(n) for n in names])
+        for s, values in states.items():
+            for name, v in zip(names, values):
+                self._accumulators[name][s] = v
+        for p, work in back:
+            p.copy_(work)
 
     def clear_grad(self, set_to_zero: bool = False):
         graph_break("Optimizer.clear_grad()")
@@ -441,7 +481,11 @@ class Adam(Optimizer):
 class AdamW(Adam):
     """Decoupled weight decay: w *= 1 - lr * weight_decay before the Adam
     step, for the parameters ``apply_decay_param_fun(name)`` accepts (all
-    when it is None). ``amsgrad`` works as in ``Adam`` (the JAX package's
+    when it is None) and that carry no ``ParamAttr`` regularizer (which
+    is folded into their gradients instead). ``lr_ratio(param)``
+    multiplies a parameter's learning rate, decay included, as Paddle's
+    does (the JAX package's AdamW takes the argument and ignores it).
+    ``amsgrad`` works as in ``Adam`` (the JAX package's
     AdamW ignores it, a fault of the reference)."""
 
     def __init__(self, learning_rate=0.001, beta1=0.9, beta2=0.999,
@@ -449,16 +493,23 @@ class AdamW(Adam):
                  lr_ratio=None, apply_decay_param_fun=None, grad_clip=None,
                  lazy_mode=False, multi_precision=False, amsgrad=False,
                  moment_dtype=None, name=None):
-        if lr_ratio is not None:
-            raise NotImplementedError("later slice: lr_ratio")
         super().__init__(learning_rate, beta1, beta2, epsilon, parameters,
                          None, grad_clip, lazy_mode, multi_precision,
                          amsgrad=amsgrad, moment_dtype=moment_dtype,
                          name=name)
         self._wd_coeff = self._coeff(weight_decay)
         self._apply_decay_param_fun = apply_decay_param_fun
+        self._lr_ratio = lr_ratio
+
+    def _lr_mult(self, name):
+        mult = super()._lr_mult(name)
+        if self._lr_ratio is not None:
+            mult *= float(self._lr_ratio(self._given[name]))
+        return mult
 
     def _wd_flag(self, name):
+        if self._regularizer(name) is not None:
+            return 0.0      # a ParamAttr regularizer replaces the decay
         if self._apply_decay_param_fun is not None:
             return 1.0 if self._apply_decay_param_fun(name) else 0.0
         return 1.0

@@ -10,6 +10,7 @@ are bundled: ``pretrained=True`` raises.
 from __future__ import annotations
 
 from ... import nn
+from ._pretrained import no_pretrained
 
 
 class BasicBlock(nn.Layer):
@@ -143,10 +144,7 @@ class ResNet(nn.Layer):
 
 
 def _resnet(depth, pretrained=False, **kwargs):
-    if pretrained:
-        raise NotImplementedError(
-            "pretrained weights are not bundled (no model hub egress); "
-            "load a checkpoint with set_state_dict")
+    no_pretrained(pretrained)
     return ResNet(depth=depth, **kwargs)
 
 

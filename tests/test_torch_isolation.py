@@ -70,10 +70,12 @@ def test_imports_without_jax_or_paddle_tpu():
     # dynamic_flops) modules, the capture slice's jit (program,
     # traced_layer) and static modules, the deployment slice's
     # quantization, onnx (proto, runtime) and vision.models.small_nets,
-    # and the distributed slice's groups, collectives, mesh, parallel,
-    # launcher and fleet modules
+    # the distributed slice's groups, collectives, mesh, parallel,
+    # launcher and fleet modules, and the vision slice's zoo, transforms,
+    # datasets, image backend and ops, the regularizers and the extra
+    # optimizers
     lines = proc.stdout.split()
-    assert int(lines[-1]) >= 145
+    assert int(lines[-1]) >= 156
     for name in ("paddle_tpu_torch.quantization", "paddle_tpu_torch.onnx",
                  "paddle_tpu_torch.onnx.proto",
                  "paddle_tpu_torch.onnx.runtime",
@@ -98,7 +100,18 @@ def test_imports_without_jax_or_paddle_tpu():
                  "paddle_tpu_torch.distributed.fleet.meta_optimizers."
                  "hybrid_parallel_optimizer",
                  "paddle_tpu_torch.distributed.fleet.meta_optimizers."
-                 "dygraph_sharding_optimizer"):
+                 "dygraph_sharding_optimizer",
+                 "paddle_tpu_torch.regularizer",
+                 "paddle_tpu_torch.optimizer.extras",
+                 "paddle_tpu_torch.vision.ops",
+                 "paddle_tpu_torch.vision.transforms",
+                 "paddle_tpu_torch.vision.datasets",
+                 "paddle_tpu_torch.vision.image",
+                 "paddle_tpu_torch.vision.models.vgg",
+                 "paddle_tpu_torch.vision.models.mobilenet",
+                 "paddle_tpu_torch.vision.models.densenet",
+                 "paddle_tpu_torch.vision.models.inception",
+                 "paddle_tpu_torch.vision.models._pretrained"):
         assert name in lines, name
 
 
@@ -155,6 +168,24 @@ def test_no_silent_cpu_without_cuda():
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         LlamaForCausalLM(LlamaConfig(vocab_size=83, hidden_size=64,
                                      num_layers=1, num_heads=2))
+
+
+def test_vision_entry_points_raise_without_cuda():
+    """The vision slice's entry points take the card unless the caller
+    set the CPU: a zoo model, a vision op on host data and ``to_tensor``
+    outside a loader worker raise without CUDA."""
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device is real")
+    from paddle_tpu_torch.vision import models, ops, transforms
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        models.mobilenet_v2(num_classes=10)
+    boxes = np.array([[0, 0, 4, 4], [1, 1, 5, 5]], np.float32)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        ops.nms(boxes, 0.5)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        transforms.to_tensor(np.zeros((4, 4, 3), np.uint8))
+    with paddle_tpu_torch.device_guard("cpu"):
+        assert ops.nms(boxes, 0.5).numpy().tolist() == [0, 1]
 
 
 def test_cpu_flash_call_launches_nothing():

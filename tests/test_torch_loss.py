@@ -3,7 +3,9 @@ JAX package's.
 
 Hard labels with softmax: the loss value and its gradient with respect
 to the logits, for each reduction, with ``ignore_index`` and label
-smoothing, on numpy-seeded logits shared by both sides.
+smoothing, on numpy-seeded logits shared by both sides; soft labels,
+``use_softmax=False`` and class weights on the torch-level function
+(the Paddle-API cases are in ``test_torch_regularizer_extras.py``).
 ``fused_linear_cross_entropy``: the loss and its gradients with respect
 to x, the weight and the bias, fp32, within 1e-5 of the JAX package's and
 of the port's own ``cross_entropy`` on the full logits.
@@ -92,10 +94,25 @@ def test_bf16_logits_reduce_in_fp32():
 @pytest.mark.parametrize("kw", [dict(soft_label=True), dict(use_softmax=False),
                                 dict(weight=torch.ones(37))])
 def test_later_slice_options_raise(kw):
+    """These options were a later slice and raised; they are ported now
+    (slice 16), and give the JAX package's loss and logits gradient on
+    the torch-level function: soft labels (a softmax of seeded logits),
+    probabilities without the softmax, class weights (ones: the plain
+    mean)."""
     logits, labels = _inputs()
-    with pytest.raises(NotImplementedError, match="later slice"):
-        cross_entropy(torch.from_numpy(logits), torch.from_numpy(labels),
-                      **kw)
+    if kw.get("soft_label"):
+        soft = np.random.RandomState(9).rand(*logits.shape).astype(
+            np.float32)
+        labels = soft / soft.sum(1, keepdims=True)
+    if kw.get("use_softmax") is False:
+        e = np.exp(logits - logits.max(1, keepdims=True))
+        logits = (e / e.sum(1, keepdims=True)).astype(np.float32)
+    jkw = {k: (paddle.to_tensor(v.numpy()) if isinstance(v, torch.Tensor)
+               else v) for k, v in kw.items()}
+    want, want_g = _jax(logits, labels, **jkw)
+    got, got_g = _port(logits, labels, **kw)
+    np.testing.assert_allclose(got, want, rtol=TOL, atol=TOL)
+    np.testing.assert_allclose(got_g, want_g, rtol=TOL, atol=TOL)
 
 
 def _head_inputs(n, h=16, v=37, transpose_y=False, bias=False, seed=0):

@@ -241,8 +241,25 @@ def test_clip_matches_jax(kind):
 @pytest.mark.parametrize("kw", [dict(lr_ratio=lambda p: 1.0),
                                 dict(weight_decay=object())])
 def test_later_slice_options_raise(kw):
-    with pytest.raises(NotImplementedError, match="later slice"):
-        AdamW(parameters=[torch.nn.Parameter(torch.zeros(2))], **kw)
+    """``lr_ratio`` and regularizer objects were a later slice and raised;
+    since slice 16 a ratio of 1 steps as no ratio does, and a
+    ``weight_decay`` that is neither a number nor a regularizer raises
+    TypeError (the ratios and regularizers themselves are held against
+    the JAX package in ``test_torch_regularizer_extras.py``)."""
+    if "weight_decay" in kw:
+        with pytest.raises(TypeError):
+            AdamW(parameters=[torch.nn.Parameter(torch.zeros(2))], **kw)
+        return
+    steps = []
+    for extra in ({}, kw):
+        p = torch.nn.Parameter(torch.linspace(-1, 1, 6))
+        opt = AdamW(learning_rate=0.1, parameters=[p], **extra)
+        for i in range(3):
+            p.grad = torch.linspace(0.5, -0.3, 6) * (i + 1)
+            opt.step()
+            opt.clear_grad()
+        steps.append(p.detach().clone())
+    assert torch.equal(steps[0], steps[1])
 
 
 @pytest.mark.parametrize("shape", [(6, 5), (300,), (3, 256), (1000, 3)])

@@ -6,7 +6,11 @@ gloo; it imports torch, numpy and the port only:
         --master 127.0.0.1:PORT tests/torch_dist_worker.py JOB IN OUT
 
 JOB is ``collectives`` (4 ranks: every collective on the world and on
-each axis group of a dp2 x mp2 mesh), ``tp`` (2 ranks: the mp layers and
+each axis group of a dp2 x mp2 mesh), ``exit`` / ``exit:destroy`` (one
+all-reduce on the world and on a dp2 x mp2 mesh's groups, then return,
+leaving the teardown to the exit hook or calling
+``destroy_process_group`` first; writes the threads alive after the
+exit hook), ``tp`` (2 ranks: the mp layers and
 a tensor-parallel GPT), ``train:<strategy>[:clip]`` (the TestDistBase
 parity run: 6 AdamW steps of the tiny GPT from the JAX model's weights)
 or ``fail`` (rank 1 exits 3 while the others wait in a collective). IN
@@ -359,8 +363,34 @@ def fail():
         f.write("no")
 
 
+def exit_job(destroy):
+    import atexit
+    import glob
+
+    def threads():
+        # registered before init_parallel_env registers its hook, so it
+        # runs after it (atexit is last in, first out)
+        names = sorted(open(p).read().strip()
+                       for p in glob.glob("/proc/self/task/*/comm"))
+        with open(os.path.join(OUT, f"threads.r{rank}.json"), "w") as f:
+            json.dump(names, f)
+    atexit.register(threads)
+    dist.init_parallel_env()
+    rank = dist.get_rank()
+    dist.set_mesh(dist.build_mesh({"dp": 2, "mp": 2}))
+    t = torch.full((4,), float(rank))
+    for g in (dist.get_default_group(), dist.new_group(axes="dp"),
+              dist.new_group(axes="mp")):
+        dist.all_reduce(t, group=g)
+    save("exit", rank, x=t)
+    if destroy:
+        dist.destroy_process_group()
+
+
 if JOB == "collectives":
     collectives()
+elif JOB.startswith("exit"):
+    exit_job(JOB == "exit:destroy")
 elif JOB == "tp":
     tp()
 elif JOB.startswith("train:"):
