@@ -309,13 +309,15 @@ import torch
 PHASES = ("build", "kernel", "fused_kernel", "forward", "serve",
           "serve_llama", "serve_tier", "train", "fusion", "rungs",
           "paddle_api", "paddle_static", "checkpoint", "vision",
-          "vision_zoo", "deploy", "distributed")
+          "vision_zoo", "deploy", "distributed", "seq2seq")
 MAIN_PATH = ("forward", "serve", "serve_llama", "serve_tier", "train",
              "fusion", "rungs", "paddle_api", "paddle_static", "checkpoint",
-             "vision", "vision_zoo", "deploy", "distributed")
+             "vision", "vision_zoo", "deploy", "distributed", "seq2seq")
 PATH_SHAPE = dict(b=4, s=1024, h=12, d=64)      # GPT-2 small serving
 TRAIN_SHAPE = dict(b=8, s=1024, h=16, d=64)     # GPT-2 345M training
 LLAMA_ATTN_SHAPE = dict(b=4, s=2048, h=12, d=128)   # LLaMA-770M fusion path
+DECODE_ATTN = (32, 8, 64)       # Transformer-base decode: B, H, d
+DECODE_KEYS = (1, 7, 63, 64, 65, 128)
 FP32_TOL = 1e-4
 BF16_TOL = 2e-2
 FP16_TOL = 5e-3     # one fp16 rounding step at |x| in [4, 8) is 3.9e-3
@@ -527,6 +529,13 @@ def phase_kernel(state):
          False),
         ("d=128 strided qkv views", 2, 333, 333, 4, 128, True, True),
     ]
+    # the seq2seq decode's shapes (B32 H8 d64): one query row against a
+    # growing self-attention cache, then cross-attention with s_q != s_k
+    b, h, d = DECODE_ATTN
+    cases += [(f"decode s_q=1 vs {s_k}", b, 1, s_k, h, d, False, False)
+              for s_k in DECODE_KEYS]
+    cases += [("decode s_q=1 vs 65 causal", b, 1, 65, h, d, True, False),
+              ("cross s_q=128 vs 96", b, 128, 96, h, d, False, False)]
     worst = {}
     for dtype, tol in ((torch.float32, FP32_TOL), (torch.bfloat16, BF16_TOL),
                        (torch.float16, FP16_TOL)):
@@ -586,11 +595,13 @@ def _library_attention(q, k, v, causal):
 
 
 def _time_fwd(fa, gen, shape, causal=True):
-    """K1 at one path shape (bf16, causal unless told): its time beside
-    its bound, its plain version and PyTorch's SDPA; logs the row and
-    returns the kernels-line fields."""
+    """K1 at one path shape (bf16, causal unless told; ``s_q`` queries,
+    ``s`` by default, against ``s`` keys): its time beside its bound, its
+    plain version and PyTorch's SDPA; logs the row and returns the
+    kernels-line fields."""
     b, s, h, d = shape["b"], shape["s"], shape["h"], shape["d"]
-    q, k, v = _qkv(b, s, s, h, d, torch.bfloat16, gen)
+    s_q = shape.get("s_q", s)
+    q, k, v = _qkv(b, s_q, s, h, d, torch.bfloat16, gen)
     def run():
         return fa.flash_attention_fwd(q, k, v, causal=causal)
     ms, q1, q3 = time_ms(run, reps=KERNEL_REPS, queued=True)
@@ -604,10 +615,12 @@ def _time_fwd(fa, gen, shape, causal=True):
     library_ms, _, _ = time_ms(
         lambda: torch.nn.functional.scaled_dot_product_attention(
             qt, kt, vt, is_causal=causal), reps=KERNEL_REPS, queued=True)
-    moved = 4 * b * s * h * d * q.element_size() + b * h * s * 4  # +lse
-    flops = 4.0 * b * h * d * _visible_pairs(s, s, causal)
+    # q and out, k and v, and the fp32 LSE
+    moved = 2 * b * (s_q + s) * h * d * q.element_size() + b * h * s_q * 4
+    flops = 4.0 * b * h * d * _visible_pairs(s_q, s, causal)
     bound_ms, bound_by = _bound(moved, flops)
-    label = f"B{b} S{s} H{h} d{d} bf16 {_mode(causal)}"
+    label = (f"B{b} S{s} H{h} d{d} bf16 {_mode(causal)}" if s_q == s else
+             f"B{b} Sq{s_q} Sk{s} H{h} d{d} bf16 {_mode(causal)}")
     log(json.dumps({"kernel": "flash_attention_fwd", "shape": label,
                     "kernel_ms": ms, "kernel_ms_q1": q1, "kernel_ms_q3": q3,
                     "host_ms_a_call": host,
@@ -4883,6 +4896,349 @@ def phase_deploy(state):
     log(f"deploy: {time.perf_counter() - t0:.1f} s")
 
 
+# ---------------------------------------------------------------- seq2seq
+# Transformer-base (Vaswani et al. 2017, Table 3 "base", sections 3.4-3.5
+# and 5.1-5.4) on the port's nn.Transformer at its published settings
+SEQ2SEQ = dict(d_model=512, nhead=8, num_encoder_layers=6,
+               num_decoder_layers=6, dim_feedforward=2048, dropout=0.1)
+SEQ2SEQ_VOCAB = 37000           # the shared source/target vocabulary, 5.1
+SEQ2SEQ_BATCH = dict(b=32, s=128)   # 4096 source + 4096 target tokens
+SEQ2SEQ_PARITY = dict(b=4, s=32)    # the fp32 card-vs-CPU steps
+SEQ2SEQ_SMOOTHING = 0.1         # label smoothing, 5.4
+SEQ2SEQ_ADAM = dict(beta1=0.9, beta2=0.98, epsilon=1e-9)   # 5.3
+SEQ2SEQ_WARMUP = 4000           # NoamDecay's warmup steps, 5.3
+SEQ2SEQ_STEPS, SEQ2SEQ_WARM_STEPS = 10, 2
+SEQ2SEQ_NEW = 128               # greedy tokens a source
+SEQ2SEQ_CPU_STEPS, SEQ2SEQ_CPU_ROWS = 8, 4      # decode logits on the CPU
+
+
+def _sinusoid(n, d):
+    """The sinusoidal positions of section 3.5, (n, d) fp32."""
+    pos = np.arange(n)[:, None]
+    div = np.exp(np.arange(0, d, 2) * (-np.log(10000.0) / d))
+    table = np.zeros((n, d), np.float32)
+    table[:, 0::2] = np.sin(pos * div)
+    table[:, 1::2] = np.cos(pos * div)
+    return table
+
+
+def _seq2seq_model(paddle, dropout, seed=17):
+    """nn.Transformer with one embedding shared by the source, the target
+    and the pre-softmax projection, scaled by sqrt(d_model) (3.4), plus
+    sinusoidal positions (3.5), on the current device."""
+    d = SEQ2SEQ["d_model"]
+
+    class Seq2Seq(paddle.nn.Layer):
+        def __init__(self):
+            super().__init__()
+            self.embed = paddle.nn.Embedding(
+                SEQ2SEQ_VOCAB, d, weight_attr=paddle.nn.initializer.Normal(
+                    0.0, d ** -0.5))
+            self.transformer = paddle.nn.Transformer(
+                **dict(SEQ2SEQ, dropout=dropout))
+            self.drop = paddle.nn.Dropout(dropout)
+            self.register_buffer("pos", paddle.to_tensor(_sinusoid(max(
+                SEQ2SEQ_NEW, SEQ2SEQ_BATCH["s"], SEQ2SEQ_PARITY["s"]), d)))
+
+        def tokens(self, ids, start=0):
+            x = self.embed(ids) * (d ** 0.5)
+            return self.drop(x + self.pos[start:start + ids.shape[1]])
+
+        def logits(self, h):
+            return paddle.matmul(h, self.embed.weight, transpose_y=True)
+
+        def forward(self, src, tgt_in):
+            memory = self.transformer.encoder(self.tokens(src))
+            mask = paddle.nn.Transformer.generate_square_subsequent_mask(
+                tgt_in.shape[1])
+            return self.logits(self.transformer.decoder(
+                self.tokens(tgt_in), memory, mask))
+
+    paddle.seed(seed)
+    return Seq2Seq()
+
+
+def _seq2seq_loss(paddle, model, src, tgt):
+    """Label-smoothed (epsilon 0.1) soft-label cross entropy of the next
+    target token, the target shifted right behind token 0."""
+    F = paddle.nn.functional
+    tgt_in = paddle.concat([paddle.zeros([tgt.shape[0], 1], "int64"),
+                            tgt[:, :-1]], axis=1)
+    logits = model(src, tgt_in)
+    soft = F.label_smooth(F.one_hot(tgt, SEQ2SEQ_VOCAB),
+                          epsilon=SEQ2SEQ_SMOOTHING)
+    return F.cross_entropy(logits, soft, soft_label=True)
+
+
+def _seq2seq_opt(paddle, model):
+    sched = paddle.optimizer.lr.NoamDecay(d_model=SEQ2SEQ["d_model"],
+                                          warmup_steps=SEQ2SEQ_WARMUP)
+    return sched, paddle.optimizer.Adam(
+        learning_rate=sched, parameters=model.parameters(), **SEQ2SEQ_ADAM)
+
+
+def _seq2seq_batch(paddle, seed, b, s):
+    rng = np.random.RandomState(seed)
+    return tuple(paddle.to_tensor(rng.randint(
+        1, SEQ2SEQ_VOCAB, (b, s)).astype(np.int64)) for _ in range(2))
+
+
+def _seq2seq_state(model):
+    return {k: v.numpy() for k, v in model.state_dict().items()}
+
+
+def _seq2seq_parity(paddle):
+    """3 fp32 steps, dropout 0, on the card and on a CPU twin carrying
+    the same state: the losses within LOSS_TOL."""
+    card = _seq2seq_model(paddle, dropout=0.0)
+    with paddle.device_guard("cpu"):
+        twin = _seq2seq_model(paddle, dropout=0.0, seed=18)
+        twin.set_state_dict(_seq2seq_state(card))
+    losses = []
+    for model, dev in ((card, "gpu:0"), (twin, "cpu")):
+        with paddle.device_guard(dev):
+            sched, opt = _seq2seq_opt(paddle, model)
+            run = []
+            for step in range(3):
+                src, tgt = _seq2seq_batch(paddle, 100 + step,
+                                          **SEQ2SEQ_PARITY)
+                loss = _seq2seq_loss(paddle, model, src, tgt)
+                loss.backward()
+                opt.step()
+                opt.clear_grad()
+                sched.step()
+                run.append(float(loss.item()))
+            losses.append(run)
+    diff = max(abs(a - b) for a, b in zip(*losses))
+    log(f"seq2seq: fp32 B{SEQ2SEQ_PARITY['b']} S{SEQ2SEQ_PARITY['s']} "
+        f"card losses {losses[0]} CPU {losses[1]} max diff {diff:.3e} "
+        f"(tolerance {LOSS_TOL})")
+    if not (np.isfinite(losses[0]).all() and diff <= LOSS_TOL):
+        raise AssertionError(f"seq2seq parity: card {losses[0]} vs CPU "
+                             f"{losses[1]}")
+    del card, twin
+
+
+SEQ2SEQ_GROUPS = {"K1 attention": ("flash_fwd",),
+                  "cuBLAS GEMM": ("nvjet", "xmma", "cutlass", "cublas",
+                                  "gemm"),
+                  "softmax and cross entropy": ("softmax",),
+                  "elementwise and reductions": ("elementwise", "reduce",
+                                                 "vectorized")}
+
+
+def _seq2seq_train(paddle, model, card, profile=False):
+    """bf16 amp O1 steps at dropout 0.1: SEQ2SEQ_WARM_STEPS, then
+    SEQ2SEQ_STEPS timed, split by CUDA events; one JSON line (with
+    ``profile``, a torch.profiler breakdown of one more step)."""
+    from paddle_tpu_torch import amp
+    b, s = SEQ2SEQ_BATCH["b"], SEQ2SEQ_BATCH["s"]
+    sched, opt = _seq2seq_opt(paddle, model)
+    batches = [_seq2seq_batch(paddle, i, b, s)
+               for i in range(SEQ2SEQ_WARM_STEPS + SEQ2SEQ_STEPS)]
+    walls, split, losses = [], [], []
+    for i, (src, tgt) in enumerate(batches):
+        if i == SEQ2SEQ_WARM_STEPS:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+        events = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        events[0].record()
+        with amp.auto_cast(**O1):
+            loss = _seq2seq_loss(paddle, model, src, tgt)
+        events[1].record()
+        loss.backward()
+        events[2].record()
+        opt.step()
+        opt.clear_grad()
+        sched.step()
+        events[3].record()
+        torch.cuda.synchronize()
+        if i >= SEQ2SEQ_WARM_STEPS:
+            walls.append(time.perf_counter() - t0)
+            split.append([events[j].elapsed_time(events[j + 1])
+                          for j in range(3)])
+        losses.append(float(loss.item()))
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    if profile:
+        src, tgt = batches[-1]
+
+        def step():
+            with amp.auto_cast(**O1):
+                loss = _seq2seq_loss(paddle, model, src, tgt)
+            loss.backward()
+            opt.step()
+            opt.clear_grad()
+        _profile("seq2seq O1 train step", step, groups=SEQ2SEQ_GROUPS)
+    q1, median, q3 = statistics.quantiles(walls, n=4)
+    fwd, bwd, upd = (statistics.median(x[j] for x in split)
+                     for j in range(3))
+    d, ff = SEQ2SEQ["d_model"], SEQ2SEQ["dim_feedforward"]
+    enc = sum(p.size for p in model.transformer.encoder.parameters())
+    dec = sum(p.size for p in model.transformer.decoder.parameters())
+    tokens = b * s
+    # 6 FLOPs a parameter a token (forward and backward) for each stack on
+    # its own tokens and for the pre-softmax projection on the targets, and
+    # 12 d S a token a layer for each attention (scores and values, forward
+    # and backward; the decoder's causal self-attention counted whole)
+    flops = 6 * (enc * tokens + dec * tokens + d * SEQ2SEQ_VOCAB * tokens) \
+        + 12 * d * s * tokens * (SEQ2SEQ["num_encoder_layers"]
+                                 + 2 * SEQ2SEQ["num_decoder_layers"])
+    row = {"seq2seq": f"transformer_base O1 bf16 B{b} S{s}+{s} train",
+           "card": card, "params": sum(p.size for p in model.parameters()),
+           "steps": len(walls), "step_ms": median * 1e3,
+           "step_ms_q1": q1 * 1e3, "step_ms_q3": q3 * 1e3,
+           "forward_ms": fwd, "backward_ms": bwd, "optimizer_ms": upd,
+           "target_tokens_per_s": tokens / median, "flops_a_step": flops,
+           "mfu": flops / median / BF16_FLOP_PER_S, "peak_memory_gb": peak,
+           "losses": losses, "dropout": SEQ2SEQ["dropout"], "d_ff": ff,
+           "lr_last": sched.get_lr()}
+    log(json.dumps(row))
+    if not np.isfinite(losses).all():
+        raise AssertionError(f"seq2seq training losses {losses}")
+    del opt, batches
+
+
+def _seq2seq_greedy(paddle, model, src, n_new, keep_logits=0):
+    """Greedy ids from token 0 through ``decoder.gen_cache`` and one
+    cached decoder call a token; the first ``keep_logits`` steps' logits
+    and every step's top-two gap come back too."""
+    memory = model.transformer.encoder(model.tokens(src))
+    cache = model.transformer.decoder.gen_cache(memory)
+    tok = paddle.zeros([src.shape[0], 1], "int64")
+    ids, kept = [], []
+    for t in range(n_new):
+        h, cache = model.transformer.decoder(model.tokens(tok, t), memory,
+                                             cache=cache)
+        logits = model.logits(h)[:, -1]
+        if t < keep_logits:
+            kept.append(logits.numpy())
+        tok = paddle.argmax(logits, axis=-1, keepdim=True)
+        ids.append(tok)
+    return paddle.concat(ids, axis=1).numpy(), kept
+
+
+def _seq2seq_recompute(paddle, model, src, n_new):
+    """The reference: the whole prefix through the decoder each step under
+    the causal mask; (ids, each step's top-two gap)."""
+    memory = model.transformer.encoder(model.tokens(src))
+    prefix = paddle.zeros([src.shape[0], 1], "int64")
+    ids, gaps = [], []
+    for _ in range(n_new):
+        mask = paddle.nn.Transformer.generate_square_subsequent_mask(
+            prefix.shape[1])
+        h = model.transformer.decoder(model.tokens(prefix), memory, mask)
+        logits = model.logits(h)[:, -1]
+        top = paddle.topk(logits, 2, axis=-1)[0].numpy()
+        gaps.append(top[:, 0] - top[:, 1])
+        tok = paddle.argmax(logits, axis=-1, keepdim=True)
+        ids.append(tok)
+        prefix = paddle.concat([prefix, tok], axis=1)
+    return paddle.concat(ids, axis=1).numpy(), np.stack(gaps, axis=1)
+
+
+def _seq2seq_decode(paddle, model, card, profile=False):
+    """fp32 greedy decode of the 32 sources held against the full
+    recompute and (the first steps' logits) a CPU twin; K1's launches;
+    then the bf16 decode, timed (with ``profile``, a torch.profiler
+    breakdown of 16 more tokens)."""
+    import paddle_tpu_torch.ops.cuda.flash_attention as fa
+    b, s = SEQ2SEQ_BATCH["b"], SEQ2SEQ_BATCH["s"]
+    src, _ = _seq2seq_batch(paddle, 999, b, s)
+    layers = SEQ2SEQ["num_decoder_layers"]
+    model.eval()
+    with paddle.no_grad():
+        before = fa.flash_attention_fwd.launches
+        ids, kept = _seq2seq_greedy(paddle, model, src, SEQ2SEQ_NEW,
+                                    SEQ2SEQ_CPU_STEPS)
+        launched = fa.flash_attention_fwd.launches - before
+        want = SEQ2SEQ["num_encoder_layers"] + 2 * layers * SEQ2SEQ_NEW
+        log(f"seq2seq: fp32 greedy decode of {b} sources, {SEQ2SEQ_NEW} "
+            f"tokens: K1 launched {launched} (want {want})")
+        if launched != want:
+            raise AssertionError(f"seq2seq decode launched K1 {launched} "
+                                 f"times, wants {want}")
+        ref, gaps = _seq2seq_recompute(paddle, model, src, SEQ2SEQ_NEW)
+        _hold("seq2seq cached decode vs full recompute",
+              [list(r) for r in ids], [list(r) for r in ref],
+              lambda i, j: float(gaps[i, j]))
+        with paddle.device_guard("cpu"):
+            twin = _seq2seq_model(paddle, dropout=0.0, seed=18)
+            twin.set_state_dict(_seq2seq_state(model))
+            twin.eval()
+            rows = SEQ2SEQ_CPU_ROWS
+            src_cpu = paddle.to_tensor(src.numpy()[:rows])
+            memory = twin.transformer.encoder(twin.tokens(src_cpu))
+            cache = twin.transformer.decoder.gen_cache(memory)
+            tok = np.zeros((rows, 1), np.int64)
+            worst = 0.0
+            for t in range(SEQ2SEQ_CPU_STEPS):
+                h, cache = twin.transformer.decoder(
+                    twin.tokens(paddle.to_tensor(tok), t), memory,
+                    cache=cache)
+                got = twin.logits(h)[:, -1].numpy()
+                worst = max(worst, float(np.abs(kept[t][:rows] - got).max()))
+                tok = ids[:rows, t:t + 1]       # the card's tokens
+        log(f"seq2seq: the first {SEQ2SEQ_CPU_STEPS} steps' logits of "
+            f"{rows} sources, card vs CPU max_abs_diff={worst:.3e} "
+            f"(tolerance {LOGITS_TOL})")
+        if not (np.isfinite(kept[0]).all() and worst <= LOGITS_TOL):
+            raise AssertionError(f"seq2seq decode logits disagree: {worst}")
+        del twin
+        model.to(dtype="bfloat16")
+        _seq2seq_greedy(paddle, model, src, 4)          # warm-up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ids16, _ = _seq2seq_greedy(paddle, model, src, SEQ2SEQ_NEW)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        if profile:
+            _profile("seq2seq bf16 decode, 16 tokens",
+                     lambda: _seq2seq_greedy(paddle, model, src, 16),
+                     groups=SEQ2SEQ_GROUPS)
+    agree = float((ids16 == ids).mean())
+    log(json.dumps({"seq2seq": f"transformer_base bf16 greedy decode B{b} "
+                                f"S{s} +{SEQ2SEQ_NEW}", "card": card,
+                    "ms_a_token": wall / SEQ2SEQ_NEW * 1e3,
+                    "tokens_per_s": b * SEQ2SEQ_NEW / wall,
+                    "k1_launches_fp32_decode": launched,
+                    "ids_agree_with_fp32": agree}))
+
+
+def _seq2seq_k1(state):
+    """K1 at the decode's shape (one query row against 128 cached keys,
+    B32 H8 d64, bf16, non-causal) beside its bound and SDPA; not the main
+    path, so its launches do not count."""
+    import paddle_tpu_torch.ops.cuda.flash_attention as fa
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(77)
+    b, h, d = DECODE_ATTN
+    counts = _counts()
+    row = _time_fwd(fa, gen, dict(b=b, s=128, s_q=1, h=h, d=d), causal=False)
+    for name, n in counts.items():
+        _wrapper(name).launches = n
+    state["seq2seq_k1"] = row
+
+
+def phase_seq2seq(state):
+    """Transformer-base at full width on one card: fp32 parity steps
+    against a CPU twin, bf16 training steps, the greedy decode through the
+    caches (K1 at every attention) held against the full recompute and
+    the CPU, and its bf16 time."""
+    import paddle_tpu_torch as paddle
+    card = _card_line()
+    with paddle.device_guard("gpu:0"):
+        _seq2seq_k1(state)
+        _seq2seq_parity(paddle)
+        model = _seq2seq_model(paddle, dropout=SEQ2SEQ["dropout"])
+        model.train()
+        _seq2seq_train(paddle, model, card, state.get("profile"))
+        _seq2seq_decode(paddle, model, card, state.get("profile"))
+        del model
+    torch.cuda.empty_cache()
+
+
 # ------------------------------------------------------------ distributed
 # the tiny GPT of the JAX package's TestDistBase (tests/dist_train_worker.py)
 DIST_TINY = dict(vocab_size=128, hidden_size=32, num_layers=2, num_heads=2,
@@ -5398,8 +5754,9 @@ def main(argv=None) -> int:
                         "fused and an unfused step of each fusion path, "
                         "of one step of each rung, of a BERT-base step, "
                         "of a ResNet-50 rung step, of a deployed "
-                        "BERT-base's Predictor.run and of a GPT-2 345M "
-                        "step of each distributed run (rank 0)")
+                        "BERT-base's Predictor.run, of a GPT-2 345M "
+                        "step of each distributed run (rank 0) and of a "
+                        "Transformer-base step and decode")
     parser.add_argument("--dist-rank", metavar="OUTDIR",
                         help=argparse.SUPPRESS)     # a rank of distributed
     args = parser.parse_args(argv)

@@ -1,8 +1,9 @@
 """Fleet (counterpart of ``paddle_tpu/distributed/fleet/``): the hybrid
 topology, the facade (collective mode), the tensor-parallel layers and
 RNG streams, the TP and sharding wrappers, the hybrid and ZeRO-1
-optimizers, and ``recompute``. Pipeline, sequence and sep parallelism,
-MoE and the parameter server are later slices."""
+optimizers, and ``recompute``; ``moe`` (MoE on one process) is imported
+by ``incubate.nn``. Pipeline, sequence and sep parallelism, expert
+parallelism and the parameter server are later slices."""
 from . import utils
 from .base.distributed_strategy import DistributedStrategy
 from .base.topology import (CommunicateTopology, HybridCommunicateGroup,

@@ -13,10 +13,17 @@ torch's (``RANK``, ``WORLD_SIZE``, ``LOCAL_RANK``, ``MASTER_ADDR``,
 each rank's output goes to ``<log_dir>/workerlog.<rank>``. When a rank
 ends with a non-zero code, the others get ``--abort_grace`` seconds to
 end by themselves (a collective that lost a peer times out), then are
-terminated, and the launcher exits with that rank's code (128 + the
-signal for a rank killed by one): the first rank to fail, not a peer
-that failed because it was gone. Restarts (``--max_restarts``) belong
-to the fault-tolerance slice and raise.
+terminated, and the launcher exits with the code of the rank that
+failed first (128 + the signal for a rank killed by one), not of a peer
+that failed because it was gone. A failing rank is gone to its peers
+before the launcher sees it end (its exit closes its connections, then
+the interpreter and torch take most of a second to tear down), so the
+peers' errors can reach the launcher first; they end with Python's
+generic code 1 (an uncaught collective error) or a signal. So the
+choice is made with the failures of the whole grace window, as the JAX
+launcher re-selects with the full picture: the first that ended with a
+code above 1 (a program's own ``sys.exit``), else the first. Restarts
+(``--max_restarts``) belong to the fault-tolerance slice and raise.
 """
 from __future__ import annotations
 
@@ -28,7 +35,7 @@ import subprocess
 import sys
 import threading
 import time
-from typing import List, Optional
+from typing import List, Optional, Tuple
 
 FAULT_TOLERANCE_SLICE = ("group restarts and elastic training are a later "
                          "slice of the port (fault tolerance: "
@@ -92,6 +99,13 @@ def _exit_code(rc: int) -> int:
     return 128 - rc if rc < 0 else rc
 
 
+def _cause(failures: List[Tuple[int, int]]) -> Tuple[int, int]:
+    """(rank, code) of the failure the others followed, from the failures
+    in the order they ended: the first with a code above 1, else the
+    first."""
+    return next((f for f in failures if f[1] > 1), failures[0])
+
+
 def _end(procs: List[subprocess.Popen], grace: float = 5.0):
     """Terminate the live processes (their whole sessions), then kill what
     is left after ``grace`` seconds."""
@@ -145,7 +159,7 @@ def launch(argv=None) -> int:
         for rank, p in enumerate(procs):
             threading.Thread(target=lambda r=rank, q=p: ended.put(
                 (r, q.wait())), daemon=True).start()
-        failed, left, deadline = None, len(procs), None
+        failures, left, deadline = [], len(procs), None
         while left:
             if stop["signal"] is not None:
                 _end(procs)
@@ -158,12 +172,14 @@ def launch(argv=None) -> int:
                     break
                 continue
             left -= 1
-            if code != 0 and failed is None:
-                failed = (rank, code)
-                deadline = time.monotonic() + args.abort_grace
-                print(f"launch: rank {rank} ended with {code}; ending the "
-                      f"others", file=sys.stderr, flush=True)
-        return 0 if failed is None else _exit_code(failed[1])
+            if code != 0:
+                failures.append((rank, code))
+                print(f"launch: rank {rank} ended with {code}"
+                      + ("; ending the others" if deadline is None else ""),
+                      file=sys.stderr, flush=True)
+                if deadline is None:
+                    deadline = time.monotonic() + args.abort_grace
+        return 0 if not failures else _exit_code(_cause(failures)[1])
     finally:
         _end(procs)
         for f in logs:

@@ -69,7 +69,10 @@ def load_jax_state(model: nn.Module, arrays: Dict[str, np.ndarray],
 
 def load_jax_layer_state(layer, arrays: Dict[str, np.ndarray]):
     """``layer.set_state_dict(arrays)`` for a Paddle-API ``Layer``, raising
-    ``KeyError`` on missing or unexpected keys."""
+    ``KeyError`` on missing or unexpected keys. Every layer of the port's
+    ``nn`` and ``incubate.nn`` keeps the JAX package's names and layouts
+    (an RNN stack's ``cells.<layer * directions + d>.weight_ih``, the
+    Transformer's, the fused layers'), so none needs a mapping."""
     missing, unexpected = layer.set_state_dict(arrays)
     if missing or unexpected:
         raise KeyError(f"load_jax_layer_state: missing keys {missing}, "

@@ -16,9 +16,15 @@ On Paddle ``Tensor``s each is one op through ``core.dispatch.call`` over
 the same body (so a CUDA tensor launches the kernels or raises, and only
 a CPU tensor takes the plain versions), with dropout drawn from the
 device's Paddle-API generator; the mask takes no gradient.
+
+``flash_attn_unpadded`` (a segment mask over packed tokens) and
+``flash_attention_with_sparse_mask`` take the plain path, as the JAX
+package takes XLA's for them; ``sdp_kernel`` is accepted and chooses
+nothing.
 """
 from __future__ import annotations
 
+import contextlib
 import math
 from typing import Optional
 
@@ -29,6 +35,7 @@ from ...core import dispatch
 from ...core.generator import default_generator
 from ...core.tensor import Tensor, as_tensor
 from ...ops.cuda.flash_attention import flash_attention_fwd
+from ._op import call
 from .common import dropout as _dropout
 
 NEG_INF = -1e30
@@ -115,4 +122,67 @@ def scaled_dot_product_attention(query, key, value, attn_mask=None,
                        dropout_p=drop, generator=generator)
 
 
-__all__ = ["flash_attention", "scaled_dot_product_attention"]
+def flash_attn_unpadded(query, key, value, cu_seqlens_q, cu_seqlens_k,
+                        max_seqlen_q, max_seqlen_k, scale, dropout=0.0,
+                        causal=False, return_softmax=False,
+                        fixed_seed_offset=None, rng_name="", training=True,
+                        name=None):
+    """Attention over packed (total_tokens, H, d) q/k/v, each token seeing
+    only the keys of its own sequence (``cu_seqlens_*`` are the
+    cumulative lengths): the plain path over a segment mask, as the JAX
+    package computes it (never its Pallas kernel). Returns (out, None)."""
+    def body(q, k, v, cq, ck):
+        pos_q = torch.arange(q.shape[0], device=q.device)
+        pos_k = torch.arange(k.shape[0], device=k.device)
+        seg_q = torch.searchsorted(cq[1:].contiguous(), pos_q, right=True)
+        seg_k = torch.searchsorted(ck[1:].contiguous(), pos_k, right=True)
+        logits = (torch.einsum("qhd,khd->hqk", q, k) * scale).float()
+        same = seg_q[:, None] == seg_k[None, :]
+        if causal:
+            off_q = pos_q - cq.long()[seg_q]
+            off_k = pos_k - ck.long()[seg_k]
+            same = same & (off_q[:, None] >= off_k[None, :])
+        probs = torch.softmax(logits.masked_fill(~same[None], NEG_INF),
+                              dim=-1).to(q.dtype)
+        return torch.einsum("hqk,khd->qhd", probs, v)
+    out = call("flash_attn_unpadded", body, [query, key, value, cu_seqlens_q,
+                                             cu_seqlens_k],
+               mask=[True, True, True, False, False])
+    return out, None
+
+
+def flash_attention_with_sparse_mask(query, key, value,
+                                     attn_mask_start_row_indices,
+                                     attn_mask_start_row=0, dropout_p=0.0,
+                                     is_causal=True, training=True,
+                                     name=None):
+    """Attention over BSHD q/k/v where key column j is hidden from the
+    query rows at or past its start row (``attn_mask_start_row_indices``,
+    (B, H, Sk)), on top of the causal mask: the plain path."""
+    def body(q, k, v, idx):
+        logits = (torch.einsum("bshd,bthd->bhst", q, k)
+                  / math.sqrt(q.shape[-1])).float()
+        s, t = logits.shape[-2], logits.shape[-1]
+        rows = torch.arange(s, device=q.device)[:, None]
+        cols = torch.arange(t, device=q.device)[None, :]
+        keep = rows >= cols if is_causal else torch.ones(
+            (s, t), dtype=torch.bool, device=q.device)
+        keep = keep[None, None] & (rows[None, None] < idx[:, :, None, :])
+        probs = torch.softmax(logits.masked_fill(~keep, NEG_INF),
+                              dim=-1).to(q.dtype)
+        return torch.einsum("bhst,bthd->bshd", probs, v)
+    return call("flash_attention_with_sparse_mask", body,
+                [query, key, value, attn_mask_start_row_indices],
+                mask=[True, True, True, False])
+
+
+@contextlib.contextmanager
+def sdp_kernel(*args, **kwargs):
+    """Accepted for Paddle's API; the choice of kernel is the port's own
+    (the flash kernels wherever the JAX package would take Pallas)."""
+    yield
+
+
+__all__ = ["flash_attention", "scaled_dot_product_attention",
+           "flash_attn_unpadded", "flash_attention_with_sparse_mask",
+           "sdp_kernel"]

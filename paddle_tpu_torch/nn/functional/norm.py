@@ -1,8 +1,10 @@
 """Normalization functionals (counterpart of
-``paddle_tpu/nn/functional/norm.py``): statistics in fp32, the output in
-the input's dtype, as the JAX lowerings compute them. Both are on amp's
-black list: under O1/O2 their inputs go to fp32 first, so they return
-fp32.
+``paddle_tpu/nn/functional/norm.py``): layer, RMS, batch, group and
+instance norms with statistics in fp32 and the output in the input's
+dtype, as the JAX lowerings compute them, and ``normalize`` and
+``local_response_norm`` in the input's dtype. The layer and RMS norms
+are on amp's black list: under O1/O2 their inputs go to fp32 first, so
+they return fp32.
 
 On Paddle ``Tensor``s each is one op through ``core.dispatch.call``
 with the same math; on ``torch.Tensor``s, the torch-level function.
@@ -23,6 +25,7 @@ from torch.nn import functional as TF
 from ...amp.state import amp_cast
 from ...core import dispatch
 from ...core.tensor import Tensor
+from ._op import call
 
 
 def _f32(t: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
@@ -128,4 +131,88 @@ def batch_norm(x: Tensor, running_mean: Tensor, running_var: Tensor,
                           export_attrs=export)
 
 
-__all__ = ["layer_norm", "rms_norm", "batch_norm"]
+def _channel_affine(y, wb, has_w, has_b):
+    """y * weight + bias over the channel axis 1, in fp32."""
+    shape = [1, y.shape[1]] + [1] * (y.dim() - 2)
+    if has_w:
+        y = y * wb[0].float().reshape(shape)
+    if has_b:
+        y = y + wb[has_w].float().reshape(shape)
+    return y
+
+
+def group_norm(x, num_groups, epsilon=1e-5, weight=None, bias=None,
+               data_format="NCHW", name=None):
+    """Normalize the channels in ``num_groups`` groups (fp32 statistics
+    over each group's channels and the spatial dims)."""
+    channel_last = data_format in ("NHWC", "NLC", "NDHWC")
+    has_w, has_b = weight is not None, bias is not None
+
+    def body(a, *wb):
+        a32 = a.float()
+        if channel_last:
+            a32 = a32.movedim(-1, 1)
+        n, c = a32.shape[:2]
+        spatial = tuple(a32.shape[2:])
+        g = a32.reshape((n, num_groups, c // num_groups) + spatial)
+        dims = tuple(range(2, g.dim()))
+        mean = g.mean(dim=dims, keepdim=True)
+        var = g.var(dim=dims, keepdim=True, unbiased=False)
+        y = ((g - mean) / torch.sqrt(var + epsilon)).reshape(
+            (n, c) + spatial)
+        y = _channel_affine(y, wb, has_w, has_b)
+        return (y.movedim(1, -1) if channel_last else y).to(a.dtype)
+    return call("group_norm", body, [t for t in (x, weight, bias)
+                                     if t is not None])
+
+
+def instance_norm(x, running_mean=None, running_var=None, weight=None,
+                  bias=None, use_input_stats=True, momentum=0.9, eps=1e-5,
+                  data_format="NCHW", name=None):
+    """Normalize each sample's channels over their spatial dims (fp32
+    statistics). The running statistics are accepted and, as in the JAX
+    package, neither read nor updated."""
+    has_w, has_b = weight is not None, bias is not None
+
+    def body(a, *wb):
+        a32 = a.float()
+        dims = tuple(range(2, a.dim()))
+        mean = a32.mean(dim=dims, keepdim=True)
+        var = a32.var(dim=dims, keepdim=True, unbiased=False)
+        y = _channel_affine((a32 - mean) / torch.sqrt(var + eps), wb, has_w,
+                            has_b)
+        return y.to(a.dtype)
+    return call("instance_norm", body, [t for t in (x, weight, bias)
+                                        if t is not None])
+
+
+def normalize(x, p=2, axis=1, epsilon=1e-12, name=None):
+    """x / max(||x||_p, epsilon) along ``axis``."""
+    def body(a):
+        if p == np.inf:
+            n = a.abs().amax(dim=axis, keepdim=True)
+        else:
+            n = (a.abs() ** p).sum(dim=axis, keepdim=True) ** (1.0 / p)
+        return a / n.clamp_min(epsilon)
+    return call("normalize", body, [x])
+
+
+def local_response_norm(x, size, alpha=1e-4, beta=0.75, k=1.0,
+                        data_format="NCHW", name=None):
+    """x / (k + alpha * sum of x^2 over ``size`` neighbouring
+    channels)^beta, the window zero-padded at the ends."""
+    def body(a):
+        ch = 1 if data_format.startswith("NC") else a.dim() - 1
+        c = a.shape[ch]
+        half = size // 2
+        sq = (a * a).movedim(ch, -1)
+        padded = TF.pad(sq, (half, size - half - 1)).movedim(-1, ch)
+        acc = torch.zeros_like(a)
+        for i in range(size):
+            acc = acc + padded.narrow(ch, i, c)
+        return a / (k + alpha * acc) ** beta
+    return call("local_response_norm", body, [x])
+
+
+__all__ = ["layer_norm", "rms_norm", "batch_norm", "group_norm",
+           "instance_norm", "normalize", "local_response_norm"]

@@ -1,8 +1,9 @@
-"""Activation layers (counterpart of ``paddle_tpu/nn/layer/activation.py``):
-those whose functionals the port has; the rest are still to port."""
+"""Activation layers (counterpart of ``paddle_tpu/nn/layer/activation.py``),
+each over its Paddle-API functional; ``PReLU`` owns its slopes."""
 from __future__ import annotations
 
 from .. import functional as F
+from ..initializer import Constant
 from .layers import Layer
 
 
@@ -62,3 +63,154 @@ class Softmax(Layer):
 
     def forward(self, x):
         return F.softmax(x, self._axis)
+
+
+class Mish(Layer):
+    def forward(self, x):
+        return F.mish(x)
+
+
+class LeakyReLU(Layer):
+    def __init__(self, negative_slope=0.01, name=None):
+        super().__init__()
+        self._negative_slope = negative_slope
+
+    def forward(self, x):
+        return F.leaky_relu(x, self._negative_slope)
+
+
+class ELU(Layer):
+    def __init__(self, alpha=1.0, name=None):
+        super().__init__()
+        self._alpha = alpha
+
+    def forward(self, x):
+        return F.elu(x, self._alpha)
+
+
+class CELU(Layer):
+    def __init__(self, alpha=1.0, name=None):
+        super().__init__()
+        self._alpha = alpha
+
+    def forward(self, x):
+        return F.celu(x, self._alpha)
+
+
+class SELU(Layer):
+    def __init__(self, scale=1.0507009873554805, alpha=1.6732632423543772,
+                 name=None):
+        super().__init__()
+        self._scale, self._alpha = scale, alpha
+
+    def forward(self, x):
+        return F.selu(x, self._scale, self._alpha)
+
+
+class Hardtanh(Layer):
+    def __init__(self, min=-1.0, max=1.0, name=None):
+        super().__init__()
+        self._min, self._max = min, max
+
+    def forward(self, x):
+        return F.hardtanh(x, self._min, self._max)
+
+
+class Hardshrink(Layer):
+    def __init__(self, threshold=0.5, name=None):
+        super().__init__()
+        self._threshold = threshold
+
+    def forward(self, x):
+        return F.hardshrink(x, self._threshold)
+
+
+class Softshrink(Layer):
+    def __init__(self, threshold=0.5, name=None):
+        super().__init__()
+        self._threshold = threshold
+
+    def forward(self, x):
+        return F.softshrink(x, self._threshold)
+
+
+class Softplus(Layer):
+    def __init__(self, beta=1.0, threshold=20.0, name=None):
+        super().__init__()
+        self._beta, self._threshold = beta, threshold
+
+    def forward(self, x):
+        return F.softplus(x, self._beta, self._threshold)
+
+
+class Softsign(Layer):
+    def forward(self, x):
+        return F.softsign(x)
+
+
+class Tanhshrink(Layer):
+    def forward(self, x):
+        return F.tanhshrink(x)
+
+
+class LogSigmoid(Layer):
+    def forward(self, x):
+        return F.log_sigmoid(x)
+
+
+class PReLU(Layer):
+    def __init__(self, num_parameters=1, init=0.25, weight_attr=None,
+                 data_format="NCHW", name=None):
+        super().__init__()
+        self._data_format = data_format
+        self.weight = self.create_parameter(
+            [num_parameters], attr=weight_attr,
+            default_initializer=Constant(init))
+
+    def forward(self, x):
+        return F.prelu(x, self.weight, self._data_format)
+
+
+class RReLU(Layer):
+    def __init__(self, lower=0.125, upper=1.0 / 3, name=None):
+        super().__init__()
+        self._lower, self._upper = lower, upper
+
+    def forward(self, x):
+        return F.rrelu(x, self._lower, self._upper, self.training)
+
+
+class LogSoftmax(Layer):
+    def __init__(self, axis=-1, name=None):
+        super().__init__()
+        self._axis = axis
+
+    def forward(self, x):
+        return F.log_softmax(x, self._axis)
+
+
+class Maxout(Layer):
+    def __init__(self, groups, axis=1, name=None):
+        super().__init__()
+        self._groups, self._axis = groups, axis
+
+    def forward(self, x):
+        return F.maxout(x, self._groups, self._axis)
+
+
+class GLU(Layer):
+    def __init__(self, axis=-1, name=None):
+        super().__init__()
+        self._axis = axis
+
+    def forward(self, x):
+        return F.glu(x, self._axis)
+
+
+class ThresholdedReLU(Layer):
+    def __init__(self, threshold=1.0, value=0.0, name=None):
+        super().__init__()
+        self._threshold, self._value = threshold, value
+
+    def forward(self, x):
+        return F.thresholded_relu(x, self._threshold, self._value)

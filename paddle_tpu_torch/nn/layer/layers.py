@@ -10,7 +10,8 @@ state dict's keys and layouts are the JAX package's, so
 ``set_state_dict`` of the JAX model's numpy state carries every weight
 across (``models/convert.py`` ``load_jax_layer_state``). ``to`` casts and
 moves the payloads; ``copy.deepcopy`` of a Layer deep-copies them.
-The JAX package's ``LazyGuard`` deferral is not ported (ROADMAP).
+A layer built under ``LazyGuard`` initializes its parameters at its
+first call (``nn/lazy_init.py``).
 """
 from __future__ import annotations
 
@@ -19,6 +20,7 @@ from typing import Callable, Dict, Iterator, Optional, Tuple
 
 from ...core import dtype as dtypes
 from ...core.tensor import Tensor
+from ..lazy_init import has_outstanding, materialize_layer
 from ..parameter import Parameter, create_parameter
 
 
@@ -333,6 +335,8 @@ class Layer:
         raise NotImplementedError
 
     def __call__(self, *inputs, **kwargs):
+        if has_outstanding():       # LazyGuard's parameters: initialize now
+            materialize_layer(self)
         for hook in list(self._forward_pre_hooks.values()):
             result = hook(self, inputs)
             if result is not None:

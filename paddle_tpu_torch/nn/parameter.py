@@ -76,7 +76,8 @@ def create_parameter(shape, dtype=dtypes.float32, attr=None, is_bias=False,
                      default_initializer=None) -> Optional[Parameter]:
     """A Parameter initialized by ``attr``'s initializer, else
     ``default_initializer``, else zeros for a bias and XavierNormal
-    otherwise, on the current device."""
+    otherwise, on the current device; under ``LazyGuard`` a ``meta``
+    tensor until it is materialized."""
     from . import initializer as I
 
     attr = ParamAttr._to_attr(attr)
@@ -85,8 +86,15 @@ def create_parameter(shape, dtype=dtypes.float32, attr=None, is_bias=False,
     init = attr.initializer or default_initializer
     if init is None:
         init = I.Constant(0.0) if is_bias else I.XavierNormal()
-    p = Parameter(init(shape, dtypes.convert_dtype(dtype)),
-                  trainable=attr.trainable, name=attr.name)
+    dtype = dtypes.convert_dtype(dtype)
+    from . import lazy_init
+    if lazy_init.in_lazy_mode():
+        data = torch.empty(tuple(shape), dtype=dtype, device="meta")
+    else:
+        data = init(shape, dtype)
+    p = Parameter(data, trainable=attr.trainable, name=attr.name)
+    if lazy_init.in_lazy_mode():
+        lazy_init._register(p, init, shape, dtype)
     p.optimize_attr = {"learning_rate": attr.learning_rate}
     p.regularizer = attr.regularizer
     p.need_clip = attr.need_clip

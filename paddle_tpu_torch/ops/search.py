@@ -1,6 +1,7 @@
 """Search ops (counterpart of part of ``paddle_tpu/ops/search.py``):
 ``argmax``, ``argmin``, ``argsort``, ``sort``, ``topk`` and ``where``,
-each a plain torch body behind ``dispatch.call``, and nucleus sampling.
+each a plain torch body behind ``dispatch.call``, nucleus sampling,
+the beam-search backtrace ``gather_tree`` and ``class_center_sample``.
 The rest of the JAX file is still to port (ROADMAP).
 
 The JAX ``nucleus_sample_ids`` draws its uniforms from a key inside; this one takes
@@ -113,3 +114,52 @@ def nucleus_sample_ids(probs: torch.Tensor, p: torch.Tensor,
                         torch.full_like(masked, -float("inf")))
     choice = torch.argmax(score, dim=-1, keepdim=True)
     return torch.gather(order, -1, choice)
+
+
+@register("gather_tree", category="search", differentiable=False)
+def gather_tree(ids, parents, name=None):
+    """Beam-search backtrace over (T, B, W) ids and parent beams: from the
+    last step, each column follows its parent pointers back."""
+    def f(idv, pav):
+        t_max, b, w = idv.shape
+        rows = torch.arange(b, device=idv.device)[:, None]
+        beam = torch.arange(w, device=idv.device)[None].expand(b, w)
+        outs = []
+        for t in range(t_max - 1, -1, -1):
+            outs.append(idv[t][rows, beam])
+            beam = pav[t][rows, beam].long()
+        return torch.stack(outs[::-1])
+    return dispatch.call("gather_tree", f, [_t(ids), _t(parents)],
+                         differentiable_mask=[False, False])
+
+
+@register("class_center_sample", category="search", differentiable=False)
+def class_center_sample(label, num_classes, num_samples, group=None,
+                        name=None):
+    """Every positive class plus random negatives up to ``num_samples``
+    (from the device's Paddle-API generator), sorted; returns (the labels
+    remapped into the sampled set, the sampled classes). On the host, as
+    the JAX package: the positive set depends on the data."""
+    from ..core.generator import default_generator
+    lt = _t(label)
+    dev = lt._data.device
+    lab = lt._data.long().reshape(-1).cpu()
+    pos = torch.unique(lab)
+    if pos.numel() >= num_samples:
+        sampled = pos
+    else:
+        keep = torch.ones(num_classes, dtype=torch.bool)
+        keep[pos] = False
+        neg_pool = torch.arange(num_classes)[keep]
+        perm = torch.randperm(neg_pool.numel(),
+                              generator=default_generator(dev),
+                              device=dev).cpu()
+        sampled = torch.sort(torch.cat(
+            [pos, neg_pool[perm[:num_samples - pos.numel()]]])).values
+    remap = torch.full((num_classes,), -1, dtype=torch.long)
+    remap[sampled] = torch.arange(sampled.numel())
+    return (Tensor(remap[lab].reshape(lt._data.shape).to(dev)),
+            Tensor(sampled.to(dev)))
+
+
+__all__ += ["gather_tree", "class_center_sample"]

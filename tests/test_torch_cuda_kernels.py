@@ -64,6 +64,68 @@ def test_flash_attention_fwd_matches_plain(s_q, s_k, d, causal, dtype):
         assert out[:, ~seen].abs().max().item() == 0.0
 
 
+# the seq2seq decode's shapes (Transformer-base, B32 H8 d64): one query row
+# against a cache of 1 to 128 keys, and cross-attention with s_q != s_k
+DECODE_TOLERANCES = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", sorted(DECODE_TOLERANCES, key=str))
+@pytest.mark.parametrize("s_q,s_k", [(1, 1), (1, 7), (1, 63), (1, 64),
+                                     (1, 65), (1, 128), (128, 96)])
+def test_flash_attention_fwd_at_the_decode_shapes(s_q, s_k, dtype):
+    _card()
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(s_q * 131 + s_k)
+    q, k, v = (torch.randn((32, n, 8, 64), generator=gen,
+                           device="cuda").to(dtype) for n in (s_q, s_k, s_k))
+    before = flash_attention_fwd.launches
+    out, lse = flash_attention_fwd(q, k, v, causal=False)
+    torch.cuda.synchronize()
+    assert flash_attention_fwd.launches == before + 1
+    ref, ref_lse = flash_attention_fwd_plain(q, k, v, causal=False)
+    tol = DECODE_TOLERANCES[dtype]
+    assert (out.float() - ref.float()).abs().max().item() <= tol
+    assert (lse - ref_lse).abs().max().item() <= tol
+
+
+@pytest.mark.cuda
+def test_the_cached_decode_launches_k1_at_every_attention():
+    """A two-layer nn.Transformer on the card: each cached decoder step
+    launches K1 twice a layer (self-attention against the cache, cross-
+    attention against the memory), the encoder once a layer, and the
+    steps equal the full recompute."""
+    _card()
+    import paddle_tpu_torch as paddle
+    with paddle.device_guard("gpu:0"):
+        paddle.seed(5)
+        model = paddle.nn.Transformer(d_model=64, nhead=1,
+                                      num_encoder_layers=2,
+                                      num_decoder_layers=2,
+                                      dim_feedforward=128, dropout=0.0)
+        model.eval()
+        gen = torch.Generator(device="cuda")
+        gen.manual_seed(3)
+        src = paddle.to_tensor(torch.randn((2, 9, 64), generator=gen,
+                                           device="cuda"))
+        tgt = paddle.to_tensor(torch.randn((2, 5, 64), generator=gen,
+                                           device="cuda"))
+        with paddle.no_grad():
+            before = flash_attention_fwd.launches
+            memory = model.encoder(src)
+            cache = model.decoder.gen_cache(memory)
+            steps = []
+            for t in range(5):
+                out, cache = model.decoder(tgt[:, t:t + 1], memory,
+                                           cache=cache)
+                steps.append(out._data)
+            assert flash_attention_fwd.launches - before == 2 + 5 * 4
+            full = model(src, tgt, tgt_mask=paddle.nn.Transformer
+                         .generate_square_subsequent_mask(5))
+    got = torch.cat(steps, dim=1)
+    assert (got - full._data).abs().max().item() <= 1e-4
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16], ids=str)
 @pytest.mark.parametrize("s,d", [(77, 64), (333, 128)])

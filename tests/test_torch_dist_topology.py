@@ -177,6 +177,18 @@ class _HCG:
         return self.mp_rank
 
 
+@pytest.mark.parametrize("failures,cause", [
+    ([(0, 1), (1, 3)], (1, 3)),       # the peer's collective error came first
+    ([(1, 3), (0, 1)], (1, 3)),
+    ([(0, -6), (1, 1)], (0, -6)),     # no program exit code: the first
+    ([(2, 1)], (2, 1)),
+])
+def test_launcher_names_the_failure_the_others_followed(failures, cause):
+    """A rank's own exit code above 1 wins over the collateral failures
+    (code 1, signals) that can reach the launcher before it."""
+    assert plaunch._cause(failures) == cause
+
+
 def test_model_parallel_seeds():
     """mp rank 0's stream has the JAX package's seed (seed + 1024); mp
     ranks differ, ranks of one mp coordinate (dp peers) agree; the lazy

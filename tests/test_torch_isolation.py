@@ -111,7 +111,20 @@ def test_imports_without_jax_or_paddle_tpu():
                  "paddle_tpu_torch.vision.models.mobilenet",
                  "paddle_tpu_torch.vision.models.densenet",
                  "paddle_tpu_torch.vision.models.inception",
-                 "paddle_tpu_torch.vision.models._pretrained"):
+                 "paddle_tpu_torch.vision.models._pretrained",
+                 "paddle_tpu_torch.nn.functional.vision",
+                 "paddle_tpu_torch.nn.functional.tail",
+                 "paddle_tpu_torch.nn.functional._op",
+                 "paddle_tpu_torch.nn.layer.rnn",
+                 "paddle_tpu_torch.nn.layer.tail",
+                 "paddle_tpu_torch.nn.decode",
+                 "paddle_tpu_torch.nn.utils",
+                 "paddle_tpu_torch.nn.lazy_init",
+                 "paddle_tpu_torch.nn.quant",
+                 "paddle_tpu_torch.incubate.nn",
+                 "paddle_tpu_torch.incubate.nn.layers",
+                 "paddle_tpu_torch.incubate.nn.functional",
+                 "paddle_tpu_torch.distributed.fleet.moe"):
         assert name in lines, name
 
 
@@ -186,6 +199,33 @@ def test_vision_entry_points_raise_without_cuda():
         transforms.to_tensor(np.zeros((4, 4, 3), np.uint8))
     with paddle_tpu_torch.device_guard("cpu"):
         assert ops.nms(boxes, 0.5).numpy().tolist() == [0, 1]
+
+
+def test_nn_entry_points_raise_without_cuda():
+    """The nn slice's layers, caches and functionals on host data take
+    the card unless the caller set the CPU; under the CPU guard the
+    caches, ``one_hot`` and ``sequence_mask`` land on their inputs'
+    device."""
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device is real")
+    nn, F = paddle_tpu_torch.nn, paddle_tpu_torch.nn.functional
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        nn.Transformer(d_model=8, nhead=2, num_encoder_layers=1,
+                       num_decoder_layers=1, dim_feedforward=8)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        nn.LSTM(4, 4)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        F.one_hot(np.array([1, 2]), 4)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        F.sequence_mask(np.array([1, 2]))
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        nn.Transformer.generate_square_subsequent_mask(4)
+    with paddle_tpu_torch.device_guard("cpu"):
+        mha = nn.MultiHeadAttention(8, 2)
+        mem = paddle_tpu_torch.to_tensor(np.zeros((1, 3, 8), np.float32))
+        cache = mha.gen_cache(mem)
+        assert cache.k._data.device.type == "cpu"
+        assert F.one_hot(np.array([1, 2]), 4)._data.device.type == "cpu"
 
 
 def test_cpu_flash_call_launches_nothing():
