@@ -267,10 +267,24 @@ Phases, in order; any failure exits non-zero and nothing is caught:
              and K3 once a layer backward; their launches are the
              phase's. Gloo never runs here; a failed rank fails the
              phase.
+* seq2seq -- Transformer-base (Vaswani et al. 2017, "base") on the port's
+             nn.Transformer at its published widths (d 512, 8 heads, 6 + 6
+             layers, FF 2048, a shared 37,000-token embedding, sinusoidal
+             positions): 3 fp32 steps (B4 S32, dropout 0, Adam under
+             NoamDecay, label smoothing 0.1) on the card against a CPU twin,
+             the losses within LOSS_TOL and the first step's gradients
+             (through K2/K3) each within SEQ2SEQ_GRAD_TOL; 10 timed bf16 O1
+             steps at B32 S128+128, dropout 0.1 (step ms and its split,
+             tokens/s, MFU, peak GB); a greedy decode of 32 sources, 128
+             tokens, through gen_cache and the attention caches, K1 at every
+             attention (6 + 12 launches a token), the ids equal to a full
+             recompute where the top-two gap exceeds TOP2_GAP and the first
+             steps' logits within LOGITS_TOL of the CPU; then the bf16
+             decode, timed.
 
 The forward, serve, serve_llama, serve_tier, train, fusion, rungs,
-paddle_api, paddle_static, checkpoint, vision, deploy and distributed
-phases are the main path (serve_tier and vision
+paddle_api, paddle_static, checkpoint, vision, vision_zoo, deploy,
+distributed and seq2seq phases are the main path (serve_tier and vision
 launch no kernel: the tier is host code over the engine, and its LLaMA
 runs without flash attention, as bench.py's rungs do; ResNet's
 convolutions and pools are cuDNN's and torch's, as the JAX package's are
@@ -535,7 +549,9 @@ def phase_kernel(state):
     cases += [(f"decode s_q=1 vs {s_k}", b, 1, s_k, h, d, False, False)
               for s_k in DECODE_KEYS]
     cases += [("decode s_q=1 vs 65 causal", b, 1, 65, h, d, True, False),
-              ("cross s_q=128 vs 96", b, 128, 96, h, d, False, False)]
+              ("cross s_q=128 vs 96", b, 128, 96, h, d, False, False),
+              ("encoder S=128 non-causal", b, 128, 128, h, d, False,
+               False)]
     worst = {}
     for dtype, tol in ((torch.float32, FP32_TOL), (torch.bfloat16, BF16_TOL),
                        (torch.float16, FP16_TOL)):
@@ -558,6 +574,8 @@ def phase_kernel(state):
         worst, **_time_fwd(fa, gen, PATH_SHAPE))
     _time_fwd(fa, gen, TRAIN_SHAPE)
     _time_fwd(fa, gen, LLAMA_ATTN_SHAPE)
+    # the seq2seq decode: one query row against 128 cached keys
+    _time_fwd(fa, gen, dict(b=b, s=128, s_q=1, h=h, d=d), causal=False)
     _kernel_bwd(fa, gen, state)
 
 
@@ -684,6 +702,8 @@ def _kernel_bwd(fa, gen, state):
         ("d=128", 1, 2048, 2048, 8, 128, True, False),
         ("strided qkv views", *train, True, True),
         ("d=128 strided qkv views", 2, 333, 333, 4, 128, True, True),
+        # the seq2seq phase's fp32 steps: fewer keys than one key tile
+        ("seq2seq parity", 4, 32, 32, 8, 64, False, False),
     ]
     worst = {}
     for dtype, limit in BWD_LIMITS.items():
@@ -4904,6 +4924,11 @@ SEQ2SEQ = dict(d_model=512, nhead=8, num_encoder_layers=6,
 SEQ2SEQ_VOCAB = 37000           # the shared source/target vocabulary, 5.1
 SEQ2SEQ_BATCH = dict(b=32, s=128)   # 4096 source + 4096 target tokens
 SEQ2SEQ_PARITY = dict(b=4, s=32)    # the fp32 card-vs-CPU steps
+# the first parity step's gradients, card vs CPU, each parameter
+# norm-wise; the floor covers the attention key biases, whose gradient is
+# zero up to rounding (softmax ignores a constant added to a row's scores)
+SEQ2SEQ_GRAD_TOL = 1e-3
+SEQ2SEQ_GRAD_FLOOR = 1e-3
 SEQ2SEQ_SMOOTHING = 0.1         # label smoothing, 5.4
 SEQ2SEQ_ADAM = dict(beta1=0.9, beta2=0.98, epsilon=1e-9)   # 5.3
 SEQ2SEQ_WARMUP = 4000           # NoamDecay's warmup steps, 5.3
@@ -4989,12 +5014,15 @@ def _seq2seq_state(model):
 
 def _seq2seq_parity(paddle):
     """3 fp32 steps, dropout 0, on the card and on a CPU twin carrying
-    the same state: the losses within LOSS_TOL."""
+    the same state: the losses within LOSS_TOL, and the first step's
+    gradients (through K2/K3 on the card) each norm-wise within
+    SEQ2SEQ_GRAD_TOL of the larger of its norm and SEQ2SEQ_GRAD_FLOOR of
+    the largest."""
     card = _seq2seq_model(paddle, dropout=0.0)
     with paddle.device_guard("cpu"):
         twin = _seq2seq_model(paddle, dropout=0.0, seed=18)
         twin.set_state_dict(_seq2seq_state(card))
-    losses = []
+    losses, grads = [], []
     for model, dev in ((card, "gpu:0"), (twin, "cpu")):
         with paddle.device_guard(dev):
             sched, opt = _seq2seq_opt(paddle, model)
@@ -5004,18 +5032,29 @@ def _seq2seq_parity(paddle):
                                           **SEQ2SEQ_PARITY)
                 loss = _seq2seq_loss(paddle, model, src, tgt)
                 loss.backward()
+                if step == 0:
+                    grads.append([p.grad.numpy().astype(np.float64)
+                                  for p in model.parameters()])
                 opt.step()
                 opt.clear_grad()
                 sched.step()
                 run.append(float(loss.item()))
             losses.append(run)
     diff = max(abs(a - b) for a, b in zip(*losses))
+    largest = max(np.linalg.norm(g) for g in grads[1])
+    errs = sorted(
+        (float(np.linalg.norm(a - b)
+               / max(np.linalg.norm(b), SEQ2SEQ_GRAD_FLOOR * largest)), name)
+        for (name, _), a, b in zip(twin.named_parameters(), *grads))
     log(f"seq2seq: fp32 B{SEQ2SEQ_PARITY['b']} S{SEQ2SEQ_PARITY['s']} "
         f"card losses {losses[0]} CPU {losses[1]} max diff {diff:.3e} "
-        f"(tolerance {LOSS_TOL})")
-    if not (np.isfinite(losses[0]).all() and diff <= LOSS_TOL):
+        f"(tolerance {LOSS_TOL}); first step's gradients norm-wise "
+        f"{errs[-1][0]:.3e} (limit {SEQ2SEQ_GRAD_TOL}), worst "
+        f"{errs[-3:][::-1]}")
+    if not (np.isfinite(losses[0]).all() and diff <= LOSS_TOL
+            and errs[-1][0] <= SEQ2SEQ_GRAD_TOL):
         raise AssertionError(f"seq2seq parity: card {losses[0]} vs CPU "
-                             f"{losses[1]}")
+                             f"{losses[1]}, gradients {errs[-1]}")
     del card, twin
 
 
@@ -5206,21 +5245,6 @@ def _seq2seq_decode(paddle, model, card, profile=False):
                     "ids_agree_with_fp32": agree}))
 
 
-def _seq2seq_k1(state):
-    """K1 at the decode's shape (one query row against 128 cached keys,
-    B32 H8 d64, bf16, non-causal) beside its bound and SDPA; not the main
-    path, so its launches do not count."""
-    import paddle_tpu_torch.ops.cuda.flash_attention as fa
-    gen = torch.Generator(device="cuda")
-    gen.manual_seed(77)
-    b, h, d = DECODE_ATTN
-    counts = _counts()
-    row = _time_fwd(fa, gen, dict(b=b, s=128, s_q=1, h=h, d=d), causal=False)
-    for name, n in counts.items():
-        _wrapper(name).launches = n
-    state["seq2seq_k1"] = row
-
-
 def phase_seq2seq(state):
     """Transformer-base at full width on one card: fp32 parity steps
     against a CPU twin, bf16 training steps, the greedy decode through the
@@ -5229,7 +5253,6 @@ def phase_seq2seq(state):
     import paddle_tpu_torch as paddle
     card = _card_line()
     with paddle.device_guard("gpu:0"):
-        _seq2seq_k1(state)
         _seq2seq_parity(paddle)
         model = _seq2seq_model(paddle, dropout=SEQ2SEQ["dropout"])
         model.train()

@@ -7,16 +7,11 @@ once finished, and the final ids come from ``gather_tree`` over the
 predicted and parent ids. The beam math works on the Tensors' payloads,
 on their device.
 
-``dynamic_decode`` with ``max_step_num`` runs a fixed loop of
-``max_step_num + 1`` steps with no host read inside it: after the step
-that finishes every beam, the states stay frozen (``torch.where`` on the
-device), and one read at the end gives the realized number of steps, to
-which the outputs are trimmed. That is the JAX package's contract for
-its in-graph ``while_loop`` (the same trimmed length and ids, one sync a
-decode); the steps after the last beam finishes still run, and their
-outputs are dropped. Without ``max_step_num`` (or with
-``impute_finished``) the loop is on the host and reads the finished
-flags after every step, as in the JAX package.
+``dynamic_decode`` is one host loop: it reads the finished flags after
+every step and stops once every beam has finished or, with
+``max_step_num``, after step ``max_step_num``. That keeps the JAX
+package's contract for its bounded in-graph ``while_loop`` (the same
+trimmed length and ids) and for its unbounded host loop.
 """
 from __future__ import annotations
 
@@ -63,16 +58,6 @@ def _map_structure(fn, structure):
     if isinstance(structure, dict):
         return {k: _map_structure(fn, v) for k, v in structure.items()}
     return fn(structure)
-
-
-def _map2(fn, a, b):
-    """``fn`` over the leaves of two structures of the same shape."""
-    if isinstance(a, (list, tuple)):
-        out = [_map2(fn, x, y) for x, y in zip(a, b)]
-        return type(a)(*out) if hasattr(a, "_fields") else type(a)(out)
-    if isinstance(a, dict):
-        return {k: _map2(fn, a[k], b[k]) for k in a}
-    return fn(a, b)
 
 
 def _leaves(structure):
@@ -206,41 +191,6 @@ class BeamSearchDecoder(Decoder):
                            outputs.parent_ids), final_states
 
 
-def _frozen(done: torch.Tensor, old, new):
-    """``new`` where ``done`` is False, else ``old`` (leaf by leaf)."""
-    def pick(o, n):
-        o, n = _raw(o), _raw(n)
-        return Tensor(torch.where(done, o, n))
-    return _map2(pick, old, new)
-
-
-def _decode_bounded(decoder, inits, max_step_num, **kwargs):
-    """``max_step_num + 1`` steps; states frozen once every beam has
-    finished; one host read at the end trims the outputs."""
-    inputs, states, finished = decoder.initialize(inits)
-    dev = _raw(finished).device
-    n_steps = int(max_step_num) + 1
-    outputs, all_done = [], []
-    done = torch.zeros((), dtype=torch.bool, device=dev)
-    for t in range(n_steps):
-        out, nstates, ninputs, nfin = decoder.step(
-            Tensor(torch.full((1,), t, dtype=torch.int32, device=dev)),
-            inputs, states, **kwargs)
-        nf = _raw(nfin)
-        if not decoder.tracks_own_finished:
-            nf = nf | _raw(finished)
-        outputs.append(out)
-        states = _frozen(done, states, nstates) if t else nstates
-        inputs, finished = ninputs, Tensor(nf)
-        done = done | nf.all()
-        all_done.append(done)
-    # the loop's one host read: the step after which every beam was done
-    flags = torch.stack(all_done).cpu()
-    steps = int(flags.to(torch.int8).argmax()) + 1 if bool(flags.any()) \
-        else n_steps
-    return _stack_outputs(outputs[:steps]), states
-
-
 def _stack_outputs(outputs):
     """Each leaf of the step outputs stacked over time."""
     first = outputs[0]
@@ -251,7 +201,7 @@ def _stack_outputs(outputs):
     return _map_structure(lambda _: next(it), first)
 
 
-def _decode_host(decoder, inits, max_step_num, impute_finished, **kwargs):
+def _decode(decoder, inits, max_step_num, **kwargs):
     """The host loop: it reads every step's finished flags."""
     inputs, states, finished = decoder.initialize(inits)
     dev = _raw(finished).device
@@ -279,12 +229,7 @@ def dynamic_decode(decoder, inits=None, max_step_num=None,
     """Step ``decoder`` until every beam finishes or ``max_step_num`` is
     passed; returns (outputs, final states[, lengths]), the outputs
     batch-major unless ``output_time_major``."""
-    if max_step_num is not None and not impute_finished:
-        stacked, states = _decode_bounded(decoder, inits, int(max_step_num),
-                                          **kwargs)
-    else:
-        stacked, states = _decode_host(decoder, inits, max_step_num,
-                                       impute_finished, **kwargs)
+    stacked, states = _decode(decoder, inits, max_step_num, **kwargs)
     seq_lengths = getattr(states, "lengths", None)
     try:
         final_outputs, final_states = decoder.finalize(stacked, states,

@@ -248,7 +248,9 @@ def _check_bwd(q, k, v, do, causal, dtype):
     (127, 127, 128, False), (129, 129, 128, True), (257, 257, 128, True),
     # s_q < s_k across a 128-key boundary; s_q > s_k with blind rows
     (100, 200, 64, True), (60, 140, 128, True), (200, 70, 128, True),
-    (300, 129, 128, True)])
+    (300, 129, 128, True),
+    # the seq2seq parity steps: fewer keys than one key tile, non-causal
+    (32, 32, 64, False)])
 def test_flash_attention_bwd_matches_plain(s_q, s_k, d, causal, dtype):
     _card()
     q, k, v, do = _bwd_inputs(2, s_q, s_k, 3, d, dtype, s_q * 5 + s_k)
