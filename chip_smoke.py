@@ -323,10 +323,12 @@ import torch
 PHASES = ("build", "kernel", "fused_kernel", "forward", "serve",
           "serve_llama", "serve_tier", "train", "fusion", "rungs",
           "paddle_api", "paddle_static", "checkpoint", "vision",
-          "vision_zoo", "deploy", "distributed", "seq2seq")
+          "vision_zoo", "deploy", "distributed", "seq2seq", "control_flow",
+          "ops")
 MAIN_PATH = ("forward", "serve", "serve_llama", "serve_tier", "train",
              "fusion", "rungs", "paddle_api", "paddle_static", "checkpoint",
-             "vision", "vision_zoo", "deploy", "distributed", "seq2seq")
+             "vision", "vision_zoo", "deploy", "distributed", "seq2seq",
+             "control_flow", "ops")
 PATH_SHAPE = dict(b=4, s=1024, h=12, d=64)      # GPT-2 small serving
 TRAIN_SHAPE = dict(b=8, s=1024, h=16, d=64)     # GPT-2 345M training
 LLAMA_ATTN_SHAPE = dict(b=4, s=2048, h=12, d=128)   # LLaMA-770M fusion path
@@ -1839,10 +1841,12 @@ def _resilience_rung(model, card, lap):
     eng.warmup(prompt_len=TIER_PROMPTS[1] // 2, max_new_tokens=TIER_NEW)
     probe = _load_point("resilience probe", eng, [eng], card,
                         offered_rps=SATURATING_RPS)
-    # bench.py probes with the high-water mark set: a burst that fills
-    # the queue past it sheds there, and every other request finishes
+    # bench.py probes with the high-water mark set: the burst fills the
+    # queue past it (TIER_REQUESTS > high water + TIER_BATCH), so some
+    # requests are shed there, and every other request finishes
     if (probe["finished"] + probe["shed"] != TIER_REQUESTS
-            or probe["deadline_missed"] or probe["overloaded"]):
+            or not probe["shed"] or probe["deadline_missed"]
+            or probe["overloaded"]):
         raise AssertionError(f"serve_tier: the probe ended {probe['outcomes']}"
                              f" ({probe['overloaded']} overloaded)")
     cap_rps = max(probe["goodput_requests_per_sec"], 1e-3)
@@ -5260,6 +5264,905 @@ def phase_seq2seq(state):
         _seq2seq_decode(paddle, model, card, state.get("profile"))
         del model
     torch.cuda.empty_cache()
+
+
+# -------------------------------------------------------------------- ops
+# every recipe of tests/test_op_sweep.py (its R, built by running that
+# file's input makers and recipe block, which are numpy only), on the card
+# against the same op on CPU tensors
+OPS_BIG = (4096, 4096)          # elementwise, reductions and the like
+OPS_BIG_BF16 = (2048, 2048)     # their bf16 checks (the CPU's bf16 is slow)
+OPS_LINALG = 512                # linalg: 512 x 512, square ones batched
+OPS_BATCH = 16
+OPS_FFT = 2 ** 20
+OPS_STFT = dict(b=32, n=16000, n_fft=512, hop=160)   # 1 s at 16 kHz
+OPS_GRAPH = dict(nodes=100_000, edges=1_000_000, feat=64)
+# card vs CPU, the largest |difference| over the largest |CPU value| (or
+# 1): fp32, and bf16 (each side rounds in its own order)
+OPS_TOL = {torch.float32: 1e-3, torch.bfloat16: 6e-2}
+# categories whose recipes grow to OPS_BIG when every array input has one
+# 2-D shape (the recipes whose inputs are not one 2-D shape are built by
+# OPS_GROWN below)
+OPS_BIG_CATEGORIES = ("math", "activation", "reduction", "manipulation",
+                      "search", "creation", "nn_common", "loss", "indexing",
+                      "norm")
+# the recipes that run at their own size, each for its reason
+OPS_AT_RECIPE = {
+    "atleast_1d": "its case is a 0-d input",
+    "increment": "a one-element tensor by definition",
+    "frame": "run at OPS_STFT by _ops_extra as well",
+    "overlap_add": "run at OPS_STFT by _ops_extra as well"}
+# random draws: shapes and dtypes only (the card's and the CPU's
+# generators are different streams)
+OPS_RANDOM = ("gumbel_softmax", "normal_", "bernoulli_", "log_normal_",
+              "cauchy_", "geometric_", "standard_gamma", "poisson",
+              "bernoulli", "binomial")
+# eigenvalues come in no fixed order: compared sorted, the vectors not
+OPS_UNORDERED = ("eig", "eigvals")
+# integral outputs of a rounding of floats: a value on a rounding edge
+# may go either way on the two devices (at most 1e-4 of them may differ)
+OPS_NEAR_INT = ("weight_quantize", "histogram")
+# outputs fixed up to a sign (a phase) per column: compared in magnitude
+OPS_SIGNED = ("pca_lowrank",)
+# decompositions: the factors' products compared (a basis of an
+# eigenspace, and each vector's sign, is the device's choice)
+OPS_PRODUCTS = {
+    "svd": lambda u, s, vh: (u * s[..., None, :]) @ vh,
+    "qr": lambda q, r: q @ r,
+    "eigh": lambda w, v: (v * w[..., None, :]) @ v.transpose(-1, -2)}
+# the fusion ops at a transformer block's widths (their recipes' are
+# below what the fused kernels take)
+OPS_FUSED = {
+    "fused_bias_act": lambda rng: [_rand(rng, 4096, 4096),
+                                   _rand(rng, 4096)],
+    "fused_residual_norm": lambda rng: [
+        _rand(rng, 4096, 1024), _rand(rng, 4096, 1024),
+        _rand(rng, 1024) + 1.0, _rand(rng, 1024)],
+    "fused_norm_linear": lambda rng: [_rand(rng, 4096, 1024),
+                                      _rand(rng, 1024, 4096) * 0.03],
+    "fused_rope_proj": lambda rng: [_rand(rng, 8, 512, 1024),
+                                    _rand(rng, 1024, 1024) * 0.03]}
+OPS_FUSED_ATTRS = {"fused_rope_proj": {"num_heads": 16}}
+
+
+def _sweep_recipes():
+    """(R, BF16_SKIP) of tests/test_op_sweep.py: its recipe block and its
+    bf16 skip table run here, with the same seeded input makers."""
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "tests", "test_op_sweep.py")
+    with open(path) as f:
+        src = f.read()
+    # its seeded input makers (numpy only), from RNG = ... up to R = {}
+    scope = dict(np=np)
+    makers = src[src.index("\nRNG = np.random.RandomState("):src.index(
+        "\nR = {}")]
+    exec(compile(makers, path, "exec"), scope)
+    block = src[src.index("\nR = {}"):src.index(
+        "\n# ---------------------------------------------------------------- "
+        "skips")]
+    exec(compile(block, path, "exec"), scope)
+    skip = src[src.index("\nBF16_SKIP = {"):src.index("\ndef _bf16_eligible")]
+    exec(compile(skip, path, "exec"), scope)
+    return scope["R"], scope["BF16_SKIP"]
+
+
+_JITTER = {}
+
+
+def _grow(a, shape, rng):
+    """A recipe array grown to ``shape``: its values repeated (np.tile:
+    np.resize takes ten times as long), floats scaled by a factor in
+    [0.99, 1.01] (the recipe's domain, few ties; one draw of factors a
+    shape, shared)."""
+    n, flat = int(np.prod(shape)), a.ravel()
+    big = np.tile(flat, -(-n // flat.size))[:n].reshape(shape)
+    if big.dtype == np.float32:
+        if shape not in _JITTER:
+            _JITTER[shape] = rng.uniform(0.99, 1.01, shape).astype(
+                np.float32)
+        big *= _JITTER[shape]
+    return big
+
+
+def _rand(rng, *shape):
+    return rng.uniform(-0.9, 0.9, shape).astype(np.float32)
+
+
+def _spd(n, b, rng):
+    """b symmetric positive definite n x n matrices (one, unbatched, for
+    b 0), eigenvalues in about [1, 5]."""
+    a = rng.randn(max(b, 1), n, n).astype(np.float32) / np.sqrt(n)
+    out = a @ a.transpose(0, 2, 1) + np.eye(n, dtype=np.float32)
+    return out if b else out[0]
+
+
+def _linalg_dim(d):
+    """A recipe dim at linalg size: 3 -> OPS_LINALG / 2, the larger ones
+    -> OPS_LINALG (the recipe's tall shapes stay tall), 1 and 2 kept."""
+    return d if d <= 2 else OPS_LINALG // 2 if d == 3 else OPS_LINALG
+
+
+def _ints(rng, hi, *shape):
+    return rng.randint(0, hi, shape).astype(np.int64)
+
+
+def _img(rng, n, c=64, hw=56):
+    """An NCHW batch of n // 128 images (32 at OPS_BIG)."""
+    return _rand(rng, n // 128, c, hw, hw)
+
+
+def _chol(rng):
+    """OPS_BATCH lower Cholesky factors of OPS_LINALG-wide SPD matrices
+    (condition number about 5)."""
+    return np.linalg.cholesky(_spd(OPS_LINALG, OPS_BATCH, rng)).astype(
+        np.float32)
+
+
+def _householder(rng):
+    """(x, tau) of OPS_BATCH products of OPS_LINALG // 2 reflectors of
+    OPS_LINALG rows, each tau = 2 / |v|^2 (v: the unit diagonal over x's
+    column below it), so the product is orthogonal."""
+    x = _rand(rng, OPS_BATCH, OPS_LINALG, OPS_LINALG // 2)
+    below = np.tril(x, -1)
+    tau = 2.0 / (1.0 + (below ** 2).sum(axis=-2))
+    return [x, tau.astype(np.float32)]
+
+
+def _distinct_cells(rng, n, k):
+    """(rows, cols) of k distinct cells of an n x n array."""
+    flat = rng.permutation(n * n)[:k]
+    return (flat // n).astype(np.int64), (flat % n).astype(np.int64)
+
+
+def _sorted(rng, k):
+    return np.sort(_rand(rng, k))
+
+
+# the recipes whose inputs are not one 2-D shape: name -> (rng, n) ->
+# (inputs, attrs over the recipe's) at n = OPS_BIG[0] (OPS_BIG_BF16[0] for
+# the bf16 check). Index arrays are fresh draws over the grown dims, with
+# distinct targets where a duplicate would be a write race; matrices at
+# linalg size are well conditioned; images are _img's.
+OPS_GROWN = {
+    # indexing and scatter
+    "gather": lambda r, n: ([_rand(r, n, n), _ints(r, n, n)], {}),
+    "gather_nd": lambda r, n: ([_rand(r, n, n), _ints(r, n, n, 1)], {}),
+    "index_select": lambda r, n: ([_rand(r, n, n), _ints(r, n, n)], {}),
+    "index_add": lambda r, n: ([_rand(r, n, n), _ints(r, n, n), 0,
+                                _rand(r, n, n)], {}),
+    "index_fill": lambda r, n: ([_rand(r, n, n), _ints(r, n, n // 2)], {}),
+    "index_put": lambda r, n: ([_rand(r, n, n), _distinct_cells(
+        r, n, n * n // 4), _rand(r, n * n // 4)], {}),
+    "index_sample": lambda r, n: ([_rand(r, n, n), _ints(r, n, n, n // 4)],
+                                  {}),
+    "take": lambda r, n: ([_rand(r, n, n), _ints(r, n * n, n * n // 4)], {}),
+    "take_along_axis": lambda r, n: ([_rand(r, n, n), _ints(r, n, n, n), 0],
+                                     {}),
+    "scatter": lambda r, n: ([_rand(r, n, n), r.permutation(n)[:n // 2]
+                              .astype(np.int64), _rand(r, n // 2, n)], {}),
+    "scatter_add": lambda r, n: ([_rand(r, n, n), _ints(r, n, n),
+                                  _rand(r, n, n)], {}),
+    "scatter_nd": lambda r, n: ([_ints(r, n, n, 1), _rand(r, n, n)],
+                                {"shape": [n, n]}),
+    "scatter_nd_add": lambda r, n: ([_rand(r, n, n), _ints(r, n, n, 1),
+                                     _rand(r, n, n)], {}),
+    "masked_scatter": lambda r, n: ([_rand(r, n, n), r.rand(n, n) > 0.5,
+                                     _rand(r, n * n)], {}),
+    "masked_fill": lambda r, n: ([_rand(r, n, n), r.rand(n, n) > 0.5, -1.0],
+                                 {}),
+    "select_scatter": lambda r, n: ([_rand(r, n, n), _rand(r, n)], {}),
+    "slice_scatter": lambda r, n: ([_rand(r, n, n), _rand(r, n // 2, n)],
+                                   {"ends": [n // 2]}),
+    "diagonal_scatter": lambda r, n: ([_rand(r, n, n), _rand(r, n)], {}),
+    "fill_diagonal_tensor": lambda r, n: ([_rand(r, n, n), _rand(r, n)], {}),
+    "multiplex": lambda r, n: ([[_rand(r, n, n), _rand(r, n, n)], _ints(
+        r, 2, n, 1).astype(np.int32)], {}),
+    # search
+    "searchsorted": lambda r, n: ([_sorted(r, 2 ** 20),
+                                   _rand(r, n * n // 4)], {}),
+    "bucketize": lambda r, n: ([_rand(r, n * n // 4), _sorted(r, 2 ** 20)],
+                               {}),
+    "isin": lambda r, n: ([_ints(r, 1000, n * n // 4).astype(np.float32),
+                           _ints(r, 1000, 512).astype(np.float32)], {}),
+    "unique": lambda r, n: ([_ints(r, 2 ** 16, n * n // 4).astype(
+        np.float32)], {}),
+    "unique_consecutive": lambda r, n: ([np.sort(_ints(
+        r, 2 ** 16, n * n // 4)).astype(np.float32)], {}),
+    "gather_tree": lambda r, n: ([_ints(r, SEQ2SEQ_VOCAB, 128, n // 64, 8),
+                                  _ints(r, 8, 128, n // 64, 8)], {}),
+    # shapes, lists and broadcasts
+    "add_n": lambda r, n: ([[_rand(r, n // 2, n) for _ in range(3)]], {}),
+    **{k: (lambda r, n: ([[_rand(r, n // 2, n), _rand(r, n // 2, n)]], {}))
+       for k in ("concat", "stack", "hstack", "vstack", "dstack",
+                 "row_stack", "column_stack")},
+    "broadcast_tensors": lambda r, n: ([[_rand(r, 1, n), _rand(r, n, 1)]],
+                                       {}),
+    "broadcast_to": lambda r, n: ([_rand(r, 1, n)], {"shape": [n, n]}),
+    "expand": lambda r, n: ([_rand(r, 1, n)], {"shape": [n, n]}),
+    "expand_as": lambda r, n: ([_rand(r, 1, n), _rand(r, n, n)], {}),
+    "reduce_as": lambda r, n: ([_rand(r, n, n), _rand(r, 1, n)], {}),
+    "view_as": lambda r, n: ([_rand(r, n, n), _rand(r, 2 * n, n // 2)], {}),
+    "reshape": lambda r, n: ([_rand(r, n, n)], {"shape": [2 * n, n // 2]}),
+    "view": lambda r, n: ([_rand(r, n, n)],
+                          {"shape_or_dtype": [2 * n, n // 2]}),
+    "unflatten": lambda r, n: ([_rand(r, n, n)],
+                               {"shape": [64, n // 64]}),
+    "crop": lambda r, n: ([_rand(r, n, n)], {"shape": [n // 2, n // 2]}),
+    "flatten": lambda r, n: ([_rand(r, n // 256, n // 16, n)], {}),
+    "dsplit": lambda r, n: ([_rand(r, n // 256, n // 16, n)], {}),
+    "squeeze": lambda r, n: ([_rand(r, n, 1, n)], {}),
+    "atleast_2d": lambda r, n: ([_rand(r, n * n // 4)], {}),
+    "as_complex": lambda r, n: ([_rand(r, n // 2, n, 2)], {}),
+    "block_diag": lambda r, n: ([[_rand(r, n // 4, n // 4),
+                                  _rand(r, n // 2, n // 8)]], {}),
+    "meshgrid": lambda r, n: ([[_rand(r, n), _rand(r, n)]], {}),
+    "diag": lambda r, n: ([_rand(r, n)], {}),
+    "diagflat": lambda r, n: ([_rand(r, n)], {}),
+    "diag_embed": lambda r, n: ([_rand(r, n // 64, n // 8)], {}),
+    "kron": lambda r, n: ([_rand(r, 64, 64), _rand(r, n // 64, n // 64)],
+                          {}),
+    "pdist": lambda r, n: ([_rand(r, n // 2, 64)], {}),
+    "cumulative_trapezoid": lambda r, n: ([_rand(r, n, n)], {}),
+    "one_hot": lambda r, n: ([_ints(r, 1000, n)], {"num_classes": 1000}),
+    "sequence_mask": lambda r, n: ([_ints(r, 512, n) + 1], {"maxlen": 512}),
+    "shard_index": lambda r, n: ([_ints(r, 32000, 16 * n, 1)], {
+        "index_num": 32000, "nshards": 8, "shard_id": 0}),
+    # products and linalg: OPS_LINALG wide, OPS_BATCH of them
+    "tensordot": lambda r, n: ([_rand(r, OPS_BATCH * OPS_LINALG, OPS_LINALG),
+                                _rand(r, OPS_LINALG, OPS_LINALG)], {}),
+    "einsum": lambda r, n: (["ij,jk->ik", _rand(
+        r, OPS_BATCH * OPS_LINALG, OPS_LINALG), _rand(
+        r, OPS_LINALG, OPS_LINALG)], {}),
+    "multi_dot": lambda r, n: ([[_rand(r, OPS_BATCH * OPS_LINALG,
+                                       OPS_LINALG),
+                                 _rand(r, OPS_LINALG, OPS_LINALG),
+                                 _rand(r, OPS_LINALG, OPS_LINALG // 2)]], {}),
+    "cross": lambda r, n: ([_rand(r, n * n // 4, 3), _rand(r, n * n // 4, 3)],
+                           {}),
+    "cholesky_solve": lambda r, n: ([_rand(r, OPS_BATCH, OPS_LINALG, 64),
+                                     _chol(r)], {}),
+    "triangular_solve": lambda r, n: ([_chol(r), _rand(
+        r, OPS_BATCH, OPS_LINALG, 64)], {}),
+    "householder_product": lambda r, n: (_householder(r), {}),
+    # nn: a transformer's and an image model's widths
+    "linear": lambda r, n: ([_rand(r, n, n // 4), _rand(r, n // 4, n // 4)
+                             * 0.03], {}),
+    "bilinear": lambda r, n: ([_rand(r, n, 64), _rand(r, n, 64),
+                               _rand(r, 16, 64, 64)], {}),
+    "prelu": lambda r, n: ([_rand(r, n, n), np.asarray([0.25], np.float32)],
+                           {}),
+    "embedding": lambda r, n: ([_ints(r, 32000, n // 128, 512),
+                                _rand(r, 32000, 512)], {}),
+    "embedding_bag": lambda r, n: ([_ints(r, 32000, n, 4),
+                                    _rand(r, 32000, 512)], {}),
+    "cross_entropy": lambda r, n: ([_rand(r, n, n), _ints(r, n, n)], {}),
+    "nll_loss": lambda r, n: ([np.log(r.uniform(0.05, 0.95, (n, n))).astype(
+        np.float32), _ints(r, n, n)], {}),
+    "softmax_with_cross_entropy": lambda r, n: ([_rand(r, n, n),
+                                                 _ints(r, n, n, 1)], {}),
+    "fused_linear_cross_entropy": lambda r, n: ([
+        _rand(r, n // 4, 512), _rand(r, 512, 8192) * 0.05,
+        _ints(r, 8192, n // 4)], {}),
+    "margin_ranking_loss": lambda r, n: ([
+        _rand(r, n * n // 4), _rand(r, n * n // 4),
+        np.sign(_rand(r, n * n // 4)).astype(np.float32)], {}),
+    "cosine_embedding_loss": lambda r, n: ([
+        _rand(r, n, 512), _rand(r, n, 512),
+        np.where(r.rand(n) > 0.5, 1, -1).astype(np.float32)], {}),
+    "batch_norm": lambda r, n: ([_rand(r, n, 1024), np.zeros(
+        1024, np.float32), np.ones(1024, np.float32)], {}),
+    "layer_norm": lambda r, n: ([_rand(r, n, 1024)],
+                                {"normalized_shape": [1024]}),
+    "rms_norm": lambda r, n: ([_rand(r, n, n), _rand(r, n) + 1.0], {}),
+    "group_norm": lambda r, n: ([_img(r, n)], {"num_groups": 8}),
+    "instance_norm": lambda r, n: ([_img(r, n)], {}),
+    "local_response_norm": lambda r, n: ([_img(r, n)], {}),
+    "channel_shuffle": lambda r, n: ([_img(r, n)], {"groups": 8}),
+    "pixel_shuffle": lambda r, n: ([_img(r, n)], {}),
+    "pixel_unshuffle": lambda r, n: ([_img(r, n, 16, 112)], {}),
+    "zeropad2d": lambda r, n: ([_img(r, n)], {}),
+    "interpolate": lambda r, n: ([_img(r, n)], {}),
+    "upsample": lambda r, n: ([_img(r, n)], {}),
+    "maxout": lambda r, n: ([_img(r, n)], {}),
+    "dropout2d": lambda r, n: ([_img(r, n)], {}),
+    "dropout3d": lambda r, n: ([_rand(r, n // 256, 32, 16, 32, 32)], {}),
+    "unfold": lambda r, n: ([_img(r, n)], {}),
+    "fold": lambda r, n: ([_rand(r, n // 128, 256, 55 * 55)],
+                          {"output_sizes": [56, 56]}),
+    # convolutions and pools
+    "conv1d": lambda r, n: ([_rand(r, n // 128, 64, 1024),
+                             _rand(r, 64, 64, 3) * 0.1], {}),
+    "conv1d_transpose": lambda r, n: ([_rand(r, n // 128, 64, 1024),
+                                       _rand(r, 64, 64, 3) * 0.1], {}),
+    "conv2d": lambda r, n: ([_img(r, n), _rand(r, 64, 64, 3, 3) * 0.1], {}),
+    "conv2d_transpose": lambda r, n: ([_img(r, n, 64, 28),
+                                       _rand(r, 64, 32, 3, 3) * 0.1], {}),
+    "conv3d": lambda r, n: ([_rand(r, n // 512, 32, 16, 32, 32),
+                             _rand(r, 32, 32, 2, 2, 2) * 0.1], {}),
+    "conv3d_transpose": lambda r, n: ([_rand(r, n // 512, 32, 8, 16, 16),
+                                       _rand(r, 32, 32, 2, 2, 2) * 0.1], {}),
+    **{k: (lambda r, n: ([_rand(r, n // 128, 64, 4096)], {})) for k in (
+        "avg_pool1d", "max_pool1d", "lp_pool1d", "adaptive_avg_pool1d",
+        "adaptive_max_pool1d")},
+    **{k: (lambda r, n: ([_img(r, n, 64, 112)], {})) for k in (
+        "avg_pool2d", "max_pool2d", "lp_pool2d", "adaptive_avg_pool2d",
+        "adaptive_max_pool2d")},
+    **{k: (lambda r, n: ([_rand(r, n // 512, 32, 16, 64, 64)], {}))
+       for k in ("avg_pool3d", "max_pool3d", "adaptive_avg_pool3d",
+                 "adaptive_max_pool3d")},
+}
+
+
+def _ops_inputs(name, category, spec, rng, n=OPS_BIG[0]):
+    """(inputs, attrs over the recipe's, size label): the recipe's inputs
+    at the size its users run (OPS_GROWN; one 2-D shape: OPS_BIG, with
+    ``n`` rows and columns; linalg OPS_LINALG, square SPD ones batched
+    OPS_BATCH), else, for OPS_AT_RECIPE, as the recipe has them."""
+    ins = spec["inputs"]
+    arrays = [v for v in ins if isinstance(v, np.ndarray)]
+    if name in OPS_FUSED:
+        return OPS_FUSED[name](rng), {}, "block widths"
+    if name in OPS_AT_RECIPE:
+        return ins, {}, "recipe"
+    if name in OPS_GROWN:
+        args, attrs = OPS_GROWN[name](rng, n)
+        first = next(a for a in args if isinstance(a, (np.ndarray, list)))
+        first = first[0] if isinstance(first, list) else first
+        return args, attrs, "x".join(str(d) for d in first.shape)
+    if category == "linalg":
+        # fresh draws, not the recipe's values repeated (a matrix of
+        # repeated rows is singular)
+        m = OPS_LINALG
+        spd = [a.ndim == 2 and a.shape[0] == a.shape[1] and np.allclose(
+            a, a.T, atol=1e-4) for a in arrays]
+        if all(spd):
+            return [_spd(m, OPS_BATCH, rng) for _ in arrays], {}, \
+                f"{OPS_BATCH}x{m}x{m}"
+        out = []
+        for a, sym in zip(arrays, spd):
+            shape = tuple(_linalg_dim(d) for d in a.shape)
+            if a.dtype == np.int64:
+                out.append(rng.randint(0, m, shape).astype(np.int64))
+            elif sym:
+                out.append(_spd(shape[0], 0, rng))
+            else:
+                out.append(_rand(rng, *shape))
+        return out, {}, "x".join(str(d) for d in out[0].shape)
+    big = (n, n)
+    if name == "put_along_axis":        # distinct targets: no write race
+        x, _idx, v = arrays
+        perm = np.argsort(rng.rand(*big), axis=0).astype(np.int64)
+        return [_grow(x, big, rng), perm, _grow(v, big, rng)], {}, \
+            f"{n}x{n}"
+    shapes = {a.shape for a in arrays}
+    if category in OPS_BIG_CATEGORIES and len(arrays) == len(ins) \
+            and len(shapes) == 1 and len(next(iter(shapes))) == 2:
+        return [_grow(a, big, rng) for a in arrays], {}, f"{n}x{n}"
+    raise AssertionError(f"ops: {name} ({category}) has no size to grow to: "
+                         f"add it to OPS_GROWN or OPS_AT_RECIPE")
+
+
+def _on(paddle, v, dev, bf16=False):
+    if isinstance(v, (list, tuple)) and all(isinstance(x, np.ndarray)
+                                            for x in v):
+        return [_on(paddle, x, dev, bf16) for x in v]
+    if isinstance(v, np.ndarray):
+        t = paddle.to_tensor(v, place=dev)
+        return t.astype("bfloat16") if bf16 and v.dtype == np.float32 else t
+    return v
+
+
+def _flat_out(out, paddle):
+    if isinstance(out, paddle.Tensor):
+        return [out]
+    if isinstance(out, (list, tuple)):
+        return [t for o in out for t in _flat_out(o, paddle)]
+    return []
+
+
+def _ops_err(name, got, ref, dtype):
+    """(relative error of the float outputs, integral outputs equal),
+    computed on the card."""
+    g_all = [g._data.detach() for g in got]
+    r_all = [r._data.detach().to(g.device) for r, g in zip(ref, g_all)]
+    if name in OPS_PRODUCTS:        # the product, and S or w beside it
+        keep = {"svd": [1], "qr": [], "eigh": [0]}[name]
+        g_all = [OPS_PRODUCTS[name](*g_all)] + [g_all[k] for k in keep]
+        r_all = [OPS_PRODUCTS[name](*r_all)] + [r_all[k] for k in keep]
+    if name in OPS_UNORDERED:
+        g_all, r_all = g_all[:1], r_all[:1]
+    worst, same = 0.0, True
+    for ga, ra in zip(g_all, r_all):
+        if ga.shape != ra.shape:
+            raise AssertionError(f"ops: {name} card shape {tuple(ga.shape)}"
+                                 f" vs CPU {tuple(ra.shape)}")
+        if ga.is_complex() or ra.is_complex() or name in OPS_SIGNED:
+            ga, ra = ga.abs(), ra.abs()
+        if name in OPS_UNORDERED:
+            ga, ra = ga.sort(-1).values, ra.sort(-1).values
+        if ga.is_floating_point():
+            ga, ra = ga.double(), ra.double()
+            both_nan = torch.isnan(ga) & torch.isnan(ra)
+            diff = torch.where(both_nan, torch.zeros_like(ga),
+                               (ga - ra).abs())
+            finite = torch.where(torch.isfinite(ra), ra.abs(),
+                                 torch.zeros_like(ra))
+            if diff.numel():
+                scale = max(float(finite.max()), 1.0)
+                worst = max(worst, float(diff.max()) / scale)
+        elif name in OPS_NEAR_INT:
+            off = (ga.long() - ra.long()).abs()
+            same = same and int(off.max()) <= 1 and \
+                float((off > 0).float().mean()) <= 1e-4
+        elif dtype == torch.float32:
+            same = same and bool(torch.equal(ga, ra))
+    return worst, same
+
+
+def _ops_time(fn):
+    """One call's card time in ms (CUDA events, after a warm call)."""
+    fn()
+    start, stop = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    torch.cuda.synchronize()
+    start.record()
+    fn()
+    stop.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(stop)
+
+
+def _ops_case(paddle, fn, name, cat, args, attrs, dtype, stats, label):
+    """``fn`` (op ``name`` of category ``cat``) on the card and on the
+    CPU over the same inputs; adds its error and card time to ``stats``
+    (one entry a category and dtype)."""
+    bf16 = dtype == torch.bfloat16
+    with paddle.device_guard("gpu:0"):
+        card_in = [_on(paddle, v, "gpu:0", bf16) for v in args]
+        # copies: an in-place op's result is its input, which the timed
+        # calls below change again
+        got = [paddle.Tensor(t._data.clone()) for t in _flat_out(
+            fn(*card_in, **attrs), paddle)]
+        ms = _ops_time(lambda: fn(*card_in, **attrs))
+    with paddle.device_guard("cpu"):
+        ref = _flat_out(fn(*[_on(paddle, v, "cpu", bf16) for v in args],
+                           **attrs), paddle)
+    if len(got) != len(ref) or not got:
+        raise AssertionError(f"ops: {name} gave {len(got)} card and "
+                             f"{len(ref)} CPU outputs")
+    if name in OPS_RANDOM:
+        err, same = 0.0, all(g.dtype == r.dtype and g.shape == r.shape
+                             for g, r in zip(got, ref))
+    else:
+        err, same = _ops_err(name, got, ref, dtype)
+    st = stats.setdefault((cat, dtype), dict(ops=set(), worst=(0.0, ""),
+                                             slowest=(0.0, ""), sizes=set()))
+    st["ops"].add(name)
+    st["sizes"].add(label)
+    st["worst"] = max(st["worst"], (err, name))
+    st["slowest"] = max(st["slowest"], (ms, name))
+    if err > OPS_TOL[dtype] or not same:
+        raise AssertionError(f"ops: {name} ({label}, {dtype}) card vs CPU "
+                             f"error {err:.3e} (limit {OPS_TOL[dtype]}), "
+                             f"integral outputs equal: {same}")
+
+
+def _ops_extra(case, registry, stats, rng):
+    """The ops the sweep has no recipe for, at their user sizes: fft over
+    OPS_FFT points, stft/istft over OPS_STFT, the geometric ops over an
+    OPS_GRAPH graph, in-place ops and random draws on OPS_BIG, and the
+    quantization ops."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch import fft
+    f32 = torch.float32
+
+    def op(name, args, kw, label):
+        d = registry.OPS[name]
+        case(d.lowering, name, d.category, args, kw, f32, stats, label)
+
+    x = rng.standard_normal(OPS_FFT).astype(np.float32)
+    sq = x.reshape(1024, 1024)
+    for name, arg, kw in (("fft", x, {}), ("rfft", x, {}),
+                          ("ifft", x, {"norm": "ortho"}),
+                          ("fft2", sq, {}), ("rfftn", sq, {}),
+                          ("irfft", np.abs(x[:OPS_FFT // 2 + 1]), {})):
+        case(getattr(fft, name), name, "fft", [arg], kw, f32, stats,
+             f"{OPS_FFT} points")
+    b, n, n_fft, hop = (OPS_STFT[k] for k in ("b", "n", "n_fft", "hop"))
+    sig = rng.standard_normal((b, n)).astype(np.float32)
+    win = np.hanning(n_fft).astype(np.float32)
+    op("stft", [sig, n_fft, hop, n_fft, win], {}, f"{b}x{n}")
+    with paddle.device_guard("cpu"):
+        spec = registry.OPS["stft"].lowering(
+            paddle.to_tensor(sig), n_fft, hop, n_fft,
+            paddle.to_tensor(win)).numpy()
+    op("istft", [spec, n_fft, hop, n_fft, win], {"length": n}, f"{b}x{n}")
+    op("frame", [sig], {"frame_length": n_fft, "hop_length": hop},
+       f"{b}x{n}")
+    op("overlap_add", [rng.standard_normal((b, n_fft, 98)).astype(
+        np.float32)], {"hop_length": hop}, f"{b}x{n_fft}x98")
+    # lu_unpack has no recipe (it takes lu's pivots): lu's factors of
+    # OPS_BATCH general OPS_LINALG-wide matrices
+    mats = _rand(rng, OPS_BATCH, OPS_LINALG, OPS_LINALG)
+    with paddle.device_guard("cpu"):
+        packed = [t.numpy() for t in registry.OPS["lu"].lowering(
+            paddle.to_tensor(mats))]
+    op("lu_unpack", packed, {}, "x".join(str(d) for d in mats.shape))
+    nodes, edges, feat = (OPS_GRAPH[k] for k in ("nodes", "edges", "feat"))
+    graph = f"{nodes} nodes {edges} edges"
+    feats = rng.standard_normal((nodes, feat)).astype(np.float32)
+    efeat = rng.standard_normal((edges, feat)).astype(np.float32)
+    src = rng.randint(0, nodes, edges).astype(np.int64)
+    dst = rng.randint(0, nodes, edges).astype(np.int64)
+    for name in ("segment_sum", "segment_mean", "segment_max",
+                 "segment_min"):
+        op(name, [efeat, np.sort(dst)], {}, graph)
+    for red in ("sum", "mean", "max", "min"):
+        op("send_u_recv", [feats, src, dst], {"reduce_op": red}, graph)
+    op("send_ue_recv", [feats, efeat, src, dst],
+       {"message_op": "mul", "reduce_op": "sum"}, graph)
+    op("send_uv", [feats, feats, src, dst], {"message_op": "add"}, graph)
+    order = np.argsort(dst, kind="stable")
+    colptr = np.searchsorted(dst[order], np.arange(nodes + 1)).astype(
+        np.int64)
+    query = rng.choice(nodes, 1024, replace=False).astype(np.int64)
+    # the full neighbourhoods (no draw), so the two devices agree
+    op("sample_neighbors", [src[order], colptr, query], {}, graph)
+    picked = 16 * 1024
+    op("reindex_graph", [query, src[:picked], np.full(1024, 16, np.int64)],
+       {}, graph)
+    big = _grow(rng.uniform(0.2, 0.9, (3, 4)).astype(np.float32), OPS_BIG,
+                rng)
+    size = f"{OPS_BIG[0]}x{OPS_BIG[1]}"
+    for name in ("abs_", "sin_", "cos_", "tanh_", "log_", "square_",
+                 "trunc_", "neg_", "sqrt_", "exp_"):
+        if name in registry.OPS:
+            op(name, [big], {}, size)
+        else:                            # a Tensor method without an entry
+            case(getattr(paddle.Tensor, name), name, "inplace", [big], {},
+                 f32, stats, size)
+    # the draws are held to shapes and dtypes only: a quarter of OPS_BIG
+    # (the CPU's binomial and gamma draws take seconds at 16M)
+    small = big[:OPS_BIG[0] // 4, :OPS_BIG[1] // 4].copy()
+    for name, args, kw in (("normal_", [small], {}),
+                           ("bernoulli_", [small], {}),
+                           ("log_normal_", [small], {}),
+                           ("cauchy_", [small], {}),
+                           ("geometric_", [small], {"probs": 0.3}),
+                           ("standard_gamma", [small], {}),
+                           ("poisson", [small], {}), ("bernoulli", [small], {}),
+                           ("binomial", [np.full(small.shape, 10.0,
+                                                 np.float32), small], {})):
+        op(name, args, kw, "x".join(str(d) for d in small.shape))
+    w = (rng.standard_normal((4096, 4096)) * 0.02).astype(np.float32)
+    a = rng.standard_normal((64, 4096)).astype(np.float32)
+    op("weight_quantize", [w], {}, "4096x4096")
+    op("fake_quant", [w], {}, "4096x4096")
+    op("apply_per_channel_scale", [a, np.abs(a[0]) + 1.0], {}, "64x4096")
+
+
+def phase_ops(state):
+    """Every recipe of the JAX package's op sweep, grown to the sizes its
+    users run (OPS_BIG; linalg OPS_LINALG, batched OPS_BATCH where square)
+    where the op allows, on the card against the same op on the CPU in
+    fp32, and in bf16 where the sweep has a bf16 case; then the ops the
+    sweep has no recipe for (_ops_extra). One line a category: ops run,
+    worst error, slowest op in ms."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.ops import registry
+    card = _card_line()
+    recipes, bf16_skip = _sweep_recipes()
+    rng = np.random.RandomState(5)
+    stats = {}
+    sized = {}
+    failed = []
+    t0 = time.perf_counter()
+
+    walls = []
+
+    def case(*args):
+        """One ``_ops_case``; a failure is kept, and the phase fails once
+        every op has run."""
+        t = time.perf_counter()
+        try:
+            _ops_case(paddle, *args)
+        except Exception as e:      # noqa: BLE001 - reported below
+            failed.append(f"{args[1]} {args[5]}: {type(e).__name__}: "
+                          f"{str(e)[:300]}")
+        walls.append((time.perf_counter() - t, args[1], str(args[5])))
+    for name in sorted(recipes):
+        if name not in registry.OPS:
+            continue
+        spec = recipes[name]
+        cat = registry.OPS[name].category
+        args, grown, label = _ops_inputs(name, cat, spec, rng)
+        attrs = dict(spec["attrs"], **OPS_FUSED_ATTRS.get(name, {}),
+                     **grown)
+        sized[name] = label
+        fn = registry.OPS[name].lowering
+        case(fn, name, cat, args, attrs, torch.float32, stats, label)
+        eligible = spec["jit"] and all(
+            isinstance(v, np.ndarray) and v.dtype == np.float32
+            for v in spec["inputs"]) and name not in bf16_skip
+        if eligible:
+            if label != "block widths":     # OPS_BIG_BF16 rows and columns
+                args, grown, label = _ops_inputs(name, cat, spec, rng,
+                                                 OPS_BIG_BF16[0])
+                attrs = dict(spec["attrs"], **grown)
+            case(fn, name, cat, args, attrs, torch.bfloat16, stats, label)
+    _ops_extra(case, registry, stats, rng)
+    for (cat, dtype), st in sorted(stats.items(), key=lambda kv: (
+            kv[0][0], str(kv[0][1]))):
+        log(json.dumps({"ops": cat, "dtype": str(dtype).replace(
+            "torch.", ""), "ops_run": len(st["ops"]), "sizes": sorted(
+            st["sizes"]), "worst_error": st["worst"][0],
+            "worst_op": st["worst"][1], "slowest_ms": st["slowest"][0],
+            "slowest_op": st["slowest"][1], "card": card}))
+    small = sorted(n for n, lab in sized.items() if lab == "recipe")
+    run = set().union(*(st["ops"] for st in stats.values()))
+    log(f"ops: {len(run)} ops run; {len(sized)} recipes, "
+        f"{len(sized) - len(small)} grown, {len(small)} at the recipe's "
+        f"size: {' '.join(small)}; {time.perf_counter() - t0:.1f} s; the "
+        f"slowest cases, card and CPU: " + ", ".join(
+            f"{nm} {dt.replace('torch.', '')} {w:.2f} s"
+            for w, nm, dt in sorted(walls, reverse=True)[:10]))
+    torch.cuda.empty_cache()
+    if failed:
+        for line in failed:
+            log(f"ops: FAILED {line}")
+        raise AssertionError(f"ops: {len(failed)} cases failed")
+
+
+# ----------------------------------------------------------- control flow
+# the JAX package's worked example (tests/test_control_flow.py
+# TestGreedyDecode: a greedy decode as one while_loop over KV-cache state
+# under to_static(full_graph=True)) at Transformer-base width: SEQ2SEQ's
+# model, B32 over a 128-token source, up to SEQ2SEQ_NEW tokens
+CF_BATCH = dict(b=32, s=128)
+CF_SEEDS = (999, 1001)      # the two source batches
+
+
+def _cf_limits(b, n_new):
+    """The second batch's per-row length limits: spread over
+    [n_new // 4, 3 * n_new // 4), so its rows stop at different steps
+    and the loop at another step than the recording's n_new."""
+    return np.array([n_new // 4 + (r * 37) % (n_new // 2) for r in range(b)],
+                    np.int64)
+
+
+def _cf_step(paddle, model, static_kv, st, end, limit, n_new):
+    """One greedy step over the carried state: the target token's
+    embedding, each decoder layer (self-attention over its fixed-size K/V
+    buffer, masked to the steps so far: the plain path; cross-attention
+    to the memory's keys and values, unmasked: K1 at one query row), the
+    final norm and the tied projection. A row is done once it has
+    emitted ``end`` or reached its length limit (``limit``, one a row),
+    and then emits ``end``. Returns (new state, logits). Paddle-API ops
+    only, so it is traced and replayed inside the op."""
+    F = paddle.nn.functional
+    d = SEQ2SEQ["d_model"]
+    b = st["tok"].shape[0]
+    step = st["step"]
+    slot = paddle.arange(n_new) == step                  # this step's row
+    seen = (paddle.arange(n_new) <= step).reshape([1, 1, 1, n_new])
+    x = (F.embedding(st["tok"].reshape([b, 1]), model.embed.weight)
+         * (d ** 0.5) + paddle.gather(model.pos, step.reshape([1])))
+    write = slot.reshape([1, n_new, 1, 1])
+    ks, vs = [], []
+    for i, layer in enumerate(model.transformer.decoder.layers):
+        sa = layer.self_attn
+        q = sa._reshape_heads(sa.q_proj(x))
+        k = paddle.where(write, sa._reshape_heads(sa.k_proj(x)), st["k"][i])
+        v = paddle.where(write, sa._reshape_heads(sa.v_proj(x)), st["v"][i])
+        a = F.scaled_dot_product_attention(q, k, v, attn_mask=seen,
+                                           training=False)
+        x = layer.norm1(x + sa.out_proj(a.reshape([b, 1, d])))
+        x = layer.norm2(x + layer.cross_attn(x, None, None, None,
+                                             static_kv[i]))
+        x = layer.norm3(x + layer.linear2(layer.activation(
+            layer.linear1(x))))
+        ks.append(k)
+        vs.append(v)
+    if model.transformer.decoder.norm is not None:
+        x = model.transformer.decoder.norm(x)
+    logits = model.logits(x)[:, 0]
+    nxt = paddle.where(st["done"], end, paddle.argmax(logits, axis=-1))
+    ids = paddle.where(slot.reshape([1, n_new]), nxt.reshape([b, 1]),
+                       st["ids"])
+    done = paddle.logical_or(st["done"], paddle.logical_or(
+        nxt == end, step + 1 >= limit))
+    return {"step": step + 1, "tok": nxt, "k": ks, "v": vs, "ids": ids,
+            "done": done}, logits
+
+
+def _cf_start(paddle, model, src, n_new):
+    """(the memory's cross-attention caches, the initial state)."""
+    from paddle_tpu_torch.nn import MultiHeadAttention
+    memory = model.transformer.encoder(model.tokens(src))
+    layers = model.transformer.decoder.layers
+    static_kv = [layer.cross_attn.gen_cache(
+        memory, memory, MultiHeadAttention.StaticCache) for layer in layers]
+    b = src.shape[0]
+    heads = SEQ2SEQ["nhead"]
+    shape = [b, n_new, heads, SEQ2SEQ["d_model"] // heads]
+    state = {"step": paddle.zeros([], "int64"),
+             "tok": paddle.zeros([b], "int64"),
+             "k": [paddle.zeros(shape, memory.dtype) for _ in layers],
+             "v": [paddle.zeros(shape, memory.dtype) for _ in layers],
+             "ids": paddle.zeros([b, n_new], "int64"),
+             "done": paddle.zeros([b], "bool")}
+    return static_kv, state
+
+
+def _cf_decoder(paddle, model, n_new):
+    """decode(src, end, limit) -> (ids (B, n_new), steps run): the
+    encoder, then one ``static.nn.while_loop`` over the state until every
+    row is done (``_cf_step``) or n_new steps."""
+    def decode(src, end, limit):
+        static_kv, state = _cf_start(paddle, model, src, n_new)
+
+        def keep(st):
+            return paddle.logical_and(
+                st["step"] < n_new, paddle.logical_not(paddle.all(
+                    st["done"])))
+
+        def body(st):
+            return [_cf_step(paddle, model, static_kv, st, end, limit,
+                             n_new)[0]]
+
+        final = paddle.static.nn.while_loop(keep, body, [state])[0]
+        return final["ids"], final["step"]
+    return decode
+
+
+def _cf_host_loop(paddle, model, src, end, limit, n_new):
+    """The same step in a Python loop, the stop read on the host each
+    step: (ids, steps, each row's top-two logit gap a step)."""
+    static_kv, st = _cf_start(paddle, model, src, n_new)
+    gaps = []
+    while int(st["step"]) < n_new and not bool(paddle.all(st["done"])):
+        st, logits = _cf_step(paddle, model, static_kv, st, end, limit,
+                              n_new)
+        top = paddle.topk(logits.astype("float32"), 2, axis=-1)[0].numpy()
+        gaps.append(top[:, 0] - top[:, 1])
+    return st["ids"].numpy(), int(st["step"]), np.stack(gaps, axis=1)
+
+
+def _cf_want_steps(ids, tok, limits):
+    """The steps the loop runs with end token ``tok`` and per-row
+    ``limits``, from ``ids`` decoded with neither: each row stops at its
+    first ``tok`` or at its limit, the loop at its last row."""
+    ends = []
+    for row, lim in zip(ids, limits):
+        hit = np.flatnonzero(row == tok)
+        ends.append(min(int(hit[0]) + 1, int(lim)) if hit.size else int(lim))
+    return max(ends), ends
+
+
+def phase_control_flow(state):
+    """A greedy decode as one while_loop under to_static(full_graph=True)
+    at Transformer-base width in bf16: one recording and no graph break,
+    the replayed ids equal to the same function run eagerly and to a
+    host loop over the same step (near ties excepted), a second batch
+    whose rows stop at different steps, and its loop at another step,
+    replaying the same recording, K1's
+    launches a token step equal to the eager run's; bf16 ms a token and
+    host syncs a token."""
+    import paddle_tpu_torch as paddle
+    import paddle_tpu_torch.ops.cuda.flash_attention as fa
+    card = _card_line()
+    n_new = SEQ2SEQ_NEW
+    layers = SEQ2SEQ["num_decoder_layers"]
+    with paddle.device_guard("gpu:0"), paddle.no_grad():
+        model = _seq2seq_model(paddle, dropout=0.0)
+        model.eval()
+        model.to(dtype="bfloat16")
+        # batch 0: no end token and no limit below n_new, so the loop runs
+        # to n_new steps (the recording). Batch 1: other sources, each row
+        # its own length limit (_cf_limits), and a token some row emits
+        # first as the end token, so the rows that emit it stop at once and
+        # the others at their limits, and the loop stops at another step.
+        # (Greedy rows
+        # of the random model repeat their first token, so no end token
+        # alone can stop a row at a later step.)
+        b = CF_BATCH["b"]
+        src_a, _ = _seq2seq_batch(paddle, CF_SEEDS[0], **CF_BATCH)
+        src_b, _ = _seq2seq_batch(paddle, CF_SEEDS[1], **CF_BATCH)
+        never = paddle.to_tensor(np.int64(-1))
+        no_limit = paddle.to_tensor(np.full(b, n_new, np.int64))
+        ids_b, _, _ = _cf_host_loop(paddle, model, src_b, never, no_limit,
+                                    n_new)
+        limits_b = _cf_limits(b, n_new)
+        # the end token: the rarest first token of the batch's rows (the
+        # rows that emit it stop at once, the others at their limits)
+        firsts = ids_b[:, 0].tolist()
+        tok_b = int(min(firsts, key=lambda t: (firsts.count(t),
+                                               firsts.index(t))))
+        steps_b, ends_b = _cf_want_steps(ids_b, tok_b, limits_b)
+        if not n_new // 4 <= steps_b < n_new or len(set(ends_b)) < 2:
+            raise AssertionError(
+                f"control_flow: batch 1 would stop at step {steps_b}, its "
+                f"rows at {sorted(set(ends_b))}: wants a stop in "
+                f"[{n_new // 4}, {n_new}) and rows stopping at different "
+                f"steps")
+        batches = [(src_a, -1, no_limit, n_new),
+                   (src_b, tok_b, paddle.to_tensor(limits_b), steps_b)]
+        decode = _cf_decoder(paddle, model, n_new)
+        static = paddle.jit.to_static(decode, full_graph=True)
+        rows = []
+        for k, (src, tok, limit, want_steps) in enumerate(batches):
+            end = paddle.to_tensor(np.int64(tok))
+            if k == 0:
+                static(src, end, limit)             # the recording
+            torch.cuda.synchronize()
+            before = fa.flash_attention_fwd.launches
+            t0 = time.perf_counter()
+            ids_s, steps_s = static(src, end, limit)
+            ids_s, steps_s = ids_s.numpy(), int(steps_s)
+            wall = time.perf_counter() - t0
+            replay_k1 = fa.flash_attention_fwd.launches - before
+            before = fa.flash_attention_fwd.launches
+            ids_e, steps_e = decode(src, end, limit)
+            ids_e, steps_e = ids_e.numpy(), int(steps_e)
+            eager_k1 = fa.flash_attention_fwd.launches - before
+            ids_h, steps_h, gaps = _cf_host_loop(paddle, model, src, end,
+                                                 limit, n_new)
+            syncs = _cf_syncs(lambda: static(src, end, limit)[0].numpy())
+            log(f"control_flow: batch {k} end token {tok}: steps replay "
+                f"{steps_s} eager {steps_e} host loop {steps_h} (want "
+                f"{want_steps}); K1 launches replay {replay_k1} eager "
+                f"{eager_k1}")
+            if not steps_s == steps_e == steps_h == want_steps:
+                raise AssertionError(
+                    f"control_flow: batch {k} ran {steps_s}/{steps_e}/"
+                    f"{steps_h} steps, wants {want_steps}")
+            for label, got in (("replay vs host loop", ids_s),
+                               ("eager vs host loop", ids_e)):
+                _hold(f"control_flow batch {k} {label}",
+                      [list(r[:steps_h]) for r in got],
+                      [list(r[:steps_h]) for r in ids_h],
+                      lambda i, j: float(gaps[i, j]))
+            want_k1 = SEQ2SEQ["num_encoder_layers"] + layers * steps_s
+            if not replay_k1 == eager_k1 == want_k1:
+                raise AssertionError(
+                    f"control_flow: K1 launched {replay_k1} (replay) and "
+                    f"{eager_k1} (eager) times, wants {want_k1}")
+            rows.append({"batch": k, "end_token": tok, "steps": steps_s,
+                         "row_stop_steps": sorted(set(ends_b)) if k
+                         else [n_new],
+                         "ms_a_token": wall / steps_s * 1e3,
+                         "host_syncs_a_token": syncs / steps_s,
+                         "k1_launches": replay_k1,
+                         "k1_a_token_step": (replay_k1 - SEQ2SEQ[
+                             "num_encoder_layers"]) / steps_s})
+        programs = [p for p, _ in static._programs.values()]
+        loops = [[st.name for st in p.steps].count("while_loop")
+                 for p in programs]
+        log(f"control_flow: {len(programs)} recording(s), while_loop ops "
+            f"{loops}, {len(programs[0].steps)} recorded ops, graph break "
+            f"{static.graph_break_reason}")
+        if len(programs) != 1 or loops != [1] \
+                or static.graph_break_reason is not None:
+            raise AssertionError("control_flow: wants one recording with one "
+                                 "while_loop op and no graph break")
+        log(json.dumps({"control_flow": f"transformer_base bf16 while_loop "
+                        f"greedy decode B{CF_BATCH['b']} S{CF_BATCH['s']} "
+                        f"+{n_new}", "card": card, "batches": rows}))
+        del model, static
+    torch.cuda.empty_cache()
+
+
+def _cf_syncs(fn) -> int:
+    """The host syncs one call of ``fn`` makes, as torch's sync debug
+    mode reports them."""
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return sum("synchroniz" in str(w.message) for w in caught)
 
 
 # ------------------------------------------------------------ distributed

@@ -54,11 +54,19 @@ holds the K1 attention op as a node, beside its ``.pdparams``) and
 handle-style ``inference.Config``/``create_predictor``, int8
 ``quantization`` (``PTQ``, ``QAT``, weight-only and LLM.int8 linears)
 and ``onnx.export`` with its bundled numpy evaluator.
+
+The rest of the Paddle-API op library: the in-graph control flow
+(``static.nn.cond``, ``while_loop``, ``case``, ``switch_case``, each one
+op under ``to_static``), the in-place family (``x.abs_()``, ...), the
+op-surface tail, ``linalg``, complex tensors, ``fft``, ``signal`` and
+``geometric``.
 """
-from . import (amp, autograd, compile, core, distributed, fault, framework,
-               hapi, incubate, inference, io, jit, metric, models, nn,
-               observability, onnx, ops, optimizer, quantization, regularizer,
-               serving, static, tools, vision)
+from . import (amp, autograd, compile, core, distributed, fault, fft,
+               framework, geometric, hapi, incubate, inference, io, jit,
+               metric, models, nn, observability, onnx, ops, optimizer,
+               quantization, regularizer, serving, signal, static, tools,
+               vision)
+from .ops import linalg
 from .autograd import PyLayer, backward, grad, is_grad_enabled
 from .core import get_flag, resolve_device, set_flags
 from .core.dispatch import (enable_grad, no_grad,
@@ -81,6 +89,7 @@ from .models import (GPTConfig, GPTForCausalLM, LlamaConfig, LlamaForCausalLM,
                      gpt2_medium, gpt2_small)
 
 __all__ = ["amp", "autograd", "compile", "core", "distributed", "fault",
+           "fft", "signal", "geometric", "linalg", "shape",
            "framework", "save", "load", "summary", "flops", "hapi", "incubate", "inference", "io", "jit", "metric", "models",
            "nn", "observability", "onnx", "ops", "optimizer", "quantization",
            "regularizer",
@@ -96,3 +105,9 @@ __all__ = ["amp", "autograd", "compile", "core", "distributed", "fault",
            "get_default_dtype", "set_default_dtype", "get_flag", "set_flags", "to_static", "GPTConfig", "GPTForCausalLM",
            "gpt2_small", "gpt2_medium", "LlamaConfig", "LlamaForCausalLM",
            "PagedEngine", "GPTPagedEngine", "LlamaPagedEngine"] + list(_ops)
+
+
+def shape(x):
+    """x's shape as an int32 tensor, on x's device."""
+    from .ops.creation import to_tensor
+    return to_tensor(list(x.shape), dtype="int32", place=x._data.device)

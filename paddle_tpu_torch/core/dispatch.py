@@ -25,8 +25,6 @@ The JAX dispatcher's other parts have no counterpart here:
 * the SOT ``LazyArray`` path (lazy capture of eager ops into segments):
   the port's ``to_static`` records a whole call through the recorder
   taps below, and a graph break runs that signature eagerly;
-* the branch trace (``enter_branch_trace``): it waits for the port of
-  ``static/nn`` control flow;
 * the op-cost accumulator (``FLAGS_perf_op_cost``): it waits for
   ``observability/perf``.
 
@@ -41,6 +39,11 @@ with the op's semantic parameters (``export_attrs()``: stride, padding,
 axis, ...) merged into its attrs; an op builds them only while a hook
 is registered. ``quiet_scope`` silences every tap
 for the ops inside it.
+
+The branch trace (``enter_branch_trace``) is ``ops/control_flow``'s:
+while one is entered on this thread, ``call`` runs no op but hands it to
+the trace's ``run_op``, which evaluates it on meta tensors (shapes and
+dtypes only) and notes which tensors the branch reads.
 """
 from __future__ import annotations
 
@@ -174,6 +177,22 @@ class quiet_scope:
         return False
 
 
+def enter_branch_trace(trace):
+    """Make ``trace`` (or None) this thread's branch trace; returns the
+    previous one, for ``exit_branch_trace``."""
+    prev = getattr(_tls, "branch_trace", None)
+    _tls.branch_trace = trace
+    return prev
+
+
+def exit_branch_trace(prev) -> None:
+    _tls.branch_trace = prev
+
+
+def in_branch_trace() -> bool:
+    return getattr(_tls, "branch_trace", None) is not None
+
+
 _export_hooks: List[Callable] = []
 
 
@@ -269,6 +288,10 @@ def call(op_name: str, fn: Callable, tensor_inputs: Sequence[Tensor],
     hooks only: it is called, before the body, only when one is
     registered."""
     attrs = attrs or {}
+    trace = getattr(_tls, "branch_trace", None)
+    if trace is not None:
+        return trace.run_op(op_name, fn, tensor_inputs, attrs,
+                            differentiable_mask)
     quiet = getattr(_tls, "quiet", False)
     exported = None
     if _export_hooks and not quiet:

@@ -243,7 +243,9 @@ class Tensor:
         d = self._data.detach()
         if d.dtype == torch.bfloat16:
             d = d.float()
-        return d.cpu().numpy().copy()
+        # force: a lazily conjugated or negated view, or autograd's
+        # ZeroTensor (a gradient known to be zero), is materialized
+        return d.cpu().numpy(force=True).copy()
 
     def __array__(self, dtype=None, copy=None):
         arr = self.numpy()

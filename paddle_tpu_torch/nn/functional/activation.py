@@ -97,6 +97,9 @@ def swiglu(x: torch.Tensor, y: Optional[torch.Tensor] = None,
            name=None) -> torch.Tensor:
     """silu(x) * y; with one argument, x is split in half on the last dim.
     One op to the fusion pass, as in the JAX package (no pattern takes it)."""
+    if isinstance(x, Tensor):
+        return dispatch.call("swiglu", swiglu, [x] if y is None else [
+            x, y if isinstance(y, Tensor) else Tensor(_payload(y))])
     if y is None:
         x, y = x.chunk(2, dim=-1)
     return TF.silu(x) * y

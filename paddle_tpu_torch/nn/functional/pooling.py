@@ -108,6 +108,13 @@ def _window_sum(a, ksize, stride, nd):
 
 def _pool_body(a, ksize, stride, padding, nd, channel_last, mode,
                exclusive, ceil_mode):
+    if nd == 3 and mode != "max" and a.dtype == torch.bfloat16 \
+            and a.device.type == "cpu":
+        # torch has no bf16 avg_pool3d on the CPU (the card has one): the
+        # window means in fp32, rounded back
+        return _pool_body(a.float(), ksize, stride, padding, nd,
+                          channel_last, mode, exclusive,
+                          ceil_mode).to(torch.bfloat16)
     a = a.movedim(-1, 1) if channel_last else a
     pads = _window_pads(a.shape[2:], ksize, stride, padding, nd, ceil_mode)
     direct = _torch_pads(pads, ksize)

@@ -5,9 +5,11 @@ PyTorch version.
 
 Every op here is a plain torch body behind ``core.dispatch.call``; this
 module attaches the operators and methods to ``Tensor``, as the JAX
-package's does (and the reference's monkey-patch of tensor methods).
-The ops ported so far are listed in ROADMAP (Queue 1); ``linalg`` and
-``search`` are partial.
+package's does (and the reference's monkey-patch of tensor methods),
+the in-place family (``ops/inplace.py``) among them. ``control_flow``
+(``cond``, ``while_loop``, ``case``, ``switch_case``) is reached as
+``static.nn``'s; ``ops.cond``, as in the JAX package, is linalg's
+condition number.
 """
 from __future__ import annotations
 
@@ -18,7 +20,8 @@ import torch
 
 from ..core import dispatch
 from ..core.tensor import Tensor, as_tensor
-from . import creation, linalg, manipulation, math, reduction, search
+from . import (control_flow, creation, linalg, manipulation, math, reduction,
+               search)
 from .registry import OPS, op_names, register
 
 from .math import *          # noqa: F401,F403
@@ -26,13 +29,14 @@ from .creation import *      # noqa: F401,F403
 from .manipulation import *  # noqa: F401,F403
 from .reduction import *     # noqa: F401,F403
 from .linalg import *        # noqa: F401,F403
-from .search import (argmax, argmin, argsort, sort, topk,  # noqa: F401
-                     where)
+from .search import *        # noqa: F401,F403
+from . import inplace, tail  # noqa: E402  (after the base ops)
+from .inplace import *       # noqa: F401,F403
+from .tail import *          # noqa: F401,F403
 
 __all__ = sorted(set(math.__all__ + creation.__all__ + manipulation.__all__
-                     + reduction.__all__ + linalg.__all__
-                     + ["argmax", "argmin", "argsort", "sort", "topk",
-                        "where"]))
+                     + reduction.__all__ + linalg.__all__ + search.__all__
+                     + inplace.__all__ + tail.__all__))
 
 
 # ---------------------------------------------------------------- indexing
@@ -210,6 +214,8 @@ def _attach_methods():
         "logical_not": math.logical_not, "logical_xor": math.logical_xor,
         "isclose": math.isclose, "allclose": math.allclose,
         "equal_all": math.equal_all, "nan_to_num": math.nan_to_num,
+        "real": math.real, "imag": math.imag, "conj": math.conj,
+        "angle": math.angle,
         # reduction
         "sum": reduction.sum, "mean": reduction.mean, "max": reduction.max,
         "min": reduction.min, "prod": reduction.prod, "any": reduction.any,
@@ -217,6 +223,7 @@ def _attach_methods():
         "logsumexp": reduction.logsumexp, "cumsum": reduction.cumsum,
         "cumprod": reduction.cumprod, "amax": reduction.amax,
         "amin": reduction.amin, "count_nonzero": reduction.count_nonzero,
+        "median": reduction.median,
         # manipulation
         "reshape": manipulation.reshape, "reshape_": manipulation.reshape_,
         "flatten": manipulation.flatten, "squeeze": manipulation.squeeze,
@@ -239,15 +246,21 @@ def _attach_methods():
         "repeat_interleave": manipulation.repeat_interleave,
         "diagonal": manipulation.diagonal, "moveaxis": manipulation.moveaxis,
         "view": manipulation.view, "view_as": manipulation.view_as,
+        "scatter_nd_add": manipulation.scatter_nd_add,
+        "numel_t": manipulation.numel,
         # linalg
         "matmul": linalg.matmul, "mm": linalg.mm, "bmm": linalg.bmm,
         "dot": linalg.dot, "norm": linalg.norm, "t": linalg.t,
         "trace": linalg.trace, "inverse": linalg.inverse,
-        "cholesky": linalg.cholesky,
+        "cholesky": linalg.cholesky, "dist": linalg.dist,
+        "inner": linalg.inner, "outer": linalg.outer, "cross": linalg.cross,
+        "matrix_power": linalg.matrix_power,
         # search
         "argmax": search.argmax, "argmin": search.argmin,
         "argsort": search.argsort, "sort": search.sort, "topk": search.topk,
-        "where": search.where,
+        "where": search.where, "nonzero": search.nonzero,
+        "unique": search.unique, "kthvalue": search.kthvalue,
+        "bucketize": search.bucketize,
         # creation-ish
         "clone": creation.clone, "fill_": _fill,
         "zero_": lambda self: _fill(self, 0),
@@ -255,21 +268,9 @@ def _attach_methods():
     for name, fn in methods.items():
         setattr(Tensor, name, fn)
 
-    # in-place arithmetic sugar (paddle add_/subtract_/scale_): the
-    # result becomes the payload
-    def _make_inplace(f):
-        def inplace(self, *a, **k):
-            return self._swap_payload(f(self, *a, **k)._data)
-        return inplace
-
-    for nm, f in [("add_", math.add), ("subtract_", math.subtract),
-                  ("multiply_", math.multiply), ("divide_", math.divide),
-                  ("scale_", math.scale), ("clip_", math.clip),
-                  ("exp_", math.exp), ("sqrt_", math.sqrt),
-                  ("rsqrt_", math.rsqrt), ("floor_", math.floor),
-                  ("ceil_", math.ceil), ("reciprocal_", math.reciprocal),
-                  ("round_", math.round), ("tanh_", math.tanh)]:
-        setattr(Tensor, nm, _make_inplace(f))
+    # the in-place family (ops/inplace.py): x.abs_(), x.add_(y), ...
+    for nm in inplace.__all__ + list(inplace.SUGAR):
+        setattr(Tensor, nm, getattr(inplace, nm))
 
 
 _attach_methods()
@@ -282,6 +283,14 @@ def _register_all():
                      (reduction, "reduction"), (linalg, "linalg"),
                      (search, "search")):
         register_module(mod, cat)
+
+    def rotary_embedding(x, theta=10000.0, pos_offset=0):
+        """RoPE on (B, S, H, D) activations: ``models.llama``'s (imported
+        on first use, as the JAX package's forwarder does)."""
+        from ..models.llama import rotary_embedding as _impl
+        return _impl(x, theta=theta, pos_offset=pos_offset)
+
+    register("rotary_embedding", category="attention")(rotary_embedding)
 
 
 _register_all()

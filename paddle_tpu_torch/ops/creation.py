@@ -14,7 +14,7 @@ import torch
 from ..core import dispatch
 from ..core.dtype import convert_dtype, default_float_dtype
 from ..core.generator import default_generator
-from ..core.place import current_device
+from ..core.place import current_device, resolve_device
 from ..core.tensor import Tensor, as_tensor, graph_break
 from .manipulation import _int
 from .registry import register
@@ -24,6 +24,9 @@ __all__ = [
     "full_like", "empty", "empty_like", "arange", "linspace", "eye", "tril",
     "triu", "rand", "randn", "randint", "uniform", "normal",
     "standard_normal", "randperm", "one_hot", "clone", "assign",
+    "bernoulli", "complex", "diag", "diagflat", "logspace",
+    "meshgrid", "multinomial", "poisson", "polar", "randint_like",
+    "tril_indices", "triu_indices",
 ]
 
 
@@ -33,7 +36,7 @@ def to_tensor(data, dtype=None, place=None, stop_gradient=True):
     device = None
     if place is not None:
         device = (place.torch_device() if hasattr(place, "torch_device")
-                  else place)
+                  else resolve_device(place))
     return as_tensor(data, dtype=dtype, stop_gradient=stop_gradient,
                      device=device)
 
@@ -222,3 +225,108 @@ def assign(x, output=None):
         output._swap_payload(out._data)
         return output
     return out
+
+
+# --------------------------------------------------------- the JAX tail
+@register("diag", category="creation")
+def diag(x, offset=0, padding_value=0, name=None):
+    """A vector's diagonal matrix (``padding_value`` off the diagonal), or
+    a matrix's ``offset`` diagonal."""
+    def f(a):
+        if a.dim() == 1:
+            out = torch.diag(a, offset)
+            if padding_value != 0:
+                keep = torch.diag(torch.ones_like(a, dtype=torch.bool),
+                                  offset)
+                out = torch.where(keep, out,
+                                  torch.full_like(out, padding_value))
+            return out
+        return torch.diagonal(a, offset).clone()
+    return dispatch.call("diag", f, [as_tensor(x)])
+
+
+def diagflat(x, offset=0, name=None):
+    """The diagonal matrix of the flattened x."""
+    return dispatch.call("diagflat", lambda a: torch.diagflat(a, offset),
+                         [as_tensor(x)])
+
+
+def complex(real, imag, name=None):
+    """real + i imag."""
+    return dispatch.call("complex", torch.complex,
+                         [as_tensor(real), as_tensor(imag)])
+
+
+def polar(abs, angle, name=None):
+    """abs * exp(i angle)."""
+    return dispatch.call("polar", torch.polar,
+                         [as_tensor(abs), as_tensor(angle)])
+
+
+def logspace(start, stop, num, base=10.0, dtype=None, name=None):
+    """``num`` points from base**start to base**stop, evenly spaced in
+    the exponent."""
+    def v(a):
+        return a.item() if isinstance(a, Tensor) else a
+    return Tensor(torch.logspace(v(start), v(stop), int(v(num)),
+                                 base=v(base), dtype=_float(dtype),
+                                 device=current_device()))
+
+
+def meshgrid(*args, **kwargs):
+    """Coordinate grids of 1-D tensors, matrix ("ij") indexing."""
+    if len(args) == 1 and isinstance(args[0], (list, tuple)):
+        args = args[0]
+    return list(dispatch.call("meshgrid", lambda *xs: tuple(
+        m.clone() for m in torch.meshgrid(*xs, indexing="ij")),
+        [as_tensor(a) for a in args]))
+
+
+def tril_indices(row, col, offset=0, dtype="int64"):
+    """(2, n) row and column indices of the lower triangle of a row x col
+    grid."""
+    return Tensor(torch.tril_indices(row, col, offset,
+                                     dtype=convert_dtype(dtype),
+                                     device=current_device()))
+
+
+def triu_indices(row, col=None, offset=0, dtype="int64"):
+    """(2, n) row and column indices of the upper triangle."""
+    return Tensor(torch.triu_indices(row, row if col is None else col,
+                                     offset, dtype=convert_dtype(dtype),
+                                     device=current_device()))
+
+
+def _drawn(name, x, draw):
+    """A random op over x's payload: the draw from its device's
+    generator, outside the recording (a graph break, as every random op
+    of this module)."""
+    graph_break(f"paddle.{name}")
+    xt = as_tensor(x)
+    return Tensor(draw(xt._data, default_generator(xt._data.device)))
+
+
+def bernoulli(x, name=None):
+    """0/1 draws with probability x, in x's dtype."""
+    return _drawn("bernoulli", x, lambda p, g: torch.bernoulli(
+        p, generator=g))
+
+
+def poisson(x, name=None):
+    """Poisson draws of rate x, in x's dtype."""
+    return _drawn("poisson", x, lambda lam, g: torch.poisson(
+        lam, generator=g))
+
+
+def multinomial(x, num_samples=1, replacement=False, name=None):
+    """Category ids drawn from each row's (unnormalized) weights."""
+    return _drawn("multinomial", x, lambda p, g: torch.multinomial(
+        p, num_samples, replacement, generator=g))
+
+
+def randint_like(x, low=0, high=None, dtype=None, name=None):
+    """randint of x's shape (and dtype unless ``dtype``)."""
+    xt = as_tensor(x)
+    return randint(low, high, tuple(xt.shape), dtype or xt.dtype)
+
+

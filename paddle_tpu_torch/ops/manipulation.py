@@ -23,7 +23,11 @@ __all__ = [
     "tile", "expand", "expand_as", "broadcast_to", "flip", "roll",
     "repeat_interleave", "gather", "gather_nd", "scatter", "index_select",
     "take_along_axis", "put_along_axis", "masked_select", "masked_fill",
-    "slice", "numel", "diagonal",
+    "slice", "numel", "diagonal", "as_complex", "as_real", "atleast_1d",
+    "atleast_2d", "atleast_3d", "broadcast_tensors", "crop", "diag_embed",
+    "index_add", "index_put", "index_sample", "kron", "rot90",
+    "scatter_add", "scatter_nd_add", "select_scatter", "shard_index",
+    "slice_scatter", "strided_slice", "take", "tensor_split", "tensordot",
 ]
 
 
@@ -335,3 +339,205 @@ def numel(x, name=None):
 def diagonal(x, offset=0, axis1=0, axis2=1, name=None):
     return dispatch.call("diagonal", lambda a: torch.diagonal(
         a, offset, axis1, axis2), [_t(x)])
+
+
+def _new(out: torch.Tensor, a: torch.Tensor) -> torch.Tensor:
+    """``out``, or a view of it when torch handed back the input itself
+    (an op's output is a value of its own)."""
+    return out.view_as(out) if out is a else out
+
+
+def as_complex(x, name=None):
+    """Trailing [real, imag] pairs as complex numbers."""
+    return dispatch.call("as_complex", lambda a: torch.complex(
+        a[..., 0], a[..., 1]), [_t(x)])
+
+
+def as_real(x, name=None):
+    """A complex tensor as trailing [real, imag] pairs."""
+    return dispatch.call("as_real", lambda a: torch.stack(
+        [a.real, a.imag], -1), [_t(x)])
+
+
+def _atleast(name, tfn, inputs):
+    outs = [dispatch.call(name, lambda a: _new(tfn(a), a), [_t(v)])
+            for v in inputs]
+    return outs[0] if len(outs) == 1 else outs
+
+
+def atleast_1d(*inputs, name=None):
+    return _atleast("atleast_1d", torch.atleast_1d, inputs)
+
+
+def atleast_2d(*inputs, name=None):
+    return _atleast("atleast_2d", torch.atleast_2d, inputs)
+
+
+def atleast_3d(*inputs, name=None):
+    return _atleast("atleast_3d", torch.atleast_3d, inputs)
+
+
+def broadcast_tensors(inputs, name=None):
+    """The tensors broadcast to their common shape."""
+    return list(dispatch.call("broadcast_tensors", lambda *xs: tuple(
+        o.contiguous() for o in torch.broadcast_tensors(*xs)),
+        [_t(v) for v in inputs]))
+
+
+def crop(x, shape=None, offsets=None, name=None):
+    """The box of ``shape`` (-1: to the end) at ``offsets``."""
+    xt = _t(x)
+    shape = _ints(shape)
+    offsets = _ints(offsets) if offsets is not None else (0,) * xt.ndim
+    sl = tuple(builtins.slice(o, o + n if n != -1 else None)
+               for o, n in zip(offsets, shape))
+    return dispatch.call("crop", lambda a: a[sl], [xt])
+
+
+def diag_embed(x, offset=0, dim1=-2, dim2=-1, name=None):
+    """The last dim as the ``offset`` diagonal of new (dim1, dim2)
+    planes."""
+    return dispatch.call("diag_embed", lambda a: torch.diag_embed(
+        a, offset, dim1, dim2), [_t(x)])
+
+
+def index_add(x, index, axis, value, name=None):
+    """Rows of ``value`` added at ``index`` along ``axis`` (duplicates
+    sum)."""
+    return dispatch.call("index_add", lambda a, i, v: torch.index_add(
+        a, axis, i.reshape(-1).long(), v.to(a.dtype)),
+        [_t(x), _t(index), _t(value)], differentiable_mask=[True, False, True])
+
+
+def index_put(x, indices, value, accumulate=False, name=None):
+    """``value`` written (or added, ``accumulate``) at the tuple of index
+    tensors."""
+    idx = [_t(i) for i in indices]
+
+    def f(a, v, *ix):
+        ix = tuple(i if i.dtype == torch.bool else i.long() for i in ix)
+        return a.index_put(ix, v.to(a.dtype), accumulate=accumulate)
+    return dispatch.call("index_put", f, [_t(x), _t(value)] + idx,
+                         differentiable_mask=[True, True] + [False] * len(idx))
+
+
+def index_sample(x, index, name=None):
+    """out[i, j] = x[i, index[i, j]]."""
+    return dispatch.call("index_sample", lambda a, i: torch.take_along_dim(
+        a, i.long(), 1), [_t(x), _t(index)], differentiable_mask=[True, False])
+
+
+def kron(x, y, name=None):
+    return dispatch.call("kron", torch.kron, [_t(x), _t(y)])
+
+
+def rot90(x, k=1, axes=(0, 1), name=None):
+    """Rotate by k quarter turns in the plane of ``axes``."""
+    return dispatch.call("rot90", lambda a: torch.rot90(
+        a, k, list(axes)), [_t(x)])
+
+
+@register("scatter_add", category="indexing")
+def scatter_add(x, index, updates, name=None):
+    """Rows of ``updates`` added into x at ``index`` along dim 0
+    (duplicates sum)."""
+    return dispatch.call("scatter_add", lambda a, i, u: torch.index_add(
+        a, 0, i.reshape(-1).long(), u.to(a.dtype)),
+        [_t(x), _t(index), _t(updates)],
+        differentiable_mask=[True, False, True])
+
+
+@register("scatter_nd_add", category="indexing")
+def scatter_nd_add(x, index, updates, name=None):
+    """``updates`` added into x at the multi-dim ``index`` rows."""
+    return dispatch.call("scatter_nd_add", lambda a, i, u: a.index_put(
+        tuple(i.long().movedim(-1, 0)), u.to(a.dtype), accumulate=True),
+        [_t(x), _t(index), _t(updates)],
+        differentiable_mask=[True, False, True])
+
+
+def select_scatter(x, value, axis, index, name=None):
+    """``value`` written at position ``index`` of ``axis``."""
+    return dispatch.call("select_scatter", lambda a, v: torch.select_scatter(
+        a, v.to(a.dtype), axis, index), [_t(x), _t(value)])
+
+
+def shard_index(input, index_num, nshards, shard_id, ignore_value=-1):
+    """Global ids of shard ``shard_id`` as shard-local ids, the rest
+    ``ignore_value``."""
+    size = index_num // nshards
+    return dispatch.call("shard_index", lambda a: torch.where(
+        a // size == shard_id, a % size, torch.full_like(a, ignore_value)),
+        [_t(input)])
+
+
+def _strided(shape, axes, starts, ends, strides):
+    """Python slices for the strided region, or per-dim index tensors
+    (as numpy's ix_) when a stride is negative (torch slices take none)."""
+    sl = [builtins.slice(None)] * len(shape)
+    for ax, st, en, sd in zip(axes, starts, ends, strides):
+        sl[ax] = builtins.slice(int(st), int(en), int(sd))
+    if builtins.all((s.step or 1) > 0 for s in sl):
+        return tuple(sl), None
+    idx = [torch.arange(*s.indices(n)) for s, n in zip(sl, shape)]
+    return None, idx
+
+
+def _ix(idx, device):
+    nd = len(idx)
+    return tuple(i.to(device).reshape([-1 if k == d else 1
+                                       for k in range(nd)])
+                 for d, i in enumerate(idx))
+
+
+def strided_slice(x, axes, starts, ends, strides, name=None):
+    """x[start:end:stride] along ``axes`` (negative strides too)."""
+    xt = _t(x)
+    sl, idx = _strided(xt.shape, axes, starts, ends, strides)
+    if sl is not None:
+        return dispatch.call("strided_slice", lambda a: a[sl], [xt])
+    return dispatch.call("strided_slice", lambda a: a[_ix(idx, a.device)],
+                         [xt])
+
+
+def slice_scatter(x, value, axes, starts, ends, strides, name=None):
+    """``value`` written into x[start:end:stride] along ``axes``."""
+    xt = _t(x)
+    sl, idx = _strided(xt.shape, axes, starts, ends, strides)
+
+    def f(a, v):
+        out = a.clone()
+        out[sl if sl is not None else _ix(idx, a.device)] = v.to(a.dtype)
+        return out
+    return dispatch.call("slice_scatter", f, [xt, _t(value)])
+
+
+def take(x, index, mode="raise", name=None):
+    """Elements of the flattened x at ``index``: clipped into range with
+    ``mode="clip"``, else wrapped (as the JAX package does for "raise"
+    too)."""
+    def f(a, i):
+        flat = a.reshape(-1)
+        i = i.long()
+        i = i.clamp(0, flat.numel() - 1) if mode == "clip" \
+            else torch.remainder(i, flat.numel())
+        return flat[i]
+    return dispatch.call("take", f, [_t(x), _t(index)],
+                         differentiable_mask=[True, False])
+
+
+def tensor_split(x, num_or_indices, axis=0, name=None):
+    """n parts (the first ones one longer when n does not divide the
+    dim), or the parts between ``indices``."""
+    arg = num_or_indices if isinstance(num_or_indices, int) \
+        else list(num_or_indices)
+    return list(dispatch.call("tensor_split", lambda a: tuple(
+        torch.tensor_split(a, arg, axis)), [_t(x)]))
+
+
+def tensordot(x, y, axes=2, name=None):
+    """Contract the given axes of x and y."""
+    ax = axes if isinstance(axes, int) else [list(a) if isinstance(
+        a, (list, tuple)) else [a] for a in axes]
+    return dispatch.call("tensordot", lambda a, b: torch.tensordot(
+        a, b, dims=ax), [_t(x), _t(y)])

@@ -8,6 +8,8 @@ treats as the JAX package's weak types do: ``int32 + 2.5`` is float32,
 """
 from __future__ import annotations
 
+import math
+
 import torch
 
 from ..core import dispatch
@@ -16,6 +18,8 @@ from ..core.tensor import Tensor, as_tensor
 from .registry import register
 
 __all__ = []
+
+builtins_max, builtins_min = max, min
 
 
 def _export(fn):
@@ -28,8 +32,20 @@ def _t(x):
 
 
 def _scalar(v, like: torch.Tensor) -> torch.Tensor:
-    # a fill, not a host-to-device copy: no sync on the card
-    return torch.full((), v, device=like.device)
+    """A Python scalar as a 0-d operand beside ``like``: of like's dtype
+    where the kinds agree (an int with an integer tensor, a float with a
+    float one), as the JAX package's weak types give, so a 0-d int32
+    ``i + 1`` stays int32. A fill, not a host-to-device copy: no sync on
+    the card."""
+    dt = None
+    if isinstance(v, int) and not isinstance(v, bool):
+        if not (like.is_floating_point() or like.is_complex()) \
+                and like.dtype != torch.bool:
+            dt = like.dtype
+    elif isinstance(v, float) and (like.is_floating_point()
+                                   or like.is_complex()):
+        dt = like.dtype
+    return torch.full((), v, dtype=dt, device=like.device)
 
 
 def _binary(name, tfn, x, y):
@@ -88,6 +104,16 @@ _make_binary("fmin", torch.fmin)
 _make_binary("atan2", torch.atan2)
 _make_binary("hypot", torch.hypot)
 _make_binary("logaddexp", torch.logaddexp)
+_make_binary("nextafter", torch.nextafter)
+_make_binary("copysign", torch.copysign)
+_make_binary("heaviside", lambda a, b: torch.heaviside(
+    a, b.to(torch.promote_types(a.dtype, b.dtype))))
+_make_binary("gcd", torch.gcd)
+_make_binary("lcm", torch.lcm)
+_make_binary("ldexp", lambda a, b: torch.ldexp(
+    a, b) if a.is_floating_point() else torch.ldexp(a.float(), b))
+_make_binary("bitwise_left_shift", torch.bitwise_left_shift)
+_make_binary("bitwise_right_shift", torch.bitwise_right_shift)
 
 _make_binary("equal", torch.eq)
 _make_binary("not_equal", torch.ne)
@@ -133,6 +159,37 @@ _make_unary("tanh", torch.tanh)
 _make_unary("erf", torch.erf)
 _make_unary("erfinv", torch.erfinv)
 _make_unary("sigmoid", torch.sigmoid)
+_make_unary("frac", torch.frac)
+_make_unary("asinh", torch.asinh)
+_make_unary("acosh", torch.acosh)
+_make_unary("atanh", torch.atanh)
+_make_unary("logit", torch.logit)
+_make_unary("digamma", torch.digamma)
+_make_unary("lgamma", torch.lgamma)
+_make_unary("i0", torch.special.i0)
+_make_unary("i1", torch.special.i1)
+# a real tensor's conj and real are copies of it (torch returns the
+# tensor itself, which would make an op's output its input); its imag
+# is zeros, as jnp.imag gives
+_make_unary("conj", lambda a: torch.conj_physical(a) if a.is_complex()
+            else a.clone())
+def _angle(a):
+    """The argument of a complex number; of a real one pi where it is
+    negative, else 0, NaN kept (written out: torch's has no bf16 kernel
+    on the card)."""
+    if a.is_complex():
+        return torch.angle(a)
+    if not a.is_floating_point():
+        a = a.float()
+    return torch.where(a < 0, torch.full_like(a, math.pi),
+                       torch.where(torch.isnan(a), a, torch.zeros_like(a)))
+
+
+_make_unary("angle", _angle)
+_make_unary("real", lambda a: torch.real(a).clone() if a.is_complex()
+            else a.clone())
+_make_unary("imag", lambda a: torch.imag(a).clone() if a.is_complex()
+            else torch.zeros_like(a))
 _make_unary("logical_not", torch.logical_not, differentiable=False)
 _make_unary("bitwise_not", torch.bitwise_not, differentiable=False)
 _make_unary("isnan", torch.isnan, differentiable=False)
@@ -221,3 +278,199 @@ def cast(x, dtype):
     if xt.dtype == d:
         return xt
     return dispatch.call("cast", lambda a: a.to(d), [xt])
+
+
+@register("stanh", category="math")
+@_export
+def stanh(x, scale_a=0.67, scale_b=1.7159, name=None):
+    """scale_b * tanh(scale_a * x)."""
+    return dispatch.call("stanh", lambda a: scale_b * torch.tanh(
+        scale_a * a), [_t(x)])
+
+
+@register("multiplex", category="math")
+@_export
+def multiplex(inputs, index, name=None):
+    """Row i of the result is row i of ``inputs[index[i]]``."""
+    def f(*args):
+        *xs, idx = args
+        stacked = torch.stack(xs, 0)
+        sel = idx.reshape(1, -1, *([1] * (stacked.dim() - 2))).long()
+        return torch.take_along_dim(stacked, sel.expand(
+            1, *stacked.shape[1:]), 0)[0]
+    return dispatch.call("multiplex", f, [_t(i) for i in inputs]
+                         + [_t(index)])
+
+
+@register("trapezoid", category="math")
+@_export
+def trapezoid(y, x=None, dx=None, axis=-1, name=None):
+    """The trapezoid rule along ``axis`` (sample points ``x``, or a
+    spacing ``dx``, 1 by default)."""
+    if x is not None:
+        return dispatch.call("trapezoid", lambda yy, xx: torch.trapezoid(
+            yy, xx, dim=axis), [_t(y), _t(x)])
+    return dispatch.call("trapezoid", lambda yy: torch.trapezoid(
+        yy, dx=dx or 1.0, dim=axis), [_t(y)])
+
+
+@register("diff", category="math")
+@_export
+def diff(x, n=1, axis=-1, prepend=None, append=None, name=None):
+    """The n-th forward difference along ``axis``, with optional
+    ``prepend``/``append`` values."""
+    ins = [_t(x)] + [_t(v) for v in (prepend, append) if v is not None]
+
+    def f(a, *rest):
+        pre = rest[0] if prepend is not None else None
+        app = rest[-1] if append is not None else None
+        return torch.diff(a, n=n, dim=axis, prepend=pre, append=app)
+    return dispatch.call("diff", f, ins)
+
+
+@register("gammaln", category="math")
+@_export
+def gammaln(x, name=None):
+    """log|Gamma(x)| (lgamma)."""
+    return dispatch.call("gammaln", torch.lgamma, [_t(x)])
+
+
+@register("polygamma", category="math")
+@_export
+def polygamma(x, n, name=None):
+    """The n-th derivative of digamma."""
+    return dispatch.call("polygamma", lambda a: torch.polygamma(n, a),
+                         [_t(x)])
+
+
+@register("i0e", category="math")
+@_export
+def i0e(x, name=None):
+    """Exponentially scaled modified Bessel function I0."""
+    return dispatch.call("i0e", torch.special.i0e, [_t(x)])
+
+
+@register("i1e", category="math")
+@_export
+def i1e(x, name=None):
+    """Exponentially scaled modified Bessel function I1."""
+    return dispatch.call("i1e", torch.special.i1e, [_t(x)])
+
+
+@register("increment", category="math")
+@_export
+def increment(x, value=1.0, name=None):
+    """x + value, written into x when x is a Tensor."""
+    out = dispatch.call("increment", lambda a: a + value, [_t(x)])
+    if isinstance(x, Tensor):
+        x._swap_payload(out._data)
+        return x
+    return out
+
+
+@register("renorm", category="math")
+@_export
+def renorm(x, p, axis, max_norm, name=None):
+    """Scale each slice along ``axis`` whose p-norm exceeds ``max_norm``
+    down to ``max_norm``."""
+    def f(a):
+        moved = torch.movedim(a, axis, 0)
+        flat = moved.reshape(moved.shape[0], -1)
+        norms = torch.sum(flat.abs() ** p, 1) ** (1.0 / p)
+        scale = torch.where(norms > max_norm,
+                            max_norm / torch.clamp_min(norms, 1e-12),
+                            torch.ones_like(norms))
+        return torch.movedim((flat * scale[:, None]).reshape(moved.shape),
+                             0, axis)
+    return dispatch.call("renorm", f, [_t(x)])
+
+
+def _diag_index(rows, cols, offset, device):
+    """Row and column indices of the ``offset`` diagonal of a rows x cols
+    matrix."""
+    if offset >= 0:
+        n = builtins_max(builtins_min(rows, cols - offset), 0)
+        i = torch.arange(n, device=device)
+        return i, i + offset
+    n = builtins_max(builtins_min(rows + offset, cols), 0)
+    i = torch.arange(n, device=device)
+    return i - offset, i
+
+
+@register("fill_diagonal", category="math")
+@_export
+def fill_diagonal(x, value, offset=0, wrap=False, name=None):
+    """``value`` on the ``offset`` diagonal of the last two dims; with
+    ``wrap`` a tall matrix's main diagonal starts again after every
+    cols + 1 rows (numpy's fill_diagonal)."""
+    def f(a):
+        rows, cols = a.shape[-2], a.shape[-1]
+        out = a.clone()
+        if wrap and offset == 0 and rows > cols:
+            r = torch.arange(rows, device=a.device)
+            c = r % (cols + 1)
+            ok = c < cols
+            out[..., r[ok], c[ok]] = value
+            return out
+        r, c = _diag_index(rows, cols, offset, a.device)
+        out[..., r, c] = value
+        return out
+    return dispatch.call("fill_diagonal", f, [_t(x)])
+
+
+@register("fill_diagonal_tensor", category="math")
+@_export
+def fill_diagonal_tensor(x, y, offset=0, dim1=0, dim2=1, name=None):
+    """Write ``y`` onto the ``offset`` diagonal of the (dim1, dim2)
+    planes of ``x``; y's last axis runs along the diagonal."""
+    def f(a, v):
+        nd = a.dim()
+        d1, d2 = dim1 % nd, dim2 % nd
+        perm = [i for i in range(nd) if i not in (d1, d2)] + [d1, d2]
+        ap = a.permute(perm).clone()
+        r, c = _diag_index(ap.shape[-2], ap.shape[-1], offset, a.device)
+        ap[..., r, c] = v.to(a.dtype)
+        inv = [perm.index(i) for i in range(nd)]
+        return ap.permute(inv)
+    return dispatch.call("fill_diagonal_tensor", f, [_t(x), _t(y)])
+
+
+def _in_fp32(tfn):
+    """``tfn`` over 16-bit inputs computed in fp32 and rounded back (the
+    card has no 16-bit kernel of the incomplete gamma functions)."""
+    def f(a, b):
+        if a.dtype in (torch.bfloat16, torch.float16):
+            return tfn(a.float(), b.float()).to(a.dtype)
+        return tfn(a, b)
+    return f
+
+
+@register("gammainc", category="math")
+@_export
+def gammainc(x, y, name=None):
+    """The regularized lower incomplete gamma function P(x, y)."""
+    return dispatch.call("gammainc", _in_fp32(torch.special.gammainc),
+                         [_t(x), _t(y)])
+
+
+@register("gammaincc", category="math")
+@_export
+def gammaincc(x, y, name=None):
+    """The regularized upper incomplete gamma function Q(x, y)."""
+    return dispatch.call("gammaincc", _in_fp32(torch.special.gammaincc),
+                         [_t(x), _t(y)])
+
+
+@register("reduce_as", category="math")
+@_export
+def reduce_as(x, target, name=None):
+    """Sum ``x`` down to ``target``'s (broadcastable) shape."""
+    tshape = tuple(_t(target).shape)
+
+    def f(a):
+        extra = a.dim() - len(tshape)
+        axes = tuple(range(extra)) + tuple(
+            i + extra for i, s in enumerate(tshape) if a.shape[i + extra] != s)
+        out = torch.sum(a, dim=axes) if axes else a.clone()
+        return out.reshape(tshape)
+    return dispatch.call("reduce_as", f, [_t(x)])

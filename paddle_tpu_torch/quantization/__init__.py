@@ -19,6 +19,7 @@ program bakes in as constants.
 from __future__ import annotations
 
 import copy
+import sys
 from typing import Optional
 
 import torch
@@ -26,6 +27,7 @@ import torch
 from ..core import dispatch
 from ..core.tensor import Tensor, as_tensor
 from ..nn.layer.layers import Layer
+from ..ops.registry import register_module
 
 
 def _t(x):
@@ -278,3 +280,7 @@ __all__ = ["weight_quantize", "weight_dequantize", "fake_quant",
            "QuantConfig", "QuantedLinear", "PTQ", "QAT",
            "weight_only_linear", "llm_int8_linear",
            "apply_per_channel_scale"]
+
+
+# the six ops in the registry, as the JAX package registers this module
+register_module(sys.modules[__name__], "quantization")

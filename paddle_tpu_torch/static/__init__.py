@@ -1,6 +1,7 @@
-"""The static-graph surface: ``InputSpec`` (counterpart of
-``paddle_tpu/static/__init__.py``'s). The JAX package's ``Program``,
-``Executor``, verifier and control flow are still to port (ROADMAP).
+"""The static-graph surface: ``InputSpec`` and ``static.nn``'s control
+flow (counterpart of ``paddle_tpu/static/__init__.py``'s). The JAX
+package's ``Program``, ``Executor`` and verifier are still to port
+(ROADMAP).
 
 An ``InputSpec`` declares a program input's shape (-1 or None: any
 size), dtype and name; ``jit.to_static(input_spec=...)`` checks the
@@ -14,7 +15,7 @@ import numpy as np
 
 from ..core.dtype import dtype_name
 
-__all__ = ["InputSpec"]
+__all__ = ["InputSpec", "nn"]
 
 
 class InputSpec:
@@ -45,3 +46,6 @@ def _name(dtype) -> str:
     if isinstance(dtype, torch.dtype):
         return dtype_name(dtype)
     return "bfloat16" if dtype == "bfloat16" else str(np.dtype(dtype))
+
+
+from . import nn  # noqa: E402

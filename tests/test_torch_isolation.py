@@ -124,7 +124,14 @@ def test_imports_without_jax_or_paddle_tpu():
                  "paddle_tpu_torch.incubate.nn",
                  "paddle_tpu_torch.incubate.nn.layers",
                  "paddle_tpu_torch.incubate.nn.functional",
-                 "paddle_tpu_torch.distributed.fleet.moe"):
+                 "paddle_tpu_torch.distributed.fleet.moe",
+                 "paddle_tpu_torch.ops.control_flow",
+                 "paddle_tpu_torch.ops.inplace",
+                 "paddle_tpu_torch.ops.tail",
+                 "paddle_tpu_torch.fft", "paddle_tpu_torch.signal",
+                 "paddle_tpu_torch.geometric",
+                 "paddle_tpu_torch.static.nn",
+                 "paddle_tpu_torch.static.nn.control_flow"):
         assert name in lines, name
 
 
@@ -350,3 +357,21 @@ def test_a_saved_program_needs_cuda_or_set_device_cpu(tmp_path):
                                    net(paddle_tpu_torch.to_tensor(x)).numpy(),
                                    atol=1e-6)
     assert fa.flash_attention_fwd.launches == 0
+
+
+def test_op_library_entry_points_need_cuda_or_set_device_cpu():
+    """The creation entry points of the op library's last slice land on
+    the card by default and raise without CUDA; on the CPU they make CPU
+    tensors."""
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device is real")
+    import paddle_tpu_torch as paddle
+    makers = (lambda: paddle.fft.fftfreq(8), lambda: paddle.logspace(0, 2, 5),
+              lambda: paddle.tril_indices(4, 4),
+              lambda: paddle.log_normal(shape=[3]))
+    for make in makers:
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            make()
+    with paddle.device_guard("cpu"):
+        for make in makers:
+            assert make()._data.device.type == "cpu"

@@ -1,0 +1,19 @@
+"""The op sweep of the loss, pooling, norm and conv functionals: each recipe of ``tests/test_op_sweep.py``
+run through the JAX package and the port (``tests/torch_op_sweep.py``
+says what is compared and at which tolerance: the recipe's own in fp32,
+GRAD_RTOL on gradients, BF16_TOL in bf16)."""
+import pytest
+
+import torch_op_sweep as sweep
+
+CATEGORIES = ("loss", "pooling", "norm", "conv")
+
+
+@pytest.mark.parametrize("name", sweep.swept(CATEGORIES))
+def test_fp32(name):
+    sweep.check_fp32(name)
+
+
+@pytest.mark.parametrize("name", sweep.bf16_swept(CATEGORIES))
+def test_bf16(name):
+    sweep.check_bf16(name)
