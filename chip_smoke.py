@@ -235,6 +235,22 @@ Phases, in order; any failure exits non-zero and nothing is caught:
              with the card. Written under a tempfile.mkdtemp() directory,
              deleted after.
 
+* static_program -- BERT-base (BERT_BASE) served from a static.Program
+             built under program_guard over static.data: (a) fp32 at B2
+             S128, Executor.run on the card unfused and fused against the
+             same program on a CPU twin (FP32_TOL), fused against unfused
+             (LOGITS_TOL), the pass's stats as predicted; (b) bf16 at B48
+             S512: Executor.run unfused and fused against the eager
+             forward (norm-wise BF16_TOL), K1 12 a run and with fusion K4
+             and K6 as fusion_stats says (24 and 12), then timed in turns
+             beside the eager forward, with the host ms and the ops
+             replayed a run (one JSON line); (c) the unfused program
+             through save_inference_model, load_inference_model and
+             inference.create_predictor: both outputs within BF16_TOL of
+             (b)'s run, K1 12 a run, the seconds and ms (one JSON line);
+             (d) LeNet from static.nn over [None, 1, 28, 28] at B256 and
+             B100 from one program against a CPU twin (FP32_TOL), a
+             py_func in a card program, an EMA's apply and restore.
 * distributed -- paddle_tpu_torch.distributed on NCCL: prints ``nvidia-smi
              topo -m``, the NCCL version and the card, builds the flash
              kernels once, then runs one rank a card
@@ -323,12 +339,12 @@ import torch
 PHASES = ("build", "kernel", "fused_kernel", "forward", "serve",
           "serve_llama", "serve_tier", "train", "fusion", "rungs",
           "paddle_api", "paddle_static", "checkpoint", "vision",
-          "vision_zoo", "deploy", "distributed", "seq2seq", "control_flow",
-          "ops")
+          "vision_zoo", "deploy", "static_program", "distributed", "seq2seq",
+          "control_flow", "ops")
 MAIN_PATH = ("forward", "serve", "serve_llama", "serve_tier", "train",
              "fusion", "rungs", "paddle_api", "paddle_static", "checkpoint",
-             "vision", "vision_zoo", "deploy", "distributed", "seq2seq",
-             "control_flow", "ops")
+             "vision", "vision_zoo", "deploy", "static_program",
+             "distributed", "seq2seq", "control_flow", "ops")
 PATH_SHAPE = dict(b=4, s=1024, h=12, d=64)      # GPT-2 small serving
 TRAIN_SHAPE = dict(b=8, s=1024, h=16, d=64)     # GPT-2 345M training
 LLAMA_ATTN_SHAPE = dict(b=4, s=2048, h=12, d=128)   # LLaMA-770M fusion path
@@ -4918,6 +4934,374 @@ def phase_deploy(state):
         shutil.rmtree(directory, ignore_errors=True)
         torch.cuda.empty_cache()
     log(f"deploy: {time.perf_counter() - t0:.1f} s")
+
+
+# --------------------------------------------------------- static_program
+# BERT-base (bench.py _bench_bert's widths, BERT_BASE) served from a
+# static.Program: (a) fp32 card against a CPU twin, (b) bf16 at the
+# paddle_api rung's shape, (c) its inference model, (d) LeNet from
+# static.nn (BASELINE ladder config 1, tests/test_round4b.py:38)
+STATIC_CHECK = (2, 128)         # (a): fp32 card vs CPU
+STATIC_SHAPE = (BERT_SHAPE["b"], 512)   # (b), (c): B48 S512
+STATIC_RUNS = 12                # timed runs of each leg
+STATIC_LENET_BATCHES = (256, 100)
+#: the pass on BERT-base: two residual norms and one linear+gelu a layer
+#: (the embeddings' norm feeds the first projection and the residual,
+#: so its norm_linear is rejected)
+STATIC_BERT_STATS = {"residual_norm": 24, "linear_act": 12}
+
+
+def _static_bert(paddle, model, shape):
+    """``model`` (a BertModel) built under ``program_guard`` over
+    ``data("input_ids", shape, "int64")``: (program, ids, [sequence
+    output, pooled output])."""
+    main = paddle.static.Program()
+    with paddle.static.program_guard(main), paddle.no_grad():
+        ids = paddle.static.data("input_ids", list(shape), "int64")
+        fetch = list(model(ids))
+    return main, ids, fetch
+
+
+def _static_ids(shape, seed):
+    return np.random.RandomState(seed).randint(
+        0, BERT_BASE["vocab_size"], shape).astype(np.int64)
+
+
+def _norm_err(got, want):
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    return float(np.linalg.norm(got - want) / np.linalg.norm(want))
+
+
+def _static_run(paddle, exe, main, feed, fetch, fused, **kw):
+    paddle.set_flags({"FLAGS_enable_fusion": fused})
+    try:
+        return exe.run(main, feed=feed, fetch_list=fetch, **kw)
+    finally:
+        paddle.set_flags({"FLAGS_enable_fusion": False})
+
+
+def _replayed_ops(main, fused):
+    """The steps a run of ``main``'s plan replays (fused: its plan keyed
+    with the fusion fingerprint)."""
+    return [len(replay.steps) for sig, (replay, _) in main._plans.items()
+            if (len(sig) == 4) == fused][-1]
+
+
+def _static_fp32(paddle, BertModel, cfg):
+    """(a) fp32 BERT-base at STATIC_CHECK on the card against the same
+    program on a CPU twin, unfused and fused: FP32_TOL; fused against
+    unfused on the card: LOGITS_TOL (the fusion phase's fp32 bound); the
+    pass's stats equal on both and as predicted."""
+    b, s = STATIC_CHECK
+    paddle.seed(31)
+    card = BertModel(cfg)
+    card.eval()
+    state = {k: v._data.detach().cpu() for k, v in card.state_dict().items()}
+    with paddle.device_guard("cpu"):
+        twin = BertModel(cfg)
+        twin.set_state_dict(state)
+        twin.eval()
+        t_main, _, t_fetch = _static_bert(paddle, twin, (b, s))
+    c_main, _, c_fetch = _static_bert(paddle, card, (b, s))
+    feed = {"input_ids": _static_ids((b, s), 5)}
+    out = {}
+    for fused in (False, True):
+        with paddle.device_guard("cpu"):
+            ref = _static_run(paddle, paddle.static.Executor(), t_main, feed,
+                              t_fetch, fused)
+        got = _static_run(paddle, paddle.static.Executor(), c_main, feed,
+                          c_fetch, fused)
+        err = max(float(np.abs(g - r).max()) for g, r in zip(got, ref))
+        out[fused] = (got, err)
+        log(f"static_program (a) fp32 B{b} S{s} {'fused' if fused else 'unfused'}"
+            f": card vs CPU max abs err {err:.3e} (tolerance {FP32_TOL})")
+        if not (err <= FP32_TOL and all(np.isfinite(g).all() for g in got)):
+            raise AssertionError(f"static_program (a): the card's "
+                                 f"{'fused ' if fused else ''}run is "
+                                 f"{err} from the CPU twin's")
+    gap = max(float(np.abs(f - u).max())
+              for f, u in zip(out[True][0], out[False][0]))
+    stats = (c_main.fusion_stats["rewritten"],
+             t_main.fusion_stats["rewritten"])
+    log(f"static_program (a): fused vs unfused on the card {gap:.3e} "
+        f"(tolerance {LOGITS_TOL}); rewritten {stats[0]} (CPU {stats[1]})")
+    if not (gap <= LOGITS_TOL and stats[0] == stats[1] == STATIC_BERT_STATS
+            and c_main.fusion_stats["rejected"] == {"norm_linear": 1}):
+        raise AssertionError(f"static_program (a): fused {gap} from "
+                             f"unfused, stats {c_main.fusion_stats}")
+
+
+def _static_bf16(paddle, BertModel, cfg, card):
+    """(b) bf16 BERT-base at STATIC_SHAPE: Executor.run unfused and fused
+    against the eager forward (norm-wise BF16_TOL), the launches a run,
+    then the three timed in turns. Returns (program, ids Tensor,
+    fetches, the unfused run's outputs, the feed)."""
+    b, s = STATIC_SHAPE
+    layers = cfg.num_hidden_layers
+    paddle.seed(32)
+    model = BertModel(cfg)
+    model.to(dtype="bfloat16")
+    model.eval()
+    t0 = time.perf_counter()
+    main, ids, fetch = _static_bert(paddle, model, (b, s))
+    build_s = time.perf_counter() - t0
+    feed = {"input_ids": _static_ids((b, s), 6)}
+    ids_d = torch.from_numpy(feed["input_ids"]).cuda()
+    with paddle.no_grad():
+        eager = _uncounted(lambda: [o.numpy() for o in model(
+            paddle.Tensor(ids_d))])
+    exe = paddle.static.Executor()
+    runs, launched = {}, {}
+    for fused in (False, True):
+        before = _counts()
+        runs[fused] = _static_run(paddle, exe, main, feed, fetch, fused)
+        launched[fused] = _launched(before, _counts())
+    stats = main.fusion_stats["rewritten"]
+    want = {False: {"flash_attention_fwd": layers},
+            True: {"flash_attention_fwd": layers,
+                   "fused_residual_norm": stats.get("residual_norm", 0),
+                   "fused_matmul": stats.get("linear_act", 0)}}
+    errs = {fused: [_norm_err(g, e) for g, e in zip(runs[fused], eager)]
+            for fused in (False, True)}
+    feed_d = {"input_ids": ids_d}
+
+    def leg(fused):
+        return lambda: _static_run(paddle, exe, main, feed_d, fetch, fused,
+                                   return_numpy=False)
+    host = {}
+    for fused in (False, True):
+        torch.cuda.synchronize()
+        ts = []
+        for _ in range(STATIC_RUNS):
+            counts = _counts()
+            t1 = time.perf_counter()
+            leg(fused)()
+            ts.append((time.perf_counter() - t1) * 1e3)
+            torch.cuda.synchronize()
+            for k, n in counts.items():
+                _wrapper(k).launches = n
+        host[fused] = statistics.median(ts)
+
+    def eager_leg():
+        with paddle.no_grad():
+            model(paddle.Tensor(ids_d))
+    legs = _legs_ms({"executor_unfused": leg(False),
+                     "executor_fused": leg(True), "eager_no_grad": eager_leg},
+                    uncounted=("executor_unfused", "executor_fused",
+                               "eager_no_grad"),
+                    runs=STATIC_RUNS * 2, rounds=2)
+    row = {"static_program": f"bert_base bf16 B{b} S{s} Executor.run",
+           "card": card, "build_s": build_s,
+           "max_norm_err_to_eager": {"unfused": max(errs[False]),
+                                     "fused": max(errs[True])},
+           "tolerance": BF16_TOL,
+           "launches_a_run": {"unfused": launched[False],
+                              "fused": launched[True]},
+           "fusion_stats": main.fusion_stats,
+           "ops_replayed_a_run": {"unfused": _replayed_ops(main, False),
+                                  "fused": _replayed_ops(main, True)},
+           "ops_recorded": len(main.global_block().ops),
+           "host_ms_a_run": {"unfused": host[False], "fused": host[True]},
+           **{f"{name}_p50_ms": t[0] for name, t in legs.items()},
+           **{f"{name}_q1_q3_ms": t[1:] for name, t in legs.items()},
+           "sequences_per_s": {name: b / t[0] * 1e3
+                               for name, t in legs.items()}}
+    log(json.dumps(row))
+    for fused in (False, True):
+        if launched[fused] != want[fused]:
+            raise AssertionError(f"static_program (b): a {'fused' if fused else 'unfused'} "
+                                 f"run launched {launched[fused]}, want "
+                                 f"{want[fused]}")
+        if not max(errs[fused]) <= BF16_TOL:
+            raise AssertionError(f"static_program (b): Executor.run is "
+                                 f"{errs[fused]} from the eager forward")
+    if stats != STATIC_BERT_STATS:
+        raise AssertionError(f"static_program (b): fusion_stats {stats}")
+    return main, ids, fetch, runs[False], feed
+
+
+def _static_deploy(paddle, main, ids, fetch, want, feed, directory, card):
+    """(c) (b)'s unfused program through save_inference_model,
+    load_inference_model and create_predictor: both outputs norm-wise
+    within BF16_TOL of (b)'s unfused run, K1 12 a run and nothing else,
+    the seconds of each step and the ms a run."""
+    layers = BERT_BASE["num_hidden_layers"]
+    prefix = os.path.join(directory, "static_bert")
+    t0 = time.perf_counter()
+    paddle.static.save_inference_model(prefix, [ids], fetch, program=main)
+    save_s = dict(total=time.perf_counter() - t0, **paddle.jit.save.seconds)
+    t0 = time.perf_counter()
+    layer, feeds, fetches = paddle.static.load_inference_model(prefix)
+    load_s = dict(total=time.perf_counter() - t0, **paddle.jit.load.seconds)
+    t0 = time.perf_counter()
+    pred = paddle.inference.create_predictor(paddle.inference.Config(prefix))
+    torch.cuda.synchronize()
+    pred_s = time.perf_counter() - t0
+    ids_d = torch.from_numpy(feed["input_ids"]).cuda()
+    before = _counts()
+    got_layer = [o.numpy() for o in layer(ids_d)]
+    k_layer = _launched(before, _counts())
+    pred.get_input_handle(pred.get_input_names()[0]).copy_from_cpu(
+        feed["input_ids"])
+    before = _counts()
+    pred.run()
+    k_pred = _launched(before, _counts())
+    got_pred = [pred.get_output_handle(n).copy_to_cpu()
+                for n in pred.get_output_names()]
+    errs = {"translated_layer": [_norm_err(g, w) for g, w in
+                                 zip(got_layer, want)],
+            "predictor": [_norm_err(g, w) for g, w in zip(got_pred, want)]}
+    legs = _legs_ms({"predictor_run": pred.run,
+                     "translated_layer": lambda: layer(ids_d)},
+                    uncounted=("predictor_run", "translated_layer"),
+                    runs=STATIC_RUNS, rounds=2)
+    row = {"static_program": f"bert_base bf16 B{STATIC_SHAPE[0]} "
+                             f"S{STATIC_SHAPE[1]} inference model",
+           "card": card, "save_inference_model_s": save_s,
+           "load_inference_model_s": load_s, "create_predictor_s": pred_s,
+           "feeds": feeds, "fetches": fetches,
+           "pdmodel_bytes": os.path.getsize(prefix + ".pdmodel"),
+           "pdparams_bytes": os.path.getsize(prefix + ".pdparams"),
+           "max_norm_err_to_executor": {k: max(v) for k, v in errs.items()},
+           "tolerance": BF16_TOL,
+           "launches_a_run": {"translated_layer": k_layer,
+                              "predictor": k_pred},
+           **{f"{name}_p50_ms": t[0] for name, t in legs.items()},
+           **{f"{name}_q1_q3_ms": t[1:] for name, t in legs.items()}}
+    log(json.dumps(row))
+    for label, k in (("TranslatedLayer", k_layer), ("Predictor.run", k_pred)):
+        if k != {"flash_attention_fwd": layers}:
+            raise AssertionError(f"static_program (c): {label} launched "
+                                 f"{k}, want flash_attention_fwd {layers}")
+    for label, e in errs.items():
+        if not (len(e) == 2 and max(e) <= BF16_TOL):
+            raise AssertionError(f"static_program (c): {label} is {e} from "
+                                 f"the program's run")
+
+
+def _static_lenet(paddle, pkg_dev):
+    """LeNet from static.nn primitives over [None, 1, 28, 28] (BASELINE
+    ladder config 1) built on ``pkg_dev``: (program, img, logits)."""
+    F = paddle.nn.functional
+    main = paddle.static.Program()
+    with paddle.device_guard(pkg_dev), paddle.static.program_guard(main):
+        img = paddle.static.data("img", [None, 1, 28, 28], "float32")
+        c1 = paddle.static.nn.conv2d(img, 6, 5, padding=2, act="relu")
+        c2 = paddle.static.nn.conv2d(F.max_pool2d(c1, 2, 2), 16, 5,
+                                     act="relu")
+        flat = F.max_pool2d(c2, 2, 2).flatten(start_axis=1)
+        f1 = paddle.static.nn.fc(flat, 120, activation="relu")
+        f2 = paddle.static.nn.fc(f1, 84, activation="relu")
+        logits = paddle.static.nn.fc(f2, 10)
+    return main, img, logits
+
+
+def _persistables(main):
+    return [t for t in main._captured.values()
+            if getattr(t, "persistable", False)]
+
+
+def _static_nn(paddle):
+    """(d) LeNet from static.nn at batches STATIC_LENET_BATCHES from one
+    program on the card against its CPU twin (FP32_TOL); a py_func in a
+    card program against numpy; an EMA's apply and restore on the card's
+    LeNet weights, the program reading the applied ones live."""
+    paddle.seed(33)
+    card, _, c_out = _static_lenet(paddle, "gpu:0")
+    twin, _, t_out = _static_lenet(paddle, "cpu")
+    for a, b in zip(_persistables(card), _persistables(twin)):
+        b.set_value(a._data.cpu())
+    errs = []
+    for k, b in enumerate(STATIC_LENET_BATCHES):
+        feed = {"img": np.random.RandomState(40 + k).randn(
+            b, 1, 28, 28).astype(np.float32)}
+        (got,) = paddle.static.Executor(paddle.CUDAPlace(0)).run(
+            card, feed, [c_out])
+        (ref,) = paddle.static.Executor(paddle.CPUPlace()).run(
+            twin, feed, [t_out])
+        errs.append(float(np.abs(got - ref).max()))
+        if got.shape != (b, 10) or not errs[-1] <= FP32_TOL:
+            raise AssertionError(f"static_program (d): LeNet at B{b} is "
+                                 f"{errs[-1]} from its CPU twin")
+    # py_func: the host callback runs at every run, inside the replay
+    calls = []
+
+    def host(a):
+        calls.append(a.shape)
+        return np.sort(a, axis=-1)
+    main = paddle.static.Program()
+    with paddle.device_guard("gpu:0"), paddle.static.program_guard(main):
+        x = paddle.static.data("x", [64, 32], "float32")
+        tmpl = paddle.to_tensor(np.zeros((64, 32), np.float32))
+        y = paddle.static.nn.py_func(host, x * 2.0, tmpl) + 1.0
+    xv = np.random.RandomState(45).randn(64, 32).astype(np.float32)
+    calls.clear()
+    for _ in range(2):
+        (py,) = paddle.static.Executor(paddle.CUDAPlace(0)).run(
+            main, {"x": xv}, [y])
+    py_err = float(np.abs(py - (np.sort(xv * 2.0, -1) + 1.0)).max())
+    if not (py_err <= FP32_TOL and len(calls) == 2):
+        raise AssertionError(f"static_program (d): py_func {py_err}, "
+                             f"called {len(calls)} times in 2 runs")
+    # EMA over the card LeNet's trainable weights
+    params = [p for p in _persistables(card) if not p.stop_gradient]
+    ema = paddle.static.ExponentialMovingAverage(decay=0.9,
+                                                 parameters=params)
+    start = [p._data.detach().clone() for p in params]
+    ema.update()
+    with torch.no_grad():
+        for p in params:
+            p._data.add_(1.0)
+    ema.update()
+    feed = {"img": np.random.RandomState(46).randn(
+        8, 1, 28, 28).astype(np.float32)}
+    exe = paddle.static.Executor(paddle.CUDAPlace(0))
+    (live,) = exe.run(card, feed, [c_out])
+    with ema.apply():
+        shadow_err = max(float((p._data.detach() - (s + 0.1)).abs().max())
+                         for p, s in zip(params, start))
+        (applied,) = exe.run(card, feed, [c_out])
+    restored = max(float((p._data.detach() - (s + 1.0)).abs().max())
+                   for p, s in zip(params, start))
+    (again,) = exe.run(card, feed, [c_out])
+    log(f"static_program (d): LeNet card vs CPU max abs err {errs} at "
+        f"B{STATIC_LENET_BATCHES} (tolerance {FP32_TOL}); py_func "
+        f"{py_err:.3e} over {len(calls)} runs; EMA shadow err "
+        f"{shadow_err:.3e}, restored err {restored:.3e}")
+    if not (shadow_err <= FP32_TOL and restored == 0.0
+            and float(np.abs(again - live).max()) <= FP32_TOL
+            and not np.allclose(applied, live)):
+        raise AssertionError("static_program (d): the EMA's apply and "
+                             "restore")
+
+
+def phase_static_program(state):
+    """BERT-base served from a static.Program: (a) fp32 card vs CPU twin,
+    (b) bf16 B48 S512 through K1, K4 and K6 from Executor.run, (c) its
+    inference model through load_inference_model and the Predictor,
+    (d) LeNet, py_func and an EMA from static.nn. Writes under a
+    tempfile.mkdtemp() directory, deleted at the end."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.models.bert import BertConfig, BertModel
+    card = _card_line()
+    cfg = BertConfig(**BERT_BASE)
+    directory = tempfile.mkdtemp(prefix="chip_smoke_static_")
+    t0 = time.perf_counter()
+    try:
+        with paddle.device_guard("gpu:0"):
+            _static_fp32(paddle, BertModel, cfg)
+            torch.cuda.empty_cache()
+            main, ids, fetch, want, feed = _static_bf16(paddle, BertModel,
+                                                        cfg, card)
+            _static_deploy(paddle, main, ids, fetch, want, feed, directory,
+                           card)
+            del main, ids, fetch
+            torch.cuda.empty_cache()
+            _static_nn(paddle)
+    finally:
+        shutil.rmtree(directory, ignore_errors=True)
+        torch.cuda.empty_cache()
+    log(f"static_program: phase took {time.perf_counter() - t0:.1f} s")
 
 
 # ---------------------------------------------------------------- seq2seq

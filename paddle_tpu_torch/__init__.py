@@ -111,3 +111,20 @@ def shape(x):
     """x's shape as an int32 tensor, on x's device."""
     from .ops.creation import to_tensor
     return to_tensor(list(x.shape), dtype="int32", place=x._data.device)
+
+
+def in_dynamic_mode():
+    """False while a program is recorded (``to_static``, or a
+    ``static.program_guard`` block), as the JAX package's."""
+    from .jit.api import in_capture_mode
+    return not in_capture_mode()
+
+
+def enable_static():
+    """Accepted for the reference's API: a program is built under
+    ``static.program_guard`` (as in the JAX package)."""
+    return None
+
+
+def disable_static(place=None):
+    return None

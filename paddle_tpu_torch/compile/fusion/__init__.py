@@ -14,7 +14,9 @@ feed it, and ``jit.to_static`` runs both:
   (``jit/program.py``). The plan replaces the program's steps, so a
   replay runs the fused program only; the JAX package's ``apply`` runs
   the unfused chain and then the fused one, and leaves XLA to drop the
-  dead values, which eager torch would compute.
+  dead values, which eager torch would compute;
+* ``fuse_program_ops`` here: a ``static.Program``'s steps, the fetched
+  values as the external set; ``Executor.run`` replays the plan.
 
 Patterns:
 
@@ -46,7 +48,8 @@ from ...core import flags
 from ...observability import metrics as _metrics
 
 __all__ = ["enabled", "fingerprint", "fuse_steps", "FusedStep", "PATTERNS",
-           "FUSION_VERSION", "rewrite_program", "rewrite_traced"]
+           "FUSION_VERSION", "rewrite_program", "rewrite_traced",
+           "fuse_program_ops"]
 
 #: bump when the pattern set or a fused rewrite's semantics change
 FUSION_VERSION = 1
@@ -459,6 +462,13 @@ def rewrite_program(program) -> dict:
             else:
                 stats[key] += value
     return stats
+
+
+def fuse_program_ops(steps, fetch_ids) -> Tuple[list, dict]:
+    """The ``static.Program`` adapter: its steps in, a replayable plan
+    and the stats out. The fetched value ids are the external set, so a
+    fetch of a value inside a chain rejects that fusion."""
+    return fuse_steps(steps, set(fetch_ids))
 
 
 def rewrite_traced(call, tensors, strict: bool = True):

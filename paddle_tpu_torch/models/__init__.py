@@ -4,7 +4,8 @@ Paddle API (``nn.Layer`` over Paddle Tensors), as in the JAX package."""
 from .bert import (BertConfig, BertForPretraining,
                    BertForSequenceClassification, BertModel, bert_base,
                    bert_large)
-from .convert import load_jax_layer_state, load_jax_state
+from .convert import (load_jax_layer_state, load_jax_program_state,
+                      load_jax_state)
 from .gpt import (GPTAttention, GPTBlock, GPTConfig, GPTForCausalLM, GPTMLP,
                   GPTModel, gpt2_medium, gpt2_small)
 from .llama import (LlamaAttention, LlamaBlock, LlamaConfig, LlamaForCausalLM,
@@ -13,7 +14,7 @@ from .llama import (LlamaAttention, LlamaBlock, LlamaConfig, LlamaForCausalLM,
 
 __all__ = ["BertConfig", "BertModel", "BertForPretraining",
            "BertForSequenceClassification", "bert_base", "bert_large",
-           "load_jax_layer_state", "GPTConfig", "GPTAttention", "GPTMLP", "GPTBlock", "GPTModel",
+           "load_jax_layer_state", "load_jax_program_state", "GPTConfig", "GPTAttention", "GPTMLP", "GPTBlock", "GPTModel",
            "GPTForCausalLM", "gpt2_small", "gpt2_medium", "load_jax_state",
            "LlamaConfig", "LlamaAttention", "LlamaMLP", "LlamaBlock",
            "LlamaModel", "LlamaForCausalLM", "llama_7b", "llama_tiny",

@@ -10,11 +10,14 @@ logical ones) takes this rank's part of each split parameter, as the
 layer's ``mp_splits`` cuts it: a fused q/k/v projection by thirds first,
 so that rank r gets the q, k and v columns of its heads. Into a
 Paddle-API ``Layer`` (``load_jax_layer_state``) every key and layout is
-already the JAX package's: it is ``set_state_dict``.
+already the JAX package's: it is ``set_state_dict``. Into a
+``static.Program`` (``load_jax_program_state``): the JAX program's
+persistable captured tensors, in recording order, onto the port
+program's, whose layer helpers made the same parameters in the same order.
 """
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Dict, Optional, Sequence
 
 import numpy as np
 import torch
@@ -78,3 +81,24 @@ def load_jax_layer_state(layer, arrays: Dict[str, np.ndarray]):
         raise KeyError(f"load_jax_layer_state: missing keys {missing}, "
                        f"unexpected keys {unexpected}")
     return layer
+
+
+def load_jax_program_state(program, arrays: Sequence[np.ndarray]):
+    """Copy ``arrays`` (a JAX ``static.Program``'s persistable captured
+    tensors as numpy, in recording order) into the port ``program``'s
+    persistable captured tensors, in its recording order. Raises
+    ``ValueError`` on another count or shape. Returns the program."""
+    params = [t for t in program._captured.values()
+              if getattr(t, "persistable", False)]
+    arrays = list(arrays)
+    if len(arrays) != len(params):
+        raise ValueError(f"load_jax_program_state: {len(arrays)} arrays for "
+                         f"{len(params)} persistable tensors")
+    for k, (t, a) in enumerate(zip(params, arrays)):
+        a = np.asarray(a)
+        if tuple(a.shape) != tuple(t.shape):
+            raise ValueError(
+                f"load_jax_program_state: array {k} has shape {a.shape}, "
+                f"{t.name!r} wants {tuple(t.shape)}")
+        t.set_value(torch.from_numpy(np.array(a)))
+    return program

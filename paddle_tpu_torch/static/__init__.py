@@ -1,7 +1,10 @@
-"""The static-graph surface: ``InputSpec`` and ``static.nn``'s control
-flow (counterpart of ``paddle_tpu/static/__init__.py``'s). The JAX
-package's ``Program``, ``Executor`` and verifier are still to port
-(ROADMAP).
+"""The static-graph surface (counterpart of
+``paddle_tpu/static/__init__.py``): ``InputSpec``; ``Program``,
+``program_guard``, ``data`` and ``Executor`` (``program.py``);
+``static.nn``'s layer helpers and control flow; and the rest of the
+reference's names (``tail.py``: gradients, scopes, save/load, the
+inference model, the metrics, the places). The JAX package's program
+verifier is still to port (ROADMAP).
 
 An ``InputSpec`` declares a program input's shape (-1 or None: any
 size), dtype and name; ``jit.to_static(input_spec=...)`` checks the
@@ -15,7 +18,6 @@ import numpy as np
 
 from ..core.dtype import dtype_name
 
-__all__ = ["InputSpec", "nn"]
 
 
 class InputSpec:
@@ -48,4 +50,15 @@ def _name(dtype) -> str:
     return "bfloat16" if dtype == "bfloat16" else str(np.dtype(dtype))
 
 
+from .program import (CompiledProgram, Executor, Program,  # noqa: E402
+                      data, default_main_program,
+                      default_startup_program, program_guard)
 from . import nn  # noqa: E402
+from .nn import ExponentialMovingAverage, py_func  # noqa: E402
+from .tail import *  # noqa: E402,F401,F403
+from . import tail as _tail  # noqa: E402
+
+__all__ = ["InputSpec", "Program", "program_guard", "data", "Executor",
+           "CompiledProgram", "default_main_program",
+           "default_startup_program", "nn", "ExponentialMovingAverage",
+           "py_func"] + _tail.__all__

@@ -31,6 +31,7 @@ from paddle_tpu_torch.models import load_jax_layer_state
 from paddle_tpu_torch.ops.cuda.flash_attention import (
     flash_attention_bwd_plain, flash_attention_fwd_plain)
 from torch_paddle_api import assert_grads, assert_same
+from torch_vision_zoo import lazy_jax
 
 LOSS_ATOL = 1e-5
 GRAD_RTOL = 1e-4
@@ -70,10 +71,16 @@ def seeded_state(model, seed=0):
 
 
 def pair(cls_name, seed=0, **cfg):
-    """(JAX model, port model) of one class with the same weights."""
-    jm = getattr(jbert, cls_name)(jbert.BertConfig(**TINY, **cfg))
-    state = seeded_state(jm, seed)
-    jm.set_state_dict(state)
+    """(JAX model, port model) of one class with the same weights (the
+    JAX model built under ``LazyGuard``: its initializers would compile
+    per shape)."""
+    state = {}
+
+    def seeded(j):
+        state.update(seeded_state(j, seed))
+        return state
+    jm = lazy_jax(lambda: getattr(jbert, cls_name)(
+        jbert.BertConfig(**TINY, **cfg)), seeded)
     tm = getattr(tbert, cls_name)(tbert.BertConfig(**TINY, **cfg))
     load_jax_layer_state(tm, state)
     assert list(tm.state_dict()) == list(jm.state_dict())

@@ -131,7 +131,10 @@ def test_imports_without_jax_or_paddle_tpu():
                  "paddle_tpu_torch.fft", "paddle_tpu_torch.signal",
                  "paddle_tpu_torch.geometric",
                  "paddle_tpu_torch.static.nn",
-                 "paddle_tpu_torch.static.nn.control_flow"):
+                 "paddle_tpu_torch.static.nn.control_flow",
+                 "paddle_tpu_torch.static.program",
+                 "paddle_tpu_torch.static.tail",
+                 "paddle_tpu_torch.static.nn.common"):
         assert name in lines, name
 
 
@@ -375,3 +378,32 @@ def test_op_library_entry_points_need_cuda_or_set_device_cpu():
     with paddle.device_guard("cpu"):
         for make in makers:
             assert make()._data.device.type == "cpu"
+
+
+def test_a_static_program_runs_on_the_card_unless_asked_for_the_cpu():
+    """``static.data`` makes its placeholder on the current device, so a
+    program cannot be built without CUDA unless the caller asked for the
+    CPU; a program built under ``set_device("cpu")`` runs there, and
+    ``Executor.run`` without it (or on a ``CUDAPlace``) raises where CUDA
+    is absent: nothing moves to the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device is real")
+    static = paddle_tpu_torch.static
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        with static.program_guard(static.Program()):
+            static.data("x", [2, 4], "float32")
+    main = static.Program()
+    with paddle_tpu_torch.device_guard("cpu"):
+        with static.program_guard(main):
+            x = static.data("x", [None, 4], "float32")
+            y = static.nn.fc(x, 3)
+        feed = {"x": np.ones((2, 4), np.float32)}
+        (out,) = static.Executor().run(main, feed, [y])
+        (t,) = static.Executor(paddle_tpu_torch.CPUPlace()).run(
+            main, feed, [y], return_numpy=False)
+    assert out.shape == (2, 3) and t._data.device.type == "cpu"
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        static.Executor().run(main, feed, [y])
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        static.Executor(paddle_tpu_torch.CUDAPlace(0)).run(main, feed, [y])
+    assert fa.flash_attention_fwd.launches == 0

@@ -4,7 +4,8 @@ package's: the cases of ``tests/test_onnx_export.py`` and
 ``tests/test_text_onnx.py::test_onnx_export_requires_input_spec``.
 
 Each model is built in both packages with the same numpy weights and
-exported by both. The two files hold the same node op types in the same
+exported by both (the JAX model built under ``LazyGuard`` and given
+its weights). The two files hold the same node op types in the same
 order and the same initializer shapes, and the port's file, run by the
 port's evaluator, reproduces the JAX model's logits within 1e-5 (and
 the port's own model's).
@@ -17,6 +18,7 @@ import paddle_tpu.onnx as jonnx
 import paddle_tpu_torch as tp
 import paddle_tpu_torch.onnx as tonnx
 from paddle_tpu_torch.models import load_jax_layer_state
+from torch_vision_zoo import lazy_jax
 
 ATOL = 1e-5
 
@@ -49,10 +51,16 @@ def seeded_state(layer, seed):
 
 
 def pair(build, seed):
-    """(JAX model, port model) from ``build(pkg)``, the same weights."""
-    jm, tm = build(jp), build(tp)
-    state = seeded_state(jm, seed)
-    jm.set_state_dict(state)
+    """(JAX model, port model) from ``build(pkg)``, the same weights (the
+    JAX model built under ``LazyGuard``: its initializers would compile
+    per shape)."""
+    state = {}
+
+    def seeded(j):
+        state.update(seeded_state(j, seed))
+        return state
+    jm = lazy_jax(lambda: build(jp), seeded)
+    tm = build(tp)
     load_jax_layer_state(tm, state)
     jm.eval()
     tm.eval()

@@ -14,14 +14,23 @@ parameters take gradients of 0.04-1% of the largest; there the fp32
 JAX model and the fp32 port are each 2-3% from a float64 run of the
 port (both logits within 3.2e-4 of it), so the 16 bottleneck blocks'
 fp32 rounding, not either package, sets that bound.
+
+The JAX side runs each train-mode forward and backward, and each eval
+forward, as one jitted program (``_jax_train``, ``_jax_eval``): eagerly,
+every op of a ResNet compiles on its own. The weights are the port's
+seeded ones, which the JAX model, built under ``LazyGuard``, takes
+(``torch_vision_zoo.pair``; its initializers compile per shape).
 """
+import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 
 import paddle_tpu as jp
 import paddle_tpu_torch as tp
-from paddle_tpu_torch.models import load_jax_layer_state
+from paddle_tpu.core.tensor import Tensor as JTensor
 from torch_paddle_api import assert_grads
+from torch_vision_zoo import pair
 
 TOL = {18: dict(logits=1e-4, grads=1e-4, stats=1e-5),
        50: dict(logits=1e-3, grads=5e-2, stats=1e-4)}
@@ -39,18 +48,65 @@ def _batch(seed=0):
             rng.randint(0, 10, 4))
 
 
-def _state(layer):
-    return {k: np.asarray(v.numpy()) for k, v in layer.state_dict().items()}
-
-
 def _pair(depth, seed=0):
-    """The JAX model and its port twin on the JAX model's weights."""
-    jp.seed(seed)
-    j = getattr(jp.vision.models, f"resnet{depth}")(num_classes=10)
-    with tp.device_guard("cpu"):
-        t = getattr(tp.vision.models, f"resnet{depth}")(num_classes=10)
-        load_jax_layer_state(t, _state(j))
-    return j, t
+    """The JAX model and its port twin on the same seeded weights."""
+    return pair(f"resnet{depth}", seed=seed, num_classes=10)
+
+
+def _rebound(model):
+    params = [p for _, p in model.named_parameters()]
+    return params, [b for _, b in model.named_buffers()]
+
+
+def _jax_train(model):
+    """The JAX model's train-mode forward and the cross entropy's
+    backward as one jitted program: ``run(x, y)`` -> (logits, loss); it
+    sets each parameter's ``grad`` and the running statistics the
+    forward updated, as the eager step does."""
+    params, bufs = _rebound(model)
+
+    def step(pa, ba, xa, ya):
+        saved = [t._data for t in params + bufs]
+        for t, a in zip(params + bufs, list(pa) + list(ba)):
+            t._data = a
+        try:
+            model.train()
+            logits = model(JTensor(xa))
+            loss = jp.nn.functional.cross_entropy(logits, JTensor(ya))
+            return loss._data, (logits._data, [b._data for b in bufs])
+        finally:
+            for t, a in zip(params + bufs, saved):
+                t._data = a
+    fn = jax.jit(jax.value_and_grad(step, has_aux=True))
+
+    def run(x, y):
+        (loss, (logits, new_bufs)), grads = fn(
+            [p._data for p in params], [b._data for b in bufs],
+            jnp.asarray(x), jnp.asarray(y))
+        for b, a in zip(bufs, new_bufs):
+            b._data = a
+        for p, g in zip(params, grads):
+            p.grad = JTensor(g)
+        return np.asarray(logits), float(loss)
+    return run
+
+
+def _jax_eval(model, x):
+    """The JAX model's eval-mode forward as one jitted program."""
+    params, bufs = _rebound(model)
+
+    def fwd(arrays, xa):
+        saved = [t._data for t in params + bufs]
+        for t, a in zip(params + bufs, arrays):
+            t._data = a
+        try:
+            model.eval()
+            return model(JTensor(xa))._data
+        finally:
+            for t, a in zip(params + bufs, saved):
+                t._data = a
+    return np.asarray(jax.jit(fwd)([t._data for t in params + bufs],
+                                   jnp.asarray(x)))
 
 
 _RUNS = {}
@@ -62,13 +118,12 @@ def _trained(depth):
     if depth not in _RUNS:
         j, t = _pair(depth)
         x, y = _batch()
-        out = []
-        for pkg, m in ((jp, j), (tp, t)):
-            m.train()
-            logits = m(pkg.to_tensor(x))
-            loss = pkg.nn.functional.cross_entropy(logits, pkg.to_tensor(y))
-            loss.backward()
-            out.append((np.asarray(logits.numpy()), float(loss.numpy())))
+        out = [_jax_train(j)(x, y)]
+        t.train()
+        logits = t(tp.to_tensor(x))
+        loss = tp.nn.functional.cross_entropy(logits, tp.to_tensor(y))
+        loss.backward()
+        out.append((logits.numpy(), float(loss.numpy())))
         _RUNS[depth] = ((j, t), out)
     return _RUNS[depth]
 
@@ -116,10 +171,8 @@ def test_eval_forward(depth):
     """The running statistics of the train-mode forward normalize."""
     (j, t), _ = _trained(depth)
     x, _ = _batch(seed=1)
-    j.eval()
     t.eval()
-    np.testing.assert_allclose(t(tp.to_tensor(x)).numpy(),
-                               np.asarray(j(jp.to_tensor(x)).numpy()),
+    np.testing.assert_allclose(t(tp.to_tensor(x)).numpy(), _jax_eval(j, x),
                                rtol=0, atol=TOL[depth]["logits"])
 
 
@@ -128,22 +181,28 @@ def test_resnet18_adamw_three_steps():
     1e-4 and the final logits within 1e-3."""
     j, t = _pair(18, seed=1)
     x, y = _batch(seed=2)
-    losses = {}
-    for pkg, m in ((jp, j), (tp, t)):
-        m.train()
-        opt = pkg.optimizer.AdamW(learning_rate=1e-3, weight_decay=0.01,
-                                  parameters=m.parameters())
-        xs, ys = pkg.to_tensor(x), pkg.to_tensor(y)
-        out = []
-        for _ in range(3):
-            loss = pkg.nn.functional.cross_entropy(m(xs), ys)
-            loss.backward()
-            opt.step()
-            opt.clear_grad()
-            out.append(float(loss.numpy()))
-        m.eval()
-        losses[pkg.__name__] = (out, np.asarray(m(xs).numpy()))
-    (lj, oj), (lt, ot) = losses["paddle_tpu"], losses["paddle_tpu_torch"]
+    opt = jp.optimizer.AdamW(learning_rate=1e-3, weight_decay=0.01,
+                             parameters=j.parameters())
+    train = _jax_train(j)
+    lj = []
+    for _ in range(3):
+        lj.append(train(x, y)[1])
+        opt.step()
+        opt.clear_grad()
+    oj = _jax_eval(j, x)
+    t.train()
+    opt = tp.optimizer.AdamW(learning_rate=1e-3, weight_decay=0.01,
+                             parameters=t.parameters())
+    xs, ys = tp.to_tensor(x), tp.to_tensor(y)
+    lt = []
+    for _ in range(3):
+        loss = tp.nn.functional.cross_entropy(t(xs), ys)
+        loss.backward()
+        opt.step()
+        opt.clear_grad()
+        lt.append(float(loss.numpy()))
+    t.eval()
+    ot = t(xs).numpy()
     np.testing.assert_allclose(lt, lj, rtol=0, atol=1e-4)
     assert lt[-1] < lt[0]
     np.testing.assert_allclose(ot, oj, rtol=0, atol=1e-3)

@@ -2,7 +2,10 @@
 ``hapi/dynamic_flops.py``) against the JAX package's, exactly: the
 parameter counts and every layer's output shape in the table, and the
 FLOP count, on ResNet-18, a tiny BERT and ResNet-50 at 1x3x224x224 (the
-numbers ``chip_smoke.py``'s checkpoint phase holds on the card).
+numbers ``chip_smoke.py``'s checkpoint phase holds on the card). Each
+JAX model is built under ``LazyGuard`` on its port twin's weights
+(``torch_vision_zoo.lazy_twin``): its initializers would compile per
+shape, and the counts do not depend on the values.
 """
 import re
 
@@ -18,6 +21,7 @@ from paddle_tpu.vision.models import resnet50 as j_resnet50
 from paddle_tpu_torch.models import bert as tbert
 from paddle_tpu_torch.vision.models import resnet18 as t_resnet18
 from paddle_tpu_torch.vision.models import resnet50 as t_resnet50
+from torch_vision_zoo import lazy_twin
 
 BERT_TINY = dict(vocab_size=64, hidden_size=32, num_hidden_layers=2,
                  num_attention_heads=2, intermediate_size=64,
@@ -48,9 +52,8 @@ def _both(j_fn, t_fn, capsys):
 
 
 def test_resnet18_summary_and_flops(capsys):
-    jp.seed(0)
-    jnet = j_resnet18(num_classes=10)
     tnet = t_resnet18(num_classes=10)
+    jnet = lazy_twin(lambda: j_resnet18(num_classes=10), tnet)
     got = _both(lambda: jp.summary(jnet, (1, 3, 32, 32)),
                 lambda: tp.summary(tnet, (1, 3, 32, 32)), capsys)
     assert got["total_params"] == got["trainable_params"] > 1e7
@@ -63,9 +66,9 @@ def test_resnet18_summary_and_flops(capsys):
 
 def test_tiny_bert_summary_and_flops(capsys):
     ids = np.random.RandomState(0).randint(0, 64, (2, 8)).astype(np.int64)
-    jp.seed(0)
-    jnet = jbert.BertModel(jbert.BertConfig(**BERT_TINY))
     tnet = tbert.BertModel(tbert.BertConfig(**BERT_TINY))
+    jnet = lazy_twin(lambda: jbert.BertModel(jbert.BertConfig(**BERT_TINY)),
+                     tnet)
     jnet.eval()
     tnet.eval()
     _both(lambda: jp.summary(jnet, input=jp.to_tensor(ids)),
@@ -97,9 +100,8 @@ def test_custom_ops_and_detail(capsys):
 def test_resnet50_counts_equal_the_card_phase(capsys):
     """ResNet-50's parameter count and FLOPs at 1x3x224x224 in both
     packages, and the constants chip_smoke.py holds the card's to."""
-    jp.seed(0)
-    jnet = j_resnet50(num_classes=1000)
     tnet = t_resnet50(num_classes=1000)
+    jnet = lazy_twin(lambda: j_resnet50(num_classes=1000), tnet)
     got = _both(lambda: jp.summary(jnet, (1, 3, 224, 224)),
                 lambda: tp.summary(tnet, (1, 3, 224, 224)), capsys)
     flops = _both(lambda: jp.flops(jnet, [1, 3, 224, 224]),

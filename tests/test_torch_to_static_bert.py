@@ -20,6 +20,10 @@ fused program at the O1 tolerances of ``test_torch_gpt.py``. With
 recompute, and the fused recomputed program against the JAX fused
 program without recompute (the JAX ``to_static`` with fusion and
 recompute raises, ROADMAP Queue 3).
+
+Each JAX program's results are computed once a module (``jax_results``,
+by depth, batch, amp level and fusion flag) and shared by the cases that
+hold a port program to the same JAX program.
 """
 import jax
 import jax.numpy as jnp
@@ -31,12 +35,14 @@ import paddle_tpu_torch as tp
 from paddle_tpu import amp as jamp
 from paddle_tpu.core.tensor import Tensor as JTensor
 from paddle_tpu.models import bert as jbert
+from paddle_tpu.nn.lazy_init import LazyGuard
 from paddle_tpu.ops.pallas import fused_ops as JK
 from paddle_tpu_torch import amp
 from paddle_tpu_torch.models import bert as tbert
 from paddle_tpu_torch.models import load_jax_layer_state
 from test_torch_bert import seeded_state
 from test_torch_gpt import O1_GRAD_RTOL, O1_LOSS_RTOL
+from torch_vision_zoo import lazy_jax
 
 OUT_TOL = 1e-5
 LOSS_TOL = 1e-5
@@ -86,16 +92,48 @@ def fusion(request):
     tp.set_flags({"FLAGS_enable_fusion": False})
 
 
-def pair(layers, jax_cfg=None, **cfg):
-    """(JAX model, port model) of BertForPretraining, the same weights."""
-    jm = jbert.BertForPretraining(jbert.BertConfig(
-        **BASE, num_hidden_layers=layers, **dict(cfg, **(jax_cfg or {}))))
-    state = seeded_state(jm)
-    jm.set_state_dict(state)
+_STATES = {}
+
+
+def state_of(layers):
+    """The seeded weights of a JAX BertForPretraining of ``layers``."""
+    if layers not in _STATES:
+        with LazyGuard():
+            _STATES[layers] = seeded_state(jbert.BertForPretraining(
+                jbert.BertConfig(**BASE, num_hidden_layers=layers)))
+    return _STATES[layers]
+
+
+def jax_model(layers, **cfg):
+    """The JAX model on ``state_of(layers)``, built under ``LazyGuard``
+    (its initializers would compile per shape)."""
+    return lazy_jax(lambda: jbert.BertForPretraining(jbert.BertConfig(
+        **BASE, num_hidden_layers=layers, **cfg)), lambda j: state_of(layers))
+
+
+def port_model(layers, **cfg):
     tm = tbert.BertForPretraining(tbert.BertConfig(
         **BASE, num_hidden_layers=layers, **cfg))
-    load_jax_layer_state(tm, state)
-    return jm, tm
+    load_jax_layer_state(tm, state_of(layers))
+    return tm
+
+
+def pair(layers, jax_cfg=None, **cfg):
+    """(JAX model, port model) of BertForPretraining, the same weights."""
+    return (jax_model(layers, **dict(cfg, **(jax_cfg or {}))),
+            port_model(layers, **cfg))
+
+
+_JAX = {}
+
+
+def jax_results(layers, seed, fused, level="O0"):
+    """``jax_program`` of a fresh JAX model of ``layers`` on ``batch(seed)``
+    with the fusion flag ``fused`` (set by the caller), once a module."""
+    key = (layers, seed, fused, level)
+    if key not in _JAX:
+        _JAX[key] = jax_program(jax_model(layers), batch(seed), level)
+    return _JAX[key]
 
 
 def batch(seed):
@@ -105,9 +143,9 @@ def batch(seed):
 def jax_program(jm, ids, level="O0"):
     """The JAX ``to_static`` program's logits, and its loss and
     gradients (by name) under ``jax.value_and_grad`` and
-    ``auto_cast(level)``, with its pass's stats."""
+    ``auto_cast(level)``, with its pass's stats: one program, whose
+    logits come out beside the loss."""
     jp.jit.to_static(jm, full_graph=True)
-    logits = [np.asarray(o.numpy()) for o in jm(JTensor(jnp.asarray(ids)))]
     named = list(jm.named_parameters())
     params = [p for _, p in named]
 
@@ -118,14 +156,15 @@ def jax_program(jm, ids, level="O0"):
         try:
             t = JTensor(jnp.asarray(ids))
             with jamp.auto_cast(level=level, dtype="bfloat16"):
-                loss = jm(t, masked_lm_labels=t)[2]
-            return loss._data.astype(jnp.float32)
+                mlm, nsp, loss = jm(t, masked_lm_labels=t)
+            return loss._data.astype(jnp.float32), (mlm._data, nsp._data)
         finally:
             for p, o in zip(params, originals):
                 p._data = o
 
-    loss, grads = jax.value_and_grad(loss_of)([p._data for p in params])
-    return (logits, float(loss),
+    (loss, logits), grads = jax.value_and_grad(loss_of, has_aux=True)(
+        [p._data for p in params])
+    return ([np.asarray(o) for o in logits], float(loss),
             {n: np.asarray(g.astype(jnp.float32))
              for (n, _), g in zip(named, grads)}, jm.forward.fusion_stats)
 
@@ -166,10 +205,10 @@ def assert_grads_close(got, want, rtol):
 
 @pytest.mark.parametrize("layers", [2, 12])
 def test_bert_program_matches_jax_to_static(layers, fusion):
-    jm, tm = pair(layers)
     ids = batch(1)
-    j_logits, j_loss, j_grads, j_stats = jax_program(jm, ids)
-    logits, loss, grads, stats = port_program(tm, ids, batch(2))
+    j_logits, j_loss, j_grads, j_stats = jax_results(layers, 1, fusion)
+    logits, loss, grads, stats = port_program(port_model(layers), ids,
+                                              batch(2))
     for got, want in zip(logits, j_logits):
         np.testing.assert_allclose(got, want, atol=OUT_TOL, rtol=OUT_TOL)
     assert abs(loss - j_loss) <= LOSS_TOL * max(abs(j_loss), 1.0)
@@ -194,10 +233,10 @@ def test_bert_o1_fused_program_matches_jax(layers):
     jp.set_flags({"FLAGS_enable_fusion": True})
     tp.set_flags({"FLAGS_enable_fusion": True})
     try:
-        jm, tm = pair(layers)
         ids = batch(3)
-        _, j_loss, j_grads, j_stats = jax_program(jm, ids, "O1")
-        _, loss, grads, stats = port_program(tm, ids, batch(4), "O1")
+        _, j_loss, j_grads, j_stats = jax_results(layers, 3, True, "O1")
+        _, loss, grads, stats = port_program(port_model(layers), ids,
+                                             batch(4), "O1")
     finally:
         JK.INTERPRET = old
         jp.set_flags({"FLAGS_enable_fusion": False})
@@ -230,7 +269,7 @@ def test_bert_recompute_eager_matches_jax_and_no_recompute():
     """``recompute=True`` trains eagerly: the loss and gradients of the
     JAX model with recompute and of the port's without."""
     jm, tm = pair(2, recompute=True)
-    _, plain = pair(2)
+    plain = port_model(2)
     ids = batch(5)
     j_loss, j_grads = _eager_loss_and_grads(jm, ids, True)
     loss, grads = _eager_loss_and_grads(tm, ids, False)
@@ -246,12 +285,13 @@ def test_bert_fused_recompute_matches_jax_fused_without_recompute(fusion):
     """The fused, recomputed program against the JAX program without
     recompute (the function is the same): the pass runs inside each
     checkpointed layer, and the embeddings' norm no longer meets the first
-    projection, which is inside the first layer's region."""
-    jm, _ = pair(12)
-    _, tm = pair(12, recompute=True)
-    ids = batch(6)
-    j_logits, j_loss, j_grads, _ = jax_program(jm, ids)
-    logits, loss, grads, stats = port_program(tm, ids, batch(7))
+    projection, which is inside the first layer's region. The JAX
+    program is ``test_bert_program_matches_jax_to_static``'s, on its
+    batch."""
+    ids = batch(1)
+    j_logits, j_loss, j_grads, _ = jax_results(12, 1, fusion)
+    logits, loss, grads, stats = port_program(
+        port_model(12, recompute=True), ids, batch(7))
     for got, want in zip(logits, j_logits):
         np.testing.assert_allclose(got, want, atol=OUT_TOL, rtol=OUT_TOL)
     assert abs(loss - j_loss) <= LOSS_TOL * max(abs(j_loss), 1.0)

@@ -75,20 +75,34 @@ def pair(name, seed=0, **kw):
     with tp.device_guard("cpu"):
         tp.seed(seed)
         t = getattr(tp.vision.models, name)(**kw)
+    j = lazy_twin(lambda: getattr(jp.vision.models, name)(**kw), t)
+    with tp.device_guard("cpu"):
+        load_jax_layer_state(t, _state(j))
+    _no_dropout(j)
+    _no_dropout(t)
+    return j, t
+
+
+def lazy_twin(build, port):
+    """The JAX model ``build()`` makes under ``LazyGuard``, on the port
+    model's weights (no JAX initializer runs)."""
+    return lazy_jax(build, lambda j: _state(port))
+
+
+def lazy_jax(build, state_of):
+    """The JAX model ``build()`` makes under ``LazyGuard`` (its
+    initializers would compile per shape), on the numpy arrays
+    ``state_of(model)`` gives by state-dict key."""
     with LazyGuard():
-        j = getattr(jp.vision.models, name)(**kw)
-    state = _state(t)
+        j = build()
+    state = state_of(j)
     for n, p in j.named_parameters():
         p._swap_payload(jnp.asarray(state[n]))
         del p._lazy_init                       # materialized: no init runs
         lazy_init._PENDING.pop(id(p), None)
     for n, b in j.named_buffers():
         b._swap_payload(jnp.asarray(state[n]))
-    with tp.device_guard("cpu"):
-        load_jax_layer_state(t, _state(j))
-    _no_dropout(j)
-    _no_dropout(t)
-    return j, t
+    return j
 
 
 def batch(size, seed=0, n=2):
