@@ -154,6 +154,23 @@ Phases, in order; any failure exits non-zero and nothing is caught:
              shapes against their plain versions and timed (rows under
              each kernel's "shapes"), with the copy that hands K6 a
              Paddle (in, out) weight.
+* sot     -- SOT partial-frame capture: bench.py's BERT-base rung
+             (paddle_api's settings) whose forward reads
+             isfinite(seq).all() on the host between the encoder and the
+             heads, under to_static(full_graph=False): two segments a
+             call. (a) Trained eager, under SOT and under SOT with
+             FLAGS_enable_fusion (SOT_WARMUP + SOT_STEPS steps each): step
+             ms and quartiles, host ms, tokens/s, sot_stats and peak GB;
+             a step launches K1/K2/K3 12 (the first SOT step K1 24: the
+             recording runs the encoder before the break) and, fused, K4
+             24 and K6 13; the first replayed losses against eager
+             (BF16_TOL unfused, FUSED_LOSS_TOL fused); compiled 0 from the
+             second step. (b) Served in eval, frozen bf16 weights, B48
+             S512, unfused and fused: calls 1-2 replay and call 3
+             bypasses, each within BF16_TOL (norm-wise) of eager and
+             launching K1 12 (K4 24, K6 13 fused); eager, replay and
+             bypass timed in turns; then one weight changed with
+             set_value: the next call still bypasses and answers as eager.
 * checkpoint -- checkpoints and resume: bench.py's BERT-base rung
              (paddle_api's settings, with a StepDecay scheduler that
              keeps LR over the phase) trained 8 steps twice from one seed
@@ -299,7 +316,7 @@ Phases, in order; any failure exits non-zero and nothing is caught:
              decode, timed.
 
 The forward, serve, serve_llama, serve_tier, train, fusion, rungs,
-paddle_api, paddle_static, checkpoint, vision, vision_zoo, deploy,
+paddle_api, paddle_static, sot, checkpoint, vision, vision_zoo, deploy,
 distributed and seq2seq phases are the main path (serve_tier and vision
 launch no kernel: the tier is host code over the engine, and its LLaMA
 runs without flash attention, as bench.py's rungs do; ResNet's
@@ -338,11 +355,12 @@ import torch
 
 PHASES = ("build", "kernel", "fused_kernel", "forward", "serve",
           "serve_llama", "serve_tier", "train", "fusion", "rungs",
-          "paddle_api", "paddle_static", "checkpoint", "vision",
+          "paddle_api", "paddle_static", "sot", "checkpoint", "vision",
           "vision_zoo", "deploy", "static_program", "distributed", "seq2seq",
           "control_flow", "ops")
 MAIN_PATH = ("forward", "serve", "serve_llama", "serve_tier", "train",
-             "fusion", "rungs", "paddle_api", "paddle_static", "checkpoint",
+             "fusion", "rungs", "paddle_api", "paddle_static", "sot",
+             "checkpoint",
              "vision", "vision_zoo", "deploy", "static_program",
              "distributed", "seq2seq", "control_flow", "ops")
 PATH_SHAPE = dict(b=4, s=1024, h=12, d=64)      # GPT-2 small serving
@@ -3242,6 +3260,278 @@ def phase_paddle_static(state):
             _wrapper(name).launches = n
     torch.cuda.empty_cache()
     log(f"paddle_static: phase took {time.perf_counter() - t0:.1f} s")
+
+
+# -------------------------------------------------------------------- sot
+# bench.py's BERT rung (paddle_api's settings) through a host read in the
+# middle of its forward, under to_static(full_graph=False)
+SOT_STEPS, SOT_WARMUP = 6, 2
+SOT_CALLS = 12              # timed serving calls of each leg
+SOT_TRAIN = ("eager", "sot", "sot_fused")
+
+
+def _guarded_bert(paddle):
+    """BertForPretraining whose forward (models/bert.py:144) reads the
+    encoder output's finiteness on the host before the heads: the
+    overflow guard users write, two SOT segments a call."""
+    from paddle_tpu_torch.models import BertForPretraining
+    F = paddle.nn.functional
+
+    class GuardedBert(BertForPretraining):
+        def forward(self, input_ids, token_type_ids=None,
+                    attention_mask=None, masked_lm_labels=None,
+                    next_sentence_labels=None):
+            seq, pooled = self.bert(input_ids, token_type_ids,
+                                    attention_mask)
+            if not bool(paddle.isfinite(seq).all()):
+                raise FloatingPointError("BERT: a non-finite encoder output")
+            h = self.mlm_norm(F.gelu(self.mlm_dense(seq), approximate=True))
+            w = self.bert.embeddings.word_embeddings.weight
+            nsp_logits = self.nsp(pooled)
+            if masked_lm_labels is None:
+                return paddle.matmul(h, w, transpose_y=True), nsp_logits
+            loss = F.fused_linear_cross_entropy(
+                paddle.reshape(h, [-1, self.bert.cfg.hidden_size]), w,
+                paddle.reshape(masked_lm_labels, [-1]), transpose_y=True,
+                ignore_index=-100)
+            if next_sentence_labels is not None:
+                loss = loss + F.cross_entropy(nsp_logits,
+                                              next_sentence_labels)
+            return None, nsp_logits, loss
+    return GuardedBert
+
+
+def _guarded_model(paddle, seed):
+    from paddle_tpu_torch.models import BertConfig
+    paddle.seed(seed)
+    model = _guarded_bert(paddle)(BertConfig(**BERT_BASE))
+    model.to(dtype="bfloat16")
+    return model
+
+
+def _sot_launches(layers, mode, first=False):
+    """A training step's launches: _bert_launches' (fused for sot_fused);
+    the first to_static step records the encoder eagerly up to the host
+    read, then runs the call again under SOT: K1 once more a layer."""
+    want = _bert_launches(layers, fused=mode == "sot_fused")
+    if first and mode != "eager":
+        want["flash_attention_fwd"] += layers
+    return want
+
+
+def _sot_train(paddle, card, mode):
+    """(a) one leg: bench.py's BERT rung settings on the guarded model,
+    eagerly ("eager") or under to_static(full_graph=False), unfused
+    ("sot") or fused ("sot_fused"). One JSON line; returns it."""
+    b, s = BERT_SHAPE["b"], BERT_SHAPE["s"]
+    model = _guarded_model(paddle, 12)
+    layers = model.bert.cfg.num_hidden_layers
+    n_params = sum(p.size for p in model.parameters())
+    if mode != "eager":
+        paddle.jit.to_static(model, full_graph=False)
+    opt = paddle.optimizer.AdamW(learning_rate=LR, multi_precision=True,
+                                 parameters=model.parameters(), **ADAMW)
+    vocab = BERT_BASE["vocab_size"]
+    batches = [paddle.to_tensor(np.random.RandomState(i).randint(
+        0, vocab, (b, s)).astype(np.int64)) for i in range(SOT_STEPS)]
+    warm = [paddle.to_tensor(np.random.RandomState(1000 + i).randint(
+        0, vocab, (b, s)).astype(np.int64)) for i in range(SOT_WARMUP)]
+    sot_stats = []
+
+    def step(ids, want, events=None):
+        with warnings.catch_warnings():
+            # the first call's graph-break warning
+            warnings.simplefilter("ignore")
+            loss = _bert_step(paddle, model, opt, ids, events, O1, want)
+        if mode != "eager":
+            sot_stats.append(dict(model.forward.sot_stats))
+        return loss
+
+    paddle.set_flags({"FLAGS_enable_fusion": mode == "sot_fused"})
+    try:
+        warm_losses = [float(step(ids, _sot_launches(
+            layers, mode, first=k == 0)).item())
+            for k, ids in enumerate(warm)]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        want = _sot_launches(layers, mode)
+        walls, hosts, split, losses = [], [], [], []
+        for ids in batches:
+            events = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            loss = step(ids, want, events)
+            hosts.append(time.perf_counter() - t0)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+            split.append([events[j].elapsed_time(events[j + 1])
+                          for j in range(3)])
+            losses.append(float(loss.item()))
+        peak = torch.cuda.max_memory_allocated() / 1e9
+    finally:
+        paddle.set_flags({"FLAGS_enable_fusion": False})
+    q1, median, q3 = statistics.quantiles(walls, n=4)
+    fwd, bwd, upd = (statistics.median(x[j] for x in split)
+                     for j in range(3))
+    row = {"sot": f"bert_base O1 bf16 fused_loss B{b} S{s} train {mode}",
+           "card": card, "params": n_params, "steps": len(losses),
+           "step_ms": median * 1e3, "step_ms_q1": q1 * 1e3,
+           "step_ms_q3": q3 * 1e3,
+           "host_ms_a_step": statistics.median(hosts) * 1e3,
+           "forward_ms": fwd, "backward_ms": bwd, "optimizer_ms": upd,
+           "tokens_per_s": b * s / median, "peak_memory_gb": peak,
+           "warm_losses": warm_losses, "losses": losses,
+           "launches_a_step": want, "sot_stats": sot_stats}
+    log(json.dumps(row))
+    if not (all(np.isfinite(losses)) and losses[-1] < losses[0]):
+        raise AssertionError(f"sot {mode}: losses {losses}")
+    if mode != "eager":
+        if any(st["segments"] != 2 or st["bypassed"] for st in sot_stats):
+            raise AssertionError(f"sot {mode}: sot_stats {sot_stats}")
+        if sot_stats[0]["compiled"] != 2 or any(
+                st["compiled"] for st in sot_stats[1:]):
+            raise AssertionError(f"sot {mode}: plans made {sot_stats}")
+        rewritten = sot_stats[0].get("fusion_rewritten", 0)
+        if rewritten != (3 * layers + 1 if mode == "sot_fused" else 0):
+            raise AssertionError(f"sot {mode}: {rewritten} chains rewritten")
+    del model, opt, batches, warm
+    torch.cuda.empty_cache()
+    return row
+
+
+def _sot_demote(static_fn):
+    """Make the next call of ``static_fn`` a Python replay, as a guard
+    miss does (its journal is kept: the call after it bypasses again)."""
+    for frame in static_fn._sot_frames.values():
+        frame["stable"] = False
+
+
+def _sot_err(got, ref):
+    """The largest norm-wise error of the outputs, on the card."""
+    return max(float(torch.linalg.vector_norm(g._data.float() - r)
+                     / torch.linalg.vector_norm(r)) for g, r in zip(got, ref))
+
+
+def _sot_serve(paddle, card, fused):
+    """(b) the guarded model in eval with frozen bf16 weights at B48 S512:
+    three calls (replay, replay, bypass) against eager, their launches;
+    eager, replay and bypass timed in turns; then one weight changed in
+    place and the next call held. One JSON line; returns it."""
+    b, s = BERT_SHAPE["b"], BERT_SHAPE["s"]
+    model = _guarded_model(paddle, 13)
+    model.eval()
+    for p in model.parameters():
+        p.stop_gradient = True
+    layers = model.bert.cfg.num_hidden_layers
+    eager = model.forward                    # the bound method: eager
+    ids = paddle.to_tensor(np.random.RandomState(7).randint(
+        0, BERT_BASE["vocab_size"], (b, s)).astype(np.int64))
+    ref = _uncounted(lambda: [o._data.float() for o in eager(ids)])
+    paddle.jit.to_static(model, full_graph=False)
+    static = model.forward
+    want = {"flash_attention_fwd": layers}
+    if fused:
+        want.update(fused_residual_norm=2 * layers, fused_matmul=layers + 1)
+    paddle.set_flags({"FLAGS_enable_fusion": fused})
+    try:
+        calls = []
+        for k in range(3):
+            before = _counts()
+            with warnings.catch_warnings():
+                warnings.simplefilter("ignore")
+                out = model(ids)
+            launched = _launched(before, _counts())
+            calls.append({"sot_stats": dict(static.sot_stats),
+                          "launches": launched,
+                          "norm_err_to_eager": _sot_err(out, ref)})
+            del out
+            first = dict(want, flash_attention_fwd=2 * layers)
+            if launched != (first if k == 0 else want):
+                raise AssertionError(f"sot serve call {k + 1}: launched "
+                                     f"{launched}")
+
+        def host(fn):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            took = time.perf_counter() - t0
+            torch.cuda.synchronize()
+            return took * 1e3
+
+        def replay():
+            _sot_demote(static)
+            model(ids)
+        legs = {"eager": lambda: eager(ids), "replay": replay,
+                "bypass": lambda: model(ids)}
+        timed = _legs_ms(legs, uncounted=tuple(legs), runs=SOT_CALLS,
+                         rounds=2)
+        hosts = {name: _uncounted(lambda fn=fn: statistics.median(
+            host(fn) for _ in range(5))) for name, fn in legs.items()}
+        bypassed_after = static.sot_stats["bypassed"]
+        # the live read: a weight changed in place, the next call bypasses
+        w = model.nsp.weight
+        w.set_value(w._data * 0.5)
+        before = _counts()
+        out = model(ids)
+        live = {"sot_stats": dict(static.sot_stats),
+                "launches": _launched(before, _counts())}
+        new_ref = _uncounted(lambda: [o._data.float() for o in eager(ids)])
+        live["norm_err_to_eager"] = _sot_err(out, new_ref)
+        live["norm_change"] = _sot_err(out, ref)
+        del out, new_ref, ref
+    finally:
+        paddle.set_flags({"FLAGS_enable_fusion": False})
+    row = {"sot": f"bert_base bf16 B{b} S{s} serve "
+                  f"{'fused' if fused else 'unfused'}",
+           "card": card, "calls": calls, "tolerance": BF16_TOL,
+           **{f"{name}_p50_ms": t[0] for name, t in timed.items()},
+           **{f"{name}_q1_q3_ms": t[1:] for name, t in timed.items()},
+           "host_ms_a_call": hosts, "live_weight_change": live}
+    log(json.dumps(row))
+    bypassed = [c["sot_stats"]["bypassed"] for c in calls]
+    if bypassed != [False, False, True] or not bypassed_after:
+        raise AssertionError(f"sot serve: bypassed {bypassed}, after the "
+                             f"timed calls {bypassed_after}")
+    if not max(c["norm_err_to_eager"] for c in calls) <= BF16_TOL:
+        raise AssertionError(f"sot serve: calls {calls}")
+    if not (live["sot_stats"]["bypassed"] and live["launches"] == want
+            and live["norm_err_to_eager"] <= BF16_TOL
+            and live["norm_change"] > 10 * BF16_TOL):
+        raise AssertionError(f"sot serve: after the weight change {live}")
+    del model, ids
+    torch.cuda.empty_cache()
+    return row
+
+
+def phase_sot(state):
+    """SOT partial-frame capture on bench.py's BERT-base rung through a
+    host read in the middle of the forward: (a) trained three ways, (b)
+    served unfused and fused (module docstring)."""
+    import paddle_tpu_torch as paddle
+    card = _card_line()
+    t0 = time.perf_counter()
+    with paddle.device_guard("gpu:0"):
+        runs = {mode: _sot_train(paddle, card, mode) for mode in SOT_TRAIN}
+        first = {m: r["warm_losses"][1] for m, r in runs.items()}
+        log(json.dumps({"sot_three_ways": {
+            m: {"step_ms": r["step_ms"], "step_ms_q1": r["step_ms_q1"],
+                "step_ms_q3": r["step_ms_q3"],
+                "host_ms_a_step": r["host_ms_a_step"],
+                "tokens_per_s": r["tokens_per_s"],
+                "peak_memory_gb": r["peak_memory_gb"]}
+            for m, r in runs.items()},
+            "first_replayed_step_loss": first, "card": card}))
+        if not abs(first["sot"] - first["eager"]) <= BF16_TOL:
+            raise AssertionError(f"sot: first replayed loss {first['sot']} "
+                                 f"against eager {first['eager']}")
+        if not abs(first["sot_fused"] - first["eager"]) <= FUSED_LOSS_TOL:
+            raise AssertionError(f"sot: fused first replayed loss "
+                                 f"{first['sot_fused']} against eager "
+                                 f"{first['eager']}")
+        for fused in (False, True):
+            _sot_serve(paddle, card, fused)
+    torch.cuda.empty_cache()
+    log(f"sot: phase took {time.perf_counter() - t0:.1f} s")
 
 
 # The checkpoint phase: the BERT-base rung's train state saved at

@@ -16,7 +16,9 @@ feed it, and ``jit.to_static`` runs both:
   the unfused chain and then the fused one, and leaves XLA to drop the
   dead values, which eager torch would compute;
 * ``fuse_program_ops`` here: a ``static.Program``'s steps, the fetched
-  values as the external set; ``Executor.run`` replays the plan.
+  values as the external set; ``Executor.run`` replays the plan;
+* ``fuse_sot_nodes`` here: an SOT segment's deferred ops (``jit/sot``),
+  the values live at its flush as the external set.
 
 Patterns:
 
@@ -49,7 +51,7 @@ from ...observability import metrics as _metrics
 
 __all__ = ["enabled", "fingerprint", "fuse_steps", "FusedStep", "PATTERNS",
            "FUSION_VERSION", "rewrite_program", "rewrite_traced",
-           "fuse_program_ops"]
+           "fuse_program_ops", "fuse_sot_nodes"]
 
 #: bump when the pattern set or a fused rewrite's semantics change
 FUSION_VERSION = 1
@@ -102,6 +104,9 @@ class FusedStep:
     amp: Optional[tuple] = None
     #: provenance of the anchor record (the chain's first step)
     loc: str = ""
+    #: the grad mode an SOT segment deferred the anchor record under (the
+    #: fused op runs under it); None elsewhere: the replay's own
+    grad: Optional[bool] = None
 
 
 def _act_name(step) -> Optional[str]:
@@ -427,6 +432,7 @@ def fuse_steps(steps: Sequence, external_ids) -> Tuple[list, dict]:
             consumed.update(idxs)
             fused.amp = getattr(g.steps[i], "amp", None)
             fused.loc = getattr(g.steps[i], "loc", "") or ""
+            fused.grad = getattr(g.steps[i], "grad", None)
             replacement[i] = fused
             break
     plan: List = []
@@ -471,13 +477,26 @@ def fuse_program_ops(steps, fetch_ids) -> Tuple[list, dict]:
     return fuse_steps(steps, set(fetch_ids))
 
 
+def fuse_sot_nodes(nodes, out_refs):
+    """The SOT adapter: a segment's nodes (``jit/sot`` steps whose value
+    ids are ``("n", node, out)`` and ``("x", ext)`` refs) and the (node,
+    out) pairs live at the flush, which are the external set. Returns
+    ``(plan, stats)``: the plan is the step list, each chain replaced by
+    its fused step, or None where nothing was rewritten (the segment runs
+    its nodes as they are). The JAX package wraps each node in a
+    ``_SotStep`` view; the port's nodes are steps already."""
+    external = {("n", nid, k) for nid, k in out_refs}
+    plan, stats = fuse_steps(nodes, external)
+    return (plan if stats["rewritten"] else None), stats
+
+
 def rewrite_traced(call, tensors, strict: bool = True):
     """Record ``call()`` (the Paddle-API ops it dispatches, its Tensor
     arguments ``tensors`` binding the program's inputs) and, with the
     flag on, rewrite the program. Returns ``(out, program, stats,
-    recorder)``: ``out`` is the recorded call's eager result, ``program``
-    None where a graph break ended the recording (``recorder.broken``),
-    ``stats`` None with the flag off."""
+    recorder)``: ``out`` is the recorded call's eager result; ``out`` and
+    ``program`` are None where a graph break ended the call
+    (``recorder.broken``); ``stats`` None with the flag off."""
     from ...jit.program import record
     out, program, rec = record(call, (), {}, tensors, strict)
     stats = None

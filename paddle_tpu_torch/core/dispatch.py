@@ -22,9 +22,6 @@ The JAX dispatcher's other parts have no counterpart here:
   (``_jit_cached_call``, ``_closure_cache_key``, ``_lazy_vjp``): they
   exist because JAX eager dispatch is slow; torch runs an op directly
   and records its backward as it goes;
-* the SOT ``LazyArray`` path (lazy capture of eager ops into segments):
-  the port's ``to_static`` records a whole call through the recorder
-  taps below, and a graph break runs that signature eagerly;
 * the op-cost accumulator (``FLAGS_perf_op_cost``): it waits for
   ``observability/perf``.
 
@@ -39,6 +36,15 @@ with the op's semantic parameters (``export_attrs()``: stride, padding,
 axis, ...) merged into its attrs; an op builds them only while a hook
 is registered. ``quiet_scope`` silences every tap
 for the ops inside it.
+
+While an SOT capture (``jit.sot.capture``) is active on this thread,
+``call`` runs no op but defers it into the capture's segment
+(``jit.sot.record_or_none``) and returns Tensors whose payloads are
+``LazyArray`` placeholders; the side channels run when the segment's
+flush runs the op through ``call``. An op that cannot be deferred (a
+data-dependent output shape) flushes the segment and runs on the
+values. Outside a capture, a placeholder among the inputs is made
+concrete first.
 
 The branch trace (``enter_branch_trace``) is ``ops/control_flow``'s:
 while one is entered on this thread, ``call`` runs no op but hands it to
@@ -57,6 +63,7 @@ import torch
 
 from ..amp.state import amp_cast
 from . import flags
+from . import tensor as _tensor
 from .tensor import GraphBreak, Tensor, exporting
 from ..observability import metrics as _metrics
 from ..observability import trace as _trace
@@ -275,6 +282,9 @@ def _replayable(fn: Callable, attrs: dict,
 
 
 # -------------------------------------------------------------- dispatch
+_sot_record = None          # jit.sot.record_or_none, bound on first use
+
+
 def call(op_name: str, fn: Callable, tensor_inputs: Sequence[Tensor],
          attrs: Optional[dict] = None, multi_output: bool = False,
          differentiable_mask: Optional[Sequence[bool]] = None,
@@ -292,6 +302,20 @@ def call(op_name: str, fn: Callable, tensor_inputs: Sequence[Tensor],
     if trace is not None:
         return trace.run_op(op_name, fn, tensor_inputs, attrs,
                             differentiable_mask)
+    arrays = [t._data for t in tensor_inputs]
+    if _tensor._sot_seen:           # an SOT capture has run in the process
+        if getattr(_tensor._capture, "sot", None) is not None:
+            global _sot_record
+            if _sot_record is None:
+                from ..jit.sot import record_or_none as _sot_record
+            got = _sot_record(op_name, fn, tensor_inputs, attrs,
+                              differentiable_mask)
+            if got is not None:
+                lazies, multi = got
+                outs = [Tensor(lazy) for lazy in lazies]
+                return outs if multi else outs[0]
+        lazy = _tensor._LAZY
+        arrays = [a.concrete() if type(a) is lazy else a for a in arrays]
     quiet = getattr(_tls, "quiet", False)
     exported = None
     if _export_hooks and not quiet:
@@ -302,10 +326,15 @@ def call(op_name: str, fn: Callable, tensor_inputs: Sequence[Tensor],
         and not quiet
     t0 = _perf_counter() if timed else 0.0
 
-    arrays = amp_cast(op_name, *[t._data for t in tensor_inputs])
+    arrays = amp_cast(op_name, *arrays)
     if differentiable_mask is not None:
         arrays = [a.detach() if not keep and isinstance(a, torch.Tensor)
                   else a for a, keep in zip(arrays, differentiable_mask)]
+    recorders = getattr(_tls, "recorders", None)
+    if recorders and not quiet:
+        rec = getattr(_tensor._capture, "recorder", None)
+        if rec is not None:     # keeps what a broken recording puts back
+            rec.before(tensor_inputs)
     outs = fn(*arrays, **attrs)
 
     single = not isinstance(outs, (tuple, list))
@@ -314,7 +343,6 @@ def call(op_name: str, fn: Callable, tensor_inputs: Sequence[Tensor],
 
     if _hot["check_nan_inf"] and not quiet:
         _check_nan_inf(op_name, out_list)
-    recorders = getattr(_tls, "recorders", None)
     if recorders and not quiet:
         bound = _replayable(fn, attrs, differentiable_mask)
         for hook in list(recorders):

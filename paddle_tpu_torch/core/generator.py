@@ -66,6 +66,22 @@ def default_generator(device: DeviceLike = None) -> torch.Generator:
     return g
 
 
+def snapshot() -> Dict[str, torch.Tensor]:
+    """The state of every Paddle-API generator made so far, by device."""
+    return {k: g.get_state() for k, g in _state["generators"].items()}
+
+
+def restore(states: Dict[str, torch.Tensor]) -> None:
+    """Put the generators back to a ``snapshot``; one made since is
+    dropped, so that its next use makes it afresh from the seed."""
+    gens = _state["generators"]
+    for k in list(gens):
+        if k in states:
+            gens[k].set_state(states[k])
+        else:
+            del gens[k]
+
+
 def get_rng_state(generators: Optional[Sequence[torch.Generator]] = None
                   ) -> List[torch.Tensor]:
     """A snapshot of each generator's state, in order; with no argument,

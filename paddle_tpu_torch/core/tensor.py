@@ -25,9 +25,12 @@ counterpart of JAX's ``TracerBoolConversionError`` family): a host read
 (``numpy``, ``item``, ``tolist``, ``bool``/``float``/``int``, ``cpu``)
 and a change of payload of a tensor the program did not make
 (``set_value``, ``copy_``, ``_swap_payload``, ``detach_``). The
-capture decides whether the break raises (``full_graph=True``) or
-marks the signature eager and lets the call go on. While ``jit.save``
-exports a program (``export_scope``), a host read raises.
+recording ends there: ``to_static`` raises (``full_graph=True``) or runs
+the signature under SOT. Under an SOT capture (``jit.sot``) a payload may
+be a ``LazyArray`` placeholder, which the Tensor registers with so that
+the segment's flush binds the value in place; a host read of a pending
+value flushes its segment and reads. While ``jit.save`` exports a
+program (``export_scope``), a host read raises.
 """
 from __future__ import annotations
 
@@ -50,6 +53,12 @@ class GraphBreak(RuntimeError):
 
 
 _capture = threading.local()
+#: ``jit.sot.LazyArray``, set when that module is imported: the payload
+#: type of a value an SOT segment has deferred
+_LAZY = None
+#: whether an SOT capture has run in this process (the dispatcher then
+#: makes a placeholder input concrete before it runs an op)
+_sot_seen = False
 
 
 def active_capture():
@@ -60,7 +69,9 @@ def active_capture():
 
 class capture_scope:
     """Make ``recorder`` this thread's capture for the block (it is told
-    of every graph break through ``recorder.graph_break(reason)``)."""
+    of every graph break through ``recorder.graph_break(reason)``, and of
+    each op's inputs before the op runs through
+    ``recorder.before(tensors)``)."""
 
     def __init__(self, recorder):
         self._recorder = recorder
@@ -95,13 +106,24 @@ class export_scope:
         return False
 
 
-def graph_break(what: str) -> None:
-    """Report ``what`` to the capture on this thread, if any: it raises
-    ``GraphBreak`` or ends the recording. Under ``export_scope`` it
-    raises."""
+def active_sot():
+    """The SOT capture on this thread (``jit.sot.capture``), or None."""
+    return getattr(_capture, "sot", None)
+
+
+def graph_break(what: str, payload=None) -> None:
+    """Report ``what`` to the capture on this thread, if any: a recording
+    raises ``GraphBreak`` or ends; an SOT capture flushes the segment that
+    holds ``payload`` (the value read on the host) if it is pending, or,
+    with no payload, its current segment, and the call goes on. Under
+    ``export_scope`` it raises."""
     if exporting():
         raise GraphBreak(f"{what} while jit.save exports a program: a "
                          f"saved program cannot read a value on the host")
+    sot = getattr(_capture, "sot", None)
+    if sot is not None:
+        sot.host_read(payload)
+        return
     rec = active_capture()
     if rec is not None:
         rec.graph_break(f"{what} while to_static records a program")
@@ -118,6 +140,8 @@ class Tensor:
                  stop_gradient: Optional[bool] = None,
                  name: Optional[str] = None, persistable: bool = False):
         self._data = data
+        if type(data) is _LAZY:         # bound in place at its flush
+            data._own(self)
         rec = getattr(_capture, "recorder", None)
         if rec is not None:             # a temporary of a recorded call
             rec.note_new(self)
@@ -175,7 +199,7 @@ class Tensor:
             if d.is_leaf:
                 d.requires_grad_(False)
             else:               # cut the graph here, as Paddle does
-                self._data = d.detach()
+                _set_payload(self, d.detach())
         elif not value and not d.requires_grad:
             d.requires_grad_(True)
 
@@ -239,7 +263,7 @@ class Tensor:
     # ------------------------------------------------------------- host reads
     def numpy(self) -> np.ndarray:
         """A host copy; bf16 comes back as float32 (numpy has no bf16)."""
-        graph_break("Tensor.numpy()")
+        graph_break("Tensor.numpy()", self._data)
         d = self._data.detach()
         if d.dtype == torch.bfloat16:
             d = d.float()
@@ -252,25 +276,25 @@ class Tensor:
         return arr.astype(dtype) if dtype is not None else arr
 
     def item(self, *args):
-        graph_break("Tensor.item()")
+        graph_break("Tensor.item()", self._data)
         if args:
             return self.numpy().item(*args)
         return self._data.item()
 
     def tolist(self):
-        graph_break("Tensor.tolist()")
+        graph_break("Tensor.tolist()", self._data)
         return self._data.tolist()
 
     def __float__(self):
-        graph_break("float(Tensor)")
+        graph_break("float(Tensor)", self._data)
         return float(self._data.item())
 
     def __int__(self):
-        graph_break("int(Tensor)")
+        graph_break("int(Tensor)", self._data)
         return int(self._data.item())
 
     def __bool__(self):
-        graph_break("bool(Tensor)")
+        graph_break("bool(Tensor)", self._data)
         return bool(self._data.item())
 
     def __len__(self):
@@ -298,6 +322,8 @@ class Tensor:
         if active_capture() is not None:
             graph_break("Tensor.set_value()")
         v = _payload(value)
+        if type(v) is _LAZY:
+            v = v.concrete()
         if not isinstance(v, torch.Tensor):
             v = torch.as_tensor(np.array(value))
         v = v.to(device=d.device, dtype=d.dtype)
@@ -317,16 +343,22 @@ class Tensor:
         rec = active_capture()
         if rec is not None:
             rec.note_swap(self, new_data)
-        self._data = new_data
+        _set_payload(self, new_data)
         return self
 
     # ------------------------------------------------------------ placement
     def cpu(self):
-        graph_break("Tensor.cpu()")
+        graph_break("Tensor.cpu()", self._data)
         return Tensor(self._data.cpu())
 
     def pin_memory(self):
         return self
+
+
+def _set_payload(t: Tensor, data) -> None:
+    t._data = data
+    if type(data) is _LAZY:
+        data._own(t)
 
 
 def _payload(x) -> torch.Tensor:

@@ -16,12 +16,19 @@ and its arguments' types:
   runs eagerly while the dispatcher's recorder takes its ops; the next
   calls replay that program through ``dispatch.call``, reading every
   parameter and buffer live. A graph break (a host read, a change of a
-  parameter's payload, ...) raises with ``full_graph=True``; with
-  ``full_graph=False`` it warns, sets ``graph_break_reason``, counts
-  ``paddle_tpu_graph_break_total`` and runs that signature eagerly from
-  then on (the JAX package's SOT segments are a later slice). A replay's
-  outputs carry torch autograd, so they are differentiable; the JAX
-  package's are ``stop_gradient`` (ROADMAP Queue 3).
+  parameter's payload, ...) raises with ``full_graph=True``. With
+  ``full_graph=False`` it ends the recording there, warns, sets
+  ``graph_break_reason``, counts ``paddle_tpu_graph_break_total``, puts
+  the generators and the tensors a lowering changed in place (batch
+  norm's running statistics) back where the call found them and runs
+  the call again under SOT partial-frame capture (``jit/sot``), as the
+  signature's calls run from then on: the ops between host reads run as
+  cached segments (fused with ``FLAGS_enable_fusion``), each read runs
+  eagerly, and a stable grad-free frame skips Python (``sot_stats``:
+  segments, plans made, whether the call bypassed;
+  ``paddle_tpu_sot_frame_total{mode}`` counts replays and bypasses). A
+  replay's outputs carry torch autograd, so they are differentiable; the
+  JAX package's are ``stop_gradient`` (ROADMAP Queue 3).
 
 A call whose arguments mix the two kinds of tensor raises.
 
@@ -68,13 +75,13 @@ from torch import nn
 from ..amp.state import amp_state
 from ..compile import fusion
 from ..compile.fusion.fx import trace_program
-from ..core import flags
-from ..core.tensor import Tensor, active_capture, as_tensor
+from ..core import flags, generator
+from ..core.tensor import Tensor, active_capture, active_sot, as_tensor
 from ..observability import goodput as _goodput
 from ..observability import metrics as _metrics
 from ..observability import sentinel as _sentinel
 from ..observability import trace as _trace
-from .program import flatten
+from .program import flatten, unflatten
 
 __all__ = ["StaticFunction", "to_static", "not_to_static", "ignore_module",
            "in_capture_mode", "save", "load", "TranslatedLayer",
@@ -96,8 +103,13 @@ _m_retrace_reason = _metrics.counter(
     "new_structure.", labelnames=("reason",))
 _m_graph_break = _metrics.counter(
     "paddle_tpu_graph_break_total",
-    "to_static recordings a graph break ended, labeled by its kind.",
+    "to_static recordings a graph break ended (the signature then runs "
+    "under SOT partial-frame capture), labeled by its kind.",
     labelnames=("reason",))
+_m_sot_frame = _metrics.counter(
+    "paddle_tpu_sot_frame_total",
+    "SOT frame executions: bypass = stitched segments (no Python), "
+    "replay = recording Python replay.", labelnames=("mode",))
 
 
 #: signatures a StaticFunction remembers as broken (the oldest goes first)
@@ -128,7 +140,8 @@ def _is_layer(obj) -> bool:
 
 
 def _kinds(args, kwargs) -> set:
-    """The kinds of tensor among the arguments: "paddle", "torch"."""
+    """The kinds of array among the arguments: "paddle", "torch",
+    "numpy"."""
     found, todo = set(), [args, kwargs]
     while todo:
         o = todo.pop()
@@ -136,6 +149,8 @@ def _kinds(args, kwargs) -> set:
             found.add("paddle")
         elif isinstance(o, torch.Tensor):
             found.add("torch")
+        elif isinstance(o, np.ndarray):
+            found.add("numpy")
         elif isinstance(o, (tuple, list)):
             todo.extend(o)
         elif isinstance(o, dict):
@@ -160,14 +175,22 @@ class StaticFunction:
         self.graph_module = None
         #: the fusion pass's stats of the last call's signature
         self.fusion_stats: Optional[dict] = None
-        #: op-stream signatures a graph break sent to eager, and why
+        #: op-stream signatures a graph break sent to SOT, and why
         self._graph_breaks: Dict[tuple, str] = {}
+        #: per broken signature: its segment plans, and its frame state
+        #: (the last journal, whether it is stable, the frame guard)
+        self._sot_caches: Dict[tuple, dict] = {}
+        self._sot_frames: Dict[tuple, dict] = {}
+        #: the last SOT call's {"segments", "compiled", "bypassed"} (and
+        #: "fusion_rewritten" where the pass rewrote); None while no
+        #: signature has broken
+        self.sot_stats: Optional[dict] = None
         self._seen: list = []
 
     # ------------------------------------------------------------ common
     @property
     def graph_break_reason(self) -> Optional[str]:
-        """Why the most recent breaking signature runs eagerly (None:
+        """Why the most recent breaking signature runs under SOT (None:
         none has broken)."""
         if not self._graph_breaks:
             return None
@@ -177,15 +200,18 @@ class StaticFunction:
         if isinstance(self._fn, nn.Module):
             return self._call_fx(args, kwargs)
         kinds = _kinds(args, kwargs)
-        if kinds == {"paddle", "torch"}:
+        if {"paddle", "torch"} <= kinds:
             raise TypeError(
                 "to_static: the arguments mix Paddle Tensors and "
                 "torch.Tensors; a call takes one kind (the op-stream "
                 "capture or the torch.fx one)")
         owner = getattr(self._fn, "__self__", None)
-        if kinds == {"torch"} and not _is_layer(owner):
+        if kinds - {"numpy"} == {"torch"} and not _is_layer(owner):
             return self._call_fx(args, kwargs)
-        return self._call_stream(args, kwargs)
+        # a raw array is made anew each call: an SOT journal cannot
+        # follow it, so such a frame is never bypassed (as in JAX)
+        return self._call_stream(args, kwargs,
+                                 trackable=not kinds & {"torch", "numpy"})
 
     def _compiled(self, kind_key, build):
         """Run ``build()`` (a new signature's first call) under the
@@ -244,8 +270,8 @@ class StaticFunction:
 
     # ---------------------------------------------------- op-stream path
     def _collect_params(self, args):
-        """The parameters and buffers of the Layer the function is bound
-        to and of Layer arguments (a function's closed-over Layers are
+        """The Layer the function is bound to and the Layer arguments, and
+        their parameters and buffers (a function's closed-over Layers are
         read live all the same, by the program)."""
         found = []
         owner = getattr(self._fn, "__self__", None)
@@ -276,9 +302,9 @@ class StaticFunction:
                 raise ValueError(f"input dtype {dtype_name(t.dtype)} does "
                                  f"not match input_spec {sdt}")
 
-    def _call_stream(self, args, kwargs):
-        if active_capture() is not None:
-            # inside an outer recording: its recorder takes these ops
+    def _call_stream(self, args, kwargs, trackable):
+        if active_capture() is not None or active_sot() is not None:
+            # inside an outer recording or SOT frame: it takes these ops
             return self._fn(*args, **kwargs)
         args = tuple(as_tensor(a) if isinstance(a, np.ndarray) else a
                      for a in args)
@@ -303,16 +329,23 @@ class StaticFunction:
                          p._data.device) for p in params))
         key = (statics, shapes)
         if key in self._graph_breaks:
-            return self._fn(*args, **kwargs)
+            return self._run_sot(key, args, kwargs, tensors, params,
+                                 trackable)
         entry = self._programs.get(key)
         if entry is not None:
             program, self.fusion_stats = entry
             return program(*tensors)
         return self._compiled(("stream", statics, shapes),
                               lambda: self._record(key, args, kwargs,
-                                                   tensors))
+                                                   tensors, params,
+                                                   trackable))
 
-    def _record(self, key, args, kwargs, tensors):
+    def _record(self, key, args, kwargs, tensors, params, trackable):
+        # a recording that breaks has run the call up to the break: the
+        # generators go back to where the call found them before it runs
+        # again under SOT (the recorder puts back the tensors a lowering
+        # changed in place, such as batch norm's running statistics)
+        rng = None if self._full_graph else generator.snapshot()
         out, program, stats, rec = fusion.rewrite_traced(
             lambda: self._fn(*args, **kwargs), tensors, self._full_graph)
         if program is None:
@@ -320,16 +353,97 @@ class StaticFunction:
             if _metrics.enabled():
                 _m_graph_break.inc(reason="GraphBreak")
             if len(self._graph_breaks) >= _GRAPH_BREAKS_MAX:
-                self._graph_breaks.pop(next(iter(self._graph_breaks)))
+                evicted = next(iter(self._graph_breaks))
+                self._graph_breaks.pop(evicted)
+                # the segment plans and journal go with the signature
+                self._sot_caches.pop(evicted, None)
+                self._sot_frames.pop(evicted, None)
             self._graph_breaks[key] = reason
             warnings.warn(
                 f"to_static graph break in "
-                f"{getattr(self, '__name__', '<fn>')!r} ({reason}): this "
-                f"signature runs eagerly", stacklevel=3)
+                f"{getattr(self, '__name__', '<fn>')!r}: switching to SOT "
+                f"partial-frame capture ({reason}); the op sequences "
+                f"between breaks still run as cached segments. Use "
+                f"in-graph control flow (paddle.where, static.nn.cond) to "
+                f"capture the whole function.", stacklevel=3)
             self.fusion_stats = None
-            return out
+            # the recording ended at the break: the call runs again from
+            # its start, drawing what eager would draw and updating each
+            # buffer once
+            generator.restore(rng)
+            return self._run_sot(key, args, kwargs, tensors, params,
+                                 trackable)
         self._programs[key] = (program, stats)
         self.fusion_stats = stats
+        return out
+
+    # ---------------------------------------------------------------- SOT
+    def _frame_guard(self):
+        """The frame-level guard: the closure and default values the
+        frame reaches, its owner's scalar attributes, and the grad mode
+        (the bypass runs the segments' lowerings under the grad mode
+        they were deferred under)."""
+        from . import sot
+        fn = self._fn
+        g = sot.fn_fingerprint(fn, depth=2)
+        owner = getattr(fn, "__self__", None)
+        if owner is not None:
+            g += "#" + sot._const_repr(owner, 1)
+        return g + "#" + str(torch.is_grad_enabled())
+
+    def _run_sot(self, key, args, kwargs, tensors, params, trackable):
+        """Partial-frame capture of a signature that broke (reference
+        jit/sot/translate.py): the ops before each host read run as one
+        cached segment, the read runs eagerly, capture resumes after it.
+        Once two consecutive replays journal the same segment graph,
+        later calls check one frame guard and run the stitched segments
+        directly; a guard miss falls back to a recording replay."""
+        from . import sot
+        cache = self._sot_caches.setdefault(key, {})
+        state = self._sot_frames.setdefault(
+            key, {"journal": None, "stable": False, "guard": None})
+        input_arrays = [t._data for t in tensors]
+        guard = self._frame_guard()
+
+        journal = state["journal"]
+        if (state["stable"] and journal is not None and journal.eligible
+                and state["guard"] == guard):
+            ok, packed, _why = sot.replay_frame(journal, cache,
+                                                input_arrays, params)
+            if ok:
+                structure, leaves = packed
+                out = unflatten(structure, [
+                    Tensor(arr, stop_gradient=stop)
+                    for arr, stop in leaves])
+                self.sot_stats = {"segments": len(journal.segments),
+                                  "compiled": 0, "bypassed": True}
+                if _metrics.enabled():
+                    _m_sot_frame.inc(mode="bypass")
+                return out
+            # a guard missed: back to a recording replay
+            state["stable"] = False
+            state["journal"] = None
+
+        new_journal = sot.FrameJournal()
+        if not trackable:
+            new_journal.mark_ineligible("raw array input")
+        cap = sot.capture(cache, journal=new_journal,
+                          input_arrays=input_arrays, params=params)
+        with cap:
+            out = self._fn(*args, **kwargs)
+        structure, leaves = flatten(out)
+        cap.finalize_journal(leaves, structure)
+        prev = state["journal"]
+        state["stable"] = bool(
+            new_journal.eligible and prev is not None and prev.eligible
+            and state["guard"] == guard
+            and prev.structure_key() == new_journal.structure_key()
+            and new_journal.segments)
+        state["journal"] = new_journal if new_journal.eligible else None
+        state["guard"] = guard
+        self.sot_stats = dict(cap.stats, bypassed=False)
+        if _metrics.enabled():
+            _m_sot_frame.inc(mode="replay")
         return out
 
     @property

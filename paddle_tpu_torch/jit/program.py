@@ -26,11 +26,12 @@ What a step reads is one of four kinds:
   is read live.
 
 A value that would not replay is refused as a graph break
-(``core.tensor.GraphBreak``): host reads, a payload change of a tensor
-that existed before the call (an argument, a parameter, a buffer),
-random creation ops, autograd and optimizer calls, and a tensor outside
-the dispatcher's record that shares storage with a recorded value (a
-view or ``detach`` made on the payload directly). A block under
+(``core.tensor.GraphBreak``, which ends the call; ``to_static`` then
+raises, or runs the signature under SOT): host reads, a payload change
+of a tensor that existed before the call (an argument, a parameter, a
+buffer), random creation ops, autograd and optimizer calls, and a tensor
+outside the dispatcher's record that shares storage with a recorded
+value (a view or ``detach`` made on the payload directly). A block under
 ``models._remat.remat_block`` is a region: a program of its own, run
 under ``fleet.recompute``, which the fusion pass rewrites apart (no
 fused chain crosses its edge).
@@ -48,6 +49,7 @@ import torch
 from ..amp.state import amp_state, amp_state_as
 from ..core import dispatch
 from ..core.tensor import GraphBreak, Tensor, capture_scope
+from ..nn.parameter import Parameter
 
 __all__ = ["Recorder", "Program", "Region", "flatten", "unflatten", "record"]
 
@@ -109,7 +111,12 @@ class _Step:
 
 def _run_step(st, ins: list) -> list:
     """Replay one step (a recorded op, a fused op or a region) on Tensor
-    inputs under its amp state; returns its output Tensors."""
+    inputs under its amp state, and under its grad mode where it has one
+    (an SOT segment's steps); returns its output Tensors."""
+    grad = getattr(st, "grad", None)
+    if grad is not None and grad != torch.is_grad_enabled():
+        with torch.set_grad_enabled(grad):
+            return _run_step(st, ins)
     if st.amp != amp_state():
         with amp_state_as(st.amp):
             return _run_step(st, ins)
@@ -154,10 +161,14 @@ class Program:
                     and v not in self.inputs:
                 self._free[i].append(v)
 
-    def __call__(self, *args: Tensor):
+    def __call__(self, *args: Tensor, steps: Optional[list] = None):
+        """Replay on ``args``; ``steps``, where given, run in place of the
+        recorded steps, one for one, with the same value ids (an SOT
+        segment's plan runs each call's own lowerings)."""
         env: Dict[int, Tensor] = {v: args[k] for v, k in self.inputs.items()}
         ext = self.externals
-        for st, free in zip(self.steps, self._free):
+        for st, free in zip(self.steps if steps is None else steps,
+                            self._free):
             ins = [env[v] if v in env else ext[v] for v in st.in_ids]
             env.update(zip(st.out_ids, _run_step(st, ins)))
             for v in free:
@@ -203,6 +214,10 @@ class Recorder:
             self._keep: list = []           # every payload seen: ids stay
             self._storages: set = set()     # storages of recorded values
             self._made: set = set()         # wrappers the call made
+            #: a recording that is not strict: id -> (payload, copy) of
+            #: each tensor from before the call that an op read,
+            #: parameters and arguments aside
+            self._before: dict = {}
         for k, t in enumerate(args):
             self.inputs.setdefault(self._note(t._data), k)
 
@@ -213,6 +228,34 @@ class Recorder:
     def release(self) -> None:
         """Drop what only the recording needed (every payload it saw)."""
         self._keep, self._storages, self._made = [], set(), set()
+        self._before = {}
+
+    def before(self, tensor_inputs: Sequence[Tensor]) -> None:
+        """Before an op runs in a recording that is not strict: keep a
+        copy of each tensor from before the call that it reads (a buffer,
+        a tensor the function closes over; not a parameter or an
+        argument), the first time an op reads it, so that a break can put
+        back what a lowering changed in place (``restore``)."""
+        root = self.root
+        if root.strict or root.broken is not None:
+            return
+        kept = root._before
+        for t in tensor_inputs:
+            d = t._data
+            if id(d) in kept or id(t) in root._made \
+                    or id(d) in root.inputs or isinstance(t, Parameter):
+                continue
+            kept[id(d)] = (d, d.detach().clone())
+
+    def restore(self) -> None:
+        """After a break: put back each tensor ``before`` kept as the call
+        found it, whatever an op changed in place (a kernel that updates
+        batch norm's running statistics leaves their version counter as
+        it was, so every copy goes back)."""
+        with torch.no_grad():
+            for d, copy in self._before.values():
+                d.copy_(copy)
+        self._before = {}
 
     # ------------------------------------------------------------ values
     def _note(self, payload: torch.Tensor) -> int:
@@ -262,11 +305,13 @@ class Recorder:
             str(len(self.steps))))
 
     def graph_break(self, reason: str) -> None:
+        """End the recording: raise ``GraphBreak``; a recording that is
+        not strict notes ``reason`` in ``broken`` first, and ``record``
+        takes the raise as its end."""
         root = self.root
-        if root.strict:
-            raise GraphBreak(reason)
-        if root.broken is None:
+        if not root.strict and root.broken is None:
             root.broken = reason
+        raise GraphBreak(reason)
 
     def note_swap(self, t: Tensor, payload: torch.Tensor) -> None:
         """A payload change (in-place ops, ``setitem``): allowed on a
@@ -324,17 +369,24 @@ def record(fn, args: tuple, kwargs: dict, tensors: Sequence[Tensor],
            strict: bool):
     """Run ``fn(*args, **kwargs)`` once, eagerly, recording its ops; the
     Tensor arguments ``tensors`` bind the program's inputs. Returns
-    (output, program); the program is None where a graph break ended the
-    recording (the output is eager's all the same), and the recorder's
-    ``broken`` says why."""
+    (output, program, recorder). A graph break raises ``GraphBreak``
+    where ``strict``; otherwise it ends the call there: output and
+    program are None, the recorder's ``broken`` says why, and the
+    tensors from before the call that an op changed in place are put
+    back (``Recorder.restore``)."""
     rec = Recorder(tensors, strict)
     dispatch.register_recorder_hook(rec.hook)
     try:
         with capture_scope(rec):
             out = fn(*args, **kwargs)
+    except GraphBreak:
+        if rec.broken is None:
+            raise
+        out = None
     finally:
         dispatch.unregister_recorder_hook(rec.hook)
     if rec.broken is not None:
+        rec.restore()
         rec.release()
         return out, None, rec
     structure, leaves = flatten(out)

@@ -7,17 +7,18 @@ Each construct runs in one of two modes, decided per call:
   already broken). The predicate is read on the host and only the taken
   branch runs, so torch autograd runs through the taken branch and, in
   ``while_loop``, through the unrolled iterations.
-* **captured**: a ``to_static`` recording is active, or the call sits
-  inside another construct's branch trace. The branch callables are
-  first traced abstractly: a ``BranchTrace`` takes every op the
-  dispatcher would run (``dispatch.enter_branch_trace``), runs its torch
-  body on meta tensors (shapes and dtypes, no data and no kernel) and
+* **captured**: a ``to_static`` recording or an SOT capture is active,
+  or the call sits inside another construct's branch trace. The branch
+  callables are first traced abstractly: a ``BranchTrace`` takes every
+  op the dispatcher would run (``dispatch.enter_branch_trace``), runs its
+  torch body on meta tensors (shapes and dtypes, no data and no kernel) and
   notes the tensors the branch reads that it did not make. The whole
   construct then goes through ``dispatch.call`` as one op whose operands
   are the predicate (or the carry) and every tensor a branch reads, so
-  the recorder (``jit/program.py``) takes one step and none of the
-  branches' ops, and gradients reach the parameters a branch closes
-  over.
+  the recorder (``jit/program.py``) takes one step, or an SOT segment
+  one deferred op (its shapes from the lowering on meta tensors, where
+  the predicate is not read), and none of the branches' ops, and
+  gradients reach the parameters a branch closes over.
 
 The op's body (its "lowering") reads the predicate, or the loop's trip
 condition, from the payload it is given and runs the chosen callable
@@ -49,7 +50,8 @@ from typing import Callable, List, Sequence
 import torch
 
 from ..core import dispatch
-from ..core.tensor import Tensor, active_capture, as_tensor, capture_scope
+from ..core.tensor import (Tensor, active_capture, active_sot, as_tensor,
+                           capture_scope)
 from .registry import register
 
 __all__ = ["cond", "while_loop", "case", "switch_case"]
@@ -111,6 +113,8 @@ def _fmt(structure) -> str:
 def _meta(d: torch.Tensor) -> torch.Tensor:
     if d.is_meta:
         return d
+    # an SOT placeholder (``jit.sot.LazyArray``) answers shape, strides
+    # and dtype without its value
     return torch.empty_strided(tuple(d.shape), d.stride(), dtype=d.dtype,
                                device="meta")
 
@@ -250,8 +254,9 @@ def _fresh(outs: Sequence[torch.Tensor], ins: Sequence) -> tuple:
 
 def _captured() -> bool:
     """Whether the construct is recorded as one op: a ``to_static``
-    recording is active (and not broken), or a branch is being traced."""
-    if dispatch.in_branch_trace():
+    recording is active (and not broken), an SOT capture is (the op joins
+    its segment), or a branch is being traced."""
+    if dispatch.in_branch_trace() or active_sot() is not None:
         return True
     rec = active_capture()
     return rec is not None and rec.root.broken is None

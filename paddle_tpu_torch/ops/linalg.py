@@ -314,9 +314,13 @@ def pinv(x, rcond=1e-15, hermitian=False, name=None):
 
 
 def matrix_rank(x, tol=None, hermitian=False, name=None):
-    """The number of singular values above ``tol`` times the largest."""
+    """The number of singular values above ``tol`` (an absolute bound, as
+    in Paddle); with no ``tol``, above the default relative bound."""
+    if tol is None:
+        return dispatch.call("matrix_rank", lambda a: torch.linalg.matrix_rank(
+            a, hermitian=hermitian), [_t(x)])
     return dispatch.call("matrix_rank", lambda a: torch.linalg.matrix_rank(
-        a, rtol=tol, hermitian=hermitian), [_t(x)])
+        a, atol=tol, rtol=0.0, hermitian=hermitian), [_t(x)])
 
 
 def cov(x, rowvar=True, ddof=True, fweights=None, aweights=None, name=None):

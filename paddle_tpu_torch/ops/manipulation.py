@@ -479,7 +479,10 @@ def _strided(shape, axes, starts, ends, strides):
         sl[ax] = builtins.slice(int(st), int(en), int(sd))
     if builtins.all((s.step or 1) > 0 for s in sl):
         return tuple(sl), None
-    idx = [torch.arange(*s.indices(n)) for s, n in zip(sl, shape)]
+    # an empty region gets an empty index: a torch arange over an empty
+    # negative-step range raises instead
+    idx = [torch.arange(*s.indices(n)) if len(range(*s.indices(n)))
+           else torch.empty(0, dtype=torch.long) for s, n in zip(sl, shape)]
     return None, idx
 
 

@@ -161,6 +161,9 @@ class Program:
     def note_new(self, t: Tensor) -> None:
         pass
 
+    def before(self, tensor_inputs) -> None:
+        """An op is about to run: the block keeps what it changes."""
+
     def note_swap(self, t: Tensor, payload: torch.Tensor) -> None:
         """A captured Tensor that takes over a recorded op's output (an
         in-place op): the steps that read it before read the payload it

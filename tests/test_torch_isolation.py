@@ -73,9 +73,9 @@ def test_imports_without_jax_or_paddle_tpu():
     # the distributed slice's groups, collectives, mesh, parallel,
     # launcher and fleet modules, and the vision slice's zoo, transforms,
     # datasets, image backend and ops, the regularizers and the extra
-    # optimizers
+    # optimizers, and the SOT capture (jit.sot)
     lines = proc.stdout.split()
-    assert int(lines[-1]) >= 156
+    assert int(lines[-1]) >= 157
     for name in ("paddle_tpu_torch.quantization", "paddle_tpu_torch.onnx",
                  "paddle_tpu_torch.onnx.proto",
                  "paddle_tpu_torch.onnx.runtime",
@@ -134,7 +134,8 @@ def test_imports_without_jax_or_paddle_tpu():
                  "paddle_tpu_torch.static.nn.control_flow",
                  "paddle_tpu_torch.static.program",
                  "paddle_tpu_torch.static.tail",
-                 "paddle_tpu_torch.static.nn.common"):
+                 "paddle_tpu_torch.static.nn.common",
+                 "paddle_tpu_torch.jit.sot"):
         assert name in lines, name
 
 

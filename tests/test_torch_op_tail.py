@@ -216,3 +216,37 @@ def test_top_level_names_of_this_slice():
     assert tp.linalg.svd is tp.ops.linalg.svd
     assert tp.broadcast_shape([2, 1], [1, 3]) == jp.broadcast_shape(
         [2, 1], [1, 3])
+
+
+RANK_CASES = [
+    (np.diag([3.0, 1.0, 0.2]).astype(np.float32), 0.5, 2),
+    (np.stack([np.diag([3.0, 1.0, 0.2]),
+               np.diag([0.4, 0.3, 0.2])]).astype(np.float32), 0.35, [2, 1]),
+]
+
+
+@pytest.mark.parametrize("x,tol,want", RANK_CASES, ids=["one", "batch"])
+def test_matrix_rank_tol_is_absolute(x, tol, want):
+    got = [pkg.linalg.matrix_rank(pkg.to_tensor(x), tol=tol).numpy()
+           for pkg in (jp, tp)]
+    np.testing.assert_array_equal(got[0], want)
+    np.testing.assert_array_equal(got[1], got[0])
+
+
+STRIDED_EMPTY = [([0], [0], [3], [-1]), ([0, 1], [3, 5], [1, 0], [1, -2])]
+
+
+@pytest.mark.parametrize("region", STRIDED_EMPTY, ids=["rows", "both"])
+def test_negative_stride_empty_region(region):
+    x = np.arange(24, dtype=np.float32).reshape(4, 6)
+    outs = []
+    for pkg in (jp, tp):
+        t = pkg.to_tensor(x)
+        got = pkg.strided_slice(t, *region)
+        value = pkg.to_tensor(np.ones(got.shape, np.float32))
+        outs.append((got.numpy(), pkg.slice_scatter(t, value,
+                                                    *region).numpy()))
+    assert outs[1][0].shape == outs[0][0].shape
+    assert outs[0][0].shape[0] == 0
+    np.testing.assert_array_equal(outs[1][1], outs[0][1])
+    np.testing.assert_array_equal(outs[1][1], x)
