@@ -131,6 +131,36 @@ Phases, in order; any failure exits non-zero and nothing is caught:
              vocab 30592, 12 layers, B=48, S=512, the fused loss, bf16
              weights, fp32 masters, AdamW, O1), 10 timed steps after 2 of
              warm-up, one JSON line like the rungs'.
+* perf    -- performance attribution (observability.perf, profiler,
+             tools.perf_report) on bench.py's BERT-base rung (paddle_api's
+             settings: B48 S512, O1, bf16 weights, fp32 masters, AdamW,
+             eager): the step with every new flag off (the cost of turning
+             them on, beside paddle_api's step and the step with
+             FLAGS_perf_op_cost on; not gated); a per-op pass
+             (FLAGS_enable_metrics, FLAGS_perf_op_cost, FLAGS_benchmark;
+             PERF_STEPS steps) whose perf_report rows (top 10 logged) give
+             the attention op as many calls as K1 launched, no row above
+             PERF_ROOF % of its roofline, and modeled forward FLOPs within
+             PERF_FLOPS_TOL of FlopCounterMode over one forward; the step
+             attribution (compute + collective + host + idle within
+             PERF_SUM_TOL of each step); the memory census at a step's high
+             water (params, grads and optimizer_state equal to the bytes of
+             the parameters, their gradients and the moments and masters,
+             exactly; the claimed bytes at most memory_allocated, the high
+             water at most max_memory_allocated); paddle.profiler with the
+             CPU and GPU targets over 5 steps (closed 1, ready 1, record 3)
+             and RecordEvent forward/backward/optimizer: the attention op
+             and K1 36 times over the window, the device trace (torch.
+             profiler) naming K1's, K2's and K3's kernels 36 times each, the
+             host file 3 forward ranges; a to_static bf16 forward under
+             FLAGS_perf_capture (one record, FLOPs within PERF_FLOPS_TOL of
+             FlopCounterMode over the eager forward, peak_bytes > 0). Every
+             kernel row (kernel, fused_kernel, paddle_api, paddle_static,
+             distributed) also holds the cost model's roofline bound of its
+             shapes (model_bound_ms) within MODEL_BOUND_TOL of its own; the
+             serve_llama phase holds the census's kv_cache to its plain bf16
+             engine's pages (0 once dropped); the sot phase keeps its
+             segment plans' analyses (FLAGS_perf_capture, "sot").
 * paddle_static -- ``to_static`` over Paddle-API Layers (the dispatcher's
              recorder; a signature's first call records, the next replay):
              the tiny fp32 BERT fused, a recording step and three replayed
@@ -298,8 +328,17 @@ Phases, in order; any failure exits non-zero and nothing is caught:
              1 and the strategies that need more cards are named. Every
              step of the ranks launches K1 once a layer forward and K2
              and K3 once a layer backward; their launches are the
-             phase's. Gloo never runs here; a failed rank fails the
-             phase.
+             phase's. Every rank records its collectives
+             (PADDLE_TPU_FLIGHT_RECORD) and dumps them at the end; rank
+             0's diff_ranks over the world must say in sync, each group's
+             last sequence number equal. With two cards or more, the
+             desync drill: a short launch of the tiny GPT at dp N whose
+             last rank skips one all_reduce (collective.desync), a
+             Watchdog(timeout=DRILL_TIMEOUT, abort_on_hang=True) on every
+             rank; the waiting ranks' verdicts name the last rank and the
+             skipped sequence number, and the launch ends with
+             EXIT_DESYNC (119); with one card it logs that it did not
+             run. Gloo never runs here; a failed rank fails the phase.
 * seq2seq -- Transformer-base (Vaswani et al. 2017, "base") on the port's
              nn.Transformer at its published widths (d 512, 8 heads, 6 + 6
              layers, FF 2048, a shared 37,000-token embedding, sinusoidal
@@ -316,8 +355,8 @@ Phases, in order; any failure exits non-zero and nothing is caught:
              decode, timed.
 
 The forward, serve, serve_llama, serve_tier, train, fusion, rungs,
-paddle_api, paddle_static, sot, checkpoint, vision, vision_zoo, deploy,
-distributed and seq2seq phases are the main path (serve_tier and vision
+paddle_api, perf, paddle_static, sot, checkpoint, vision, vision_zoo,
+deploy, distributed and seq2seq phases are the main path (serve_tier and vision
 launch no kernel: the tier is host code over the engine, and its LLaMA
 runs without flash attention, as bench.py's rungs do; ResNet's
 convolutions and pools are cuDNN's and torch's, as the JAX package's are
@@ -353,13 +392,15 @@ import zlib
 import numpy as np
 import torch
 
+from paddle_tpu_torch.observability import perf as _perf
+
 PHASES = ("build", "kernel", "fused_kernel", "forward", "serve",
           "serve_llama", "serve_tier", "train", "fusion", "rungs",
-          "paddle_api", "paddle_static", "sot", "checkpoint", "vision",
-          "vision_zoo", "deploy", "static_program", "distributed", "seq2seq",
-          "control_flow", "ops")
+          "paddle_api", "perf", "paddle_static", "sot", "checkpoint",
+          "vision", "vision_zoo", "deploy", "static_program", "distributed",
+          "seq2seq", "control_flow", "ops")
 MAIN_PATH = ("forward", "serve", "serve_llama", "serve_tier", "train",
-             "fusion", "rungs", "paddle_api", "paddle_static", "sot",
+             "fusion", "rungs", "paddle_api", "perf", "paddle_static", "sot",
              "checkpoint",
              "vision", "vision_zoo", "deploy", "static_program",
              "distributed", "seq2seq", "control_flow", "ops")
@@ -416,10 +457,15 @@ FUSED_LOSS_TOL = 2e-2
 LLAMA_770M = dict(vocab_size=32000, hidden_size=1536, intermediate_size=4096,
                   num_layers=24, num_heads=12, max_seq_len=2048)   # bench.py:356
 LLAMA_SHAPE = dict(b=4, s=2048)
-# published dense peaks of one H100 SXM (NVIDIA data sheet)
-HBM_BYTES_PER_S = 3.35e12
-BF16_FLOP_PER_S = 989e12
+# published dense peaks of one H100 SXM, from observability.perf's
+# datasheet tables (the port's roofline reads the same numbers)
+_H100_SXM = "NVIDIA H100 80GB HBM3"
+HBM_BYTES_PER_S = _perf.PEAK_HBM_BW[_H100_SXM]
+BF16_FLOP_PER_S = _perf.PEAK_FLOPS[_H100_SXM]
 FP32_FLOP_PER_S = 67e12     # CUDA cores, for the elementwise kernels
+# a kernel row's modeled bound (the cost model's roofline on the row's
+# shapes) against its own bound: a gap above this is a wrong formula
+MODEL_BOUND_TOL = 0.05
 
 
 def log(msg: str) -> None:
@@ -624,6 +670,20 @@ def _bound(moved, flops, peak=BF16_FLOP_PER_S):
             "bytes" if bytes_ms >= flops_ms else "operations")
 
 
+def _model_bound(op, shapes, dtypes, attrs, outs, bound_ms):
+    """The cost model's bound of one kernel row (``perf.costmodel``'s
+    roofline of ``cost_of(op, shapes)`` at the datasheet peaks), held
+    within MODEL_BOUND_TOL of the row's own ``bound_ms``."""
+    cost = _perf.cost_of(op, shapes, dtypes, attrs, outs)
+    ms = _perf.costmodel.roofline_bound(
+        cost, BF16_FLOP_PER_S, HBM_BYTES_PER_S)["seconds"] * 1e3
+    if not abs(ms / bound_ms - 1.0) <= MODEL_BOUND_TOL:
+        raise AssertionError(
+            f"the cost model's bound of {op} at {shapes} {attrs} is "
+            f"{ms:.6f} ms, the row's {bound_ms:.6f} ms: a formula is wrong")
+    return ms
+
+
 def _mode(causal):
     return "causal" if causal else "non-causal"
 
@@ -673,17 +733,22 @@ def _time_fwd(fa, gen, shape, causal=True):
     moved = 2 * b * (s_q + s) * h * d * q.element_size() + b * h * s_q * 4
     flops = 4.0 * b * h * d * _visible_pairs(s_q, s, causal)
     bound_ms, bound_by = _bound(moved, flops)
+    model_ms = _model_bound(
+        "flash_attention", [(b, s_q, h, d), (b, s, h, d), (b, s, h, d)],
+        [torch.bfloat16] * 3, {"causal": causal}, [(b, s_q, h, d)],
+        bound_ms)
     label = (f"B{b} S{s} H{h} d{d} bf16 {_mode(causal)}" if s_q == s else
              f"B{b} Sq{s_q} Sk{s} H{h} d{d} bf16 {_mode(causal)}")
     log(json.dumps({"kernel": "flash_attention_fwd", "shape": label,
                     "kernel_ms": ms, "kernel_ms_q1": q1, "kernel_ms_q3": q3,
                     "host_ms_a_call": host,
                     "bound_ms": bound_ms, "bound_by": bound_by,
+                    "model_bound_ms": model_ms,
                     "library_ms": library_ms, "plain_ms": plain_ms,
                     "bytes": moved, "flops": flops}))
     return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                bound_by=bound_by, library_ms=library_ms, shape=label,
-                host_ms=host)
+                bound_by=bound_by, model_bound_ms=model_ms,
+                library_ms=library_ms, shape=label, host_ms=host)
 
 
 def _bwd_errors(got, ref):
@@ -837,16 +902,21 @@ def _time_bwd(fa, gen, shape, causal=True):
     for name, (moved, flops) in plans.items():
         (ms, q1, q3), host = times[name]
         bound_ms, bound_by = _bound(moved, flops)
+        model_ms = _model_bound(
+            name, [(b, s, h, d)] * 4 + [(b, h, s)] * 2,
+            [torch.bfloat16] * 4 + [torch.float32] * 2, {"causal": causal},
+            (), bound_ms)
         log(json.dumps({"kernel": name, "shape": label,
                         "kernel_ms": ms, "kernel_ms_q1": q1,
                         "kernel_ms_q3": q3, "host_ms_a_call": host,
                         "bound_ms": bound_ms, "bound_by": bound_by,
+                        "model_bound_ms": model_ms,
                         "library_ms_dq_dk_dv": library_ms,
                         "plain_ms_dq_dk_dv": plain_ms, "bytes": moved,
                         "flops": flops}))
         fields[name] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                            bound_by=bound_by, library_ms=library_ms,
-                            shape=label)
+                            bound_by=bound_by, model_bound_ms=model_ms,
+                            library_ms=library_ms, shape=label)
     k2_k3 = times["flash_attention_bwd_dq"][0][0] + \
         times["flash_attention_bwd_dkv"][0][0]
     log(json.dumps({"kernels": "flash_attention_bwd_dq + _dkv",
@@ -1049,23 +1119,34 @@ def _rope_deterministic(fk, gen):
 
 
 def _time_fused(name, label, run, plain, library, library_call, moved, flops,
-                peak=BF16_FLOP_PER_S):
+                peak=BF16_FLOP_PER_S, model=None):
     """One K4-K7 timing at its path shape: the kernel (ten launches back to
     back a CUDA-event pair, queued), its plain version and a PyTorch
-    yardstick."""
+    yardstick; ``model``: the registry op and its (shapes, dtypes, attrs,
+    output shapes) in the Paddle layouts, for the row's modeled bound."""
     ms, q1, q3 = time_ms(run, reps=KERNEL_REPS, queued=True)
     host = host_ms(run)
     plain_ms, _, _ = time_ms(plain, iters=5, queued=True)
     library_ms, _, _ = time_ms(library, reps=KERNEL_REPS, queued=True)
     bound_ms, bound_by = _bound(moved, flops, peak)
+    model_ms = _model_bound(*model, bound_ms)
     log(json.dumps({"kernel": name, "shape": label, "kernel_ms": ms,
                     "kernel_ms_q1": q1, "kernel_ms_q3": q3,
                     "host_ms_a_call": host,
                     "bound_ms": bound_ms, "bound_by": bound_by,
+                    "model_bound_ms": model_ms,
                     "library_ms": library_ms, "library_call": library_call,
                     "plain_ms": plain_ms, "bytes": moved, "flops": flops}))
     return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                bound_by=bound_by, library_ms=library_ms, shape=label)
+                bound_by=bound_by, model_bound_ms=model_ms,
+                library_ms=library_ms, shape=label)
+
+
+def _fused_model(op, shapes, outs, dtype=torch.bfloat16):
+    """A K4-K7 row's cost-model op (``_time_fused``'s ``model``): the
+    registry op, its input shapes in the Paddle layouts (weights (in,
+    out)), one dtype and its output shapes."""
+    return op, shapes, [dtype] * len(shapes), {}, outs
 
 
 def phase_fused_kernel(state):
@@ -1100,7 +1181,9 @@ def phase_fused_kernel(state):
                                              1e-6),
         lambda: TF.rms_norm(x + res, (h,), w, 1e-6),
         "x + res, then F.rms_norm (two calls)",
-        4 * rows * h * 2 + h * 2, 8.0 * rows * h, FP32_FLOP_PER_S)}
+        4 * rows * h * 2 + h * 2, 8.0 * rows * h, FP32_FLOP_PER_S,
+        _fused_model("fused_residual_norm", [(rows, h)] * 2 + [(h,)],
+                     [(rows, h)] * 2))}
     xg, resg, wg, bg = r(rows, d_gpt), r(rows, d_gpt), 1 + r(d_gpt), r(d_gpt)
     _time_fused("fused_residual_norm", f"{rows}x{d_gpt} bf16 layer_norm",
                 lambda: fk.fused_residual_norm(xg, resg, wg, bg),
@@ -1108,7 +1191,10 @@ def phase_fused_kernel(state):
                 lambda: TF.layer_norm(xg + resg, (d_gpt,), wg, bg, 1e-5),
                 "x + res, then F.layer_norm (two calls)",
                 4 * rows * d_gpt * 2 + 2 * d_gpt * 2, 9.0 * rows * d_gpt,
-                FP32_FLOP_PER_S)
+                FP32_FLOP_PER_S,
+                _fused_model("fused_residual_norm",
+                             [(rows, d_gpt)] * 2 + [(d_gpt,)] * 2,
+                             [(rows, d_gpt)] * 2))
     # K5: the bias_act program's gelu(x W + b) epilogue, 8192 x 4096
     xb, bb = r(rows, ffn), r(ffn, scale=0.5)
     timed["fused_bias_act"] = _time_fused(
@@ -1116,7 +1202,9 @@ def phase_fused_kernel(state):
         lambda: fk.fused_bias_act(xb, bb, "gelu"),
         lambda: fk.fused_bias_act_plain(xb, bb, "gelu"),
         lambda: TF.gelu(xb + bb), "F.gelu(x + b) (two calls)",
-        2 * rows * ffn * 2 + ffn * 2, 20.0 * rows * ffn, FP32_FLOP_PER_S)
+        2 * rows * ffn * 2 + ffn * 2, 20.0 * rows * ffn, FP32_FLOP_PER_S,
+        _fused_model("fused_bias_act", [(rows, ffn), (ffn,)],
+                     [(rows, ffn)]))
     # K6: GPT-2 345M fc1 with its gelu_tanh epilogue, and block 0's
     # LayerNorm -> qkv projection
     xm, wm, bm = r(rows, d_gpt), r(ffn, d_gpt, scale=d_gpt ** -0.5), r(ffn)
@@ -1127,7 +1215,9 @@ def phase_fused_kernel(state):
         lambda: TF.gelu(torch.addmm(bm, xm, wm.t()), approximate="tanh"),
         "torch.addmm, then F.gelu (two calls)",
         (rows * d_gpt + ffn * d_gpt + rows * ffn + ffn) * 2,
-        2.0 * rows * ffn * d_gpt)
+        2.0 * rows * ffn * d_gpt, model=_fused_model(
+            "fused_norm_linear", [(rows, d_gpt), (d_gpt, ffn), (ffn,)],
+            [(rows, ffn)]))
     wq, bq = r(3 * d_gpt, d_gpt, scale=d_gpt ** -0.5), r(3 * d_gpt)
     _time_fused("fused_matmul", f"{rows}x{d_gpt}->{3 * d_gpt} bf16 "
                 "layer_norm prologue, bias",
@@ -1139,7 +1229,10 @@ def phase_fused_kernel(state):
                 "F.layer_norm, then torch.addmm (two calls)",
                 (rows * d_gpt + 3 * d_gpt * d_gpt + rows * 3 * d_gpt
                  + 3 * d_gpt + 2 * d_gpt) * 2,
-                2.0 * rows * 3 * d_gpt * d_gpt)
+                2.0 * rows * 3 * d_gpt * d_gpt, model=_fused_model(
+                    "fused_norm_linear",
+                    [(rows, d_gpt), (d_gpt, 3 * d_gpt), (3 * d_gpt,),
+                     (d_gpt,), (d_gpt,)], [(rows, 3 * d_gpt)]))
     # K7: LLaMA-770M's q (and k) projection with its rope, 8192 x 1536
     xr, wr = r(rows, h), r(h, h, scale=h ** -0.5)
     seq, hd = LLAMA_SHAPE["s"], h // LLAMA_770M["num_heads"]
@@ -1150,7 +1243,9 @@ def phase_fused_kernel(state):
         lambda: rope_rotate(torch.matmul(xr, wr.t()).view(
             LLAMA_SHAPE["b"], seq, h // hd, hd), 10000.0, 0),
         "torch.matmul, then the plain rope",
-        (rows * h + h * h + rows * h) * 2, 2.0 * rows * h * h)
+        (rows * h + h * h + rows * h) * 2, 2.0 * rows * h * h,
+        model=_fused_model("fused_rope_proj", [(rows, h), (h, h)],
+                           [(rows, h)]))
     # the product alone, a floor for K7 (not a yardstick: no rotation)
     matmul_ms, _, _ = time_ms(lambda: torch.matmul(xr, wr.t()),
                               reps=KERNEL_REPS, queued=True)
@@ -1418,6 +1513,37 @@ def _top2_gap(model, ids):
     return float(top[0] - top[1])
 
 
+def _kv_census(eng):
+    """The memory census's kv_cache while ``eng`` lives: the bytes of its
+    kc/vc pages, exactly. Returns a weak reference to the engine, for
+    ``_kv_dropped``."""
+    import gc
+    import weakref
+    gc.collect()            # the phase's earlier engines, in cycles
+    pages = sum(t.numel() * t.element_size() for t in eng.kc + eng.vc)
+    got = _perf.census(include_unclaimed=False)["kv_cache"]
+    log(json.dumps({"serve_llama": "memory census, kv_cache",
+                    "census_gb": got / 1e9, "pages_gb": pages / 1e9}))
+    if got != pages:
+        raise AssertionError(f"serve_llama: census kv_cache {got} against "
+                             f"the engine's pages {pages}")
+    return weakref.ref(eng)
+
+
+def _kv_dropped(ref):
+    """Once the engine is dropped and collected, the census's kv_cache is
+    0."""
+    import gc
+    gc.collect()
+    left = _perf.census(include_unclaimed=False)["kv_cache"]
+    log(json.dumps({"serve_llama": "memory census, kv_cache after the "
+                    "engine is dropped", "collected": ref() is None,
+                    "census_gb": left / 1e9}))
+    if not (ref() is None and left == 0):
+        raise AssertionError(f"serve_llama: kv_cache {left} after the "
+                             f"engine (collected: {ref() is None})")
+
+
 def phase_serve_llama(state):
     import paddle_tpu_torch.ops.cuda.flash_attention as fa
     from paddle_tpu_torch.models import LlamaConfig, LlamaForCausalLM
@@ -1521,7 +1647,7 @@ def phase_serve_llama(state):
     def sample(ps, n, seed, **kw):
         eng = _llama_engine(model, ps, n, seed=seed, **kw)
         return _run_engine(eng, ps, n, [SAMPLED] * len(ps))[0], eng
-    a, _ = sample(p8, 16, 123)
+    a = sample(p8, 16, 123)[0]
     if a != sample(p8, 16, 123)[0]:
         raise AssertionError("two sampled runs under seed 123 differ")
     if a == sample(p8, 16, 124)[0]:
@@ -1529,7 +1655,7 @@ def phase_serve_llama(state):
     # three requests whose prefixes fill the pool exactly: each must take
     # a new block within 40 tokens, so every slot stalls and one is evicted
     trio = [p for p in p8 if len(p) % 32][:3]
-    roomy, _ = sample(trio, 40, 123)
+    roomy = sample(trio, 40, 123)[0]
     usable = sum(-(-len(p) // 32) for p in trio)
     tight, tight_eng = sample(trio, 40, 123, max_batch=3,
                               num_blocks=usable + 1)
@@ -1585,7 +1711,10 @@ def phase_serve_llama(state):
             row.update(spec_proposed=eng.spec_proposed - prop0,
                        spec_accepted=eng.spec_accepted - acc0)
         log(json.dumps(row))
+        kv = _kv_census(eng) if name == "plain" else None
         del eng
+        if kv is not None:
+            _kv_dropped(kv)
     del bf16
     torch.cuda.empty_cache()
     lap()
@@ -2970,8 +3099,337 @@ def phase_paddle_api(state):
         for name, n in counts.items():
             _wrapper(name).launches = n
         torch.cuda.empty_cache()
-        _bert_base_rung(paddle, card, state.get("profile"))
+        row = _bert_base_rung(paddle, card, state.get("profile"))
+        state["paddle_api_step_ms"] = row["step_ms"]
     torch.cuda.empty_cache()
+
+
+# ------------------------------------------------------------------- perf
+PERF_STEPS = 3              # steps of the per-op and the attribution pass
+PERF_TIMED = 6              # steps a leg of the cost of turning it on
+PERF_PROFILE = dict(closed=1, ready=1, record=3)     # 5 profiled steps
+PERF_ROOF = 105.0           # % of the roofline no op's row may pass
+PERF_FLOPS_TOL = 0.05       # modeled forward FLOPs against FlopCounterMode
+PERF_SUM_TOL = 0.01         # the attribution's four parts against the step
+#: the device kernel each of K1-K3's bf16 launches names in the trace
+PERF_DEVICE_KERNELS = {"flash_attention_fwd": "flash_fwd_wgmma",
+                       "flash_attention_bwd_dq": "dq_wgmma",
+                       "flash_attention_bwd_dkv": "dkv_wgmma"}
+
+
+def _perf_step_ms(step, batches):
+    """Median wall ms of ``step(ids)`` over ``batches``, each between two
+    synchronizes."""
+    walls = []
+    for ids in batches:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step(ids)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    return statistics.median(walls) * 1e3
+
+
+def _perf_op_pass(paddle, model, step, batches, layers):
+    """1. The per-op pass: FLAGS_enable_metrics, FLAGS_perf_op_cost and
+    FLAGS_benchmark on, PERF_STEPS steps; the report's rows through
+    perf_report.build_report; the attention row's calls against K1's
+    counter, the modeled forward FLOPs of a step against FlopCounterMode
+    over one forward, no row above PERF_ROOF % of its roofline. Returns
+    (report, the modeled and counted FLOPs)."""
+    from paddle_tpu_torch import amp
+    from paddle_tpu_torch.observability import REGISTRY
+    from paddle_tpu_torch.tools import perf_report
+    modeled_ops = _perf.attach_cost_models()
+    paddle.set_flags({"FLAGS_enable_metrics": True,
+                      "FLAGS_perf_op_cost": True, "FLAGS_benchmark": True})
+    try:
+        REGISTRY.reset()
+        c0 = _counts()
+        for ids in batches[:PERF_STEPS]:
+            step(ids)
+        k1 = _launched(c0, _counts()).get("flash_attention_fwd", 0)
+        op_time, op_cost, _ = perf_report._series_tables(
+            REGISTRY.snapshot())
+    finally:
+        paddle.set_flags({"FLAGS_enable_metrics": False,
+                          "FLAGS_perf_op_cost": False,
+                          "FLAGS_benchmark": False})
+    report = perf_report.build_report(
+        op_time, op_cost, cost_window_steps=PERF_STEPS,
+        device_info={"device_kind": torch.cuda.get_device_name(),
+                     "platform": "gpu"})
+    for row in report["ops"][:10]:
+        log(json.dumps({"perf": "op row (top 10 by host time, a synchronize"
+                        " after each op)", **row}))
+    attn = [r for r in report["ops"]
+            if r["op"] == "scaled_dot_product_attention"]
+    if not attn or attn[0]["calls"] != k1 or k1 != layers * PERF_STEPS:
+        raise AssertionError(f"perf: the attention row {attn} against K1's "
+                             f"{k1} launches")
+    worst = max(report["ops"], key=lambda r: r["pct_of_roofline"])
+    modeled = sum(float(c["flops"]) for c in op_cost.values()) / PERF_STEPS
+    ids = batches[0]
+    with amp.auto_cast(**O1):
+        loss, counted = _perf.counted_cost(
+            lambda: model(ids, masked_lm_labels=ids)[2])
+    del loss
+    counted = counted["flops"]
+    err = abs(modeled - counted) / counted
+    log(json.dumps({"perf": "per-op pass", "steps": PERF_STEPS,
+                    "ops": len(report["ops"]),
+                    "ops_with_a_cost_model": modeled_ops,
+                    "attention_calls": attn[0]["calls"], "k1_launches": k1,
+                    "modeled_forward_flops": modeled,
+                    "flop_counter_forward_flops": counted,
+                    "relative_error": err, "limit": PERF_FLOPS_TOL,
+                    "worst_roofline_row": {k: worst[k] for k in (
+                        "op", "calls", "pct_of_roofline", "bound",
+                        "arithmetic_intensity")},
+                    "roofline_limit_pct": PERF_ROOF,
+                    "device": report["device"]}))
+    if not err <= PERF_FLOPS_TOL:
+        raise AssertionError(f"perf: modeled forward FLOPs {modeled:.4e} "
+                             f"against FlopCounterMode's {counted:.4e}")
+    if worst["pct_of_roofline"] > PERF_ROOF:
+        raise AssertionError(f"perf: {worst['op']} at "
+                             f"{worst['pct_of_roofline']}% of its roofline:"
+                             f" its cost model is wrong")
+    return report, modeled, counted
+
+
+def _perf_attribution(step, ids):
+    """2. The step split into compute / collective / host / idle by
+    perf.step_attribution (every new flag off): the parts sum to each
+    step within PERF_SUM_TOL."""
+    att = _perf.step_attribution(lambda: step(ids), iters=PERF_STEPS,
+                                 warmup=0, name="bert_step")
+    for st in att["steps"] + [att["total"]]:
+        parts = (st["compute_s"] + st["collective_s"] + st["host_s"]
+                 + st["idle_s"])
+        if not abs(parts - st["step_s"]) <= PERF_SUM_TOL * st["step_s"]:
+            raise AssertionError(f"perf: attribution parts {parts} against "
+                                 f"the step {st['step_s']}")
+    tot = att["total"]
+    n = tot["n_steps"]
+    log(json.dumps({"perf": "step attribution", "steps": n,
+                    **{f"{k}_ms": tot[f"{k}_s"] / n * 1e3 for k in (
+                        "step", "compute", "collective", "host", "idle")},
+                    **{f"{k}_frac": tot[f"{k}_frac"] for k in (
+                        "compute", "collective", "host", "idle")}}))
+    return att
+
+
+def _perf_census(paddle, model, opt, ids, baseline):
+    """3. The memory census at a step's high water (after the optimizer's
+    step, the gradients still held): params, grads and optimizer_state
+    equal to the bytes of the model's parameters, their gradients and
+    the optimizer's moments and fp32 masters, exactly (over
+    ``baseline``, the census before the model was built); the claimed
+    total at most torch.cuda.memory_allocated(), the high water at most
+    torch.cuda.max_memory_allocated()."""
+    from paddle_tpu_torch import amp
+    memory = _perf.memory
+    memory.reset_high_water()
+    with amp.auto_cast(**O1):
+        loss = model(ids, masked_lm_labels=ids)[2]
+    loss.backward()
+    opt.step()
+    torch.cuda.synchronize()
+    got = memory.update_high_water("bert_step")
+    params = [p._data for p in model.parameters()]
+
+    def nbytes(ts):
+        return sum(t.numel() * t.element_size() for t in ts)
+    want = {"params": nbytes(params),
+            "grads": nbytes(p.grad for p in params if p.grad is not None),
+            "optimizer_state": nbytes(
+                [t for st in opt._accumulators.values()
+                 for t in st.values()] + list(opt._master_weights.values()))}
+    allocated = torch.cuda.memory_allocated()
+    peak = torch.cuda.max_memory_allocated()
+    hw = memory.high_water("bert_step")
+    opt.clear_grad()
+    del loss
+    claimed = sum(got[k] for k in ("params", "grads", "optimizer_state",
+                                   "kv_cache"))
+    log(json.dumps({"perf": "memory census at the step's high water",
+                    **{f"{k}_gb": got[k] / 1e9 for k in memory.TAGS},
+                    "claimed_gb": claimed / 1e9,
+                    "baseline_gb": {k: baseline[k] / 1e9 for k in want},
+                    "want_gb": {k: v / 1e9 for k, v in want.items()},
+                    "memory_allocated_gb": allocated / 1e9,
+                    "high_water_gb": hw["total"] / 1e9,
+                    "max_memory_allocated_gb": peak / 1e9}))
+    for k, v in want.items():
+        if got[k] - baseline[k] != v:
+            raise AssertionError(f"perf: census {k} {got[k]} (baseline "
+                                 f"{baseline[k]}) against {v}")
+    if not (claimed <= allocated and hw["total"] <= peak):
+        raise AssertionError(f"perf: claimed {claimed} against allocated "
+                             f"{allocated}, high water {hw['total']} "
+                             f"against the peak {peak}")
+
+
+def _perf_profiler(paddle, model, opt, batches, layers):
+    """4. paddle.profiler with the CPU and GPU targets, closed 1, ready 1,
+    record 3 over 5 steps, RecordEvent forward/backward/optimizer in each:
+    op_stats' attention calls and K1's counter over the window are
+    layers x 3, the device trace names K1's, K2's and K3's kernels as
+    often, the host file holds 3 forward ranges."""
+    from paddle_tpu_torch import amp, profiler
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_perf_")
+    record = PERF_PROFILE["record"]
+    window = PERF_PROFILE["closed"] + PERF_PROFILE["ready"]
+    try:
+        p = profiler.Profiler(
+            targets=[profiler.ProfilerTarget.CPU,
+                     profiler.ProfilerTarget.GPU],
+            scheduler=profiler.make_scheduler(**PERF_PROFILE),
+            on_trace_ready=profiler.export_chrome_tracing(tmp))
+        with p:
+            for i in range(window + record):
+                if i == window:
+                    c0 = _counts()
+                ids = batches[i % len(batches)]
+                with profiler.RecordEvent("forward"):
+                    with amp.auto_cast(**O1):
+                        loss = model(ids, masked_lm_labels=ids)[2]
+                with profiler.RecordEvent("backward"):
+                    loss.backward()
+                with profiler.RecordEvent("optimizer"):
+                    opt.step()
+                    opt.clear_grad()
+                p.step(num_samples=ids.shape[0])
+            launched = _launched(c0, _counts())
+        with open(p.device_trace_path) as f:
+            device = json.load(f)["traceEvents"]
+        with open(p.trace_path) as f:
+            host = json.load(f)["traceEvents"]
+        kernels = [e["name"] for e in device if e.get("cat") == "kernel"]
+        named = {k: sum(sub in name for name in kernels)
+                 for k, sub in PERF_DEVICE_KERNELS.items()}
+        forwards = sum(e.get("name") == "forward" and e.get("cat") == "user"
+                       for e in host)
+        calls = p.op_stats().get("scaled_dot_product_attention",
+                                 {}).get("calls")
+        log(json.dumps({"perf": "profiler", "step_info": p.step_info(),
+                        "attention_calls": calls,
+                        "launches_over_the_window": launched,
+                        "device_trace_kernels": len(kernels),
+                        "device_trace_k1_k3": named,
+                        "host_forward_ranges": forwards,
+                        "host_events": len(host),
+                        "device_trace_mb": os.path.getsize(
+                            p.device_trace_path) / 1e6}))
+        want = layers * record
+        if not (calls == want and all(launched.get(k) == want
+                                      for k in PERF_DEVICE_KERNELS)
+                and all(n == want for n in named.values())
+                and forwards == record):
+            raise AssertionError(f"perf: profiler window: attention calls "
+                                 f"{calls}, launches {launched}, device "
+                                 f"trace {named}, forwards {forwards}; "
+                                 f"wants {want} and {record}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def _perf_capture(paddle, model, ids):
+    """6. A bf16 B48 S512 BERT-base to_static forward under
+    FLAGS_perf_capture: one "to_static" record whose FLOPs are within
+    PERF_FLOPS_TOL of FlopCounterMode over the eager forward, with
+    peak_bytes > 0."""
+    _perf.device.clear_compiled()
+
+    def bert_forward(x):
+        return model(x)
+    static = paddle.jit.to_static(bert_forward, full_graph=True)
+    paddle.set_flags({"FLAGS_perf_capture": True})
+    try:
+        with paddle.no_grad():
+            static(ids)
+    finally:
+        paddle.set_flags({"FLAGS_perf_capture": False})
+    progs = _perf.compiled_programs("to_static")
+    with paddle.no_grad():
+        out, counted = _perf.counted_cost(lambda: model(ids))
+    del out
+    err = (abs(progs[0]["flops"] - counted["flops"]) / counted["flops"]
+           if len(progs) == 1 else None)
+    log(json.dumps({"perf": "to_static capture (bf16 B48 S512 forward)",
+                    "records": len(progs),
+                    "record": progs[0] if progs else None,
+                    "eager_flop_counter_flops": counted["flops"],
+                    "relative_error": err, "limit": PERF_FLOPS_TOL}))
+    if not (len(progs) == 1 and err <= PERF_FLOPS_TOL
+            and progs[0]["peak_bytes"] > 0):
+        raise AssertionError(f"perf: to_static capture {progs}")
+
+
+def phase_perf(state):
+    """Performance attribution on bench.py's BERT-base rung (paddle_api's
+    settings, eager, AdamW, O1): the per-op roofline pass, the step
+    attribution, the memory census, the profiler, the to_static capture
+    and the cost of the new flags (module docstring)."""
+    import gc
+
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.models import BertConfig, BertForPretraining
+    card = _card_line()
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    with paddle.device_guard("gpu:0"):
+        baseline = _perf.memory.census(include_unclaimed=False)
+        cfg = BertConfig(**BERT_BASE)
+        b, s, layers = BERT_SHAPE["b"], BERT_SHAPE["s"], \
+            cfg.num_hidden_layers
+        paddle.seed(12)
+        model = BertForPretraining(cfg)
+        model.to(dtype="bfloat16")
+        opt = paddle.optimizer.AdamW(learning_rate=LR, multi_precision=True,
+                                     parameters=model.parameters(), **ADAMW)
+        batches = [paddle.to_tensor(np.random.RandomState(i).randint(
+            0, cfg.vocab_size, (b, s)).astype(np.int64))
+            for i in range(PERF_TIMED)]
+        want = _bert_launches(layers)
+
+        def step(ids):
+            return _bert_step(paddle, model, opt, ids, amp_kw=O1, want=want)
+        for ids in batches[:2]:                  # warm-up
+            step(ids)
+        # 7. the cost of turning it on: every new flag off, then the op
+        # costs accumulated (metrics on: the counters need them)
+        off_ms = _perf_step_ms(step, batches)
+        report, modeled, counted = _perf_op_pass(paddle, model, step,
+                                                 batches, layers)
+        paddle.set_flags({"FLAGS_enable_metrics": True,
+                          "FLAGS_perf_op_cost": True})
+        try:
+            cost_ms = _perf_step_ms(step, batches)
+        finally:
+            paddle.set_flags({"FLAGS_enable_metrics": False,
+                              "FLAGS_perf_op_cost": False})
+        att = _perf_attribution(step, batches[0])
+        _perf_census(paddle, model, opt, batches[1], baseline)
+        _perf_profiler(paddle, model, opt, batches, layers)
+        _perf_capture(paddle, model, batches[0])
+        log(json.dumps({"perf": "cost of turning it on (not gated)",
+                        "card": card,
+                        "step_ms_flags_off": off_ms,
+                        "step_ms_metrics_and_op_cost": cost_ms,
+                        "paddle_api_rung_step_ms":
+                            state.get("paddle_api_step_ms"),
+                        "attributed_step_ms": att["total"]["step_s"]
+                        / att["total"]["n_steps"] * 1e3,
+                        "modeled_mfu_flags_off": 3 * modeled
+                        / (off_ms / 1e3) / BF16_FLOP_PER_S,
+                        "steps_a_leg": len(batches)}))
+        del model, opt, batches, report
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"perf: phase took {time.perf_counter() - t_phase:.1f} s")
 
 
 # ---------------------------------------------------------- paddle_static
@@ -3184,7 +3642,9 @@ def _bert_fused_kernels(state):
         lambda: fk.fused_residual_norm_plain(x, res, w, bias),
         lambda: TF.layer_norm(x + res, (d,), w, bias, 1e-5),
         "x + res, then F.layer_norm (two calls)",
-        4 * rows * d * 4 + 2 * d * 4, 9.0 * rows * d, FP32_FLOP_PER_S),
+        4 * rows * d * 4 + 2 * d * 4, 9.0 * rows * d, FP32_FLOP_PER_S,
+        _fused_model("fused_residual_norm", [(rows, d)] * 2 + [(d,)] * 2,
+                     [(rows, d)] * 2, f32)),
         max_abs_err=err)]}
     del x, res
     xm = r(rows, d)
@@ -3202,7 +3662,9 @@ def _bert_fused_kernels(state):
                             approximate="tanh" if act == "gelu_tanh"
                             else "none"),
             "torch.addmm, then F.gelu (two calls)",
-            (rows * d + n * d + rows * n + n) * 2, 2.0 * rows * n * d),
+            (rows * d + n * d + rows * n + n) * 2, 2.0 * rows * n * d,
+            model=_fused_model("fused_norm_linear",
+                               [(rows, d), (d, n), (n,)], [(rows, n)])),
             max_abs_err=err))
         paddle_w = wm.t().contiguous()          # a Paddle (in, out) weight
         copy_ms, _, _ = time_ms(lambda: paddle_w.t().contiguous(),
@@ -3349,9 +3811,23 @@ def _sot_train(paddle, card, mode):
 
     paddle.set_flags({"FLAGS_enable_fusion": mode == "sot_fused"})
     try:
-        warm_losses = [float(step(ids, _sot_launches(
-            layers, mode, first=k == 0)).item())
-            for k, ids in enumerate(warm)]
+        # the unfused leg's warm-up makes its segment plans under
+        # FLAGS_perf_capture: each plan's analysis is kept under "sot"
+        _perf.device.clear_compiled()
+        paddle.set_flags({"FLAGS_perf_capture": mode == "sot"})
+        try:
+            warm_losses = [float(step(ids, _sot_launches(
+                layers, mode, first=k == 0)).item())
+                for k, ids in enumerate(warm)]
+        finally:
+            paddle.set_flags({"FLAGS_perf_capture": False})
+        if mode == "sot":
+            plans = _perf.compiled_programs("sot")
+            log(json.dumps({"sot": "segment plans captured (FLAGS_perf_"
+                            "capture)", "records": plans}))
+            if len(plans) != 2 or not all(
+                    p["flops"] > 0 and p["peak_bytes"] > 0 for p in plans):
+                raise AssertionError(f"sot: captured plans {plans}")
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         want = _sot_launches(layers, mode)
@@ -6856,6 +7332,8 @@ DIST_WARMUP = 2
 BUS_BW_BYTES = 256 * 2 ** 20
 BUS_BW_ITERS = 20
 DIST_TIMEOUT = 840
+DRILL_TIMEOUT = 10          # the drill's watchdog, seconds without progress
+DRILL_LAUNCH_TIMEOUT = 120  # the drill's launch
 _FLASH = ("flash_attention_fwd", "flash_attention_bwd_dq",
           "flash_attention_bwd_dkv")
 
@@ -7227,10 +7705,42 @@ def _dist_rank(outdir, profile=False):
             card, profile)
     out["rungs"] = rungs
     out["launches"] = _counts()
+    dist.barrier()
+    out["flight"] = _dist_flight(dist, rank, n)
     with open(os.path.join(outdir, f"rank{rank}.json"), "w") as f:
         json.dump(out, f)
     dist.barrier()
     dist.destroy_process_group()
+
+
+def _dist_flight(dist, rank, n):
+    """Every rank dumps its collective flight record (the launch sets
+    PADDLE_TPU_FLIGHT_RECORD) after the phase's last collective; rank 0
+    diffs the world's dumps: in sync, with every group's last sequence
+    number equal over the ranks that issued in it. The dumps go to
+    ``<record>.end``, where no exit dump writes over them."""
+    from paddle_tpu_torch.observability import flight
+    base = os.environ[flight.RECORD_ENV] + ".end"
+    flight.dump(path=flight.record_path(base, rank), reason="phase end")
+    dist.barrier()
+    if rank != 0:
+        return None
+    dumps = flight.load_dumps(base, world=n)
+    verdict = flight.diff_ranks(dumps, world=n)
+    last = {}
+    for r, per in verdict["per_rank"].items():
+        for g, seq in per.items():
+            if seq >= 0:
+                last.setdefault(g, set()).add(seq)
+    row = {"status": verdict["status"], "detail": verdict["detail"],
+           "dumps": len(dumps),
+           "records_a_rank": {r: len(d["entries"])
+                              for r, d in dumps.items()},
+           "groups_last_seq": {g: sorted(v) for g, v in last.items()}}
+    if verdict["status"] != "ok" or len(dumps) != n or any(
+            len(v) != 1 for v in last.values()):
+        raise AssertionError(f"distributed: the flight diff {row}")
+    return row
 
 
 def _free_port():
@@ -7271,7 +7781,9 @@ def phase_distributed(state):
                                          state.get("profile") else [])
         proc = subprocess.run(cmd, cwd=os.path.dirname(
             os.path.abspath(__file__)), capture_output=True, text=True,
-            timeout=DIST_TIMEOUT)
+            timeout=DIST_TIMEOUT, env=dict(
+                os.environ, PADDLE_TPU_FLIGHT_RECORD=os.path.join(
+                    outdir, "flight.json")))
         if state.get("profile"):
             with open(os.path.join(logdir, "workerlog.0")) as f:
                 log("--- rank 0's log (its profiles)\n" + "\n".join(
@@ -7315,6 +7827,10 @@ def phase_distributed(state):
         log(json.dumps({"distributed": "kernel at the TP shape", **row}))
     log(json.dumps({"distributed": "parity", "card": card, "world": n,
                     **r0["parity"], "seconds": r0["parity_s"]}))
+    log(json.dumps({"distributed": "collective flight records over the "
+                    "world (rank 0's diff_ranks)", "world": n,
+                    "in_sync": r0["flight"]["status"] == "ok",
+                    **r0["flight"]}))
     one = r0["rungs"].get("one_card")
     for key in ("dp", "dp_mp"):
         if key not in r0["rungs"]:
@@ -7341,7 +7857,110 @@ def phase_distributed(state):
         raise AssertionError(f"distributed: the ranks never launched "
                              f"{missing}")
     state["child_launches"] = totals
+    _dist_desync_drill(n, card)
     log(f"distributed: {time.perf_counter() - t_phase:.1f} s")
+
+
+def _dist_desync_drill(n, card):
+    """With two cards or more: one short launch of the parity run's tiny
+    GPT at dp N (``--dist-drill``), the last rank skipping one
+    ``all_reduce`` (``collective.desync``), a ``Watchdog(timeout=
+    DRILL_TIMEOUT, abort_on_hang=True)`` on every rank. The waiting
+    ranks' verdicts name the last rank and the collective's sequence
+    number; the launch ends with the watchdog's exit code
+    (EXIT_DESYNC). With one card it logs that it did not run."""
+    from paddle_tpu_torch.fault import supervisor
+    from paddle_tpu_torch.observability import flight
+    if n < 2:
+        log(json.dumps({"distributed": "desync drill", "ran": False,
+                        "why": f"a desync needs two ranks or more; this "
+                               f"machine has {n} card"}))
+        return
+    t0 = time.perf_counter()
+    outdir = tempfile.mkdtemp(prefix="chip_smoke_drill_")
+    logdir = os.path.join(outdir, "log")
+    try:
+        cmd = [sys.executable, "-m", "paddle_tpu_torch.distributed.launch",
+               "--nproc_per_node", str(n), "--master",
+               f"127.0.0.1:{_free_port()}", "--log_dir", logdir,
+               "--abort_grace", "30", os.path.abspath(__file__),
+               "--dist-drill", outdir]
+        proc = subprocess.run(cmd, cwd=os.path.dirname(
+            os.path.abspath(__file__)), capture_output=True, text=True,
+            timeout=DRILL_LAUNCH_TIMEOUT, env=dict(
+                os.environ, PADDLE_TPU_FLIGHT_RECORD=os.path.join(
+                    outdir, "flight.json")))
+        logs = {}
+        for r in range(n):
+            with open(os.path.join(logdir, f"workerlog.{r}")) as f:
+                logs[r] = f.read()
+        verdicts = {r: re.findall(r"cross-rank flight diff \((\d+)/\d+ "
+                                  r"rank dumps\): status=(\w+)"
+                                  r"(?: rank=(\d+))?(?: seq=(\d+))?", text)
+                    for r, text in logs.items()}
+        dumps = flight.load_dumps(os.path.join(outdir, "flight.json"),
+                                  world=n)
+        skipped = [e for e in dumps.get(n - 1, {}).get("entries", ())
+                   if e.get("bypassed")]
+        row = {"distributed": "desync drill", "ran": True, "card": card,
+               "world": n, "exit_code": proc.returncode,
+               "exit": supervisor.describe_exit(proc.returncode),
+               "verdicts": {r: v[-1] if v else None
+                            for r, v in verdicts.items()},
+               "skipped": [(e["op"], e["seq"]) for e in skipped],
+               "seconds": time.perf_counter() - t0}
+        log(json.dumps(row))
+        want = ("desync", str(n - 1), str(skipped[0]["seq"])) \
+            if len(skipped) == 1 else None
+        waiting = [verdicts[r][-1][1:] if verdicts[r] else None
+                   for r in range(n - 1)]
+        if not (proc.returncode == supervisor.EXIT_DESYNC and want
+                and all(v == want for v in waiting)):
+            for r, text in logs.items():
+                log(f"--- drill rank {r} (last 3000 characters)\n"
+                    + text[-3000:])
+            raise AssertionError(f"distributed: the desync drill {row}")
+    finally:
+        shutil.rmtree(outdir, ignore_errors=True)
+
+
+def _dist_drill(outdir):
+    """A rank of the desync drill (``_dist_desync_drill``): two dp steps of
+    the tiny GPT, then the loss averaged over the world, which the last
+    rank skips; the waiting ranks block reading it, the last rank waits
+    without issuing another collective, and every rank's watchdog ends
+    its process."""
+    import paddle_tpu_torch.distributed as dist
+    from paddle_tpu_torch.distributed import fleet
+    from paddle_tpu_torch.distributed.watchdog import Watchdog
+    from paddle_tpu_torch.fault import inject
+    from paddle_tpu_torch.models import GPTConfig, GPTForCausalLM
+    from paddle_tpu_torch.optimizer import AdamW
+    dist.init_parallel_env()
+    rank, n = dist.get_rank(), dist.get_world_size()
+    wd = Watchdog(timeout=DRILL_TIMEOUT, poll_interval=1.0,
+                  abort_on_hang=True).start()
+    _dist_fleet(fleet, {"dp_degree": n})
+    model = fleet.distributed_model(GPTForCausalLM(
+        GPTConfig(**DIST_TINY), device="cuda", seed=9))
+    opt = fleet.distributed_optimizer(AdamW(
+        learning_rate=DIST_PARITY_LR, parameters=model.named_parameters()))
+    per = DIST_TINY_BATCH // n
+    ids = torch.from_numpy(np.random.RandomState(0).randint(
+        0, DIST_TINY["vocab_size"], (DIST_TINY_BATCH,
+                                     DIST_TINY["max_seq_len"]))).cuda()
+    ids = ids[rank * per:(rank + 1) * per]
+    want = _flash_launches(DIST_TINY["num_layers"])
+    for _ in range(2):
+        loss = _train_step(model, opt, ids, *want)
+    if rank == n - 1:
+        inject.arm("collective.desync", op="all_reduce")
+    with wd:                       # work in flight from here on
+        mean = loss.detach().reshape(1).clone()
+        dist.all_reduce(mean)      # the last rank skips it
+        mean.item()                # the others block here
+        time.sleep(DRILL_LAUNCH_TIMEOUT)     # the last rank waits here
+    raise AssertionError(f"rank {rank}: the watchdog did not end the drill")
 
 
 def main(argv=None) -> int:
@@ -7359,9 +7978,14 @@ def main(argv=None) -> int:
                         "Transformer-base step and decode")
     parser.add_argument("--dist-rank", metavar="OUTDIR",
                         help=argparse.SUPPRESS)     # a rank of distributed
+    parser.add_argument("--dist-drill", metavar="OUTDIR",
+                        help=argparse.SUPPRESS)     # a rank of the drill
     args = parser.parse_args(argv)
     if args.dist_rank:
         _dist_rank(args.dist_rank, args.profile)
+        return 0
+    if args.dist_drill:
+        _dist_drill(args.dist_drill)
         return 0
     phases = [p for p in args.phases.split(",") if p]
     unknown = set(phases) - set(PHASES)
@@ -7408,6 +8032,7 @@ def main(argv=None) -> int:
             "launches": launches[name], "max_abs_err": k["max_abs_err"],
             "ms": k["ms"], "plain_ms": k["plain_ms"],
             "bound_ms": k["bound_ms"], "bound_by": k["bound_by"],
+            "model_bound_ms": k["model_bound_ms"],
             "library_ms": k["library_ms"], "shape": k["shape"],
             "timing": f"median of CUDA-event pairs, each around "
                       f"{KERNEL_REPS} back-to-back launches queued behind "

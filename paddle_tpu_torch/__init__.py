@@ -60,12 +60,20 @@ The rest of the Paddle-API op library: the in-graph control flow
 op under ``to_static``), the in-place family (``x.abs_()``, ...), the
 op-surface tail, ``linalg``, complex tensors, ``fft``, ``signal`` and
 ``geometric``.
+
+Performance attribution and profiling: ``paddle.profiler`` (the host
+timeline and, on the card, torch.profiler's device trace),
+``observability.perf`` (the per-op cost model, device timing, the
+compute / collective / host / idle split of a step, the attributed
+memory census), the collective flight recorder and its cross-rank diff
+(``observability.flight``, read by ``distributed.watchdog``), and
+``tools.perf_report``.
 """
 from . import (amp, autograd, compile, core, distributed, fault, fft,
                framework, geometric, hapi, incubate, inference, io, jit,
                metric, models, nn, observability, onnx, ops, optimizer,
-               quantization, regularizer, serving, signal, static, tools,
-               vision)
+               profiler, quantization, regularizer, serving, signal, static,
+               tools, vision)
 from .ops import linalg
 from .autograd import PyLayer, backward, grad, is_grad_enabled
 from .core import get_flag, resolve_device, set_flags

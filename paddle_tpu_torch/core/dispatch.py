@@ -5,9 +5,14 @@ payloads, casts them for amp (``amp_cast`` with the JAX package's op
 lists), detaches the inputs ``differentiable_mask`` marks as not
 differentiable, runs the op's plain torch body, wraps the result, and
 then runs the side channels: the ``FLAGS_check_nan_inf`` scan (naming
-the op), the ``FLAGS_enable_metrics`` latency histogram
-(``paddle_tpu_dispatch_op_latency_seconds``, the JAX package's name),
-the trace span and the ``register_op_hook`` taps.
+the op), the ``FLAGS_benchmark`` synchronize (each op's CUDA outputs are
+computed before its latency is read), the ``FLAGS_enable_metrics`` latency
+histogram (``paddle_tpu_dispatch_op_latency_seconds``, the JAX package's
+name) and, with ``FLAGS_perf_op_cost``, the cost model's FLOPs and bytes
+of the op (``paddle_tpu_perf_op_flops_total``, ``_bytes_total``), the
+trace span and the ``register_op_hook`` taps, which get the op's
+latency. With these flags off, no tap registered and no trace active, a
+call reads one dict entry for them.
 
 The gradient is torch autograd's: the body's torch ops record their own
 graph while grad is enabled, and a cast is itself an autograd op, so
@@ -21,9 +26,7 @@ The JAX dispatcher's other parts have no counterpart here:
 * the eager compiled-lowering cache and the lazy VJP
   (``_jit_cached_call``, ``_closure_cache_key``, ``_lazy_vjp``): they
   exist because JAX eager dispatch is slow; torch runs an op directly
-  and records its backward as it goes;
-* the op-cost accumulator (``FLAGS_perf_op_cost``): it waits for
-  ``observability/perf``.
+  and records its backward as it goes.
 
 The recorder taps (``register_recorder_hook``, per thread) are
 ``jit.to_static``'s: a hook gets ``(op_name, fn, tensor_inputs,
@@ -75,10 +78,24 @@ flags.define_flag("check_nan_inf", False,
 flags.define_flag("check_nan_inf_level", 0,
                   "0: error on NaN/Inf; >0: log only.")
 
-# hot-path mirror of the flags dispatch reads per op
-_hot = {"check_nan_inf": flags.get_flag("check_nan_inf")}
-flags.on_change("check_nan_inf",
-                lambda v: _hot.__setitem__("check_nan_inf", v))
+# hot-path mirror of the flags dispatch reads per op; "after" is true
+# when any of the after-the-op checks is on, so that with them all off a
+# call reads one entry
+_hot = {"check_nan_inf": flags.get_flag("check_nan_inf"),
+        "benchmark": flags.get_flag("benchmark"),
+        "perf_op_cost": flags.get_flag("perf_op_cost")}
+_hot["after"] = _hot["check_nan_inf"] or _hot["benchmark"]
+
+
+def _set_hot(name):
+    def on(v):
+        _hot[name] = v
+        _hot["after"] = bool(_hot["check_nan_inf"] or _hot["benchmark"])
+    return on
+
+
+for _name in ("check_nan_inf", "benchmark", "perf_op_cost"):
+    flags.on_change(_name, _set_hot(_name))
 
 _m_op_latency = _metrics.histogram(
     "paddle_tpu_dispatch_op_latency_seconds",
@@ -87,6 +104,46 @@ _m_op_latency = _metrics.histogram(
 _m_hook_overhead = _metrics.histogram(
     "paddle_tpu_dispatch_hook_seconds",
     "Host time spent inside op/recorder/export hooks per dispatch.")
+_m_op_flops = _metrics.counter(
+    "paddle_tpu_perf_op_flops_total",
+    "Modeled FLOPs dispatched per op (analytical cost model; "
+    "FLAGS_perf_op_cost).", labelnames=("op",))
+_m_op_bytes = _metrics.counter(
+    "paddle_tpu_perf_op_bytes_total",
+    "Modeled minimal HBM bytes moved per op (analytical cost model; "
+    "FLAGS_perf_op_cost).", labelnames=("op",))
+
+_costmodel = None   # bound on the first perf_op_cost dispatch (the perf
+# package reads the op registry, which must have finished loading)
+
+
+def _accumulate_op_cost(op_name, arrays, attrs, out_list):
+    """Fold the cost model's FLOPs and bytes of one op into the perf
+    counters (``FLAGS_perf_op_cost`` with metrics on)."""
+    global _costmodel
+    try:
+        if _costmodel is None:
+            from ..observability.perf import costmodel as _cm
+            _costmodel = _cm
+        c = _costmodel.cost_of(
+            op_name,
+            [tuple(getattr(a, "shape", ())) for a in arrays],
+            [getattr(a, "dtype", None) for a in arrays], attrs,
+            [tuple(getattr(o, "shape", ())) for o in out_list])
+        if c is not None:
+            _m_op_flops.inc(c.flops, op=op_name)
+            _m_op_bytes.inc(c.bytes, op=op_name)
+    except Exception:
+        pass
+
+
+def _sync_outputs(out_list) -> None:
+    """``FLAGS_benchmark``: wait for the card to compute the op's CUDA
+    outputs (one synchronize a device)."""
+    devices = {o.device for o in out_list
+               if isinstance(o, torch.Tensor) and o.is_cuda}
+    for d in devices:
+        torch.cuda.synchronize(d)
 
 
 # ------------------------------------------------------------- grad mode
@@ -341,8 +398,11 @@ def call(op_name: str, fn: Callable, tensor_inputs: Sequence[Tensor],
     out_list = [outs] if single else list(outs)
     out_tensors = [Tensor(o) for o in out_list]
 
-    if _hot["check_nan_inf"] and not quiet:
-        _check_nan_inf(op_name, out_list)
+    if _hot["after"] and not quiet:
+        if _hot["check_nan_inf"]:
+            _check_nan_inf(op_name, out_list)
+        if _hot["benchmark"]:
+            _sync_outputs(out_list)
     if recorders and not quiet:
         bound = _replayable(fn, attrs, differentiable_mask)
         for hook in list(recorders):
@@ -351,6 +411,8 @@ def call(op_name: str, fn: Callable, tensor_inputs: Sequence[Tensor],
         dur = _perf_counter() - t0
         if _metrics.enabled():
             _m_op_latency.observe(dur, op=op_name)
+            if _hot["perf_op_cost"]:
+                _accumulate_op_cost(op_name, arrays, attrs, out_list)
         if _trace.active():
             _trace.add_complete(op_name, "dispatch", t0, t0 + dur)
         th0 = _perf_counter() if _op_hooks and _metrics.enabled() else 0.0

@@ -77,3 +77,17 @@ define_flag("prefetch", True,
 define_flag("prefetch_depth", 2,
             "Batches the DevicePrefetcher keeps in flight ahead of the "
             "consumer (>=1; 2 = double buffering).")
+
+# core/dispatch.py: synchronize each op's CUDA outputs before its latency
+# is read, so the per-op histogram holds the op's card time
+define_flag("benchmark", False, "Synchronize after each op for benchmarking.")
+# performance attribution (observability/perf/), defined here so the
+# dispatch hot-path mirror can read them at import time
+define_flag("perf_capture", False,
+            "Capture the cost and memory analysis of each program to_static "
+            "records and each SOT segment plan into the perf registry for "
+            "roofline reporting.")
+define_flag("perf_op_cost", False,
+            "Accumulate the analytical cost model's per-op FLOPs/bytes "
+            "into paddle_tpu_perf_op_* metrics at eager dispatch "
+            "(requires FLAGS_enable_metrics).")

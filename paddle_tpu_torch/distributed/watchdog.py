@@ -1,45 +1,55 @@
-"""Progress watchdog: hang detection and diagnostics (counterpart of the
-part of ``paddle_tpu/distributed/watchdog.py`` that the serving engine
-uses).
+"""Progress watchdog: hang detection and diagnostics (counterpart of
+``paddle_tpu/distributed/watchdog.py``).
 
-The watchdog watches progress: ``begin_work``/``end_work`` bracket work
-in flight (the engine brackets every tick) and each of them, like
-``heartbeat()``, stamps the time. A daemon thread fires when no progress
-happens for ``timeout`` seconds while work is in flight: it dumps every
-Python thread's stack, the span buffer's tail, a metrics snapshot and
-the requests caught mid-flight, then calls ``on_hang(watchdog)``.
-
-The JAX package's ``start()`` also hooks every dispatched op as a
-heartbeat, and its hang path diffs the collective flight records of all
-ranks and can abort the process; the port has neither an op dispatcher
-nor collectives yet, so only the engine's brackets feed it.
+Paddle's comm task manager (paddle/phi/core/distributed/
+comm_task_manager.cc, and the async watchdog in process_group_nccl.cc)
+notices a collective stuck past a timeout, dumps diagnostics and can
+abort. This watchdog watches progress: ``start()`` hooks every op the
+dispatcher runs as a heartbeat, ``begin_work``/``end_work`` bracket work
+in flight (the serving engine brackets every tick) and ``heartbeat()``
+stamps the time too. A daemon thread fires when no progress happens for
+``timeout`` seconds while work is in flight: it dumps every Python
+thread's stack, the last op, the last collective, the span buffer's
+tail, a metrics snapshot, the collective flight record and its diff
+across ranks, the requests caught mid-flight and the goodput ledger,
+then calls ``on_hang(watchdog)``; with ``abort_on_hang`` it ends the
+process with ``EXIT_DESYNC`` when the diff named a desynced rank, else
+``EXIT_WATCHDOG_HANG`` (``fault.supervisor.force_exit``).
 """
 from __future__ import annotations
 
 import faulthandler
 import json
+import os
 import sys
 import threading
 import time
 from typing import Callable, Optional
 
-__all__ = ["Watchdog"]
+__all__ = ["Watchdog", "start_watchdog", "stop_watchdog"]
 
 
 class Watchdog:
     def __init__(self, timeout: float = 600.0,
                  on_hang: Optional[Callable] = None,
-                 poll_interval: float = 5.0):
+                 abort_on_hang: bool = False, poll_interval: float = 5.0):
         self.timeout = timeout
         self.on_hang = on_hang
+        self.abort_on_hang = abort_on_hang
         self.poll_interval = poll_interval
         self._last_progress = time.monotonic()
         self._in_flight = 0
         self._lock = threading.Lock()
         self._stop = threading.Event()
         self._thread: Optional[threading.Thread] = None
+        self._hook = None
         self.hang_count = 0
         self.unbalanced_end_count = 0
+        self.last_op: Optional[str] = None
+        self.last_op_t = 0.0
+        #: the newest cross-rank flight-diff verdict (dump_diagnostics
+        #: sets it); it decides the abort's exit code
+        self.last_verdict: Optional[dict] = None
 
     # ------------------------------------------------------------- progress
     def heartbeat(self):
@@ -65,6 +75,15 @@ class Watchdog:
 
     # ------------------------------------------------------------ lifecycle
     def start(self) -> "Watchdog":
+        from ..core import dispatch
+
+        def hook(op_name, inputs, outputs, attrs, duration=0.0):
+            self.last_op = op_name
+            self.last_op_t = time.monotonic()
+            self.heartbeat()
+        self._hook = hook
+        dispatch.register_op_hook(hook)
+
         def run():
             while not self._stop.wait(self.poll_interval):
                 with self._lock:
@@ -95,27 +114,115 @@ class Watchdog:
                 self.on_hang(self)
             except Exception:
                 pass
+        if self.abort_on_hang:
+            # the exit code tells an elastic agent a named desync (one
+            # rank raced or skipped) from a plain hang
+            from ..fault import supervisor as _sup
+            v = self.last_verdict or {}
+            if v:
+                # the peers' watchdogs fire up to a poll later and reread
+                # the records every half second: a rank that ends at once
+                # can end a peer's blocked collective (its process gone)
+                # before that peer has written its own verdict
+                time.sleep(self.poll_interval
+                           + 2 * min(self.poll_interval, 0.5) + 0.5)
+            code = (_sup.EXIT_DESYNC if v.get("status") == "desync"
+                    else _sup.EXIT_WATCHDOG_HANG)
+            try:
+                _sup.force_exit(code, reason="watchdog hang: " + str(
+                    v.get("detail", "no cross-rank verdict")))
+            except SystemExit:
+                raise
+            except Exception:
+                os.abort()
 
     def dump_diagnostics(self, file=None):
-        """Post-mortem context for a hang: the span buffer's tail, a
-        metrics snapshot, the serving requests caught mid-flight and a
-        persisted request-trace record (``PADDLE_TPU_REQTRACE``)."""
-        from ..observability import REGISTRY, reqtrace, trace
-
+        """Post-mortem context for a hang, written before any abort: the
+        last dispatched op, the last collective, the span buffer's tail, a
+        metrics snapshot, the flight record and its cross-rank diff, the
+        serving requests caught mid-flight and the goodput ledger."""
         out = file or sys.stderr
+        now = time.monotonic()
         out.write("[watchdog] ---- hang diagnostics ----\n")
+        if self.last_op is not None:
+            out.write(f"[watchdog] last op: {self.last_op!r} "
+                      f"({now - self.last_op_t:.1f}s ago)\n")
+        else:
+            out.write("[watchdog] last op: <none dispatched>\n")
         if self.unbalanced_end_count:
             out.write(f"[watchdog] WARNING: {self.unbalanced_end_count} "
                       f"unbalanced end_work() call(s) — begin/end "
                       f"bracketing is broken somewhere\n")
-        spans = trace.tail(50)
-        out.write(f"[watchdog] span buffer tail ({len(spans)} spans):\n")
-        for name, cat, t0, t1, tid, args in spans:
-            out.write(f"[watchdog]   {cat}:{name} dur={t1 - t0:.6f}s "
-                      f"tid={tid}\n")
-        out.write("[watchdog] metrics snapshot: "
-                  + json.dumps(REGISTRY.snapshot(), sort_keys=True,
-                               default=str) + "\n")
+        try:
+            from .communication.collective import LAST_COLLECTIVE
+            if LAST_COLLECTIVE["op"] is not None:
+                age = (f"{now - LAST_COLLECTIVE['t']:.1f}s ago"
+                       if LAST_COLLECTIVE["t"] else "age unknown — "
+                       "telemetry off")
+                out.write(f"[watchdog] last collective: "
+                          f"{LAST_COLLECTIVE['op']!r} ({age})\n")
+            else:
+                out.write("[watchdog] last collective: <none>\n")
+        except Exception:
+            pass
+        try:
+            from ..observability import REGISTRY, trace
+            spans = trace.tail(50)
+            out.write(f"[watchdog] span buffer tail ({len(spans)} spans):\n")
+            for name, cat, t0, t1, tid, args in spans:
+                out.write(f"[watchdog]   {cat}:{name} dur={t1 - t0:.6f}s "
+                          f"tid={tid}\n")
+            out.write("[watchdog] metrics snapshot: "
+                      + json.dumps(REGISTRY.snapshot(), sort_keys=True,
+                                   default=str) + "\n")
+        except Exception as e:
+            out.write(f"[watchdog] observability dump failed: {e}\n")
+        try:
+            self.last_verdict = self._dump_flight_and_diff(out)
+        except Exception as e:
+            out.write(f"[watchdog] flight-recorder dump failed: {e}\n")
+        try:
+            self._dump_reqtrace(out)
+        except Exception as e:
+            out.write(f"[watchdog] request-trace dump failed: {e}\n")
+        try:
+            self._dump_goodput(out)
+        except Exception as e:
+            out.write(f"[watchdog] goodput dump failed: {e}\n")
+        out.write("[watchdog] ---- end diagnostics ----\n")
+
+    def _dump_goodput(self, out):
+        """The goodput ledger's buckets and the sentinel's incident tail
+        at hang time, and a persisted ``PADDLE_TPU_GOODPUT`` record (an
+        ``os.abort`` skips atexit, so the watchdog persists first)."""
+        from ..observability import goodput, sentinel
+
+        led = goodput.ledger()
+        if led.running():
+            snap = led.snapshot()
+            out.write("[watchdog] goodput: "
+                      f"wall={snap['wall_s']:.1f}s fraction="
+                      f"{snap['goodput_fraction']:.3f} buckets="
+                      + json.dumps({k: round(v, 3) for k, v
+                                    in snap["buckets"].items()},
+                                   sort_keys=True) + "\n")
+        incidents = sentinel.get().incidents(10)
+        if incidents:
+            out.write(f"[watchdog] sentinel incident tail "
+                      f"({len(incidents)}):\n")
+            for inc in incidents:
+                out.write(f"[watchdog]   {inc['kind']} @ step "
+                          f"{inc['step']}: {inc['detail']}\n")
+        path = goodput.dump(reason=f"watchdog hang #{self.hang_count}")
+        if path:
+            out.write(f"[watchdog] goodput record persisted: {path}\n")
+
+    def _dump_reqtrace(self, out):
+        """The serving requests stuck mid-flight when the tick loop
+        wedged, and a persisted request-trace record
+        (``PADDLE_TPU_REQTRACE``)."""
+        from ..observability import reqtrace
+
         live = reqtrace.RECORDER.live_timelines()
         if live:
             out.write(f"[watchdog] {len(live)} request(s) mid-flight "
@@ -132,13 +239,66 @@ class Watchdog:
         if path:
             out.write(f"[watchdog] request-trace record persisted: "
                       f"{path}\n")
-        out.write("[watchdog] ---- end diagnostics ----\n")
+
+    def _dump_flight_and_diff(self, out, wait_s: Optional[float] = None):
+        """The collective flight record: persist this rank's ring (the
+        exchange goes through the shared ``PADDLE_TPU_FLIGHT_RECORD``
+        path: the collectives are what is stuck), print its tail, wait a
+        bounded time for the peers' watchdogs to write theirs, and diff
+        the tails. Returns the verdict (None without a record path or in
+        a world of one)."""
+        from ..observability import flight
+
+        tail = flight.RECORDER.tail(20)
+        out.write(f"[watchdog] collective flight tail "
+                  f"({len(tail)} records):\n")
+        for e in tail:
+            state = ("IN FLIGHT" if e["t1"] is None else
+                     f"done {e['t1'] - e['t0']:.6f}s")
+            out.write(f"[watchdog]   seq={e['seq']} g={e['group']} "
+                      f"{e['op']}{e['shape']}/{e['dtype']} "
+                      f"{e['bytes']}B {state}"
+                      + (" BYPASSED" if e.get("bypassed") else "")
+                      + "\n")
+        base = os.environ.get(flight.RECORD_ENV)
+        if not base:
+            return None
+        path = flight.dump(reason=f"watchdog hang #{self.hang_count}")
+        out.write(f"[watchdog] flight record persisted: {path}\n")
+        world = flight.rank_world()[1]    # the environment's, not NCCL's
+        if world <= 1:
+            return None
+        # the peers' watchdogs fire within one timeout + poll of this one:
+        # wait a bounded slice of that, then diff what is there (an
+        # incomplete set still gives a verdict)
+        wait_s = (wait_s if wait_s is not None
+                  else min(self.timeout + 2 * self.poll_interval, 30.0))
+        deadline = time.monotonic() + wait_s
+        dumps = flight.load_dumps(base, world=world)
+        while len(dumps) < world and time.monotonic() < deadline:
+            time.sleep(min(self.poll_interval, 0.5))
+            dumps = flight.load_dumps(base, world=world)
+        verdict = flight.diff_ranks(dumps)
+        out.write(f"[watchdog] cross-rank flight diff "
+                  f"({len(dumps)}/{world} rank dumps): "
+                  f"status={verdict['status']}"
+                  + (f" rank={verdict['rank']}"
+                     if verdict.get("rank") is not None else "")
+                  + (f" seq={verdict['seq']}"
+                     if verdict.get("seq") is not None else "")
+                  + f"\n[watchdog] {verdict['detail']}\n")
+        out.flush()
+        return verdict
 
     def stop(self):
         self._stop.set()
         if self._thread is not None:
             self._thread.join(timeout=2 * self.poll_interval)
             self._thread = None
+        if self._hook is not None:
+            from ..core import dispatch
+            dispatch.unregister_op_hook(self._hook)
+            self._hook = None
 
     def __enter__(self):
         self.begin_work()
@@ -147,3 +307,28 @@ class Watchdog:
     def __exit__(self, *exc):
         self.end_work()
         return False
+
+
+_global: Optional[Watchdog] = None
+
+
+def start_watchdog(timeout: float = 600.0, **kw) -> Watchdog:
+    """Start the process's watchdog (one), or return the running one; a
+    different configuration while one runs warns and is ignored."""
+    global _global
+    if _global is None:
+        _global = Watchdog(timeout=timeout, **kw).start()
+    elif _global.timeout != timeout or kw:
+        import warnings
+        warnings.warn(
+            f"watchdog already running with timeout={_global.timeout}; "
+            f"requested config (timeout={timeout}, {kw}) ignored — call "
+            "stop_watchdog() first to reconfigure")
+    return _global
+
+
+def stop_watchdog():
+    global _global
+    if _global is not None:
+        _global.stop()
+        _global = None

@@ -3,9 +3,10 @@
 
 The registry is the JAX package's, with its whole table of points, so a
 drill that arms a point by name arms it the same way in either package
-(each package has its own registry). In the port only the ``serving.*``
-points are wired: ``serving.tick_stall`` and ``serving.crash_at_tick``
-in the engine's tick, ``serving.admission_oom`` in its admission.
+(each package has its own registry). In the port the ``serving.*``
+points are wired (``serving.tick_stall`` and ``serving.crash_at_tick``
+in the engine's tick, ``serving.admission_oom`` in its admission), and
+``collective.desync`` in ``distributed/communication/collective.py``.
 
 Production code guards a risky operation with ``inject.check("name")`` (or
 reads parameters via ``inject.peek``); when nothing is armed the guard is

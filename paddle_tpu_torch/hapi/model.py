@@ -237,7 +237,7 @@ class Model:
         through the supervisor's consensus rewind, still to port."""
         from ..fault import auto_resume
         from ..fault import supervisor as _fault_sup
-        from ..observability.reqtrace import rank_world
+        from ..observability.flight import rank_world
         scaler = None
         for c in callbacks:
             scaler = getattr(c, "scaler", None) or scaler

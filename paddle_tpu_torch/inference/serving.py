@@ -377,6 +377,11 @@ class PagedEngine:
         self._kv_scale_shape = (num_blocks, block_size, nkv)
         self.kc = [self._fresh_cache() for _ in range(cfg.num_layers)]
         self.vc = [self._fresh_cache() for _ in range(cfg.num_layers)]
+        # memory attribution: the KV pages report under the "kv_cache" tag
+        # (the getter reads kc/vc anew: a reset replaces them)
+        from ..observability.perf import memory as _perf_memory
+        _perf_memory.register_object("kv_cache", self,
+                                     lambda e: (e.kc, e.vc))
 
         self.tables = np.zeros((max_batch, max_blocks_per_seq), np.int32)
         self.seq_lens = np.ones((max_batch,), np.int32)  # idle: len 1

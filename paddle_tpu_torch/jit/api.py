@@ -79,6 +79,7 @@ from ..core import flags, generator
 from ..core.tensor import Tensor, active_capture, active_sot, as_tensor
 from ..observability import goodput as _goodput
 from ..observability import metrics as _metrics
+from ..observability import perf as _perf
 from ..observability import sentinel as _sentinel
 from ..observability import trace as _trace
 from .program import flatten, unflatten
@@ -346,8 +347,25 @@ class StaticFunction:
         # again under SOT (the recorder puts back the tensors a lowering
         # changed in place, such as batch norm's running statistics)
         rng = None if self._full_graph else generator.snapshot()
-        out, program, stats, rec = fusion.rewrite_traced(
-            lambda: self._fn(*args, **kwargs), tensors, self._full_graph)
+        analysis = None
+        if _perf.capture_enabled():
+            # FLAGS_perf_capture: the recording runs once under the
+            # analysis (FlopCounterMode, the aten ops' bytes, the memory
+            # the call took), the port's counterpart of the JAX
+            # package's cost and memory analysis of the compiled program
+            got = {}
+
+            def recording():
+                got["r"] = fusion.rewrite_traced(
+                    lambda: self._fn(*args, **kwargs), tensors,
+                    self._full_graph)
+                return got["r"][0]
+            _, analysis = _perf.device.analyze_call(recording)
+            out, program, stats, rec = got["r"]
+        else:
+            out, program, stats, rec = fusion.rewrite_traced(
+                lambda: self._fn(*args, **kwargs), tensors,
+                self._full_graph)
         if program is None:
             reason = rec.broken
             if _metrics.enabled():
@@ -375,6 +393,9 @@ class StaticFunction:
                                  trackable)
         self._programs[key] = (program, stats)
         self.fusion_stats = stats
+        if analysis is not None:
+            _perf.record_compiled(
+                "to_static", getattr(self, "__name__", "<fn>"), analysis)
         return out
 
     # ---------------------------------------------------------------- SOT

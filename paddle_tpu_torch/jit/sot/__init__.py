@@ -73,6 +73,7 @@ from ...core import tensor as _tensor
 from ...core.dispatch import _replayable, quiet_scope
 from ...observability import goodput as _goodput
 from ...observability import metrics as _metrics
+from ...observability import perf as _perf
 from ...observability import trace as _trace
 from ..program import Program, _Step
 
@@ -585,7 +586,15 @@ class Segment:
                     owner.cache.pop(next(iter(owner.cache)))
                 owner.cache[key] = plan
                 owner.stats["compiled"] += 1
-                results = _run(plan, self.nodes, self.ext_arrays)
+                if _perf.capture_enabled():
+                    # FLAGS_perf_capture: the plan's first run, analyzed
+                    results, analysis = _perf.device.analyze_call(
+                        _run, plan, self.nodes, self.ext_arrays)
+                    _perf.record_compiled(
+                        "sot", f"site{owner.site_idx}_ops{len(self.nodes)}",
+                        analysis)
+                else:
+                    results = _run(plan, self.nodes, self.ext_arrays)
             if _metrics.enabled():
                 _m_segment_compile_time.observe(time.perf_counter() - c0)
         value_of = dict(zip(out_refs, results))

@@ -57,6 +57,10 @@ class Parameter(Tensor):
         self.regularizer = regularizer
         self.need_clip = need_clip
         self.is_distributed = False
+        # memory attribution: the perf census reports this payload (and
+        # its .grad) under the "params" ("grads") tag
+        from ..observability.perf import memory as _perf_memory
+        _perf_memory.track_parameter(self)
 
     def __repr__(self):
         return "Parameter containing:\n" + super().__repr__()
@@ -69,6 +73,8 @@ class Parameter(Tensor):
         for k, v in self.__dict__.items():
             new.__dict__[k] = copy.deepcopy(v, memo)
         new.name = f"param_{next(_param_counter)}"
+        from ..observability.perf import memory as _perf_memory
+        _perf_memory.track_parameter(new)
         return new
 
 

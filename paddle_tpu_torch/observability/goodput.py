@@ -1,7 +1,7 @@
 """Training goodput ledger — job-lifetime badput accounting (counterpart
 of ``paddle_tpu/observability/goodput.py``, the JAX package's code; the
 rank of the exit dump's path comes from the launcher's environment,
-``reqtrace.rank_world``, until ``observability/flight`` is ported).
+``flight.rank_world``).
 
 Partitions every second of a run's wall clock into named buckets
 (MegaScale, arXiv:2402.15627, reports per-cause badput decomposition as
@@ -426,7 +426,7 @@ def record_path(base: Optional[str] = None,
                 rank: Optional[int] = None) -> Optional[str]:
     """Per-rank dump path ``<base>.r<rank>`` (same convention as the
     flight record, so one env var covers a fleet)."""
-    from .reqtrace import rank_world
+    from .flight import rank_world
     base = base if base is not None else os.environ.get(RECORD_ENV)
     if not base:
         return None
@@ -439,7 +439,7 @@ def dump(path: Optional[str] = None, reason: str = "") -> Optional[str]:
     this runs from atexit, crash and hang paths."""
     try:
         from . import sentinel as _sentinel
-        from .reqtrace import rank_world
+        from .flight import rank_world
         path = path or record_path()
         if not path:
             return None

@@ -18,7 +18,8 @@ from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 from ..core import flags
 
 __all__ = ["Counter", "Gauge", "Histogram", "MetricsRegistry", "REGISTRY",
-           "enabled", "counter", "gauge", "histogram", "DEFAULT_BUCKETS"]
+           "enabled", "counter", "gauge", "histogram", "DEFAULT_BUCKETS",
+           "merge_snapshots", "merge_snapshot_files"]
 
 flags.define_flag(
     "enable_metrics", False,
@@ -331,3 +332,78 @@ REGISTRY = MetricsRegistry()
 counter = REGISTRY.counter
 gauge = REGISTRY.gauge
 histogram = REGISTRY.histogram
+
+
+# --------------------------------------------------------------------------
+# Merging per-process dumps (the .rankN / .pidN fold; the JAX package keeps
+# these two in observability/fleet.py)
+# --------------------------------------------------------------------------
+def merge_snapshots(snaps: Dict[str, dict]) -> dict:
+    """Fold per-process snapshots into one whose series carry a leading
+    ``rank`` label (``proc`` where the metric has a ``rank`` label of its
+    own, so no label name repeats). Histograms keep one series a process.
+    The result renders through ``render_prometheus``."""
+    out: dict = {}
+    for label in sorted(snaps, key=lambda k: (len(str(k)), str(k))):
+        snap = snaps[label]
+        for name in sorted(snap):
+            m = snap[name]
+            inner = list(m.get("labelnames", []))
+            e = out.setdefault(name, {
+                "kind": m.get("kind", "untyped"),
+                "help": m.get("help", ""),
+                "labelnames": [("proc" if "rank" in inner else "rank")]
+                + inner,
+                "series": [],
+            })
+            if "buckets" in m and "buckets" not in e:
+                e["buckets"] = list(m["buckets"])
+            for s in m.get("series", []):
+                e["series"].append({
+                    "labels": [str(label)] + [str(v)
+                                              for v in s.get("labels", [])],
+                    "value": s.get("value"),
+                })
+    return out
+
+
+def _suffix_label(base: str, path: str) -> str:
+    import re
+    suf = path[len(base):].lstrip(".")
+    if not suf:
+        return "0"                   # the primary keeps the bare path
+    m = re.fullmatch(r"rank(\d+)", suf)
+    if m:
+        return m.group(1)
+    m = re.fullmatch(r"rank(\d+)\.(pid\d+)", suf)
+    if m:
+        return f"{m.group(1)}.{m.group(2)}"
+    return suf                       # pidN, or PADDLE_TPU_METRICS_SUFFIX's
+
+
+def merge_snapshot_files(base: str) -> dict:
+    """Fold ``base`` and every ``base.<suffix>`` snapshot file that
+    ``PADDLE_TPU_METRICS_DUMP`` wrote into one rank-labeled aggregate. An
+    unreadable file is skipped with a note on stderr (a crashed rank's
+    half-written dump must not block the healthy ones)."""
+    import glob
+    import json
+    import os
+    import sys
+
+    paths = ([base] if os.path.exists(base) else []) + \
+        sorted(glob.glob(base + ".*"))
+    snaps: Dict[str, dict] = {}
+    for p in paths:
+        if ".tmp." in os.path.basename(p):
+            continue
+        try:
+            with open(p) as f:
+                snaps[_suffix_label(base, p)] = json.load(f)
+        except (OSError, ValueError) as e:
+            sys.stderr.write(f"[observability] skipping unreadable "
+                             f"snapshot {p!r}: {e}\n")
+    if not snaps:
+        raise FileNotFoundError(
+            f"no metric snapshot files found at {base!r} (or {base}.*)")
+    return merge_snapshots(snaps)

@@ -49,6 +49,7 @@ from typing import Callable, Dict, List, Optional, Tuple
 
 from ..core import flags
 from . import metrics as _metrics
+from .flight import rank_world
 
 __all__ = ["RequestTraceRecorder", "RECORDER", "enabled", "record",
            "segments", "validate", "stitch", "ExemplarStore", "EXEMPLARS",
@@ -588,20 +589,6 @@ class SloTracker:
 # ---------------------------------------------------------------------------
 # Persistence (exit dump + watchdog hang path)
 # ---------------------------------------------------------------------------
-def rank_world() -> Tuple[int, int]:
-    """(rank, world) of the process group once it is initialized, else
-    from the launcher's environment (``RANK`` / ``WORLD_SIZE``, or
-    Paddle's ``PADDLE_TRAINER_ID`` / ``PADDLE_TRAINERS_NUM``); (0, 1)
-    outside a launcher."""
-    import torch.distributed as dist
-    if dist.is_available() and dist.is_initialized():
-        return dist.get_rank(), dist.get_world_size()
-    rank = os.environ.get("RANK") or os.environ.get("PADDLE_TRAINER_ID")
-    world = (os.environ.get("WORLD_SIZE")
-             or os.environ.get("PADDLE_TRAINERS_NUM"))
-    return int(rank or 0), int(world or 1)
-
-
 def record_path(base: Optional[str] = None,
                 rank: Optional[int] = None) -> Optional[str]:
     """Per-rank dump path ``<base>.r<rank>`` (every rank suffixed, rank 0

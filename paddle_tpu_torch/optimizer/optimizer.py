@@ -146,6 +146,13 @@ class Optimizer:
         self._accumulators: Dict[str, Dict[str, torch.Tensor]] = {}
         self._master_weights: Dict[str, torch.Tensor] = {}
         self._step_count = 0
+        # memory attribution: the moments and fp32 masters report under
+        # the "optimizer_state" tag (weakly bound: telemetry must not keep
+        # a dropped optimizer's state alive)
+        from ..observability.perf import memory as _perf_memory
+        _perf_memory.register_object(
+            "optimizer_state", self,
+            lambda o: (o._accumulators, o._master_weights))
 
     @staticmethod
     def _coeff(wd) -> float:

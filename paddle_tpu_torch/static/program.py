@@ -55,8 +55,7 @@ another device than the run's raises too. Nothing moves to the CPU.
 
 The JAX package's ``FLAGS_verify_programs`` check, its verifier and the
 cross-rank program dump (``crossrank.maybe_dump``) are not here: they
-wait for ``observability.perf``, ``observability.flight``,
-``distributed.spmd`` and ``distributed.planner`` (ROADMAP).
+wait for ``distributed.spmd`` and ``distributed.planner`` (ROADMAP).
 """
 from __future__ import annotations
 

@@ -1,3 +1,5 @@
-"""Serving tools of the PyTorch port (counterparts of the JAX package's
-``tools/loadgen.py`` and ``tools/request_trace.py``): the open-loop load
-harness and the request-timeline renderer."""
+"""Tools of the PyTorch port (counterparts of the JAX package's
+``tools/loadgen.py``, ``tools/request_trace.py`` and
+``tools/perf_report.py``): the open-loop load harness, the
+request-timeline renderer and the per-op roofline and step-attribution
+report."""

@@ -73,9 +73,11 @@ def test_imports_without_jax_or_paddle_tpu():
     # the distributed slice's groups, collectives, mesh, parallel,
     # launcher and fleet modules, and the vision slice's zoo, transforms,
     # datasets, image backend and ops, the regularizers and the extra
-    # optimizers, and the SOT capture (jit.sot)
+    # optimizers, the SOT capture (jit.sot), and the attribution slice's
+    # observability.perf (cost model, device timing, memory census),
+    # flight recorder, metrics CLI, profiler and perf_report
     lines = proc.stdout.split()
-    assert int(lines[-1]) >= 157
+    assert int(lines[-1]) >= 165
     for name in ("paddle_tpu_torch.quantization", "paddle_tpu_torch.onnx",
                  "paddle_tpu_torch.onnx.proto",
                  "paddle_tpu_torch.onnx.runtime",
@@ -135,7 +137,15 @@ def test_imports_without_jax_or_paddle_tpu():
                  "paddle_tpu_torch.static.program",
                  "paddle_tpu_torch.static.tail",
                  "paddle_tpu_torch.static.nn.common",
-                 "paddle_tpu_torch.jit.sot"):
+                 "paddle_tpu_torch.jit.sot",
+                 "paddle_tpu_torch.observability.perf",
+                 "paddle_tpu_torch.observability.perf.costmodel",
+                 "paddle_tpu_torch.observability.perf.device",
+                 "paddle_tpu_torch.observability.perf.memory",
+                 "paddle_tpu_torch.observability.flight",
+                 "paddle_tpu_torch.observability.__main__",
+                 "paddle_tpu_torch.profiler",
+                 "paddle_tpu_torch.tools.perf_report"):
         assert name in lines, name
 
 
